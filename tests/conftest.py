@@ -44,6 +44,11 @@ def pytest_configure(config):
         "markers", "mesh: single-shard↔mesh equivalence suite; needs "
         "xla_force_host_platform_device_count=8 (runs standalone via "
         "-m mesh)")
+    # The PyTorch port's CUDA kernels run only on an NVIDIA card; tests
+    # of them carry this marker and skip, with a reason, elsewhere.
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the torch port's kernels); "
+        "skips with a reason when none is visible")
 
 
 def soak_seeds(base):

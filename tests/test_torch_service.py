@@ -1,0 +1,204 @@
+"""The port's keyed service against the JAX package's, flush for flush.
+
+One seeded keyed op stream — kput / kget / kget_vsn / kupdate /
+kput_once / kdelete / kput_many / kget_many / execute,
+peers going down and up (forcing elections), and a small K cap that
+splits batches across flushes — goes through the JAX service on its
+oracle arm (``RETPU_COMPACT=0 RETPU_FAST_READS=0 RETPU_NATIVE_RESOLVE=0
+RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0``, no ``RETPU_WIDE``) and through the
+port's service on the CPU.  Both run on the same fixed clock.  Every
+future must resolve to the same value, every flush's packed result
+buffer must be byte-identical, and the final engine states bit-equal.
+"""
+
+import numpy as np
+import pytest
+
+from riak_ensemble_tpu_torch import interop
+from riak_ensemble_tpu_torch.parallel import batched_host as tb
+from riak_ensemble_tpu_torch.types import NOTFOUND as T_NOTFOUND
+
+ORACLE_ENV = {"RETPU_COMPACT": "0", "RETPU_FAST_READS": "0",
+              "RETPU_NATIVE_RESOLVE": "0", "RETPU_NATIVE_ENQUEUE": "0",
+              "RETPU_OBS": "0"}
+
+
+class FixedClock:
+    """A runtime whose ``now`` only the test moves (no event loop)."""
+
+    def __init__(self) -> None:
+        self.now = 100.0
+
+    def schedule(self, delay, fn):
+        raise RuntimeError("caller-driven flush only")
+
+
+def _record_packed(svc, out):
+    orig = svc._fetch_packed
+
+    def fetch(arg):
+        flat = orig(arg)
+        out.append(np.array(flat, copy=True))
+        return flat
+    svc._fetch_packed = fetch
+
+
+@pytest.fixture
+def services(monkeypatch):
+    pytest.importorskip("jax")
+    for k, v in ORACLE_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("RETPU_WIDE", raising=False)
+    from riak_ensemble_tpu.parallel import batched_host as jb
+    from riak_ensemble_tpu.types import NOTFOUND as J_NOTFOUND
+
+    def make(e, m, s, k):
+        cj, ct = FixedClock(), FixedClock()
+        js = jb.BatchedEnsembleService(cj, e, m, s, tick=None,
+                                       max_ops_per_tick=k)
+        ts = tb.BatchedEnsembleService(ct, e, m, s, tick=None,
+                                       max_ops_per_tick=k, device="cpu")
+        assert js._native_resolve is None and not js._enq_slab
+        assert not js._compact and not js._fast_reads and not js._obs
+        bufs = ([], [])
+        _record_packed(js, bufs[0])
+        _record_packed(ts, bufs[1])
+        return js, ts, (cj, ct), bufs
+
+    def norm(x):
+        if x is J_NOTFOUND or x is T_NOTFOUND:
+            return "NOTFOUND"
+        if isinstance(x, (list, tuple)):
+            return type(x)(norm(y) for y in x)
+        return x
+    return make, norm
+
+
+def _submit(svc, rng_draw, e, key):
+    op, exp, want_vsn, val = rng_draw
+    if op == 0:
+        return svc.kput(e, key, val)
+    if op == 1:
+        return svc.kget(e, key)
+    if op == 2:
+        return svc.kget_vsn(e, key)
+    if op == 3:
+        return svc.kupdate(e, key, exp, val)
+    if op == 4:
+        return svc.kput_once(e, key, val)
+    if op == 5:
+        return svc.kdelete(e, key)
+    if op == 6:
+        return svc.kput_many(e, [key, key + "/x", key, key + "/y"],
+                             [val, val + "x", val + "!", val + "y"])
+    return svc.kget_many(e, [key, key + "/x", "never"],
+                         want_vsn=want_vsn)
+
+
+@pytest.mark.parametrize("e,m,s,k,seed", [(6, 5, 16, 8, 1), (4, 3, 8, 4, 2)])
+def test_keyed_stream_matches_jax_oracle_arm(services, e, m, s, k, seed):
+    make, norm = services
+    js, ts, clocks, bufs = make(e, m, s, k)
+    rng = np.random.default_rng(seed)
+    futs = ([], [])
+    for step in range(30):
+        for _ in range(int(rng.integers(1, 14))):
+            ens = int(rng.integers(0, e))
+            key = f"k{int(rng.integers(0, 3 * s // 2))}"
+            draw = (int(rng.integers(0, 8)),
+                    (int(rng.integers(0, 3)), int(rng.integers(0, 4))),
+                    bool(rng.integers(0, 2)), f"v{step}")
+            for i, svc in enumerate((js, ts)):
+                futs[i].append(_submit(svc, draw, ens, key))
+        if step % 6 == 2:
+            ens, p = int(rng.integers(0, e)), int(rng.integers(0, m))
+            up = bool(rng.integers(0, 3))   # mostly back up, some down
+            for svc in (js, ts):
+                svc.set_peer_up(ens, p, up)
+        if step % 5 == 4:
+            kk = 3
+            kind = rng.integers(0, 5, (kk, e)).astype(np.int32)
+            slot = rng.integers(-1, s, (kk, e)).astype(np.int32)
+            val = rng.integers(0, 99, (kk, e)).astype(np.int32)
+            xe = rng.integers(0, 9, (kk, e)).astype(np.int32)
+            a = js.execute(kind, slot, val, xe)
+            b = ts.execute(kind, slot, val, xe)
+            for x, y in zip(a, b):
+                assert x.dtype == y.dtype and np.array_equal(x, y)
+        js.flush()
+        ts.flush()
+        for c in clocks:
+            c.now += 0.4
+    while any(js.queues) or any(ts.queues):
+        js.flush()
+        ts.flush()
+    # an idle flush that must still elect (a down leader)
+    leaders = js.leader_np.copy()
+    for svc in (js, ts):
+        svc.up[:] = True
+        svc.set_peer_up(0, int(leaders[0]), False)
+        assert svc.flush() == 0
+    assert js.leader_np[0] not in (-1, leaders[0])
+
+    assert all(f.done for fl in futs for f in fl)
+    got_j = [norm(f.value) for f in futs[0]]
+    got_t = [norm(f.value) for f in futs[1]]
+    assert got_t == got_j
+    assert len(bufs[0]) == len(bufs[1]) > 30
+    for i, (a, b) in enumerate(zip(*bufs)):
+        assert a.dtype == b.dtype == np.uint8, i
+        assert np.array_equal(a, b), f"packed buffer {i} differs"
+    tn = interop.state_to_numpy(ts.state)
+    for f in tn._fields:
+        assert np.array_equal(np.asarray(getattr(js.state, f)),
+                              getattr(tn, f)), f
+    # host bookkeeping agrees too
+    assert np.array_equal(js.leader_np, ts.leader_np)
+    assert np.array_equal(js.lease_until, ts.lease_until)
+    assert js.key_slot == ts.key_slot and js.slot_handle == ts.slot_handle
+    assert js.values == ts.values and js.ops_served == ts.ops_served
+    assert js.flushes == ts.flushes
+    # the stream really committed, failed, elected and hit tombstones
+    flat = [r for v in got_t for r in (v if isinstance(v, list) else [v])]
+    assert any(r == "failed" for r in flat)
+    assert any(isinstance(r, tuple) and r[1] == "NOTFOUND" for r in flat)
+    assert sum(isinstance(r, tuple) and r[0] == "ok" for r in flat) > 50
+
+
+def test_pack_results_body_matches_jax(services):
+    """The packer alone, on random result planes with every width's
+    tail-byte padding case (E*M not a multiple of 8)."""
+    import jax.numpy as jnp
+    import torch
+
+    from riak_ensemble_tpu.ops import engine as jeng
+    from riak_ensemble_tpu.parallel import batched_host as jb
+    from riak_ensemble_tpu_torch.ops import engine as teng
+    rng = np.random.default_rng(4)
+    for e, m, k in [(5, 3, 2), (7, 5, 1), (16, 4, 0), (9, 2, 3)]:
+        planes = dict(
+            committed=rng.random((k, e)) < 0.5,
+            get_ok=rng.random((k, e)) < 0.5,
+            found=rng.random((k, e)) < 0.5,
+            value=rng.integers(-2 ** 31, 2 ** 31, (k, e),
+                               dtype=np.int64).astype(np.int32),
+            obj_vsn=rng.integers(0, 2 ** 31, (k, e, 2),
+                                 dtype=np.int64).astype(np.int32),
+            quorum_ok=rng.random((k, e)) < 0.5,
+            tree_corrupt=rng.random((k, e, m)) < 0.2)
+        won = rng.random(e) < 0.5
+        for want_vsn in (False, True):
+            want = np.asarray(jb._pack_results_body(
+                jnp.asarray(won), jeng.KvResult(
+                    **{f: jnp.asarray(a) for f, a in planes.items()}),
+                want_vsn))
+            got = tb._pack_results_body(
+                torch.from_numpy(won), teng.KvResult(
+                    **{f: torch.from_numpy(a) for f, a in planes.items()}),
+                want_vsn).numpy()
+            assert got.dtype == np.uint8
+            assert np.array_equal(got, want), (e, m, k, want_vsn)
+            assert got.size == jb.packed_nbytes(e, m, k, want_vsn)
+            for a, b in zip(tb.unpack_results(got, e, m, k, want_vsn),
+                            jb.unpack_results(want, e, m, k, want_vsn)):
+                assert (a is None and b is None) or np.array_equal(a, b)
