@@ -1,21 +1,23 @@
-// K1: the engine's quorum predicate as a CUDA kernel for Hopper (sm_90a).
+// The quorum predicate as CUDA kernels for Hopper (sm_90a): K1 and K2.
 //
-// Replaces the Pallas kernel quorum_met_epallas
-// (riak_ensemble_tpu/ops/pallas_quorum.py:172, body _ekernel :153-167,
-// shared tail _resolve :41-63).  For every row r of a [R, M] vote
-// batch and its [V, M] per-ensemble view mask it computes, per view v,
+// Both compute, for every row r of a [R, M] vote batch and a [V, M] view
+// mask, per view v,
 //
-//   heard = sum_m mask*valid, n_nack = sum_m mask*nack,
-//   members = sum_m mask, thresh = members/2 + 1,
+//   heard = sum_m mask*valid (+ self vote), n_nack = sum_m mask*nack,
+//   members = sum_m mask, thresh = members/2 + 1 (members for "all"),
 //
 // then MET (1) when every active view has heard >= thresh, else, for the
 // FIRST unmet view in order, NACK (-1) when n_nack >= thresh or
 // heard + n_nack == members, else UNDECIDED (0).  Views with no members
-// are padding: always met, never nack.  This is quorum_met_batch with
-// required="quorum" and no self term (the engine folds the leader's own
-// vote into `valid`).
+// are padding: always met, never nack.  That tail is resolve_view(),
+// shared by both kernels as the TPU kernels share _resolve
+// (riak_ensemble_tpu/ops/pallas_quorum.py:41-63).
 //
-// Redesigned for the card rather than copied tile by tile:
+// K1 (quorum_met_kernel) replaces quorum_met_epallas
+// (pallas_quorum.py:172, body _ekernel :153-167): the engine's form —
+// required="quorum", no self term (the engine folds the leader's own vote
+// into `valid`), one mask per ensemble.  Redesigned for the card rather
+// than copied tile by tile:
 // - one thread per row, counts in int32 registers (the TPU kernel
 //   counted in f32 on 128-lane tiles and padded M to 128, V to 8);
 // - the bool planes are read as bytes, unpadded;
@@ -23,11 +25,23 @@
 //   round call [E, W, M] needs no materialised [E, W, V, M] broadcast;
 // - one 1-D grid over the R rows, ragged edge masked by `r < rows`.
 //
+// K2 (quorum_met_shared_kernel) replaces quorum_met_pallas
+// (pallas_quorum.py:83, body _kernel :66-78): the drop-in for
+// quorum_met_batch with ONE shared [V, M] mask, a one-hot self vote at
+// self_idx (none in mode "other"; an index outside [0, M) casts none, as
+// jax.nn.one_hot) and every required mode.  The TPU kernel counted votes
+// as an f32 matmul votes @ membership^T on the MXU.  Here:
+// - each block stages the shared mask once in shared memory as 32-bit
+//   peer bitmasks per view, with each view's members and threshold;
+// - one thread per row packs its valid/nack bytes into bitmasks, so a
+//   view's counts are popcounts of two ANDs (int32, exact);
+// - the mode is an int (its index in ops/quorum.py REQUIRED_MODES).
+//
 // Bound on this card: bytes.  At the main-path shape (E = 10,000, M = 5,
-// V = 2) one call reads ~200 KB and writes 10 KB — about 0.06 us at
-// 3.35 TB/s, far under one launch, so the kernel is launch-bound; fusing
-// it into the round (or a CUDA graph over the round loop) is the lever,
-// not a faster body.
+// V = 2) K1 reads ~200 KB and writes 10 KB and K2 reads ~140 KB and
+// writes 10 KB — about 0.05 us at 3.35 TB/s, far under one launch, so
+// both are launch-bound; fusing (or a CUDA graph over the engine's round
+// loop) is the lever, not a faster body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +49,25 @@
 namespace {
 
 constexpr int kThreads = 256;
+// K2's contract: M <= 128 peers (4 words of 32 bits), V <= 128 views.
+constexpr int kWords = 4;
+constexpr int kMaxViews = 128;
+
+// Mode codes: the index of the mode in REQUIRED_MODES.
+constexpr int kModeAll = 1;
+constexpr int kModeOther = 3;
+
+// The shared tail for one view, in view order.  Returns false when the
+// view is met (or inactive) and the caller goes on to the next view;
+// returns true, with *res set to NACK or UNDECIDED, when this is the
+// first unmet view — which decides the row.
+__device__ __forceinline__ bool resolve_view(int heard, int n_nack,
+                                             int members, int thresh,
+                                             int8_t* res) {
+  if (members == 0 || heard >= thresh) return false;
+  *res = (n_nack >= thresh || heard + n_nack == members) ? -1 : 0;
+  return true;
+}
 
 __global__ void quorum_met_kernel(const uint8_t* __restrict__ valid,
                                   const uint8_t* __restrict__ nack,
@@ -56,21 +89,77 @@ __global__ void quorum_met_kernel(const uint8_t* __restrict__ valid,
       heard += in_view & (va[p] != 0);
       n_nack += in_view & (na[p] != 0);
     }
-    if (members == 0) continue;  // inactive view: met, never nacks
-    const int thresh = members / 2 + 1;
-    if (heard >= thresh) continue;
-    // first unmet view decides: nack or keep collecting
-    res = (n_nack >= thresh || heard + n_nack == members) ? -1 : 0;
-    break;
+    if (resolve_view(heard, n_nack, members, members / 2 + 1, &res)) break;
+  }
+  out[r] = res;
+}
+
+__global__ void quorum_met_shared_kernel(const uint8_t* __restrict__ valid,
+                                         const uint8_t* __restrict__ nack,
+                                         const uint8_t* __restrict__ mask,
+                                         const int32_t* __restrict__ self_idx,
+                                         int8_t* __restrict__ out,
+                                         int rows, int m, int v, int mode) {
+  __shared__ uint32_t s_bits[kMaxViews][kWords];
+  __shared__ int s_members[kMaxViews];
+  __shared__ int s_thresh[kMaxViews];
+  // Stage the shared mask once per block: view j's peers as bitmasks.
+  for (int j = threadIdx.x; j < v; j += blockDim.x) {
+    const uint8_t* mj = mask + (size_t)j * m;
+    int members = 0;
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd) {
+      uint32_t b = 0;
+      const int lo = wd * 32;
+      const int hi = min(m, lo + 32);
+      for (int p = lo; p < hi; ++p) b |= (uint32_t)(mj[p] != 0) << (p - lo);
+      s_bits[j][wd] = b;
+      members += __popc(b);
+    }
+    s_members[j] = members;
+    s_thresh[j] = mode == kModeAll ? members : members / 2 + 1;
+  }
+  __syncthreads();
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const uint8_t* va = valid + (size_t)r * m;
+  const uint8_t* na = nack + (size_t)r * m;
+  uint32_t vb[kWords], nb[kWords];
+#pragma unroll
+  for (int wd = 0; wd < kWords; ++wd) {
+    uint32_t a = 0, b = 0;
+    const int lo = wd * 32;
+    const int hi = min(m, lo + 32);
+    for (int p = lo; p < hi; ++p) {
+      a |= (uint32_t)(va[p] != 0) << (p - lo);
+      b |= (uint32_t)(na[p] != 0) << (p - lo);
+    }
+    vb[wd] = a;
+    nb[wd] = b;
+  }
+  // The one-hot self vote: none in mode "other" or outside [0, M).
+  const int self = mode == kModeOther ? -1 : self_idx[r];
+  const bool has_self = self >= 0 && self < m;
+  int8_t res = 1;
+  for (int j = 0; j < v; ++j) {
+    int heard = 0, n_nack = 0;
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd) {
+      heard += __popc(s_bits[j][wd] & vb[wd]);
+      n_nack += __popc(s_bits[j][wd] & nb[wd]);
+    }
+    if (has_self) heard += (s_bits[j][self >> 5] >> (self & 31)) & 1u;
+    if (resolve_view(heard, n_nack, s_members[j], s_thresh[j], &res)) break;
   }
   out[r] = res;
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on `stream` and
-// returns cudaGetLastError() as an int (0 = launched).  Does not
-// synchronise and allocates nothing: the caller owns every buffer.
+// Plain C entry points (bound with ctypes).  Each launches on `stream`
+// and returns cudaGetLastError() as an int (0 = launched).  Neither
+// synchronises nor allocates: the caller owns every buffer.
 extern "C" int retpu_quorum_met(const void* valid, const void* nack,
                                 const void* mask, void* out, int rows,
                                 int m, int v, int w, void* stream) {
@@ -79,5 +168,19 @@ extern "C" int retpu_quorum_met(const void* valid, const void* nack,
   quorum_met_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)valid, (const uint8_t*)nack, (const uint8_t*)mask,
       (int8_t*)out, rows, m, v, w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int retpu_quorum_met_shared(const void* valid, const void* nack,
+                                       const void* mask,
+                                       const void* self_idx, void* out,
+                                       int rows, int m, int v, int mode,
+                                       void* stream) {
+  if (rows <= 0) return 0;
+  if (m > kWords * 32 || v > kMaxViews) return (int)cudaErrorInvalidValue;
+  const int blocks = (rows + kThreads - 1) / kThreads;
+  quorum_met_shared_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)valid, (const uint8_t*)nack, (const uint8_t*)mask,
+      (const int32_t*)self_idx, (int8_t*)out, rows, m, v, mode);
   return (int)cudaGetLastError();
 }

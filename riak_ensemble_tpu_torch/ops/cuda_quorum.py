@@ -1,22 +1,28 @@
-"""Kernel K1 — the engine's quorum predicate — and its plain version.
+"""Kernels K1 and K2 — the quorum predicate — and their plain versions.
 
-:func:`quorum_met_e` is the wrapper the engine calls.  On a CUDA tensor
-it launches the hand-written kernel in ``csrc/quorum.cu`` (replacing
+Both kernels live in ``csrc/quorum.cu``.  On a CUDA tensor a wrapper
+launches its kernel; on a CPU tensor it runs the plain version, the
+same function as torch ops.  There is no fallback between the two: a
+CUDA call launches or raises.
+
+K1, :func:`quorum_met_e`, is the wrapper the engine calls (replacing
 the Pallas kernel ``quorum_met_epallas``,
-``riak_ensemble_tpu/ops/pallas_quorum.py:172``); on a CPU tensor it
-runs :func:`quorum_met_eplain`, the same function as torch ops.  There
-is no fallback between the two: a CUDA call launches or raises.
+``riak_ensemble_tpu/ops/pallas_quorum.py:172``): ``required="quorum"``,
+no self term (the leader's vote is already in ``valid``), per-ensemble
+view masks.  ``valid``/``nack`` are bool ``[R, M]``, ``view_mask`` bool
+``[E, V, M]`` with ``R = E * w``: row ``r`` is judged against mask
+``r // w``, so the engine's per-round call ``[E, W, M]`` passes the
+unwidened mask.  Returns int8 ``[R]`` of MET / UNDECIDED / NACK.
 
-The function: ``required="quorum"``, no self term (the leader's vote is
-already in ``valid``), per-ensemble view masks.  ``valid``/``nack`` are
-bool ``[R, M]``, ``view_mask`` bool ``[E, V, M]`` with ``R = E * w``:
-row ``r`` is judged against mask ``r // w``, so the engine's per-round
-call ``[E, W, M]`` passes the unwidened mask.  Returns int8 ``[R]`` of
-MET / UNDECIDED / NACK.
+K2, :func:`quorum_met_s` (replacing ``quorum_met_pallas``,
+``pallas_quorum.py:83``), is ``quorum_met_batch`` over a 2-D ``[E, M]``
+batch with ONE shared ``[V, M]`` mask, a self vote at ``self_idx`` and
+every required mode.  As in the JAX package, no path of the service
+calls it; it is held against its plain version on its own.
 
-The bound at the main-path shape is bytes: about 200 KB read and
-10 KB written per call, ~0.06 us at 3.35 TB/s — the kernel is
-launch-bound (see ``csrc/quorum.cu``).
+The bound at the main-path shape is bytes: about 200 KB (K1) or 150 KB
+(K2) per call, ~0.05 us at 3.35 TB/s — both kernels are launch-bound
+(see ``csrc/quorum.cu``).
 """
 
 from __future__ import annotations
@@ -26,28 +32,32 @@ import ctypes
 import torch
 
 from riak_ensemble_tpu_torch.ops import build
-from riak_ensemble_tpu_torch.ops.quorum import resolve_views
+from riak_ensemble_tpu_torch.ops.quorum import (
+    REQUIRED_MODES, quorum_met_batch, resolve_views)
 
-#: limits of the kernel's contract (the TPU kernel's one-tile bounds)
+#: limits of the kernels' contracts (the TPU kernels' one-tile bounds)
 MAX_PEERS = 128
 MAX_VIEWS = 8
+MAX_VIEWS_S = 128
 
-#: launches of the CUDA kernel since the count was last set to 0 —
+#: launches of each CUDA kernel since its count was last set to 0 —
 #: counted where the kernel launches and nowhere else
 quorum_launches = 0
+quorum_s_launches = 0
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("quorum").retpu_quorum_met
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+def _kernel(name: str = "retpu_quorum_met", n_ptr: int = 4,
+            n_int: int = 4):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load("quorum"), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(valid: torch.Tensor, nack: torch.Tensor,
@@ -116,4 +126,79 @@ def quorum_met_e(valid: torch.Tensor, nack: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaGetLastError() = {rc}")
     quorum_launches += 1
+    return out
+
+
+def _check_s(valid: torch.Tensor, nack: torch.Tensor,
+             view_mask: torch.Tensor, self_idx: torch.Tensor,
+             required: str) -> None:
+    if required not in REQUIRED_MODES:
+        raise ValueError(f"required must be one of {REQUIRED_MODES}, "
+                         f"got {required!r}")
+    if valid.dim() != 2 or nack.shape != valid.shape:
+        raise ValueError(f"valid/nack must be [E, M] alike, got "
+                         f"{tuple(valid.shape)} / {tuple(nack.shape)}")
+    e, m = valid.shape
+    if view_mask.dim() != 2 or view_mask.shape[1] != m:
+        raise ValueError(f"view_mask must be a shared [V, M={m}] mask, "
+                         f"got {tuple(view_mask.shape)}")
+    if self_idx.shape != (e,) or self_idx.dtype != torch.int32:
+        raise ValueError(f"self_idx must be int32 [E={e}], got "
+                         f"{self_idx.dtype} {tuple(self_idx.shape)}")
+    for name, t in (("valid", valid), ("nack", nack),
+                    ("view_mask", view_mask)):
+        if t.dtype != torch.bool:
+            raise TypeError(f"{name} must be bool, got {t.dtype}")
+    for name, t in (("nack", nack), ("view_mask", view_mask),
+                    ("self_idx", self_idx)):
+        if t.device != valid.device:
+            raise ValueError(f"{name} is on {t.device}, valid on "
+                             f"{valid.device}")
+
+
+def quorum_met_splain(valid: torch.Tensor, nack: torch.Tensor,
+                      view_mask: torch.Tensor, self_idx: torch.Tensor,
+                      required: str = "quorum") -> torch.Tensor:
+    """K2's function as plain torch ops: ``quorum_met_batch`` on the
+    shared mask, after K2's checks.  The CPU path and the kernel's
+    oracle; same arguments as :func:`quorum_met_s`."""
+    _check_s(valid, nack, view_mask, self_idx, required)
+    return quorum_met_batch(valid, nack, view_mask, self_idx, required)
+
+
+def quorum_met_s(valid: torch.Tensor, nack: torch.Tensor,
+                 view_mask: torch.Tensor, self_idx: torch.Tensor,
+                 required: str = "quorum") -> torch.Tensor:
+    """``quorum_met_batch`` with one shared ``[V, M]`` mask: bool
+    ``[E, M]`` valid/nack, int32 ``[E]`` self_idx (outside ``[0, M)``
+    casts no self vote) → int8 ``[E]``.  The CUDA kernel K2 for CUDA
+    tensors, :func:`quorum_met_splain` for CPU tensors."""
+    global quorum_s_launches
+    if valid.device.type == "cpu":
+        return quorum_met_splain(valid, nack, view_mask, self_idx,
+                                 required)
+    _check_s(valid, nack, view_mask, self_idx, required)
+    if valid.device.type != "cuda":
+        raise ValueError(f"quorum_met_s runs on cuda or cpu, "
+                         f"not {valid.device}")
+    e, m = valid.shape
+    v = view_mask.shape[0]
+    if m > MAX_PEERS or v > MAX_VIEWS_S:
+        raise ValueError(f"K2 takes M <= {MAX_PEERS} and V <= "
+                         f"{MAX_VIEWS_S}, got M={m}, V={v}")
+    for name, t in (("valid", valid), ("nack", nack),
+                    ("view_mask", view_mask), ("self_idx", self_idx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((e,), dtype=torch.int8, device=valid.device)
+    if e == 0:
+        return out
+    stream = torch.cuda.current_stream(valid.device).cuda_stream
+    rc = _kernel("retpu_quorum_met_shared", 5, 4)(
+        valid.data_ptr(), nack.data_ptr(), view_mask.data_ptr(),
+        self_idx.data_ptr(), out.data_ptr(), e, m, v,
+        REQUIRED_MODES.index(required), stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaGetLastError() = {rc}")
+    quorum_s_launches += 1
     return out

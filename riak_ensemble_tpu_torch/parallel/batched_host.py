@@ -16,21 +16,31 @@ multiplexes thousands of engine-backed ensembles —
   (:func:`_pack_results_body`), byte-identical to the reference's, and
   resolve the client futures.
 
+Keyed read-modify-write (:meth:`BatchedEnsembleService.kmodify`,
+``kmodify_many``, ``ksafe_delete``) runs either as ONE ``OP_RMW`` engine
+round (device mod-fun table funrefs, :mod:`..funref`) or as the host
+read→fn→CAS chain, whose CAS half chains into the flush that resolved
+its read.  Lease-protected fast reads serve ``kget`` / ``kget_vsn`` /
+``kget_many`` from the leader's committed host mirrors, with no device
+round, while the row's lease holds and the slot has no pending write.
+
 It implements one configuration of the reference service — the one the
-reference runs with ``RETPU_COMPACT=0 RETPU_FAST_READS=0
-RETPU_NATIVE_RESOLVE=0 RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0`` and no
-``RETPU_WIDE``: full-width launches, every read through a device
-round, the per-entry plane pack and the pure-Python resolve, launch
+reference runs with ``RETPU_COMPACT=0 RETPU_NATIVE_RESOLVE=0
+RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0`` and no ``RETPU_WIDE``: full-width
+launches, the per-entry plane pack and the pure-Python resolve, launch
 pipeline depth 1, no WAL and a caller-driven flush (``tick=None``).
-It reads no environment variables.  kmodify, lease fast reads, wide
-rounds, compaction, the WAL, membership and the anti-entropy exchange
-are later slices.
+It reads no environment variables: the reference's ``RETPU_FAST_READS``
+is :meth:`BatchedEnsembleService.set_fast_reads` and its
+``RETPU_COMM_REPL`` the ``comm_repl`` argument.  Wide rounds,
+compaction, the WAL, membership and the anti-entropy exchange are later
+slices.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import random
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -38,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from riak_ensemble_tpu_torch import funref
 from riak_ensemble_tpu_torch.config import Config
 from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
 from riak_ensemble_tpu_torch.ops import engine as eng
@@ -161,7 +172,9 @@ class _PendingOp:
     #: slot write generation at enqueue (puts only) — lets the failed
     #: path tell whether it was the slot's last queued write
     gen: int = 0
-    #: CAS expected version (OP_CAS)
+    #: CAS expected version (OP_CAS); for OP_RMW, (fun code, 0) — the
+    #: exp_epoch plane carries the mod-fun table code and ``handle``
+    #: the int32 operand
     exp: Tuple[int, int] = (0, 0)
     #: resolve gets as ("ok", value, vsn) instead of ("ok", value)
     want_vsn: bool = False
@@ -179,7 +192,8 @@ class _PendingBatch:
 
     kind: int
     slot: Any          # List[int] [n]
-    handle: Any        # List[int] [n] (puts; zeros for gets)
+    handle: Any        # List[int] [n] (puts; zeros for gets; RMW
+    #                    batches: int32 operands, fun code in exp_e)
     fut: Future
     pos: Any = None    # List[int] [n] position in the caller's order
     keys: Any = None   # list of key objects (puts: for recycle)
@@ -240,14 +254,19 @@ class BatchedEnsembleService:
     keys are deleted).  The caller drives :meth:`flush` (``tick`` must
     be None: the timer-driven mode needs an event-loop runtime, which
     this package does not have yet).  The engine state lives on
-    ``device`` — CUDA unless ``device="cpu"``.
+    ``device`` — CUDA unless ``device="cpu"``.  Lease-protected fast
+    reads are on when ``config.trust_lease`` (:meth:`set_fast_reads`
+    turns them off).  ``comm_repl`` gates :meth:`kmodify_many`'s
+    enqueue-side coalescing of commutative and semilattice funs, as the
+    reference's ``RETPU_COMM_REPL`` does.
     """
 
     def __init__(self, runtime: Any, n_ens: int, n_peers: int,
                  n_slots: int = 128, tick: Optional[float] = None,
                  max_ops_per_tick: int = 64,
                  config: Optional[Config] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 comm_repl: bool = True) -> None:
         if tick is not None:
             raise NotImplementedError(
                 "timer-driven flushing is not ported; pass tick=None "
@@ -282,6 +301,22 @@ class BatchedEnsembleService:
         #: queued op still references the slot
         self._recycle_pending: List[List[Tuple[Any, int, int]]] = [
             [] for _ in range(n_ens)]
+        #: per-ensemble slots holding DEVICE-NATIVE int32 values (the
+        #: kmodify device fast path — OP_RMW commits) rather than
+        #: payload-store handles: reads of these slots return the raw
+        #: int32, and a committed RMW records the sentinel handle -1
+        #: in ``slot_handle`` (blocks recycling like a live handle;
+        #: released as a no-op).  A committed put/CAS flips the slot
+        #: back to handle storage.  ``_inline_np`` is the same set as
+        #: an [E, S] slab, kept in lockstep.
+        self._inline_slots: List[set] = [set() for _ in range(n_ens)]
+        self._inline_np = np.zeros((n_ens, n_slots), bool)
+        #: per-slot count of QUEUED host-payload writes ([E][S] Python
+        #: ints): a device RMW racing a same-flush kput would do int32
+        #: arithmetic on the put's payload HANDLE, so RMW eligibility
+        #: must see these (slot_handle only reflects COMMITTED writes)
+        self._queued_handle_writes: List[List[int]] = [
+            [0] * n_slots for _ in range(n_ens)]
         #: payload store: handle -> value.  0 is the tombstone handle;
         #: released handles are recycled (int32 handles would wrap).
         self.values: Dict[int, Any] = {}
@@ -296,6 +331,36 @@ class BatchedEnsembleService:
         self._recycle_dirty: set = set()
         #: leader leases, host-side: ensemble -> expiry (runtime.now)
         self.lease_until = np.zeros((n_ens,), dtype=float)
+        #: lease-protected read fast path: reads of keyed slots serve
+        #: from the committed host mirrors below while the lease holds
+        self._fast_reads = self.config.trust_lease
+        self._read_margin = self.config.read_margin()
+        if self._fast_reads:
+            self._assert_read_margin()
+        #: committed (epoch, seq) per slot — the version a fast
+        #: kget_vsn serves.  Invalidated per row on won elections (the
+        #: epoch bump re-versions objects lazily on next device
+        #: access); repopulated by every committed write's resolve and
+        #: refreshed by device reads.
+        self._slot_vsn_np = np.zeros((n_ens, n_slots, 2), np.int32)
+        self._slot_vsn_ok = np.zeros((n_ens, n_slots), bool)
+        #: committed device-native int32 per inline (RMW) slot — the
+        #: value a fast read of a device-native key serves
+        self._inline_value_np = np.zeros((n_ens, n_slots), np.int32)
+        self._inline_value_ok = np.zeros((n_ens, n_slots), bool)
+        #: per-slot count of QUEUED writes (put/CAS/RMW/tombstone): a
+        #: fast read of a slot with any pending write takes the device
+        #: round, which orders it after the writes
+        self._pending_writes: List[List[int]] = [
+            [0] * n_slots for _ in range(n_ens)]
+        #: rows whose launch flagged synctree corruption: fast reads
+        #: take the device round (its integrity gate vets the read).
+        #: The reference clears a row once its exchange sweep syncs it;
+        #: that sweep is not ported, so a flagged row stays flagged.
+        self._corrupt_rows = np.zeros((n_ens,), dtype=bool)
+        self.read_fastpath_hits = 0
+        self.read_fastpath_misses = 0
+        self.read_fastpath_miss_reasons: Dict[str, int] = {}
         self.flushes = 0
         self.ops_served = 0
         #: integrity-gate detections (replica flagged corrupt in a round)
@@ -304,6 +369,28 @@ class BatchedEnsembleService:
         self.waiter_errors = 0
         #: K of the last launch (its quorum launches are K + 2)
         self.last_launch_k = 0
+        #: RMW counters: host-path kmodify CAS attempts that failed and
+        #: were retried, ops the device mod-fun table served, and
+        #: duplicate-key ops kmodify_many folded into a queued row
+        self.rmw_conflicts = 0
+        self.rmw_device_fastpath = 0
+        self.rmw_enqueue_coalesced = 0
+        self._comm_repl = comm_repl
+        #: kmodify mod-fun error log rate limit (one per second)
+        self._kmodify_err_at = -1e9
+        self._kmodify_err_dropped = 0
+        #: backed-off kmodify retries: (due flush call, ensemble,
+        #: client future, thunk), run at the top of the flush whose
+        #: ordinal reaches them — backoff counts FLUSH CALLS, the
+        #: service's round clock
+        self._retry_at: List[Tuple[int, int, Future, Any]] = []
+        self._flush_calls = 0
+        self._rng = random.Random(0x524D57)
+        #: same-flush chaining: set when a resolve enqueues follow-up
+        #: ops (a kmodify read's CAS half), consumed by flush() to run
+        #: one bounded extra launch cycle inside the same flush call
+        self._chain_kick = False
+        self._chain_depth = 0
 
     # -- client API --------------------------------------------------------
 
@@ -319,6 +406,7 @@ class BatchedEnsembleService:
         self.values[handle] = value
         gen = self.slot_gen[ens].get(slot, 0) + 1
         self.slot_gen[ens][slot] = gen
+        self._note_handle_write(ens, slot)
         self._push(ens, _PendingOp(eng.OP_PUT, slot, handle, fut,
                                    key, gen))
         return fut
@@ -365,6 +453,9 @@ class BatchedEnsembleService:
             g = sg.get(s, 0) + 1
             sg[s] = g
             gen_l.append(g)
+        qh = self._queued_handle_writes[ens]
+        for s in slot_l:
+            qh[s] += 1
         if miss_pos:
             accum.fill(fut, miss_pos, ["failed"] * len(miss_pos),
                        self._safe_resolve)
@@ -380,7 +471,8 @@ class BatchedEnsembleService:
         (('ok', value|NOTFOUND) | 'failed') in key order (with
         ``want_vsn`` each hit is ('ok', value, (epoch, seq))).  Unknown
         keys resolve ('ok', NOTFOUND) immediately and consume no
-        device round."""
+        device round; so do keys the lease-protected fast path
+        serves."""
         fut = Future()
         n = len(keys)
         if n == 0:
@@ -390,19 +482,34 @@ class BatchedEnsembleService:
         slot_l: List[int] = []
         pos_l: List[int] = []
         miss_pos: List[int] = []
+        fast_pos: List[int] = []
+        fast_res: List[Any] = []
         ks = self.key_slot[ens]
+        # the ensemble-level fast-path gate is checked ONCE per batch;
+        # the per-key conditions (pending write, mirror coverage) below
+        ens_reason = self._fast_read_ok(ens, self.runtime.now)
         for i, key in enumerate(keys):
             s = ks.get(key)
             if s is None:
                 miss_pos.append(i)
                 continue
-            slot_l.append(s)
-            pos_l.append(i)
+            if ens_reason is None:
+                reason, res = self._fast_read_result(ens, s, want_vsn)
+            else:
+                reason, res = ens_reason, None
+            if self._count_fast(reason):
+                fast_pos.append(i)
+                fast_res.append(res)
+            else:
+                slot_l.append(s)
+                pos_l.append(i)
         if miss_pos:
             nf = (("ok", NOTFOUND, (0, 0)) if want_vsn
                   else ("ok", NOTFOUND))
             accum.fill(fut, miss_pos, [nf] * len(miss_pos),
                        self._safe_resolve)
+        if fast_pos:
+            accum.fill(fut, fast_pos, fast_res, self._safe_resolve)
         if slot_l:
             m = len(slot_l)
             self._push(ens, _PendingBatch(
@@ -411,24 +518,35 @@ class BatchedEnsembleService:
         return fut
 
     def kget(self, ens: int, key: Any) -> Future:
-        """Linearizable read through an ``OP_GET`` round; resolves
-        ('ok', value|NOTFOUND) or 'failed'."""
+        """Linearizable read; resolves ('ok', value|NOTFOUND) or
+        'failed'.  Served from the leader's committed host mirror — no
+        device round — while the fast path's conditions hold;
+        otherwise the read rides an ``OP_GET`` round."""
         fut = Future()
         slot = self._slot_for(ens, key, allocate=False)
         if slot is None:
             fut.resolve(("ok", NOTFOUND))
+            return fut
+        hit, res = self._try_fast(ens, slot, False)
+        if hit:
+            self._safe_resolve(fut, res)
             return fut
         self._push(ens, _PendingOp(eng.OP_GET, slot, 0, fut))
         return fut
 
     def kget_vsn(self, ens: int, key: Any) -> Future:
         """Read returning the version too: ('ok', value|NOTFOUND,
-        (epoch, seq)) — the handle a subsequent :meth:`kupdate` needs.
-        An absent key reads as ('ok', NOTFOUND, (0, 0))."""
+        (epoch, seq)) — the handle a subsequent :meth:`kupdate` /
+        :meth:`ksafe_delete` CAS needs.  An absent key reads as
+        ('ok', NOTFOUND, (0, 0)).  Fast-path served like :meth:`kget`."""
         fut = Future()
         slot = self._slot_for(ens, key, allocate=False)
         if slot is None:
             fut.resolve(("ok", NOTFOUND, (0, 0)))
+            return fut
+        hit, res = self._try_fast(ens, slot, True)
+        if hit:
+            self._safe_resolve(fut, res)
             return fut
         self._push(ens, _PendingOp(eng.OP_GET, slot, 0, fut,
                                    want_vsn=True))
@@ -449,6 +567,7 @@ class BatchedEnsembleService:
         self.values[handle] = value
         gen = self.slot_gen[ens].get(slot, 0) + 1
         self.slot_gen[ens][slot] = gen
+        self._note_handle_write(ens, slot)
         self._push(ens, _PendingOp(
             eng.OP_CAS, slot, handle, fut, key, gen,
             exp=(int(expected_vsn[0]), int(expected_vsn[1]))))
@@ -458,6 +577,24 @@ class BatchedEnsembleService:
         """Create-if-missing (do_kput_once, peer.erl:278-284): the
         (0, 0)-expected CAS."""
         return self.kupdate(ens, key, (0, 0), value)
+
+    def ksafe_delete(self, ens: int, key: Any,
+                     expected_vsn: Tuple[int, int]) -> Future:
+        """Version-guarded delete (ksafe_delete): CAS to a tombstone.
+        Resolves ('ok', vsn) or 'failed' (version mismatch, no quorum,
+        or no such key); the slot recycles once the tombstone
+        commits."""
+        fut = Future()
+        slot = self._slot_for(ens, key, allocate=False)
+        if slot is None:
+            fut.resolve("failed")  # nothing at this key to guard
+            return fut
+        op = _PendingOp(eng.OP_CAS, slot, 0, fut, key,
+                        self.slot_gen[ens].get(slot, 0),
+                        exp=(int(expected_vsn[0]), int(expected_vsn[1])))
+        self._push(ens, op)
+        self._recycle_on_ok(fut, ens, key, slot)
+        return fut
 
     def kdelete(self, ens: int, key: Any) -> Future:
         """Tombstone write (slot recycled once committed)."""
@@ -471,6 +608,459 @@ class BatchedEnsembleService:
         self._push(ens, op)
         self._recycle_on_ok(fut, ens, key, slot)
         return fut
+
+    def kmodify(self, ens: int, key: Any, mod_fun: Any, default: Any,
+                retries: int = 8) -> Future:
+        """Server-side modify (do_kmodify, peer.erl:303-317): read the
+        key, apply ``mod_fun`` to the current value (``default`` when
+        absent), and commit the result under the read version's CAS
+        guard, retrying the whole read→fn→CAS cycle on conflict.
+
+        ``mod_fun`` is a callable or a funref (:mod:`..funref`), called
+        as ``mod_fun(vsn, current_value) -> new_value | "failed"``,
+        where ``vsn`` is the version the value was READ at.  Returning
+        "failed" (or raising) aborts without writing.  Resolves
+        ('ok', new_vsn) | 'failed'.
+
+        The DEVICE FAST PATH: a funref that resolves to a mod-fun table
+        entry (:func:`funref.device_entry`) on a key holding a
+        device-native value (fresh, or written by this path) runs as
+        ONE ``OP_RMW`` engine round: read, fun and commit fuse under
+        the round's seq discipline, so the op costs one flush and never
+        CAS-conflicts.  It requires ``default == 0`` (the engine reads
+        absence as 0); anything else keeps the host path.
+
+        The host path's read and CAS are ordinary queued ops, so
+        concurrent kmodifys of one key serialize through device-round
+        order and the losers retry — N concurrent increments converge
+        to exactly +N.  The CAS half is chained into the flush that
+        resolved its read, and conflicted retries back off by a
+        jittered number of flushes.
+        """
+        fut = Future()
+        try:
+            fn = funref.resolve(mod_fun)
+        except ValueError:
+            fut.resolve("failed")
+            return fut
+        dev = funref.device_entry(mod_fun)
+        if dev is not None and funref.is_int32(default) \
+                and int(default) == 0:
+            slot = self._slot_for(ens, key, allocate=True)
+            if slot is None:
+                fut.resolve("failed")
+                return fut
+            if self._rmw_eligible(ens, slot):
+                # A device RMW cannot CAS-conflict, so a failed round
+                # is a transient (quorum blip): honor ``retries``.  Each
+                # attempt re-resolves the slot — a racing put may have
+                # flipped the key to host storage, and then 'failed' is
+                # the honest outcome.
+                def dev_attempt(tries_left: int) -> None:
+                    s = self._slot_for(ens, key, allocate=True)
+                    if s is None or not self._rmw_eligible(ens, s):
+                        self._safe_resolve(fut, "failed")
+                        return
+                    inner = Future()
+                    self._push_rmw(ens, key, s, dev, inner)
+
+                    def on_res(r: Any) -> None:
+                        if fut.done:
+                            return
+                        if (isinstance(r, tuple) and r[0] == "ok") \
+                                or tries_left <= 1:
+                            self._safe_resolve(fut, r)
+                            return
+                        if (dev[0] == funref.RMW_PIA
+                                and self.slot_handle[ens].get(s, 0)
+                                == -1):
+                            # deterministic refusal: the slot holds a
+                            # live device value, so retrying a
+                            # put-if-absent cannot change the outcome
+                            self._safe_resolve(fut, r)
+                            return
+                        self._retry_later(
+                            ens, fut, 0,
+                            lambda: dev_attempt(tries_left - 1))
+                    inner.add_waiter(on_res)
+
+                dev_attempt(max(1, retries))
+                return fut
+            # the key holds a host payload: the host path below
+        if funref.device_code(mod_fun) == funref.RMW_PIA \
+                and len(mod_fun[2]) == 1:
+            # put-if-absent over a host-payload key is the (0,0)-CAS —
+            # the exact do_kput_once semantics (a live payload of ANY
+            # value refuses, int 0 included).  Routed by NAME, so a
+            # non-int32 operand takes this path too.
+            self.kput_once(ens, key, mod_fun[2][0]).add_waiter(
+                lambda r: self._safe_resolve(fut, r))
+            return fut
+
+        def attempt(tries_left: int, conflicts: int) -> None:
+            g = self.kget_vsn(ens, key)
+
+            def on_read(res: Any) -> None:
+                if fut.done:
+                    return
+                if not (isinstance(res, tuple) and res[0] == "ok"):
+                    self._safe_resolve(fut, "failed")
+                    return
+                cur, vsn = res[1], tuple(res[2])
+                try:
+                    new = fn(vsn, default if cur is NOTFOUND else cur)
+                except Exception:
+                    self._emit_kmodify_error()
+                    self._safe_resolve(fut, "failed")
+                    return
+                if isinstance(new, str) and new == "failed":
+                    self._safe_resolve(fut, "failed")
+                    return
+                if (dev is not None and funref.is_int32(new)
+                        and int(new) == 0
+                        and self._slot_for(ens, key, allocate=False)
+                        is not None):
+                    # a TABLE fun computing 0 means the tombstone on
+                    # the device path: mirror it whenever the key has a
+                    # slot (a kupdate would store a live int-0 payload
+                    # that reads back found)
+                    c = self.ksafe_delete(ens, key, vsn)
+                else:
+                    c = self.kupdate(ens, key, vsn, new)
+                # the CAS was enqueued by a resolve: let the flush
+                # settling this read serve it too
+                self._chain_kick = True
+
+                def on_cas(r: Any) -> None:
+                    if fut.done:
+                        return
+                    if isinstance(r, tuple) and r[0] == "ok":
+                        self._safe_resolve(fut, r)
+                    elif tries_left > 1:
+                        # retried CAS losses: write races plus
+                        # transient quorum failures (indistinguishable
+                        # from 'failed')
+                        self.rmw_conflicts += 1
+                        self._retry_later(
+                            ens, fut, conflicts,
+                            lambda: attempt(tries_left - 1,
+                                            conflicts + 1))
+                    else:
+                        self._safe_resolve(fut, "failed")
+                c.add_waiter(on_cas)
+            g.add_waiter(on_read)
+
+        attempt(max(1, retries), 0)
+        return fut
+
+    def kmodify_many(self, ens: int, keys: List[Any], mod_fun: Any,
+                     default: Any = 0, retries: int = 8) -> Future:
+        """Vectorized server-side modify: ONE ``mod_fun`` over N keys
+        behind one future, resolving to per-key ('ok', new_vsn) |
+        'failed' in key order.  A device-table funref takes one
+        ``OP_RMW`` round per key — the batch is one struct-of-arrays
+        queue entry costing one flush.  Non-table funs (or keys holding
+        host payloads) take per-key :meth:`kmodify` chains sharing the
+        batch accumulator.
+
+        With ``comm_repl`` on and a commutative or semilattice fun,
+        duplicate keys fold into ONE device row, operands merged with
+        the int32-exact fold (sub ships as add of the folded negated
+        operand), so the slot's final value and version equal the
+        sequenced chain's.  Every member of a folded group shares the
+        row's ('ok', vsn).  Ordered funs (set/bxor/put_if_absent) never
+        fold."""
+        fut = Future()
+        n = len(keys)
+        if n == 0:
+            fut.resolve([])
+            return fut
+        accum = _BatchAccum(n)
+        dev = funref.device_entry(mod_fun)
+        device_ok = (dev is not None and funref.is_int32(default)
+                     and int(default) == 0)
+
+        def host_one(i: int, key: Any) -> None:
+            f = self.kmodify(ens, key, mod_fun, default, retries)
+            f.add_waiter(lambda r, i=i: accum.fill(
+                fut, [i], [r], self._safe_resolve))
+
+        if not device_ok:
+            for i, key in enumerate(keys):
+                host_one(i, key)
+            return fut
+        code, operand = dev
+        coalesce = (self._comm_repl
+                    and funref.merge_class(code) is not None)
+        sg = self.slot_gen[ens]
+        ks = self.key_slot[ens]
+        fs = self.free_slots[ens]
+        slot_l: List[int] = []
+        ops_l: List[int] = []
+        gen_l: List[int] = []
+        live_keys: List[Any] = []
+        members: List[List[int]] = []   # result positions per row
+        row_of: Dict[int, int] = {}
+        miss_pos: List[int] = []
+        for i, key in enumerate(keys):
+            s = ks.get(key)
+            if s is None:
+                if not fs:
+                    miss_pos.append(i)
+                    continue
+                s = fs.pop()
+                ks[key] = s
+            if not self._rmw_eligible(ens, s):
+                host_one(i, key)  # host-payload key: per-key fallback
+                continue
+            if coalesce:
+                r = row_of.get(s)
+                if r is not None:
+                    ops_l[r] = funref.fold_operand(code, ops_l[r], operand)
+                    members[r].append(i)
+                    self.rmw_enqueue_coalesced += 1
+                    continue
+                row_of[s] = len(slot_l)
+            g = sg.get(s, 0) + 1
+            sg[s] = g
+            slot_l.append(s)
+            ops_l.append(funref.fold_seed(code, operand) if coalesce
+                         else operand)
+            gen_l.append(g)
+            live_keys.append(key)
+            members.append([i])
+        if slot_l:
+            self._inline_slots[ens].update(slot_l)
+            self._inline_np[ens, np.asarray(slot_l, np.int32)] = True
+        if miss_pos:
+            accum.fill(fut, miss_pos, ["failed"] * len(miss_pos),
+                       self._safe_resolve)
+        if live_keys:
+            m = len(slot_l)
+            self.rmw_device_fastpath += sum(len(mb) for mb in members)
+            # folded operands live in the MERGE_ADD-normalized domain,
+            # so a folded sub ships as add (cur-a-b == cur+(-(a+b))
+            # under int32 wraparound)
+            ship_code = (funref.RMW_ADD
+                         if coalesce and code == funref.RMW_SUB
+                         else code)
+            # the batch rides an INNER future so transiently failed
+            # rows get their remaining ``retries`` through the scalar
+            # path; a failed folded row applied NOTHING, so each member
+            # retrying its own single op is exact
+            inner = Future()
+            self._push(ens, _PendingBatch(
+                eng.OP_RMW, slot_l, ops_l, inner,
+                list(range(m)), live_keys, gen_l, [ship_code] * m,
+                [0] * m, _BatchAccum(m), want_vsn=True, n=m))
+
+            def on_batch(results: Any) -> None:
+                if not isinstance(results, list):
+                    allp = [p for mb in members for p in mb]
+                    accum.fill(fut, allp, ["failed"] * len(allp),
+                               self._safe_resolve)
+                    return
+                for mb, key, r in zip(members, live_keys, results):
+                    if (isinstance(r, tuple) and r[0] == "ok") \
+                            or retries <= 1:
+                        accum.fill(fut, mb, [r] * len(mb),
+                                   self._safe_resolve)
+                    else:
+                        for pos in mb:
+                            f = self.kmodify(ens, key, mod_fun,
+                                             default, retries - 1)
+                            f.add_waiter(
+                                lambda r2, pos=pos: accum.fill(
+                                    fut, [pos], [r2],
+                                    self._safe_resolve))
+            inner.add_waiter(on_batch)
+        return fut
+
+    # -- lease-protected read fast path -------------------------------------
+
+    def set_fast_reads(self, enabled: bool) -> None:
+        """Turn the lease-protected read fast path on or off (the
+        reference's ``RETPU_FAST_READS``); off routes every read
+        through the device round.  ``config.trust_lease=False`` keeps
+        it off."""
+        enabled = bool(enabled) and self.config.trust_lease
+        if enabled:
+            # the safety inequality is a precondition of SERVING, so
+            # it is checked at every enable
+            self._assert_read_margin()
+        self._fast_reads = enabled
+
+    def _assert_read_margin(self) -> None:
+        if not (0.0 <= self._read_margin
+                and self.config.lease() + self._read_margin
+                < self.config.follower()):
+            raise ValueError(
+                "need 0 <= read_margin and lease + read_margin < "
+                "follower_timeout to enable lease-protected reads")
+
+    def _fast_read_ok(self, ens: int, now: float) -> Optional[str]:
+        """None when ensemble ``ens`` may serve lease-protected reads
+        right now; otherwise the miss reason."""
+        if not self._fast_reads:
+            return "disabled"
+        lead = self.leader_np[ens]
+        if lead < 0 or not self.up[ens, lead]:
+            # leaderless / leader-down rows are electing: never serve
+            # around that
+            return "no_leader"
+        if self._corrupt_rows[ens]:
+            return "corrupt"
+        if self.lease_until[ens] <= now + self._read_margin:
+            return "no_lease"
+        return None
+
+    def _try_fast(self, ens: int, slot: int, want_vsn: bool
+                  ) -> Tuple[bool, Any]:
+        """The whole fast-path gate for one scalar read: (hit,
+        result), the attempt accounted either way."""
+        reason = self._fast_read_ok(ens, self.runtime.now)
+        if reason is None:
+            reason, res = self._fast_read_result(ens, slot, want_vsn)
+        else:
+            res = None
+        return self._count_fast(reason), res
+
+    def _fast_read_result(self, ens: int, slot: int, want_vsn: bool
+                          ) -> Tuple[Optional[str], Any]:
+        """(miss_reason, result) for one slot read off the committed
+        host mirrors; ``result`` is valid only when the reason is
+        None.  The caller has already passed :meth:`_fast_read_ok`."""
+        if self._pending_writes[ens][slot]:
+            return "pending_write", None
+        vsn: Any = None
+        if want_vsn:
+            if not self._slot_vsn_ok[ens, slot]:
+                # unmirrored version (post-election invalidation): the
+                # device round re-versions and re-mirrors it
+                return "vsn_unmirrored", None
+            ve, vs = self._slot_vsn_np[ens, slot]
+            vsn = (int(ve), int(vs))
+        h = self.slot_handle[ens].get(slot, 0)
+        if h == -1:
+            if not self._inline_value_ok[ens, slot]:
+                return "inline_unmirrored", None
+            out: Any = int(self._inline_value_np[ens, slot])
+        elif h:
+            out = self.values.get(h, NOTFOUND)
+        else:
+            # nothing committed (tombstone or never-written slot); a
+            # tombstone's real vsn rides along so CAS chains work
+            out = NOTFOUND
+        return None, (("ok", out, vsn) if want_vsn else ("ok", out))
+
+    def _count_fast(self, reason: Optional[str]) -> bool:
+        """Account one fast-path attempt; True = hit (serve now)."""
+        if reason is None:
+            self.read_fastpath_hits += 1
+            # a mirror-served read is a served op
+            self.ops_served += 1
+            return True
+        self.read_fastpath_misses += 1
+        r = self.read_fastpath_miss_reasons
+        r[reason] = r.get(reason, 0) + 1
+        return False
+
+    def _note_write(self, ens: int, slot: int) -> None:
+        self._pending_writes[ens][slot] += 1
+
+    def _unnote_write(self, ens: int, slot: int) -> None:
+        # clamped at 0: an unpaired un-note must park reads on the
+        # safe device round, not hide every later write
+        row = self._pending_writes[ens]
+        if row[slot] > 0:
+            row[slot] -= 1
+
+    # -- read-modify-write internals ----------------------------------------
+
+    def _rmw_eligible(self, ens: int, slot: int) -> bool:
+        """A slot the device fast path may RMW: no QUEUED host-payload
+        write racing it, and device-native already or holding no
+        committed host payload — int32 arithmetic over a payload
+        HANDLE would corrupt the data while acking 'ok'."""
+        if self._queued_handle_writes[ens][slot]:
+            return False
+        return (slot in self._inline_slots[ens]
+                or self.slot_handle[ens].get(slot, 0) == 0)
+
+    def _note_handle_write(self, ens: int, slot: int) -> None:
+        self._queued_handle_writes[ens][slot] += 1
+
+    def _unnote_handle_write(self, ens: int, slot: int) -> None:
+        row = self._queued_handle_writes[ens]
+        if row[slot] > 0:
+            row[slot] -= 1
+
+    def _push_rmw(self, ens: int, key: Any, slot: int,
+                  dev: Tuple[int, int], fut: Future) -> None:
+        code, operand = dev
+        gen = self.slot_gen[ens].get(slot, 0) + 1
+        self.slot_gen[ens][slot] = gen
+        # optimistic inline marking: a second kmodify racing this
+        # one's commit must still see the slot as device-native
+        self._inline_slots[ens].add(slot)
+        self._inline_np[ens, slot] = True
+        self.rmw_device_fastpath += 1
+        self._push(ens, _PendingOp(eng.OP_RMW, slot, operand, fut,
+                                   key, gen, exp=(code, 0),
+                                   want_vsn=True))
+
+    def _retry_later(self, ens: int, fut: Future, conflict_idx: int,
+                     thunk) -> None:
+        """Jittered backoff between retries, in flush calls: retry 0
+        is immediate, later ones draw a uniform delay from a doubling
+        window so N stampeding writers spread over ~N flushes.  The
+        draws come from one seeded generator, in the reference's
+        order."""
+        delay = self._rng.randrange(1 << min(conflict_idx, 4))
+        if delay == 0:
+            thunk()
+            # an immediate retry enqueued during a resolve is a chain
+            # follow-up like the CAS half
+            self._chain_kick = True
+        else:
+            self._retry_at.append((self._flush_calls + delay, ens,
+                                   fut, thunk))
+
+    def _run_due_retries(self) -> None:
+        if not self._retry_at:
+            return
+        now = self._flush_calls
+        due = [t for at, _e, fut, t in self._retry_at
+               if at <= now and not fut.done]
+        self._retry_at = [r for r in self._retry_at
+                          if r[0] > now and not r[2].done]
+        for thunk in due:
+            thunk()
+
+    def _fire_idle_retries(self) -> None:
+        """At the end of a flush that left nothing queued, fire every
+        parked retry now: with no concurrent writer left the backoff is
+        pure latency, and a caller looping ``while any(svc.queues):
+        flush()`` would otherwise stop with the futures unresolved."""
+        if self._retry_at and not self._active:
+            parked, self._retry_at = self._retry_at, []
+            for _at, _e, fut, thunk in parked:
+                if not fut.done:
+                    thunk()
+
+    def _emit_kmodify_error(self) -> None:
+        """Log a mod-fun exception (called inside its ``except``),
+        rate-limited to one traceback per second; suppressed counts
+        ride the next one."""
+        now = time.monotonic()
+        if now - self._kmodify_err_at >= 1.0:
+            self._kmodify_err_at = now
+            log.warning("kmodify mod_fun raised (%d earlier errors "
+                        "suppressed)", self._kmodify_err_dropped,
+                        exc_info=True)
+            self._kmodify_err_dropped = 0
+        else:
+            self._kmodify_err_dropped += 1
 
     def set_peer_up(self, ens: int, peer: int, up: bool) -> None:
         """Failure-detector input (the host's nodedown/suspend signal)."""
@@ -507,12 +1097,22 @@ class BatchedEnsembleService:
         return committed, get_ok, found, value
 
     def flush(self) -> int:
-        """One device launch for everything queued; returns ops served."""
+        """One device launch for everything queued, plus at most two
+        chained launches for follow-ups its resolve enqueued (kmodify
+        CAS halves, immediate retries); returns ops served."""
+        self._flush_calls += 1
+        self._run_due_retries()
         active = self._active
         k = min(self.max_k,
                 max((self._queue_rounds[e] for e in active), default=0))
-        if k == 0 and not self._election_inputs()[0].any():
-            return 0
+        served = 0
+        if k == 0:
+            # idle flush: chained follow-ups get their own launch
+            # cycle; an election-only launch runs if one is needed
+            served += self._chain_flush()
+            if not self._election_inputs()[0].any():
+                self._fire_idle_retries()
+                return served
         # Bucket the batch depth to the next power of two (capped at
         # max_k), as the reference does for its compile cache — kept so
         # the launch shapes, and the packed buffers, match it.
@@ -583,7 +1183,27 @@ class BatchedEnsembleService:
                 for op in ops:
                     self._fail_entry(e, op)
             raise
-        return self._resolve_flush(taken, planes)
+        served += self._resolve_flush(taken, planes)
+        served += self._chain_flush()
+        self._fire_idle_retries()
+        return served
+
+    def _chain_flush(self) -> int:
+        """Same-flush chaining: when a resolve enqueued follow-up ops —
+        a host-path kmodify read's CAS half, or an immediate conflict
+        retry — run ONE more launch cycle inside the same flush() call,
+        so the follow-up costs this flush instead of the next.  Nesting
+        is capped at 2; the backoff queue carries the rest."""
+        if not self._chain_kick:
+            return 0
+        self._chain_kick = False
+        if not self._active or self._chain_depth >= 2:
+            return 0
+        self._chain_depth += 1
+        try:
+            return self.flush()
+        finally:
+            self._chain_depth -= 1
 
     # -- internals ---------------------------------------------------------
 
@@ -660,7 +1280,11 @@ class BatchedEnsembleService:
                 elif self.slot_gen[e].get(slot, 0) == gen \
                         and self.slot_handle[e].get(slot, 0) == 0 \
                         and self.key_slot[e].get(key) == slot:
+                    # (a live device-native value holds the -1 sentinel
+                    # in slot_handle, so it never reaches this branch)
                     del self.key_slot[e][key]
+                    self._inline_slots[e].discard(slot)
+                    self._inline_np[e, slot] = False
                     self.free_slots[e].append(slot)
                 # else: the slot was re-used meanwhile — drop the stale
                 # recycle request
@@ -669,6 +1293,16 @@ class BatchedEnsembleService:
                 self._recycle_dirty.add(e)
 
     def _push(self, ens: int, op) -> None:
+        """Enqueue one entry.  Writes register in the per-slot
+        pending-write index here — the one choke point every keyed
+        write passes — and deregister when they resolve or fail."""
+        if op.kind != eng.OP_GET:
+            if isinstance(op, _PendingBatch):
+                pw = self._pending_writes[ens]
+                for s in op.slot:
+                    pw[s] += 1
+            else:
+                self._note_write(ens, op.slot)
         self.queues[ens].append(op)
         self._queue_rounds[ens] += op.n
         self._active.add(ens)
@@ -745,13 +1379,20 @@ class BatchedEnsembleService:
         # leader confirmed its epoch with a quorum (peer.erl:1092-1095).
         renew = won_np | quorum_ok
         self.lease_until[renew] = now + self.config.lease()
-        # Device-detected integrity failures are counted.  The
-        # reference follows them with an anti-entropy exchange sweep;
-        # that sweep is not ported yet (the in-round read repair still
-        # heals every slot a successful read touches).
-        if k:
+        # Device-detected integrity failures are counted and their rows
+        # flagged off the fast path.  The reference follows them with
+        # an anti-entropy exchange sweep that clears the flag; that
+        # sweep is not ported yet (the in-round read repair still heals
+        # every slot a successful read touches).
+        if k and corrupt_np.any():
             self.corruptions += int(corrupt_np.sum())
+            self._corrupt_rows |= corrupt_np.any(1)
         self.flushes += 1
+        # A won election bumped the row's ballot epoch: the next device
+        # access of each object re-versions it, so the row's vsn mirror
+        # is stale — drop it (plain value reads stay fast).
+        if won_np.any():
+            self._slot_vsn_ok[won_np] = False
         return committed, get_ok, found, value, vsn
 
     def _safe_resolve(self, fut: Future, result: Any) -> None:
@@ -773,9 +1414,15 @@ class BatchedEnsembleService:
     def _fail_batch(self, e: int, op: _PendingBatch) -> None:
         if op.fut.done:
             return
-        if op.kind in (eng.OP_PUT, eng.OP_CAS):
+        if op.kind in (eng.OP_PUT, eng.OP_CAS, eng.OP_RMW):
             for i in range(op.n):
-                self._release_handle(op.handle[i])
+                self._unnote_write(e, op.slot[i])
+                if op.kind != eng.OP_RMW:
+                    # an RMW entry's handle field is its int32 operand,
+                    # not a payload handle
+                    self._release_handle(op.handle[i])
+                    if op.handle[i]:
+                        self._unnote_handle_write(e, op.slot[i])
                 if op.keys is not None:
                     self._queue_recycle(e, (op.keys[i], op.slot[i],
                                             op.gen[i]))
@@ -786,32 +1433,49 @@ class BatchedEnsembleService:
         """Resolve one queued op as failed, releasing a put's payload
         and queueing its slot for recycling: a failed write that was
         the slot's last queued write may leave it holding nothing
-        committed."""
+        committed.  (An RMW's handle field is its operand — nothing to
+        release; the recycle drain's committed-handle check covers the
+        -1 inline sentinel.)"""
         if op.fut.done:
             return
         if op.kind in (eng.OP_PUT, eng.OP_CAS):
             self._release_handle(op.handle)
+            if op.handle:
+                self._unnote_handle_write(e, op.slot)
+        if op.kind in (eng.OP_PUT, eng.OP_CAS, eng.OP_RMW):
+            self._unnote_write(e, op.slot)
             if op.key is not None:
                 self._queue_recycle(e, (op.key, op.slot, op.gen))
         self._safe_resolve(op.fut, "failed")
 
     def _resolve_batch(self, e: int, j: int, op: _PendingBatch,
                        planes) -> None:
-        """Resolve one batch entry from result-plane column slices."""
+        """Resolve one batch entry from result-plane column slices.
+        Every committed write updates the fast path's mirrors before
+        its result is handed to the client."""
         committed, get_ok, found, value, vsn = planes
         n = op.n
         results: List[Any] = []
         append = results.append
+        slot_handle = self.slot_handle[e]
+        inline = self._inline_slots[e]
+        inline_row = self._inline_np[e]
+        inline_val_np = self._inline_value_np[e]
+        inline_val_ok = self._inline_value_ok[e]
+        vsn_row = self._slot_vsn_np[e]
+        vsn_ok_row = self._slot_vsn_ok[e]
         if op.kind in (eng.OP_PUT, eng.OP_CAS):
             comm_l = committed[j:j + n, e].tolist()
             vs_l = vsn[j:j + n, e].tolist()
             keys = op.keys if op.keys is not None else [None] * n
-            slot_handle = self.slot_handle[e]
             recycle = self._recycle_pending[e].append
             self._recycle_dirty.add(e)
             release = self._release_handle
             for comm, s, h, g, key, vs in zip(comm_l, op.slot, op.handle,
                                               op.gen, keys, vs_l):
+                self._unnote_write(e, s)
+                if h:
+                    self._unnote_handle_write(e, s)
                 if not comm:
                     release(h)
                     if key is not None:
@@ -823,6 +1487,45 @@ class BatchedEnsembleService:
                     release(old)
                 if h:
                     slot_handle[s] = h
+                # a committed put/CAS flips a device-native slot back
+                # to handle storage
+                inline.discard(s)
+                inline_row[s] = False
+                inline_val_ok[s] = False
+                vsn_row[s] = vs
+                vsn_ok_row[s] = True
+                append(("ok", tuple(vs)))
+        elif op.kind == eng.OP_RMW:
+            comm_l = committed[j:j + n, e].tolist()
+            vs_l = vsn[j:j + n, e].tolist()
+            val_l = value[j:j + n, e].tolist()
+            release = self._release_handle
+            recycle = self._recycle_pending[e].append
+            self._recycle_dirty.add(e)
+            keys = op.keys if op.keys is not None else [None] * n
+            for comm, s, g, key, vs, v in zip(comm_l, op.slot, op.gen,
+                                              keys, vs_l, val_l):
+                self._unnote_write(e, s)
+                if not comm:
+                    if key is not None:
+                        recycle((key, s, g))
+                    append("failed")
+                    continue
+                old = slot_handle.pop(s, 0)
+                if old > 0:
+                    release(old)
+                if v:  # live value; a computed 0 is the tombstone
+                    slot_handle[s] = -1
+                    inline_val_np[s] = v
+                    inline_val_ok[s] = True
+                else:
+                    inline_val_ok[s] = False
+                    if key is not None:  # tombstone: recycle the slot
+                        recycle((key, s, g))
+                inline.add(s)
+                inline_row[s] = True
+                vsn_row[s] = vs
+                vsn_ok_row[s] = True
                 append(("ok", tuple(vs)))
         else:  # OP_GET batch
             ok_l = get_ok[j:j + n, e].tolist()
@@ -830,10 +1533,22 @@ class BatchedEnsembleService:
             val_l = value[j:j + n, e].tolist()
             vs_l = vsn[j:j + n, e].tolist()
             values = self.values
-            for ok, fnd, v, vs in zip(ok_l, found_l, val_l, vs_l):
+            for ok, fnd, v, vs, s in zip(ok_l, found_l, val_l, vs_l,
+                                         op.slot):
                 if ok:
-                    out = values.get(v, NOTFOUND) if fnd and v != 0 \
-                        else NOTFOUND
+                    if fnd and v != 0:
+                        if s in inline:
+                            # device-native slots carry the value
+                            # itself; the read refreshes its mirror
+                            out = v
+                            inline_val_np[s] = v
+                            inline_val_ok[s] = True
+                        else:
+                            out = values.get(v, NOTFOUND)
+                    else:
+                        out = NOTFOUND
+                    vsn_row[s] = vs
+                    vsn_ok_row[s] = True
                     append(("ok", out, tuple(vs)) if op.want_vsn
                            else ("ok", out))
                 else:
@@ -871,26 +1586,77 @@ class BatchedEnsembleService:
                     continue
                 j += 1
                 served += 1
+                s = op.slot
                 if op.kind in (eng.OP_PUT, eng.OP_CAS):
                     if committed_l[j][e]:
+                        self._unnote_write(e, s)
+                        if op.handle:
+                            self._unnote_handle_write(e, s)
                         # Release the payload this write superseded
                         # (rounds resolve in device order, so the last
                         # committed handle per slot survives).
-                        old = slot_handle.pop(op.slot, 0)
+                        old = slot_handle.pop(s, 0)
                         if old != op.handle:
                             self._release_handle(old)
                         if op.handle:
-                            slot_handle[op.slot] = op.handle
+                            slot_handle[s] = op.handle
+                        # a committed put/CAS flips a device-native
+                        # slot back to handle storage
+                        self._inline_slots[e].discard(s)
+                        self._inline_np[e, s] = False
+                        # mirror before the ack: a fast read issued
+                        # after this future resolves sees the write
+                        self._inline_value_ok[e, s] = False
+                        self._slot_vsn_np[e, s] = vsn_l[j][e]
+                        self._slot_vsn_ok[e, s] = True
+                        self._safe_resolve(op.fut,
+                                           ("ok", tuple(vsn_l[j][e])))
+                    else:
+                        self._fail_op(e, op)
+                elif op.kind == eng.OP_RMW:
+                    if committed_l[j][e]:
+                        self._unnote_write(e, s)
+                        old = slot_handle.pop(s, 0)
+                        if old > 0:  # superseded host payload
+                            self._release_handle(old)
+                        # the -1 sentinel: a LIVE value committed
+                        # device-side.  A computed 0 is the tombstone:
+                        # no sentinel, and the slot recycles like a
+                        # committed delete.
+                        if value_l[j][e]:
+                            slot_handle[s] = -1
+                            self._inline_value_np[e, s] = value_l[j][e]
+                            self._inline_value_ok[e, s] = True
+                        else:
+                            self._inline_value_ok[e, s] = False
+                            if op.key is not None:
+                                self._queue_recycle(e, (op.key, s,
+                                                        op.gen))
+                        self._inline_slots[e].add(s)
+                        self._inline_np[e, s] = True
+                        self._slot_vsn_np[e, s] = vsn_l[j][e]
+                        self._slot_vsn_ok[e, s] = True
                         self._safe_resolve(op.fut,
                                            ("ok", tuple(vsn_l[j][e])))
                     else:
                         self._fail_op(e, op)
                 elif get_ok_l[j][e]:
                     v = value_l[j][e]
-                    out = (self.values.get(v, NOTFOUND)
-                           if found_l[j][e] and v != 0 else NOTFOUND)
+                    if found_l[j][e] and v != 0:
+                        if s in self._inline_slots[e]:
+                            # device-native slots carry the value itself
+                            out = v
+                            self._inline_value_np[e, s] = v
+                            self._inline_value_ok[e, s] = True
+                        else:
+                            out = self.values.get(v, NOTFOUND)
+                    else:
+                        out = NOTFOUND
                     # vsn is the object's — a tombstone's real version
-                    # rides along with NOTFOUND, so CAS chains work
+                    # rides along with NOTFOUND, so CAS chains work; the
+                    # device read also refreshes the vsn mirror
+                    self._slot_vsn_np[e, s] = vsn_l[j][e]
+                    self._slot_vsn_ok[e, s] = True
                     self._safe_resolve(
                         op.fut, ("ok", out, tuple(vsn_l[j][e]))
                         if op.want_vsn else ("ok", out))

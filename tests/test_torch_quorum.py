@@ -6,10 +6,17 @@
   ``quorum_met_epallas(..., interpret=True)`` == JAX
   ``quorum_met_batch(self_idx=-1)``, including E not a multiple of the
   Pallas block, inactive views, V = 8 and M = 128;
+- ``quorum_met_splain`` (K2's plain version) == JAX
+  ``quorum_met_pallas(..., interpret=True)`` == JAX ``quorum_met_batch``
+  on one shared mask, on the cases of ``tests/test_pallas_quorum.py``
+  (every mode x 2 seeds, a singleton view, E not a multiple of the
+  block) plus self indices outside ``[0, M)`` and inactive trailing
+  views;
 - the scalar copy == the original on random replies.
 
 All comparisons are integer: the tolerance is exact equality.  Inputs
-come from numpy seeds.  The CUDA test of K1 itself skips here.
+come from numpy seeds.  The CUDA tests of K1 and K2 themselves skip
+here.
 """
 
 import random
@@ -31,9 +38,11 @@ def ref():
     import jax.numpy as jnp
 
     from riak_ensemble_tpu.ops import quorum as jq
-    from riak_ensemble_tpu.ops.pallas_quorum import quorum_met_epallas
+    from riak_ensemble_tpu.ops.pallas_quorum import (
+        quorum_met_epallas, quorum_met_pallas)
 
-    return types.SimpleNamespace(jnp=jnp, jq=jq, epallas=quorum_met_epallas)
+    return types.SimpleNamespace(jnp=jnp, jq=jq, epallas=quorum_met_epallas,
+                                 pallas=quorum_met_pallas)
 
 
 def _votes(rng, shape, m):
@@ -154,6 +163,100 @@ def test_wrapper_rejects_bad_inputs():
         cuda_quorum.quorum_met_e(v, v[:3], mask)
 
 
+def _k2_check(ref, valid, nack, mask, self_idx, required="quorum",
+              block_e=256):
+    """K2's plain version (and the CPU wrapper) against the Pallas
+    kernel in interpret mode and the JAX batched predicate."""
+    jnp, jq = ref.jnp, ref.jq
+    args = [jnp.asarray(a) for a in (valid, nack, mask, self_idx)]
+    pallas = np.asarray(ref.pallas(*args, required=required,
+                                   block_e=block_e, interpret=True))
+    batch = np.asarray(jq.quorum_met_batch(*args, required=required))
+    targs = [torch.from_numpy(np.ascontiguousarray(a))
+             for a in (valid, nack, mask, self_idx)]
+    got = cuda_quorum.quorum_met_splain(*targs, required)
+    before = cuda_quorum.quorum_s_launches
+    via = cuda_quorum.quorum_met_s(*targs, required)
+    assert cuda_quorum.quorum_s_launches == before
+    np.testing.assert_array_equal(pallas, batch)
+    assert got.dtype == torch.int8 and torch.equal(via, got)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    return pallas
+
+
+def _shared_views(rng, v, m):
+    """The JAX test's views: view 0 full, later ones random or empty."""
+    views = [list(range(m))]
+    for _ in range(v - 1):
+        if rng.random() < 0.5:
+            views.append(sorted(rng.choice(m, size=rng.integers(1, m + 1),
+                                           replace=False).tolist()))
+    return tq.views_to_mask(views, v, m)
+
+
+@pytest.mark.parametrize("required", tq.REQUIRED_MODES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_splain_matches_pallas(ref, required, seed):
+    rng = np.random.default_rng(seed)
+    e, m, v = 100, 7, 3
+    mask = _shared_views(rng, v, m)
+    valid = rng.random((e, m)) < 0.45
+    nack = (rng.random((e, m)) < 0.3) & ~valid
+    self_idx = rng.integers(-1, m, (e,)).astype(np.int32)
+    _k2_check(ref, valid, nack, mask, self_idx, required)
+
+
+@pytest.mark.parametrize("case", ["singleton", "block_padding",
+                                  "self_outside", "inactive_trailing"])
+def test_splain_edge_cases(ref, case):
+    rng = np.random.default_rng(21)
+    if case == "singleton":
+        # the self vote alone meets quorum in a one-peer view
+        mask = tq.views_to_mask([[0]], 1, 1)
+        valid = np.zeros((4, 1), bool)
+        self_idx = np.asarray([0, 0, -1, -1], np.int32)
+        got = _k2_check(ref, valid, valid, mask, self_idx)
+        assert got.tolist() == [tq.MET, tq.MET, tq.UNDECIDED, tq.UNDECIDED]
+        return
+    if case == "block_padding":
+        e, m = 300, 5
+        mask = tq.views_to_mask([list(range(m))], 1, m)
+        valid = rng.random((e, m)) < 0.5
+        nack = (rng.random((e, m)) < 0.2) & ~valid
+        _k2_check(ref, valid, nack, mask, np.zeros((e,), np.int32))
+        return
+    e, m = 200, 6
+    if case == "self_outside":
+        mask = _shared_views(rng, 3, m)
+        self_idx = rng.choice([-1, -5, m, m + 3, 0, m - 1],
+                              e).astype(np.int32)
+    else:   # views 2 and 3 have no members: padding, always met
+        mask = np.zeros((4, m), bool)
+        mask[0] = True
+        mask[1, :3] = True
+        self_idx = rng.integers(-1, m, (e,)).astype(np.int32)
+    valid = rng.random((e, m)) < 0.45
+    nack = (rng.random((e, m)) < 0.3) & ~valid
+    for required in tq.REQUIRED_MODES:
+        _k2_check(ref, valid, nack, mask, self_idx, required)
+
+
+def test_s_wrapper_rejects_bad_inputs():
+    v = torch.zeros((4, 5), dtype=torch.bool)
+    mask = torch.ones((2, 5), dtype=torch.bool)
+    si = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cuda_quorum.quorum_met_s(v, v, mask, si, required="most")
+    with pytest.raises(ValueError):
+        cuda_quorum.quorum_met_s(v, v, mask[None].expand(4, 2, 5), si)
+    with pytest.raises(ValueError):
+        cuda_quorum.quorum_met_s(v, v, mask[:, :4], si)
+    with pytest.raises(ValueError):
+        cuda_quorum.quorum_met_s(v, v, mask, si.long())
+    with pytest.raises(TypeError):
+        cuda_quorum.quorum_met_s(v.to(torch.int32), v, mask, si)
+
+
 def test_scalar_copy_matches_original(ref):
     jq = ref.jq
     rnd = random.Random(5)
@@ -187,3 +290,24 @@ def test_k1_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert cuda_quorum.quorum_launches == before + 1
         assert torch.equal(got.cpu(), plain.cpu())
+
+
+@pytest.mark.cuda
+def test_k2_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K2 is a CUDA kernel")
+    rng = np.random.default_rng(10)
+    for e, v, m in [(10_000, 2, 5), (10_001, 3, 7), (77, 128, 128),
+                    (300, 1, 1)]:
+        valid, nack = _votes(rng, (e,), m)
+        mask = _masks(rng, 1, v, m)[0]
+        self_idx = rng.integers(-2, m + 2, (e,)).astype(np.int32)
+        args = [torch.from_numpy(a).cuda()
+                for a in (valid, nack, mask, self_idx)]
+        for required in tq.REQUIRED_MODES:
+            before = cuda_quorum.quorum_s_launches
+            got = cuda_quorum.quorum_met_s(*args, required)
+            plain = cuda_quorum.quorum_met_splain(*args, required)
+            torch.cuda.synchronize()
+            assert cuda_quorum.quorum_s_launches == before + 1
+            assert torch.equal(got.cpu(), plain.cpu()), (e, v, m, required)

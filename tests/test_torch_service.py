@@ -6,9 +6,11 @@ peers going down and up (forcing elections), and a small K cap that
 splits batches across flushes — goes through the JAX service on its
 oracle arm (``RETPU_COMPACT=0 RETPU_FAST_READS=0 RETPU_NATIVE_RESOLVE=0
 RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0``, no ``RETPU_WIDE``) and through the
-port's service on the CPU.  Both run on the same fixed clock.  Every
-future must resolve to the same value, every flush's packed result
-buffer must be byte-identical, and the final engine states bit-equal.
+port's service on the CPU with fast reads off (``set_fast_reads(False)``;
+``tests/test_torch_fastread.py`` covers the fast-read arm).  Both run on
+the same fixed clock.  Every future must resolve to the same value,
+every flush's packed result buffer must be byte-identical, and the final
+engine states bit-equal.
 """
 
 import numpy as np
@@ -58,8 +60,12 @@ def services(monkeypatch):
                                        max_ops_per_tick=k)
         ts = tb.BatchedEnsembleService(ct, e, m, s, tick=None,
                                        max_ops_per_tick=k, device="cpu")
+        # the port's counterpart of RETPU_FAST_READS=0: this oracle arm
+        # routes every read through a device round
+        ts.set_fast_reads(False)
         assert js._native_resolve is None and not js._enq_slab
         assert not js._compact and not js._fast_reads and not js._obs
+        assert not ts._fast_reads
         bufs = ([], [])
         _record_packed(js, bufs[0])
         _record_packed(ts, bufs[1])
