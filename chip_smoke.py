@@ -13,13 +13,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    the edge cases, and time both;
 2b. the same for kernel K2 (the shared-mask quorum predicate, every
    required mode), which no service path calls;
-3. run the fused engine step on CUDA (K1) and on the CPU (plain
+3. run the fused engine step on CUDA (kernel F1) and on the CPU (plain
    version) over one seeded op stream and require every state plane
    and result field to be bit-equal;
+3b. hold F1 (``ops/cuda_engine.py``, ``csrc/engine_step.cu``) against
+   its plain version ``full_step_plain`` on the card, bit for bit on
+   every state plane, ``won`` and every result plane, at the headline
+   shape and the edge shapes (E = 10,001, M = 3 / 7 / 32, joint views,
+   K = 0 and 1, S = 16 / 33 / 1,024, no election), over seeded streams
+   with down leaders and peers, every RMW code at the int32 edges,
+   invalid slots, tombstones and out-of-band damage to objects, leaves
+   and upper nodes; time F1 and its plain version;
+3c. the anti-entropy exchange at full size: damage replicas in a
+   service, check that the corruption-triggered exchange and
+   ``scrub()`` heal them, that K1 launches on this path, and that
+   ``repairs``, ``corruptions``, ``_corrupt_rows``, the scrub reports
+   and the state equal a CPU service driven through the same sequence;
 4. drive the keyed service at full size — 10,000 ensembles x 5 peers x
    128 slots, K = 64 — through ``execute()`` and ``kput_many`` /
    ``kget_many`` with a peer down, read every acknowledged put back,
-   and require K1 to launch exactly K + 2 times per launch;
+   and require F1 to launch exactly once per launch and K1 never;
 5. at the same size, read-modify-write and lease fast reads: ``OP_RMW``
    rows through ``execute()`` checked against int32 sums and maxima
    computed on the host, ``kmodify_many`` with duplicate keys
@@ -32,7 +45,8 @@ It prints the card (``nvidia-smi``), one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  It exits
 non-zero without that line when no CUDA device is visible.  With
 ``--profile PATH`` it also traces one full-size flush with
-torch.profiler and writes the table to PATH.
+torch.profiler (kernels per flush, device time, F1's device time per
+launch) and writes the table to PATH.
 """
 
 import json
@@ -48,7 +62,7 @@ import torch
 
 from riak_ensemble_tpu_torch import funref, interop
 from riak_ensemble_tpu_torch.ops import build
-from riak_ensemble_tpu_torch.ops import cuda_quorum
+from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops.quorum import REQUIRED_MODES
 from riak_ensemble_tpu_torch.parallel.batched_host import (
@@ -56,11 +70,11 @@ from riak_ensemble_tpu_torch.parallel.batched_host import (
 
 #: H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-#: K1 does int32 adds and compares, outside the tensor cores.  An
-#: H100 SM has 64 INT32 lanes against 128 FP32 lanes, so the int32 peak
-#: is half the data sheet's 67 TFLOP/s float32 row.  K1 is byte-bound
-#: by more than 5x at this rate
-INT32_OPS_PER_S = 33.5e12
+#: The kernels do int32 arithmetic outside the tensor cores.  An H100 SM
+#: issues 64 int32 operations per clock (half its 128 float32 lanes):
+#: 132 SMs x 64 x 1.98 GHz.  (The data sheet's 67 TFLOP/s float32 row
+#: counts a fused multiply-add as two operations.)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 E_FULL, M_FULL, S_FULL, K_FULL = 10_000, 5, 128, 64
 
@@ -148,12 +162,15 @@ def phase_k1(dev: torch.device):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    dev_us = device_us_per_launch(
+        lambda: cuda_quorum.quorum_met_e(valid, nack, mask),
+        "quorum_met_kernel")
     print(f"K1 at [10000, 5], V=2: kernel {k1_ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms, bound {bound_ms * 1e3:.4f} us "
-          f"({nbytes} B)")
+          f"{plain_ms:.6f} ms, {dev_us:.3f} us device time per launch, "
+          f"bound {bound_ms * 1e3:.4f} us ({nbytes} B)")
     return {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": 0}
+            "max_abs_err": 0, "device_us": dev_us}
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +194,8 @@ def k2_inputs(g: torch.Generator, e: int, v: int, m: int,
 
 def device_us_per_launch(fn, name: str, n: int = 50) -> float:
     """Device time per launch of the kernel whose name contains
-    ``name``, from torch.profiler over ``n`` back-to-back calls."""
+    ``name``, from torch.profiler over ``n`` back-to-back calls (averaged
+    over the launches the trace holds: it may drop one of a window)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -187,8 +205,9 @@ def device_us_per_launch(fn, name: str, n: int = 50) -> float:
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages() if name in ev.key]
     count = sum(ev.count for ev in evs)
-    if count != n:
-        raise AssertionError(f"profiler saw {count} launches of {name}")
+    if not n - 2 <= count <= n:
+        raise AssertionError(f"profiler saw {count} of {n} launches of "
+                             f"{name}")
     return sum(ev.self_device_time_total for ev in evs) / count
 
 
@@ -279,6 +298,7 @@ def phase_engine(dev: torch.device) -> None:
     st_gpu = eng.init_state(e, m, s, device=dev)
     rng = np.random.default_rng(7)
     flagged = 0
+    cuda_engine.engine_step_launches = 0
     for step, planes in enumerate(engine_stream(rng, e, m, s, k, 8)):
         if step == 4:
             # out-of-band damage on two replicas: the integrity gate
@@ -309,9 +329,324 @@ def phase_engine(dev: torch.device) -> None:
         flagged += int(res_c.tree_corrupt.sum())
     if not flagged:
         raise AssertionError("the damaged replicas were never flagged")
-    print(f"engine CUDA == CPU: E={e} M={m} S={s} K={k}, 8 steps, "
+    if cuda_engine.engine_step_launches != 8:
+        raise AssertionError(f"F1 launched {cuda_engine.engine_step_launches}"
+                             f" times over 8 CUDA steps")
+    print(f"engine CUDA (F1) == CPU: E={e} M={m} S={s} K={k}, 8 steps, "
           f"commits={int(st_cpu.obj_seq_ctr.sum())}, "
           f"corrupt flags={flagged}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: F1 against its plain version
+
+I32_MAX, I32_MIN = 2 ** 31 - 1, -2 ** 31
+
+#: (name, E, M, S, K, views, steps, elect every step)
+F1_CASES = [
+    ("headline 10000x5x128 K=64", E_FULL, M_FULL, S_FULL, K_FULL, None, 3,
+     True),
+    ("E=10001", 10_001, 5, 128, 8, None, 2, True),
+    ("M=3", 2048, 3, 128, 8, None, 3, True),
+    ("M=7 S=33 (unaligned object rows, short level)", 2048, 7, 33, 8, None,
+     3, True),
+    ("M=32 S=16 (one level, 8 warps)", 512, 32, 16, 8, None, 3, True),
+    ("joint views", 2048, 5, 128, 8, [[0, 1, 2], [1, 2, 3, 4]], 3, True),
+    ("K=0 (election only)", 4096, 5, 128, 0, None, 3, True),
+    ("K=1", 4096, 5, 128, 1, None, 3, True),
+    ("S=16 (small)", 4096, 5, 16, 8, None, 3, True),
+    ("S=1024 (large)", 1024, 5, 1024, 16, None, 2, True),
+    ("no election: kv_step_scan, then kv_step", 2048, 5, 128, 8, None, 3,
+     False),
+]
+
+
+def f1_stream(rng: np.random.Generator, leader: np.ndarray, e: int, m: int,
+              s: int, k: int):
+    """One step's full_step inputs: elections with bogus candidates, down
+    leaders and down peers, every op kind and RMW code (and one unknown
+    code), operands at the int32 edges, invalid slots and tombstones;
+    one column in seven runs put/RMW-add at INT32_MAX and put/RMW-sub at
+    INT32_MIN on one slot, so the wraparound is certain to run."""
+    up = rng.random((e, m)) < 0.9
+    down = (rng.random(e) < 0.15) & (leader >= 0) & (leader < m)
+    up[np.nonzero(down)[0], leader[down]] = False
+    elect = rng.random(e) < 0.5
+    cand = rng.integers(-1, m + 1, e).astype(np.int32)
+    kind = rng.integers(0, 5, (k, e)).astype(np.int32)
+    slot = rng.integers(-2, s + 2, (k, e)).astype(np.int32)
+    val = rng.integers(-1000, 1000, (k, e)).astype(np.int32)
+    edge = rng.random((k, e))
+    val[edge < 0.1] = 0
+    val[(edge >= 0.1) & (edge < 0.15)] = I32_MAX
+    val[(edge >= 0.15) & (edge < 0.2)] = I32_MIN
+    exp_e = np.where(kind == eng.OP_RMW, rng.integers(0, 10, (k, e)),
+                     rng.integers(0, 3, (k, e))).astype(np.int32)
+    exp_s = rng.integers(0, 4, (k, e)).astype(np.int32)
+    lease = rng.random((k, e)) < 0.3
+    cols = np.arange(0, e, 7)
+    for j, (op, v, fn) in enumerate([
+            (eng.OP_PUT, I32_MAX, 0), (eng.OP_RMW, I32_MAX, eng.RMW_ADD),
+            (eng.OP_PUT, I32_MIN, 0), (eng.OP_RMW, 1, eng.RMW_SUB)][:k]):
+        kind[j, cols], slot[j, cols], val[j, cols] = op, 3 % s, v
+        exp_e[j, cols] = fn
+    return elect, cand, kind, slot, val, lease, up, exp_e, exp_s
+
+
+def damage(rng: np.random.Generator, states, n: int) -> None:
+    """The same out-of-band damage on every state: object values, leaf
+    lanes and upper-node lanes of random replicas."""
+    st = states[0]
+    e, m, s = st.obj_val.shape
+    u = st.tree_node.shape[2]
+    picks = [(rng.integers(0, e, n), rng.integers(0, m, n),
+              rng.integers(0, s, n)) for _ in range(2)]
+    nodes = (rng.integers(0, e, n), rng.integers(0, m, n),
+             rng.integers(0, u, n))
+    lane = rng.integers(0, 4, n)
+    for st in states:
+        dev = st.obj_val.device
+
+        def ix(t):
+            return torch.as_tensor(t, device=dev, dtype=torch.int64)
+        a, b, c = map(ix, picks[0])
+        st.obj_val[a, b, c] += 1
+        a, b, c = map(ix, picks[1])
+        st.tree_leaf[a, b, c, ix(lane)] ^= 1 << 9
+        a, b, c = map(ix, nodes)
+        st.tree_node[a, b, c, ix(lane)] ^= 3
+
+
+def diff_fields(a, b, fields) -> list:
+    """Fields whose planes differ (compared on the host, bit for bit)."""
+    return [f for f in fields
+            if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())]
+
+
+def copy_state(st):
+    return eng.EngineState(*(t.clone() for t in st))
+
+
+def f1_case(dev, name, e, m, s, k, views, steps, elect_every, seed):
+    """Run one case's steps through F1 and through the plain version
+    from the same state; raise on any difference.  Returns counts of
+    what the stream exercised."""
+    rng = np.random.default_rng(seed)
+    st_f1 = eng.init_state(e, m, s, views=views, device=dev)
+    st_pl = copy_state(st_f1)
+    stats = {"won": 0, "commits": 0, "corrupt": 0, "get_ok": 0}
+    for step in range(steps):
+        if step:
+            damage(rng, (st_f1, st_pl), max(e // 40, 4))
+        leader = st_pl.leader.cpu().numpy()
+        planes = [torch.from_numpy(p).to(dev)
+                  for p in f1_stream(rng, leader, e, m, s, k)]
+        elect, cand, kind, slot, val, lease, up, exp_e, exp_s = planes
+        if elect_every or step == 0:
+            st_f1, won_f, res_f = eng.full_step(
+                st_f1, elect, cand, kind, slot, val, lease, up,
+                exp_epoch=exp_e, exp_seq=exp_s)
+            st_pl, won_p, res_p = eng.full_step_plain(
+                st_pl, elect, cand, kind, slot, val, lease, up,
+                exp_epoch=exp_e, exp_seq=exp_s)
+            if not torch.equal(won_f.cpu(), won_p.cpu()):
+                raise AssertionError(f"F1 {name}, step {step}: won differs")
+            stats["won"] += int(won_p.sum())
+        elif step == 1:
+            st_f1, res_f = eng.kv_step_scan(st_f1, kind, slot, val, lease,
+                                            up, exp_e, exp_s)
+            st_pl, res_p = eng.kv_step_scan_plain(st_pl, kind, slot, val,
+                                                  lease, up, exp_e, exp_s)
+        else:
+            row = [t[0] for t in (kind, slot, val, lease, exp_e, exp_s)]
+            st_f1, res_f = eng.kv_step(st_f1, *row[:4], up, *row[4:])
+            st_pl, res_p = eng.kv_step_scan_plain(
+                st_pl, *(t[None] for t in row[:4]), up,
+                *(t[None] for t in row[4:]))
+            res_p = eng.KvResult(*(t[0] for t in res_p))
+        torch.cuda.synchronize()
+        bad = (diff_fields(st_f1, st_pl, eng.EngineState._fields)
+               + diff_fields(res_f, res_p, eng.KvResult._fields))
+        if bad:
+            raise AssertionError(f"F1 {name}, step {step}: {bad} differ "
+                                 f"from the plain version")
+        stats["commits"] += int(res_p.committed.sum())
+        stats["corrupt"] += int(res_p.tree_corrupt.sum())
+        stats["get_ok"] += int(res_p.get_ok.sum())
+    return stats
+
+
+def f1_work(st, up: np.ndarray, committed: np.ndarray) -> tuple:
+    """(bytes, int32 ops) F1 needs for one full_step on these inputs.
+    Bytes: every state plane read once and the ballot, object and tree
+    planes written once, every input and result plane once.  Ops: per
+    ensemble and round, the integrity gate of every replica (its leaf
+    hash and one 16-child fold per upper level) and, for every replica
+    that commits (this run's commits x the ensemble's up members), the
+    new leaf hash and its path's folds; read repairs are not counted."""
+    e, m, s = st.obj_val.shape
+    u = st.tree_node.shape[2]
+    v = st.view_mask.shape[1]
+    k = committed.shape[0]
+    nlev = len(eng.tree_sizes(s))
+    rw = 3 * e * m * s * 4 + e * m * s * 16 + e * m * u * 16 + 2 * e * m * 4 \
+        + 2 * e * 4
+    nbytes = (2 * rw + e * v * m + e * m + 5 * e
+              + k * e * (5 * 4 + 1)                  # op planes
+              + k * e * (4 + 4 + 8 + m) + e)         # results, won
+    # a fold: 16 children x 4 lanes x (xor, mul, add, 8 for fmix, sum)
+    # plus 4 lanes x 19 for the stir and seal; a leaf hash 4 x 13
+    fold, leaf = 16 * 4 * 12 + 4 * 19, 4 * 13
+    heard = up & st.view_mask.any(1).cpu().numpy()
+    writers = int((committed * heard.sum(1)[None, :]).sum())
+    ops = k * e * m * (leaf + 4 + nlev * (fold + 4)) \
+        + writers * (leaf + nlev * fold)
+    return nbytes, ops
+
+
+def bound(nbytes: int, ops: int) -> tuple:
+    """(bytes ms, int32 ops ms, bound ms) at the card's published peaks."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return bytes_ms, ops_ms, max(bytes_ms, ops_ms)
+
+
+def phase_f1(dev: torch.device, card: str):
+    for i, (name, e, m, s, k, views, steps, every) in enumerate(F1_CASES):
+        t0 = time.perf_counter()
+        stats = f1_case(dev, name, e, m, s, k, views, steps, every, 100 + i)
+        print(f"F1 == plain  {name}: E={e} M={m} S={s} K={k}, {steps} "
+              f"steps, {stats} ({time.perf_counter() - t0:.1f} s)")
+        if k and not (stats["commits"] and stats["corrupt"]):
+            raise AssertionError(f"F1 case {name} exercised no commits or "
+                                 f"no integrity flags: {stats}")
+    # timing at the headline shape
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(99)
+    st = eng.init_state(e, m, s, device=dev)
+    planes = [torch.from_numpy(p).to(dev) for p in f1_stream(
+        rng, np.full(e, -1, np.int32), e, m, s, k)]
+    args = planes[:7]
+    kw = {"exp_epoch": planes[7], "exp_seq": planes[8]}
+    st, _, res = eng.full_step(st, *args, **kw)    # elect, fill the store
+    torch.cuda.synchronize()
+    f1_ms = cuda_ms(lambda: eng.full_step(st, *args, **kw), iters=10)
+    st_pl = copy_state(st)
+    plain_ms = cuda_ms(lambda: eng.full_step_plain(st_pl, *args, **kw),
+                       iters=1, reps=3)
+    nbytes, ops = f1_work(st, planes[6].cpu().numpy(),
+                          res.committed.cpu().numpy())
+    bytes_ms, ops_ms, bound_ms = bound(nbytes, ops)
+    dev_us = device_us_per_launch(lambda: eng.full_step(st, *args, **kw),
+                                  "engine_step_kernel", n=20)
+    print(f"F1 at {e}x{m}x{s} K={k} [{card}]: full_step {f1_ms:.6f} ms per "
+          f"call back to back, {dev_us:.3f} us device time per launch; "
+          f"plain {plain_ms:.3f} ms; bound {bound_ms:.6f} ms = max(bytes "
+          f"{nbytes} B -> {bytes_ms:.6f} ms, int32 ops {ops} -> "
+          f"{ops_ms:.6f} ms)")
+    return {"ms": f1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": 0, "device_us": dev_us}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3c: the anti-entropy exchange at full size, CUDA against CPU
+
+
+class FixedClock:
+    """A runtime whose clock only the caller moves: the CUDA and CPU
+    services see the same lease times."""
+
+    def __init__(self) -> None:
+        self.now = 100.0
+
+    def schedule(self, delay, fn):
+        raise RuntimeError("caller-driven flush only")
+
+
+def phase_exchange(dev: torch.device, card: str, e: int = E_FULL,
+                   m: int = M_FULL, s: int = S_FULL) -> int:
+    """Damage replicas, read the hot slot (corruption-triggered exchange),
+    scrub twice; the CUDA service must match a CPU service driven through
+    the same sequence.  Returns K1's launches on the CUDA path."""
+    k = 4
+    rng = np.random.default_rng(13)
+    svcs = [BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                   max_ops_per_tick=k, device=d)
+            for d in (dev, "cpu")]
+    put = np.full((k, e), eng.OP_PUT, np.int32)
+    slots = np.broadcast_to(np.arange(k, dtype=np.int32)[:, None],
+                            (k, e)).copy()
+    vals = rng.integers(1, 2 ** 31 - 1, (k, e)).astype(np.int32)
+    hot = np.arange(0, e, 3)       # slot 0 object on replica 1
+    node = np.arange(0, e, 5)      # replica 2's first upper node
+    cold = np.arange(0, e, 11)     # slot 2 object on replica 3: never read
+    out = []
+    for svc in svcs:
+        committed, _, _, _ = svc.execute(put, slots, vals)
+        if not committed.all():
+            raise AssertionError("exchange phase: puts not acknowledged")
+        st, d = svc.state, svc.state.obj_val.device
+        st.obj_val[torch.as_tensor(hot, device=d), 1, 0] += 7
+        st.tree_node[torch.as_tensor(node, device=d), 2, 0, 1] ^= 0x55
+        st.obj_val[torch.as_tensor(cold, device=d), 3, 2] += 1
+    for i, svc in enumerate(svcs):
+        if i == 0:
+            torch.cuda.synchronize()
+            cuda_quorum.quorum_launches = 0     # the exchange path's run
+            cuda_engine.engine_step_launches = 0
+        svc.lease_until[:] = 0.0
+        got = svc.execute(np.full((1, e), eng.OP_GET, np.int32),
+                          np.zeros((1, e), np.int32),
+                          np.zeros((1, e), np.int32))
+        after_read = (svc.corruptions, svc.repairs,
+                      svc._corrupt_rows.copy())
+        reports = [svc.scrub(), svc.scrub()]
+        if i == 0:
+            torch.cuda.synchronize()
+            k1 = cuda_quorum.quorum_launches
+            f1 = cuda_engine.engine_step_launches
+        out.append((got, after_read, reports, svc.corruptions,
+                    svc.repairs, svc._corrupt_rows.copy()))
+    (got, after_read, reports, corr, rep, rows), cpu = out
+    _, value = got[0], got[3]
+    if not (got[1].all() and np.array_equal(value[0], vals[0])):
+        raise AssertionError("exchange phase: the damaged slot did not "
+                             "read back")
+    if not (after_read[0] > 0 and not after_read[2].any()):
+        raise AssertionError(f"exchange phase: detection / sync wrong: "
+                             f"{after_read}")
+    first, second = reports
+    if not (first["replicas_damaged"] > 0
+            and first["replicas_healed"] == first["replicas_damaged"]
+            and second == {"replicas_damaged": 0, "replicas_healed": 0,
+                           "ensembles_swept": 0}):
+        raise AssertionError(f"exchange phase: scrub reports {reports}")
+    if any(bad.any() for bad in eng.verify_trees(svcs[0].state)):
+        raise AssertionError("exchange phase: damage left after the scrub")
+    for a, b in zip(got, cpu[0]):
+        if not np.array_equal(a, b):
+            raise AssertionError("exchange phase: read results differ CUDA "
+                                 "vs CPU")
+    if not (after_read[:2] == cpu[1][:2]
+            and np.array_equal(after_read[2], cpu[1][2])
+            and reports == cpu[2] and (corr, rep) == cpu[3:5]
+            and np.array_equal(rows, cpu[5])):
+        raise AssertionError(f"exchange phase: counters differ CUDA vs "
+                             f"CPU: {out[0][1:5]} vs {cpu[1:5]}")
+    bad = diff_fields(svcs[0].state, svcs[1].state, eng.EngineState._fields)
+    if bad:
+        raise AssertionError(f"exchange phase: state planes {bad} differ "
+                             f"CUDA vs CPU")
+    if k1 != 2 or f1 != 1:
+        raise AssertionError(f"exchange phase: K1 launched {k1} times (want "
+                             f"2: the launch's exchange and the scrub's), "
+                             f"F1 {f1} (want 1)")
+    print(f"exchange {e}x{m}x{s} [{card}]: read flush flagged "
+          f"{after_read[0]} replicas, exchange repairs {after_read[1]}; "
+          f"scrub {first}; then {second}; corruptions {corr}, repairs "
+          f"{rep} — equal to the CPU run; K1 launches {k1}, F1 {f1}")
+    return k1
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +654,7 @@ def phase_engine(dev: torch.device) -> None:
 
 
 class LaunchCheck:
-    """Holds every launch of ``svc`` to the K + 2 K1-launches contract
+    """Holds every launch of ``svc`` to one F1 launch and no K1 launch
     (a flush() that chains follow-up launches is checked per launch)
     and counts the launches."""
 
@@ -328,28 +663,42 @@ class LaunchCheck:
         launch = svc._launch
 
         def checked(*args, **kwargs):
-            before = cuda_quorum.quorum_launches
+            f1, k1 = cuda_engine.engine_step_launches, \
+                cuda_quorum.quorum_launches
             out = launch(*args, **kwargs)
-            got = cuda_quorum.quorum_launches - before
-            want = svc.last_launch_k + 2
-            if got != want:
-                raise AssertionError(f"K1 launched {got} times in a launch "
-                                     f"of K={svc.last_launch_k}, want "
-                                     f"{want}")
+            got = (cuda_engine.engine_step_launches - f1,
+                   cuda_quorum.quorum_launches - k1)
+            if got != (1, 0):
+                raise AssertionError(f"a launch ran F1 {got[0]} times and "
+                                     f"K1 {got[1]} times, want 1 and 0")
             self.launches += 1
             return out
         svc._launch = checked
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    cuda_engine.engine_step_launches = 0
+    cuda_quorum.quorum_launches = 0
+    cuda_quorum.quorum_s_launches = 0
+
+
+def read_counts() -> dict:
+    return {"F1": cuda_engine.engine_step_launches,
+            "K1": cuda_quorum.quorum_launches,
+            "K2": cuda_quorum.quorum_s_launches}
 
 
 def phase_service(dev: torch.device, card: str,
                   profile: Optional[str] = None):
     e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
     rng = np.random.default_rng(11)
+    torch.cuda.reset_peak_memory_stats(dev)
     svc = BatchedEnsembleService(WallRuntime(), e, m, s, tick=None,
                                  max_ops_per_tick=k, device=dev)
     torch.cuda.synchronize()
-    LaunchCheck(svc)
-    cuda_quorum.quorum_launches = 0            # the main path's run
+    chk = LaunchCheck(svc)
+    reset_counts()                             # the main path's run
     rows = np.arange(k)[:, None]
     slots = ((rows + rng.integers(0, s, (1, e))) % s).astype(np.int32)
     put, get = (np.full((k, e), op, np.int32)
@@ -416,7 +765,10 @@ def phase_service(dev: torch.device, card: str,
         if fut.value != want:
             raise AssertionError(f"kget_many on {ens} after the election "
                                  f"did not read the puts back")
-    launches = cuda_quorum.quorum_launches
+    counts = read_counts()
+    if counts["F1"] != chk.launches:
+        raise AssertionError(f"phase 4: F1 launched {counts['F1']} times "
+                             f"in {chk.launches} service launches")
     torch.cuda.synchronize()
     mem = torch.cuda.memory_allocated(dev)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -425,16 +777,17 @@ def phase_service(dev: torch.device, card: str,
     ex_ops_s = 4 * k * e / (sum(ex_ms) / 1e3)
     print(f"service {e}x{m}x{s} K={k} [{card}]: execute flush median "
           f"{statistics.median(ex_ms):.3f} ms, {ex_ops_s:.1f} ops/s "
-          f"(4 steady flushes of {k * e} ops); first flush (10k "
+          f"(all ops of 4 steady flushes of {k * e} over their summed "
+          f"time); first flush (10k "
           f"elections + puts) {flush_ms[0]:.3f} ms; keyed flushes "
           f"{flush_ms[5]:.3f} / {flush_ms[6]:.3f} ms "
           f"({len(sub)} ensembles x {len(keys)} keys)")
     print(f"service memory [{card}]: engine state {state_bytes} B, "
-          f"allocated {mem} B, peak {peak} B; K1 launches {launches} "
-          f"over {len(flush_ms)} flushes (K + 2 each)")
+          f"allocated {mem} B, peak {peak} B; launches {counts} over "
+          f"{len(flush_ms)} flushes")
     if profile:
         profile_flush(svc, put, slots, card, profile)
-    return launches
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +811,7 @@ def phase_rmw(dev: torch.device, card: str):
                                  max_ops_per_tick=k, device=dev)
     torch.cuda.synchronize()
     chk = LaunchCheck(svc)
-    cuda_quorum.quorum_launches = 0            # this path's run
+    reset_counts()                             # this path's run
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -562,7 +915,10 @@ def phase_rmw(dev: torch.device, card: str):
         if not (f.done and f.value == [("ok", STORM_N, last)]):
             raise AssertionError(f"storm key on {ens} read {f.value!r}, "
                                  f"last acked vsn {last}")
-    launches = cuda_quorum.quorum_launches
+    counts = read_counts()
+    if counts["F1"] != chk.launches:
+        raise AssertionError(f"phase 5: F1 launched {counts['F1']} times "
+                             f"in {chk.launches} service launches")
     print(f"rmw {e}x{m}x{s} K={k} [{card}]: execute OP_RMW flush "
           f"{rmw_ms[0]:.3f} ms (with {e} elections) / {rmw_ms[1]:.3f} ms "
           f"({k * e} ops each); read-back flush (K={hot}) "
@@ -575,9 +931,9 @@ def phase_rmw(dev: torch.device, card: str):
           f"{storm_ms:.3f} ms, {svc.rmw_conflicts - conflicts0} CAS "
           f"conflicts retried")
     print(f"fast reads [{card}]: {n_reads} keys in {fast_s * 1e3:.3f} ms, "
-          f"{fast_s / n_reads * 1e6:.3f} us/op; K1 launches {launches} "
-          f"over {chk.launches} launches (K + 2 each)")
-    return launches
+          f"{fast_s / n_reads * 1e6:.3f} us/op; launches {counts} over "
+          f"{chk.launches} service launches")
+    return counts
 
 
 def drive(svc: BatchedEnsembleService, futs, bound: int) -> int:
@@ -604,7 +960,7 @@ def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.execute(kind, slots, vals)
+        committed, _, _, _ = svc.execute(kind, slots, vals)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -613,18 +969,21 @@ def profile_flush(svc, kind, slots, card: str, path: str) -> None:
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(ev.self_device_time_total for ev in kernels)
     n_kern = sum(ev.count for ev in kernels)
-    k1 = [ev for ev in kernels if "quorum_met_kernel" in ev.key]
-    k1_n = sum(ev.count for ev in k1)
-    k1_us = sum(ev.self_device_time_total for ev in k1) / max(k1_n, 1)
+    f1 = [ev for ev in kernels if "engine_step_kernel" in ev.key]
+    f1_n = sum(ev.count for ev in f1)
+    f1_us = sum(ev.self_device_time_total for ev in f1) / max(f1_n, 1)
     table = events.table(sort_by="self_device_time_total", row_limit=25)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"[{card}] one execute() flush, wall {wall_us:.1f} us, "
                 f"device kernel time {dev_us:.1f} us\n{table}\n")
+    _, _, bound_ms = bound(*f1_work(svc.state, svc.up, committed))
     print(f"profile [{card}]: flush wall {wall_us:.1f} us (profiled), "
           f"device kernel time {dev_us:.1f} us (busy "
-          f"{dev_us / wall_us:.3f}), {n_kern} kernels; K1 {k1_n} "
-          f"launches, {k1_us:.3f} us device time each")
+          f"{dev_us / wall_us:.3f}), {n_kern} kernels; F1 {f1_n} "
+          f"launches, {f1_us:.3f} us device time each against its bound "
+          f"{bound_ms * 1e3:.3f} us for this flush "
+          f"({bound_ms * 1e3 / f1_us:.3f} of it)")
     # host enqueue of the fused step alone vs the device finishing it
     dev = svc.device
     e = svc.n_ens
@@ -662,28 +1021,46 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     k1 = phase_k1(dev)
-    cuda_quorum.quorum_s_launches = 0
+    reset_counts()
     k2 = phase_k2(dev, profile)
-    k2_launches = cuda_quorum.quorum_s_launches
+    k2_launches = read_counts()["K2"]
     phase_engine(dev)
-    cuda_quorum.quorum_s_launches = 0
+    f1 = phase_f1(dev, card)
+    reset_counts()
+    k1_exchange = phase_exchange(dev, card)
     by_path = {"phase4 keyed service": phase_service(dev, card, profile),
                "phase5 rmw + fast reads": phase_rmw(dev, card)}
-    k2_main = cuda_quorum.quorum_s_launches
-    if not all(by_path.values()):
-        raise AssertionError(f"K1 did not launch on a path: {by_path}")
+    f1_by_path = {p: c["F1"] for p, c in by_path.items()}
+    if not (all(f1_by_path.values()) and k1_exchange and k2_launches):
+        raise AssertionError(f"a kernel did not launch on its path: F1 "
+                             f"{f1_by_path}, K1 {k1_exchange}, K2 "
+                             f"{k2_launches}")
     kernels = [{
+        "name": "F1 engine_step", "route": "cuda",
+        "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
+        "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
+        "fuses": "riak_ensemble_tpu/ops/engine.py:1386",
+        "launches": sum(f1_by_path.values()),
+        "launches_by_path": f1_by_path,
+        "max_abs_err": f1["max_abs_err"], "ms": f1["ms"],
+        "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
+        "bound_by": f1["bound_by"], "library_ms": None,
+        "device_us": f1["device_us"]}, {
         "name": "K1 quorum_met_e", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
-        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches": k1_exchange,
+        "launches_by_path": {"phase3c exchange": k1_exchange,
+                             **{p: c["K1"] for p, c in by_path.items()}},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}, {
+        "bound_by": k1["bound_by"], "library_ms": None,
+        "device_us": k1["device_us"]}, {
         "name": "K2 quorum_met_s", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:83",
-        "launches": k2_launches, "main_path_launches": k2_main,
+        "launches": k2_launches,
+        "main_path_launches": sum(c["K2"] for c in by_path.values()),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None}]

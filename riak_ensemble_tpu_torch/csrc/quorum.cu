@@ -9,9 +9,10 @@
 // then MET (1) when every active view has heard >= thresh, else, for the
 // FIRST unmet view in order, NACK (-1) when n_nack >= thresh or
 // heard + n_nack == members, else UNDECIDED (0).  Views with no members
-// are padding: always met, never nack.  That tail is resolve_view(),
-// shared by both kernels as the TPU kernels share _resolve
-// (riak_ensemble_tpu/ops/pallas_quorum.py:41-63).
+// are padding: always met, never nack.  That tail is resolve_view() in
+// quorum_common.cuh, shared by both kernels as the TPU kernels share
+// _resolve (riak_ensemble_tpu/ops/pallas_quorum.py:41-63), and by the
+// fused engine step F1 (engine_step.cu).
 //
 // K1 (quorum_met_kernel) replaces quorum_met_epallas
 // (pallas_quorum.py:172, body _ekernel :153-167): the engine's form —
@@ -40,11 +41,14 @@
 // Bound on this card: bytes.  At the main-path shape (E = 10,000, M = 5,
 // V = 2) K1 reads ~200 KB and writes 10 KB and K2 reads ~140 KB and
 // writes 10 KB — about 0.05 us at 3.35 TB/s, far under one launch, so
-// both are launch-bound; fusing (or a CUDA graph over the engine's round
-// loop) is the lever, not a faster body.
+// both are launch-bound.  That is why the engine's flush no longer
+// launches K1: F1 evaluates the predicate inside its one launch per
+// flush; K1 serves the anti-entropy exchange.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quorum_common.cuh"
 
 namespace {
 
@@ -56,18 +60,6 @@ constexpr int kMaxViews = 128;
 // Mode codes: the index of the mode in REQUIRED_MODES.
 constexpr int kModeAll = 1;
 constexpr int kModeOther = 3;
-
-// The shared tail for one view, in view order.  Returns false when the
-// view is met (or inactive) and the caller goes on to the next view;
-// returns true, with *res set to NACK or UNDECIDED, when this is the
-// first unmet view — which decides the row.
-__device__ __forceinline__ bool resolve_view(int heard, int n_nack,
-                                             int members, int thresh,
-                                             int8_t* res) {
-  if (members == 0 || heard >= thresh) return false;
-  *res = (n_nack >= thresh || heard + n_nack == members) ? -1 : 0;
-  return true;
-}
 
 __global__ void quorum_met_kernel(const uint8_t* __restrict__ valid,
                                   const uint8_t* __restrict__ nack,

@@ -7,8 +7,9 @@ library with a plain C interface::
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 under ``riak_ensemble_tpu_torch/build/`` (listed in ``.gitignore``).
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing here runs at
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  Nothing here runs at
 import time; :func:`build_all` starts one nvcc per source, all at once.
 """
 
@@ -51,9 +52,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its name carries a digest of the source, of
+    every shared header (``csrc/*.cuh``) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        digest.update(f.encode())
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            digest.update(src.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -3,11 +3,12 @@
 Port of the main-path part of ``riak_ensemble_tpu/ops/engine.py``: the
 state layout (:class:`EngineState`, :class:`KvResult`, identical field
 names, dtypes and shapes), the Merkle path kernels, the election step,
-the K/V round with its whole RMW table, the K-round scan and the fused
-:func:`full_step` the service launches once per flush.  Semantics are
-the reference's, bit for bit; the docstrings there carry the protocol
-citations (riak_ensemble_peer.erl / msg.erl / synctree.erl) and are
-not repeated at length here.
+the K/V round with its whole RMW table, the K-round scan, the fused
+:func:`full_step` the service launches once per flush, and the
+anti-entropy exchange (:func:`verify_trees`, :func:`exchange_step`).
+Semantics are the reference's, bit for bit; the docstrings there carry
+the protocol citations (riak_ensemble_peer.erl / msg.erl /
+synctree.erl) and are not repeated at length here.
 
 What differs from the reference, and why:
 
@@ -19,12 +20,17 @@ What differs from the reference, and why:
 - Every integer reduction names ``dtype=torch.int32`` and every factory
   names ``torch.int32``: torch widens int sums to int64 where JAX (x64
   off) stays int32.
-- The quorum predicate (:func:`_quorum_met`) is kernel K1 on CUDA
-  tensors — for the election, the round context and every round — and
-  K1's plain version on CPU tensors.
-- ``lax.scan`` is a Python loop over the K rounds, and the rounds
-  update the object and tree planes IN PLACE (see :func:`kv_step_scan`):
-  a caller that needs its input state afterwards passes a copy.
+- On a CUDA state :func:`full_step`, :func:`kv_step_scan` and
+  :func:`kv_step` are ONE launch of kernel F1 (:mod:`.cuda_engine`):
+  election, context, all K rounds and the epoch adoption, with the
+  quorum predicate inside, updating every state plane IN PLACE.  On a
+  CPU state they run the plain versions below (:func:`full_step_plain`,
+  :func:`kv_step_scan_plain`), where ``lax.scan`` is a Python loop whose
+  rounds update the object and tree planes IN PLACE.  Either way a
+  caller that needs its input state afterwards passes a copy.
+- The quorum predicate (:func:`_quorum_met`, used by the plain step,
+  :func:`elect_step` and :func:`exchange_step`) is kernel K1 on CUDA
+  tensors and K1's plain version on CPU tensors.
 - ``.at[].set(mode="drop")`` scatters become gather → ``where`` →
   ``scatter_``: a lane that must not write writes back the value it
   read.  That is exact because each (ensemble, replica) row has ONE
@@ -45,6 +51,7 @@ import torch
 
 from riak_ensemble_tpu_torch import funref
 from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
+from riak_ensemble_tpu_torch.ops import cuda_engine
 from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.ops import quorum as quorum_lib
 from riak_ensemble_tpu_torch.ops.cuda_quorum import quorum_met_e
@@ -632,14 +639,15 @@ def kv_step(state: EngineState, kind: torch.Tensor, slot: torch.Tensor,
             ) -> Tuple[EngineState, KvResult]:
     """One K/V protocol round per ensemble (engine.py:868-918): kind,
     slot, val, exp_epoch, exp_seq [E] int32; lease_ok [E] bool; up
-    [E, Ml] bool.  Updates ``state``'s object/tree planes in place."""
-    ctx = _kv_context(state, up)
-    state, res = _kv_round(
-        state, ctx, kind[:, None], slot[:, None], val[:, None],
-        lease_ok[:, None],
-        None if exp_epoch is None else exp_epoch[:, None],
-        None if exp_seq is None else exp_seq[:, None])
-    return _adopt_epochs(state, ctx), _squeeze_lane(res)
+    [E, Ml] bool.  It is the K = 1 :func:`kv_step_scan` with the round
+    axis squeezed (one F1 launch on CUDA).  Updates ``state`` in
+    place."""
+    def one(t):
+        return None if t is None else t[None]
+    state, res = kv_step_scan(state, kind[None], slot[None], val[None],
+                              lease_ok[None], up, one(exp_epoch),
+                              one(exp_seq))
+    return state, KvResult(*(p[0] for p in res))
 
 
 def _empty_results(e: int, ml: int, device: torch.device) -> KvResult:
@@ -662,11 +670,28 @@ def kv_step_scan(state: EngineState, kind: torch.Tensor, slot: torch.Tensor,
                  ) -> Tuple[EngineState, KvResult]:
     """K sequential K/V rounds per ensemble (engine.py:945-979):
     kind/slot/val/lease_ok (and exp_epoch/exp_seq) ``[K, E]``, up
-    ``[E, Ml]`` held fixed.  The reference's ``lax.scan`` is a Python
-    loop here, with :func:`_kv_context` before it and
-    :func:`_adopt_epochs` after it.  The rounds update the obj_* and
-    tree_* planes of ``state`` IN PLACE (the scan carry); the returned
-    state shares those tensors.  Results are stacked ``[K, E]``."""
+    ``[E, Ml]`` held fixed.  One F1 launch without the election for a
+    CUDA state, :func:`kv_step_scan_plain` for a CPU state.  Updates
+    ``state`` in place; results are stacked ``[K, E]``."""
+    if state.epoch.device.type == "cpu":
+        return kv_step_scan_plain(state, kind, slot, val, lease_ok, up,
+                                  exp_epoch, exp_seq)
+    _, res = cuda_engine.engine_step(state, None, None, kind, slot, val,
+                                     lease_ok, up, exp_epoch, exp_seq)
+    return state, KvResult(*res)
+
+
+def kv_step_scan_plain(state: EngineState, kind: torch.Tensor,
+                       slot: torch.Tensor, val: torch.Tensor,
+                       lease_ok: torch.Tensor, up: torch.Tensor,
+                       exp_epoch: Optional[torch.Tensor] = None,
+                       exp_seq: Optional[torch.Tensor] = None
+                       ) -> Tuple[EngineState, KvResult]:
+    """:func:`kv_step_scan` as torch ops — F1's plain version.  The
+    reference's ``lax.scan`` is a Python loop, with :func:`_kv_context`
+    before it and :func:`_adopt_epochs` after it.  The rounds update the
+    obj_* and tree_* planes of ``state`` IN PLACE (the scan carry); the
+    returned state shares those tensors."""
     ctx = _kv_context(state, up)
     k = kind.shape[0]
     if k == 0:
@@ -694,12 +719,31 @@ def full_step(state: EngineState, elect: torch.Tensor, cand: torch.Tensor,
               exp_seq: Optional[torch.Tensor] = None
               ) -> Tuple[EngineState, torch.Tensor, KvResult]:
     """Election round (where needed) followed by K K/V rounds, fused
-    (engine.py:1386-1404) — the step the service launches per flush.
-    On CUDA it launches K1 K + 2 times.  Updates ``state``'s object
-    and tree planes in place."""
+    (engine.py:1386-1404) — the step the service launches per flush:
+    one F1 launch for a CUDA state, :func:`full_step_plain` for a CPU
+    state.  Updates ``state`` in place."""
+    if state.epoch.device.type == "cpu":
+        return full_step_plain(state, elect, cand, kind, slot, val,
+                               lease_ok, up, exp_epoch, exp_seq)
+    won, res = cuda_engine.engine_step(state, elect, cand, kind, slot, val,
+                                       lease_ok, up, exp_epoch, exp_seq)
+    return state, won, KvResult(*res)
+
+
+def full_step_plain(state: EngineState, elect: torch.Tensor,
+                    cand: torch.Tensor, kind: torch.Tensor,
+                    slot: torch.Tensor, val: torch.Tensor,
+                    lease_ok: torch.Tensor, up: torch.Tensor,
+                    exp_epoch: Optional[torch.Tensor] = None,
+                    exp_seq: Optional[torch.Tensor] = None
+                    ) -> Tuple[EngineState, torch.Tensor, KvResult]:
+    """:func:`full_step` as torch ops — F1's plain version and oracle:
+    :func:`elect_step`, then :func:`kv_step_scan_plain`.  Its ballot
+    planes are new tensors, its object and tree planes are updated in
+    place."""
     state, won = elect_step(state, elect, cand, up)
-    state, res = kv_step_scan(state, kind, slot, val, lease_ok, up,
-                              exp_epoch=exp_epoch, exp_seq=exp_seq)
+    state, res = kv_step_scan_plain(state, kind, slot, val, lease_ok, up,
+                                    exp_epoch=exp_epoch, exp_seq=exp_seq)
     return state, won, res
 
 
@@ -723,6 +767,22 @@ def gather_result_columns(res: KvResult,
         obj_vsn=take(res.obj_vsn))
 
 
+# ---------------------------------------------------------------------------
+# Integrity maintenance (the anti-entropy exchange and its sweep)
+
+
+def verify_trees(state: EngineState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full integrity sweep per replica (engine.py:1099-1115): recompute
+    every upper level from the stored leaves and every leaf from the
+    stored object.  Returns ``(node_bad [E, Ml], leaf_bad [E, Ml])``."""
+    node_bad = (build_uppers(state.tree_leaf)
+                != state.tree_node).any(-1).any(-1)
+    expect_leaf = hashk.obj_leaf_hash(state.obj_epoch, state.obj_seq,
+                                      state.obj_val)
+    leaf_bad = (expect_leaf != state.tree_leaf).any(-1).any(-1)
+    return node_bad, leaf_bad
+
+
 def rebuild_trees(state: EngineState, mask: torch.Tensor) -> EngineState:
     """Rebuild replicas' trees from their object stores
     (engine.py:1117-1127); ``mask [E, Ml]`` selects replicas."""
@@ -732,6 +792,62 @@ def rebuild_trees(state: EngineState, mask: torch.Tensor) -> EngineState:
     tree_leaf = torch.where(m4, leaves, state.tree_leaf)
     tree_node = torch.where(m4, build_uppers(tree_leaf), state.tree_node)
     return state._replace(tree_leaf=tree_leaf, tree_node=tree_node)
+
+
+def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor
+                  ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
+    """Whole-store anti-entropy (engine.py:1139-1219, the tree exchange
+    of riak_ensemble_exchange.erl:67-98): for every slot of the
+    ensembles in ``run [E]`` that reach a majority of up members
+    (through K1 on CUDA), the newest hash-valid object among the up
+    replicas wins and every up replica adopts it; adopters rebuild
+    their trees.  A slot with no hash-valid holder is left as it is.
+
+    Returns ``(state', diverged [E, Ml], synced [E])``.  The object and
+    tree planes of ``state'`` are new tensors: ``state`` is left as it
+    was, so a caller can fall back to it if the step raises."""
+    member = state.view_mask.any(1)
+    heard = up & member
+    adopt = run & _quorum_met(heard, heard, state.view_mask)   # [E]
+
+    # Source validity is the object's leaf; a replica whose upper tree
+    # is corrupt still vouches for its objects and gets its tree rebuilt.
+    leaf_ok = (hashk.obj_leaf_hash(state.obj_epoch, state.obj_seq,
+                                   state.obj_val)
+               == state.tree_leaf).all(-1)                   # [E, Ml, S]
+    node_ok = (build_uppers(state.tree_leaf)
+               == state.tree_node).all(-1).all(-1)           # [E, Ml]
+    h = heard[:, :, None] & leaf_ok & (state.obj_seq > 0)
+    emax = torch.where(h, state.obj_epoch, -1).amax(1)       # [E, S]
+    on_e = h & (state.obj_epoch == emax[:, None, :])
+    smax = torch.where(on_e, state.obj_seq, -1).amax(1)
+    on_max = on_e & (state.obj_seq == smax[:, None, :])
+    vmax = torch.where(on_max, state.obj_val, _INT32_MIN).amax(1)
+    found = smax > 0                                         # [E, S]
+    w_epoch = torch.where(found, emax, 0)[:, None, :]
+    w_seq = torch.where(found, smax, 0)[:, None, :]
+    w_val = torch.where(found, vmax, 0)[:, None, :]
+
+    gate = adopt[:, None] & heard                            # [E, Ml]
+    tgt = gate[:, :, None] & found[:, None, :]               # [E, Ml, S]
+    mismatch = ((state.obj_epoch != w_epoch) | (state.obj_seq != w_seq)
+                | (state.obj_val != w_val))
+    diverged = (((mismatch | ~leaf_ok) & gate[:, :, None]).any(-1)
+                | (~node_ok & gate))
+    obj_epoch = torch.where(tgt, w_epoch, state.obj_epoch)
+    obj_seq = torch.where(tgt, w_seq, state.obj_seq)
+    obj_val = torch.where(tgt, w_val, state.obj_val)
+
+    # Leaves refresh only where a winner was adopted or the leaf was
+    # already valid: rehashing a damaged no-winner leaf would bless it.
+    leaves = hashk.obj_leaf_hash(obj_epoch, obj_seq, obj_val)
+    fix_leaf = tgt | (leaf_ok & gate[:, :, None])
+    tree_leaf = torch.where(fix_leaf[..., None], leaves, state.tree_leaf)
+    tree_node = torch.where(gate[:, :, None, None], build_uppers(tree_leaf),
+                            state.tree_node)
+    return (state._replace(obj_epoch=obj_epoch, obj_seq=obj_seq,
+                           obj_val=obj_val, tree_leaf=tree_leaf,
+                           tree_node=tree_node), diverged, adopt)
 
 
 def reset_rows(state: EngineState, mask: torch.Tensor,

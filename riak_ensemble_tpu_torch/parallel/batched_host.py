@@ -23,6 +23,10 @@ read→fn→CAS chain, whose CAS half chains into the flush that resolved
 its read.  Lease-protected fast reads serve ``kget`` / ``kget_vsn`` /
 ``kget_many`` from the leader's committed host mirrors, with no device
 round, while the row's lease holds and the slot has no pending write.
+A launch that flags synctree corruption runs the anti-entropy exchange
+(:func:`engine.exchange_step`) at once, and :meth:`BatchedEnsembleService.scrub`
+sweeps every replica's tree, on demand or every ``scrub_every_flushes``
+flushes.
 
 It implements one configuration of the reference service — the one the
 reference runs with ``RETPU_COMPACT=0 RETPU_NATIVE_RESOLVE=0
@@ -32,8 +36,7 @@ pipeline depth 1, no WAL and a caller-driven flush (``tick=None``).
 It reads no environment variables: the reference's ``RETPU_FAST_READS``
 is :meth:`BatchedEnsembleService.set_fast_reads` and its
 ``RETPU_COMM_REPL`` the ``comm_repl`` argument.  Wide rounds,
-compaction, the WAL, membership and the anti-entropy exchange are later
-slices.
+compaction, the WAL and membership are later slices.
 """
 
 from __future__ import annotations
@@ -258,7 +261,8 @@ class BatchedEnsembleService:
     reads are on when ``config.trust_lease`` (:meth:`set_fast_reads`
     turns them off).  ``comm_repl`` gates :meth:`kmodify_many`'s
     enqueue-side coalescing of commutative and semilattice funs, as the
-    reference's ``RETPU_COMM_REPL`` does.
+    reference's ``RETPU_COMM_REPL`` does.  ``scrub_every_flushes`` runs
+    :meth:`scrub` every that many flushes (None: on demand only).
     """
 
     def __init__(self, runtime: Any, n_ens: int, n_peers: int,
@@ -266,7 +270,8 @@ class BatchedEnsembleService:
                  max_ops_per_tick: int = 64,
                  config: Optional[Config] = None,
                  device: DeviceLike = None,
-                 comm_repl: bool = True) -> None:
+                 comm_repl: bool = True,
+                 scrub_every_flushes: Optional[int] = None) -> None:
         if tick is not None:
             raise NotImplementedError(
                 "timer-driven flushing is not ported; pass tick=None "
@@ -354,21 +359,25 @@ class BatchedEnsembleService:
         self._pending_writes: List[List[int]] = [
             [0] * n_slots for _ in range(n_ens)]
         #: rows whose launch flagged synctree corruption: fast reads
-        #: take the device round (its integrity gate vets the read).
-        #: The reference clears a row once its exchange sweep syncs it;
-        #: that sweep is not ported, so a flagged row stays flagged.
+        #: take the device round (its integrity gate vets the read)
+        #: until an exchange syncs the row
         self._corrupt_rows = np.zeros((n_ens,), dtype=bool)
         self.read_fastpath_hits = 0
         self.read_fastpath_misses = 0
         self.read_fastpath_miss_reasons: Dict[str, int] = {}
         self.flushes = 0
         self.ops_served = 0
-        #: integrity-gate detections (replica flagged corrupt in a round)
+        #: integrity-gate detections (replica flagged corrupt in a round,
+        #: or found damaged by a scrub) and the divergent replicas that
+        #: the exchange re-synced
         self.corruptions = 0
+        self.repairs = 0
+        #: periodic anti-entropy cadence, a flush-count watermark (the
+        #: reference's AAE-timer analog)
+        self.scrub_every_flushes = scrub_every_flushes
+        self._scrubbed_at_flush = 0
         #: client waiter exceptions contained by _safe_resolve
         self.waiter_errors = 0
-        #: K of the last launch (its quorum launches are K + 2)
-        self.last_launch_k = 0
         #: RMW counters: host-path kmodify CAS attempts that failed and
         #: were retried, ops the device mod-fun table served, and
         #: duplicate-key ops kmodify_many folded into a queued row
@@ -1111,7 +1120,7 @@ class BatchedEnsembleService:
             # cycle; an election-only launch runs if one is needed
             served += self._chain_flush()
             if not self._election_inputs()[0].any():
-                self._fire_idle_retries()
+                self._flush_maintenance()
                 return served
         # Bucket the batch depth to the next power of two (capped at
         # max_k), as the reference does for its compile cache — kept so
@@ -1185,7 +1194,7 @@ class BatchedEnsembleService:
             raise
         served += self._resolve_flush(taken, planes)
         served += self._chain_flush()
-        self._fire_idle_retries()
+        self._flush_maintenance()
         return served
 
     def _chain_flush(self) -> int:
@@ -1361,15 +1370,13 @@ class BatchedEnsembleService:
         def up_(a) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         e = self.n_ens
-        lease_j = (up_(lease_ok)[None, :].expand(k, e) if k
-                   else torch.zeros((0, e), dtype=torch.bool, device=dev))
+        lease_j = up_(np.repeat(lease_ok[None, :], k, axis=0))
         state, won, res = eng.full_step(
             self.state, up_(elect), up_(cand), up_(kind), up_(slot),
             up_(val), lease_j, self._up_device(),
             exp_epoch=None if exp_e is None else up_(exp_e),
             exp_seq=None if exp_s is None else up_(exp_s))
         self.state = state
-        self.last_launch_k = k
         flat = self._fetch_packed(_pack_results_body(won, res, want_vsn))
         (won_np, quorum_ok, corrupt_np, committed, get_ok, found, value,
          vsn) = unpack_results(flat, e, self.n_peers, k, want_vsn)
@@ -1379,14 +1386,21 @@ class BatchedEnsembleService:
         # leader confirmed its epoch with a quorum (peer.erl:1092-1095).
         renew = won_np | quorum_ok
         self.lease_until[renew] = now + self.config.lease()
-        # Device-detected integrity failures are counted and their rows
-        # flagged off the fast path.  The reference follows them with
-        # an anti-entropy exchange sweep that clears the flag; that
-        # sweep is not ported yet (the in-round read repair still heals
-        # every slot a successful read touches).
+        # Device-detected integrity failures -> anti-entropy exchange for
+        # the affected ensembles (tree_corrupted -> repair -> exchange,
+        # peer.erl:1276-1277): divergent slots re-adopt the newest
+        # hash-valid copy and the replicas' trees are rebuilt.  Flagged
+        # rows take the device round for reads until the exchange syncs
+        # them; residual damage re-flags on its next device access.
         if k and corrupt_np.any():
             self.corruptions += int(corrupt_np.sum())
-            self._corrupt_rows |= corrupt_np.any(1)
+            run = corrupt_np.any(1)
+            self._corrupt_rows |= run
+            self.state, diverged, synced = eng.exchange_step(
+                self.state, up_(run), self._up_device())
+            synced_np = synced.cpu().numpy()
+            self.repairs += int(diverged.cpu().numpy()[synced_np].sum())
+            self._corrupt_rows &= ~(run & synced_np)
         self.flushes += 1
         # A won election bumped the row's ballot epoch: the next device
         # access of each object re-versions it, so the row's vsn mirror
@@ -1394,6 +1408,49 @@ class BatchedEnsembleService:
         if won_np.any():
             self._slot_vsn_ok[won_np] = False
         return committed, get_ok, found, value, vsn
+
+    def _flush_maintenance(self) -> None:
+        """Post-launch upkeep of every flush: the periodic scrub against
+        its flush-count watermark, then the idle retry collapse."""
+        if (self.scrub_every_flushes
+                and self.flushes - self._scrubbed_at_flush
+                >= self.scrub_every_flushes):
+            self.scrub()
+        self._fire_idle_retries()
+
+    def scrub(self) -> Dict[str, int]:
+        """Full anti-entropy sweep (batched_host.py:3918-3961): verify
+        every replica's tree, run the exchange over the ensembles holding
+        damage, verify again, and report what was found and healed.
+        Damage on a slot no read touches is invisible to the data path
+        until a scrub.  Swept rows with residual damage stay off the
+        read fast path; healed ones re-admit it.  If the exchange
+        raises, the state is left as it was."""
+        self._scrubbed_at_flush = self.flushes
+        node_bad, leaf_bad = eng.verify_trees(self.state)
+        bad = (node_bad | leaf_bad).cpu().numpy()             # [E, M]
+        found = int(bad.sum())
+        if not found:
+            return {"replicas_damaged": 0, "replicas_healed": 0,
+                    "ensembles_swept": 0}
+        run = bad.any(1)
+        self.corruptions += found
+        snapshot = self.state
+        try:
+            self.state, diverged, synced = eng.exchange_step(
+                self.state, torch.from_numpy(run).to(self.device),
+                self._up_device())
+            node_bad2, leaf_bad2 = eng.verify_trees(self.state)
+            still = (node_bad2 | leaf_bad2).cpu().numpy() & bad
+        except BaseException:
+            self.state = snapshot
+            raise
+        healed = found - int(still.sum())
+        self.repairs += int(
+            diverged.cpu().numpy()[synced.cpu().numpy()].sum())
+        self._corrupt_rows = np.where(run, still.any(1), self._corrupt_rows)
+        return {"replicas_damaged": found, "replicas_healed": healed,
+                "ensembles_swept": int(run.sum())}
 
     def _safe_resolve(self, fut: Future, result: Any) -> None:
         """Resolve a client future, containing waiter exceptions so one

@@ -12,9 +12,10 @@ random stream mixes them.  Futures, packed buffers, engine state, the
 mirrors and the hit / miss counters (``read_fastpath_miss_reasons``
 included) must be equal.  Tolerance: exact equality.
 
-The port's own behaviour where it deliberately differs — a corrupt row
-stays flagged because the exchange sweep is not ported — and the
-opt-outs are checked on the port alone.
+The corrupt-row flag's life (set by a detection, cleared once the
+exchange syncs the row, kept while it cannot) and the opt-outs are
+checked on the port alone; ``test_torch_exchange.py`` holds the same
+flows against the JAX service.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ import pytest
 
 from riak_ensemble_tpu_torch import funref as tfunref
 from riak_ensemble_tpu_torch.config import Config
+from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from test_torch_kmodify import FixedClock, pair  # noqa: F401  (fixture)
 
@@ -189,11 +191,10 @@ def _settle(svc, fut, n=10):
     raise AssertionError("future never resolved")
 
 
-def test_corrupt_row_flag_stays_until_the_exchange_slice():
+def test_corrupt_row_flag_clears_once_the_exchange_syncs_it():
     """Damage a minority copy and force a device read: the launch flags
-    the row, its reads take the device round (whose integrity gate
-    still serves the quorum value), and — with no exchange sweep in the
-    port yet — the flag stays set while other rows keep reading fast."""
+    the row, the exchange that runs in the same launch re-syncs it and
+    clears the flag, and the next read of the row is fast again."""
     svc = _svc()
     assert _settle(svc, svc.kput(0, "k", b"v"))[0] == "ok"
     assert _settle(svc, svc.kput(1, "k", b"w"))[0] == "ok"
@@ -202,14 +203,34 @@ def test_corrupt_row_flag_stays_until_the_exchange_slice():
     svc.lease_until[:] = 0.0  # force the device round
     assert _settle(svc, svc.kget(0, "k")) == ("ok", b"v")
     assert svc.corruptions > 0
-    assert svc._corrupt_rows.tolist() == [True, False]
+    assert svc._corrupt_rows.tolist() == [False, False]
     g = svc.kget(0, "k")
-    assert not g.done
-    assert svc.read_fastpath_miss_reasons["corrupt"] == 1
+    assert g.done and g.value == ("ok", b"v")
+    assert "corrupt" not in svc.read_fastpath_miss_reasons
+    assert not any(bad.any() for bad in eng.verify_trees(svc.state))
+
+
+def test_corrupt_row_flag_stays_while_the_exchange_cannot_sync():
+    """With only the damaged leader up, the exchange has no majority:
+    the row stays flagged and its reads take the device round until a
+    launch with the peers back up detects, repairs and syncs it."""
+    svc = _svc()
+    assert _settle(svc, svc.kput(0, "k", b"v"))[0] == "ok"
+    slot = svc.key_slot[0]["k"]
+    svc.state.obj_val[0, 0, slot] = 424242
+    svc.set_peer_up(0, 1, False)
+    svc.set_peer_up(0, 2, False)
+    svc.lease_until[:] = 0.0
+    assert _settle(svc, svc.kget(0, "k")) == "failed"
+    assert svc._corrupt_rows.tolist() == [True, False]
+    assert svc.repairs == 0
+    svc.set_peer_up(0, 1, True)
+    svc.set_peer_up(0, 2, True)
+    g = svc.kget(0, "k")
+    assert not g.done and svc.read_fastpath_miss_reasons["corrupt"] == 1
     assert _settle(svc, g) == ("ok", b"v")
-    g1 = svc.kget(1, "k")
-    assert g1.done and g1.value == ("ok", b"w")
-    assert svc._corrupt_rows[0]
+    assert svc._corrupt_rows.tolist() == [False, False]
+    assert not any(bad.any() for bad in eng.verify_trees(svc.state))
 
 
 def test_opt_outs_and_margin_check():
