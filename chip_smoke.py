@@ -39,14 +39,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    (coalesced), 16 concurrent host-path ``kmodify`` increments of one
    key on each of 64 ensembles (exactly +16 within a stated flush
    bound), and ``kget_many`` of everything written, served by the fast
-   path and checked against the acknowledged values.
+   path and checked against the acknowledged values;
+6. active-column compaction and the launch pipeline: (a) F1 in sliced
+   mode against ``full_step_sliced_plain`` on the card, bit for bit, at
+   the headline shape with a lone active column, 256 and 2,048 (each with
+   electing rows and row E - 1 active before the pads) and at the edge
+   shapes of 3b, timed at A = 256 and 2,048; (b) the keyed service at
+   the headline size with 256 of 10,000 ensembles active, compacted
+   against ``compact=False`` (equal results; payload bytes, sliced and F1
+   launches, median flush time per arm); (c) a stream of K = 64 flushes
+   through ``execute_async`` at depth 2 against ``execute`` at depth 1
+   (equal results and final state; wall per flush; the host's settle of
+   launch N returning while launch N + 1 still runs on the card).
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers,
 and as its last line ``{"ok": true, "device": {...}}``.  It exits
 non-zero without that line when no CUDA device is visible.  With
 ``--profile PATH`` it also traces one full-size flush with
 torch.profiler (kernels per flush, device time, F1's device time per
-launch) and writes the table to PATH.
+launch) and writes the table to PATH, and prints the device's busy share
+of the depth-1 and depth-2 streams of phase 6(c).
 """
 
 import json
@@ -476,28 +488,35 @@ def f1_case(dev, name, e, m, s, k, views, steps, elect_every, seed):
     return stats
 
 
-def f1_work(st, up: np.ndarray, committed: np.ndarray) -> tuple:
-    """(bytes, int32 ops) F1 needs for one full_step on these inputs.
-    Bytes: every state plane read once and the ballot, object and tree
-    planes written once, every input and result plane once.  Ops: per
-    ensemble and round, the integrity gate of every replica (its leaf
-    hash and one 16-child fold per upper level) and, for every replica
-    that commits (this run's commits x the ensemble's up members), the
-    new leaf hash and its path's folds; read repairs are not counted."""
+def f1_work(st, up: np.ndarray, committed: np.ndarray,
+            rows: Optional[np.ndarray] = None) -> tuple:
+    """(bytes, int32 ops) F1 needs for one full_step on these inputs —
+    for a sliced step, of the ``rows`` it steps (``committed`` is then
+    A-wide, its pad columns never commit).  Bytes: every state plane of
+    the stepped rows read once and the ballot, object and tree planes
+    written once, every input and result plane once.  Ops: per ensemble
+    and round, the integrity gate of every replica (its leaf hash and one
+    16-child fold per upper level) and, for every replica that commits
+    (this run's commits x the ensemble's up members), the new leaf hash
+    and its path's folds; read repairs are not counted."""
     e, m, s = st.obj_val.shape
     u = st.tree_node.shape[2]
     v = st.view_mask.shape[1]
-    k = committed.shape[0]
+    k, a = committed.shape
+    heard = up & st.view_mask.any(1).cpu().numpy()
+    if rows is not None:
+        e = len(rows)
+        heard = heard[rows]
+        committed = committed[:, :e]
     nlev = len(eng.tree_sizes(s))
     rw = 3 * e * m * s * 4 + e * m * s * 16 + e * m * u * 16 + 2 * e * m * 4 \
         + 2 * e * 4
-    nbytes = (2 * rw + e * v * m + e * m + 5 * e
-              + k * e * (5 * 4 + 1)                  # op planes
-              + k * e * (4 + 4 + 8 + m) + e)         # results, won
+    nbytes = (2 * rw + e * v * m + e * m + 5 * a
+              + k * a * (5 * 4 + 1)                  # op planes
+              + k * a * (4 + 4 + 8 + m) + a)         # results, won
     # a fold: 16 children x 4 lanes x (xor, mul, add, 8 for fmix, sum)
     # plus 4 lanes x 19 for the stir and seal; a leaf hash 4 x 13
     fold, leaf = 16 * 4 * 12 + 4 * 19, 4 * 13
-    heard = up & st.view_mask.any(1).cpu().numpy()
     writers = int((committed * heard.sum(1)[None, :]).sum())
     ops = k * e * m * (leaf + 4 + nlev * (fold + 4)) \
         + writers * (leaf + nlev * fold)
@@ -654,13 +673,13 @@ def phase_exchange(dev: torch.device, card: str, e: int = E_FULL,
 
 
 class LaunchCheck:
-    """Holds every launch of ``svc`` to one F1 launch and no K1 launch
-    (a flush() that chains follow-up launches is checked per launch)
-    and counts the launches."""
+    """Holds the enqueue half of every launch of ``svc`` to one F1 launch
+    and no K1 launch (a flush() that chains follow-up launches is checked
+    per launch) and counts the launches."""
 
     def __init__(self, svc: BatchedEnsembleService) -> None:
         self.launches = 0
-        launch = svc._launch
+        launch = svc._launch_enqueue
 
         def checked(*args, **kwargs):
             f1, k1 = cuda_engine.engine_step_launches, \
@@ -673,18 +692,20 @@ class LaunchCheck:
                                      f"K1 {got[1]} times, want 1 and 0")
             self.launches += 1
             return out
-        svc._launch = checked
+        svc._launch_enqueue = checked
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     cuda_engine.engine_step_launches = 0
+    cuda_engine.engine_step_sliced_launches = 0
     cuda_quorum.quorum_launches = 0
     cuda_quorum.quorum_s_launches = 0
 
 
 def read_counts() -> dict:
     return {"F1": cuda_engine.engine_step_launches,
+            "F1 sliced": cuda_engine.engine_step_sliced_launches,
             "K1": cuda_quorum.quorum_launches,
             "K2": cuda_quorum.quorum_s_launches}
 
@@ -950,6 +971,412 @@ def drive(svc: BatchedEnsembleService, futs, bound: int) -> int:
     return n
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: active-column compaction and the launch pipeline
+
+#: (name, E, M, S, K, views, steps, real rows, bucket, row E - 1 active)
+F1_SLICED_CASES = [
+    ("headline, a lone column", E_FULL, M_FULL, S_FULL, K_FULL, None, 2, 1,
+     8, True),
+    ("headline, 256 active", E_FULL, M_FULL, S_FULL, K_FULL, None, 3, 250,
+     256, True),
+    ("headline, 2048 active", E_FULL, M_FULL, S_FULL, K_FULL, None, 2,
+     2000, 2048, True),
+    ("headline, 256 active, row E-1 idle after the first step", E_FULL,
+     M_FULL, S_FULL, K_FULL, None, 3, 250, 256, False),
+    ("M=3", 2048, 3, 128, 8, None, 3, 120, 128, True),
+    ("M=7 S=33 (unaligned object rows, short level)", 2048, 7, 33, 8, None,
+     3, 120, 128, True),
+    ("M=32 S=16 (one level, 8 warps)", 512, 32, 16, 8, None, 3, 60, 64,
+     True),
+    ("joint views", 2048, 5, 128, 8, [[0, 1, 2], [1, 2, 3, 4]], 3, 120, 128,
+     True),
+    ("K=0 (election only)", 4096, 5, 128, 0, None, 2, 500, 512, True),
+    ("K=1", 4096, 5, 128, 1, None, 3, 500, 512, True),
+]
+
+
+def sliced_inputs(rng: np.random.Generator, leader: np.ndarray, e: int,
+                  m: int, s: int, k: int, n_real: int, bucket: int,
+                  last_active: bool, elect_all: bool):
+    """A sliced step's inputs: ``n_real`` distinct active rows (row E - 1
+    among them when ``last_active``) then pads (index E) up to
+    ``bucket``; the phase 3b stream's planes taken at those columns,
+    the pads NOOP and not electing."""
+    pool = e - 1
+    rows = rng.choice(pool, n_real - last_active, replace=False)
+    if last_active:
+        rows = np.append(rows, e - 1)
+    active = np.full(bucket, e, np.int32)
+    active[:n_real] = np.sort(rows)
+    real = active < e
+    col = np.minimum(active, e - 1)
+    elect, cand, kind, slot, val, lease, up, exp_e, exp_s = f1_stream(
+        rng, leader, e, m, s, k)
+
+    def cols(p):
+        out = np.ascontiguousarray(p[:, col])
+        out[:, ~real] = 0
+        return out
+
+    def vec(p):
+        out = np.ascontiguousarray(p[col])
+        out[~real] = 0
+        return out
+    if elect_all:       # every real row elects, with a valid candidate
+        elect_a = real.copy()
+        cand_a = np.where(real, up[col].argmax(1), 0).astype(np.int32)
+    else:
+        elect_a, cand_a = vec(elect), vec(cand)
+    planes = [elect_a, cand_a, cols(kind), cols(slot), cols(val),
+              cols(lease), up, cols(exp_e), cols(exp_s)]
+    return active, planes
+
+
+def f1_sliced_case(dev, name, e, m, s, k, views, steps, n_real, bucket,
+                   last_active, seed):
+    """Run one case's sliced steps through F1 and through
+    ``full_step_sliced_plain`` from the same state; raise on any
+    difference.  Returns counts of what the stream exercised."""
+    rng = np.random.default_rng(seed)
+    st_f1 = eng.init_state(e, m, s, views=views, device=dev)
+    st_pl = copy_state(st_f1)
+    stats = {"won": 0, "commits": 0, "corrupt": 0, "pad_quorum_ok": 0}
+    for step in range(steps):
+        if step:
+            damage(rng, (st_f1, st_pl), max(n_real // 8, 4))
+        # row E - 1 is active in the first step either way (it elects a
+        # leader there), so an idle row E - 1 has a live ballot for the
+        # pads to read
+        active, planes = sliced_inputs(
+            rng, st_pl.leader.cpu().numpy(), e, m, s, k, n_real, bucket,
+            last_active or step == 0, elect_all=step == 0)
+        t = [torch.from_numpy(p).to(dev) for p in planes]
+        kw = {"exp_epoch": t[7], "exp_seq": t[8]}
+        before = cuda_engine.engine_step_sliced_launches
+        st_f1, won_f, res_f = eng.full_step_sliced(st_f1, active, *t[:7],
+                                                   **kw)
+        st_pl, won_p, res_p = eng.full_step_sliced_plain(st_pl, active,
+                                                         *t[:7], **kw)
+        torch.cuda.synchronize()
+        if cuda_engine.engine_step_sliced_launches != before + 1:
+            raise AssertionError(f"F1 sliced {name}: no sliced launch")
+        if not torch.equal(won_f.cpu(), won_p.cpu()):
+            raise AssertionError(f"F1 sliced {name}, step {step}: won "
+                                 f"differs")
+        bad = (diff_fields(st_f1, st_pl, eng.EngineState._fields)
+               + diff_fields(res_f, res_p, eng.KvResult._fields))
+        if bad:
+            raise AssertionError(f"F1 sliced {name}, step {step}: {bad} "
+                                 f"differ from full_step_sliced_plain")
+        stats["won"] += int(won_p.sum())
+        stats["commits"] += int(res_p.committed.sum())
+        stats["corrupt"] += int(res_p.tree_corrupt.sum())
+        stats["pad_quorum_ok"] += int(res_p.quorum_ok[:, n_real:].sum())
+    return stats
+
+
+def time_sliced(dev, card: str, n_real: int, bucket: int) -> dict:
+    """Sliced F1 at the headline shape with ``n_real`` active rows in an
+    A = ``bucket`` grid: ms per call back to back, device µs per launch,
+    the plain version, and the bound of the stepped rows' work."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(98 + bucket)
+    st = eng.init_state(e, m, s, device=dev)
+    active, planes = sliced_inputs(rng, np.full(e, -1, np.int32), e, m, s,
+                                   k, n_real, bucket, True, elect_all=True)
+    t = [torch.from_numpy(p).to(dev) for p in planes]
+    args, kw = t[:7], {"exp_epoch": t[7], "exp_seq": t[8]}
+    st, _, res = eng.full_step_sliced(st, active, *args, **kw)  # elect, fill
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: eng.full_step_sliced(st, active, *args, **kw),
+                 iters=10)
+    dev_us = device_us_per_launch(
+        lambda: eng.full_step_sliced(st, active, *args, **kw),
+        "engine_step_kernel", n=20)
+    st_pl = copy_state(st)
+    plain_ms = cuda_ms(lambda: eng.full_step_sliced_plain(
+        st_pl, active, *args, **kw), iters=1, reps=3)
+    nbytes, ops = f1_work(st, planes[6], res.committed.cpu().numpy(),
+                          rows=active[:n_real])
+    bytes_ms, ops_ms, bound_ms = bound(nbytes, ops)
+    print(f"F1 sliced at {e}x{m}x{s} K={k}, A={bucket} ({n_real} rows) "
+          f"[{card}]: full_step_sliced {ms:.6f} ms per call back to back, "
+          f"{dev_us:.3f} us device time per launch; plain {plain_ms:.3f} "
+          f"ms; bound {bound_ms:.6f} ms = max(bytes {nbytes} B -> "
+          f"{bytes_ms:.6f} ms, int32 ops {ops} -> {ops_ms:.6f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "device_us": dev_us, "rows": n_real, "max_abs_err": 0,
+            "library_ms": None}
+
+
+def phase_f1_sliced(dev: torch.device, card: str) -> dict:
+    total = {"corrupt": 0, "pad_quorum_ok": 0}
+    for i, case in enumerate(F1_SLICED_CASES):
+        name, e, m, s, k, views, steps, n_real, bucket, last = case
+        t0 = time.perf_counter()
+        stats = f1_sliced_case(dev, name, e, m, s, k, views, steps, n_real,
+                               bucket, last, 200 + i)
+        print(f"F1 sliced == plain  {name}: E={e} M={m} S={s} K={k} "
+              f"A={bucket} ({n_real} rows), {steps} steps, {stats} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not stats["won"] or (k and not stats["commits"]):
+            raise AssertionError(f"F1 sliced case {name} exercised no "
+                                 f"election or no commit: {stats}")
+        for key in total:
+            total[key] += stats[key]
+    if not all(total.values()):
+        raise AssertionError(f"the sliced cases raised no integrity flag or "
+                             f"no pad quorum: {total}")
+    return {f"A={b}": time_sliced(dev, card, n, b)
+            for n, b in ((250, 256), (2000, 2048))}
+
+
+def phase_compaction_service(dev: torch.device, card: str) -> dict:
+    """6(b): the keyed service at the headline size with 256 of 10,000
+    ensembles active, ``compact=True`` against ``compact=False``: puts,
+    a leader-down election, reads, and a damaged replica whose read
+    flags it (the compacted exchange path).  Returns the launch counts
+    of the compacted arm's run."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(14)
+    sub = np.sort(rng.choice(e, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    arms = {}
+    for compact in (True, False):
+        svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                     max_ops_per_tick=k, device=dev,
+                                     compact=compact)
+        svc.flush()                 # elect all 10,000: full width anyway
+        torch.cuda.synchronize()
+        svc.payload_bytes = svc.payload_bytes_full_width = 0
+        svc._occ_sum, svc._occ_launches = 0.0, 0
+        chk = LaunchCheck(svc)
+        split = HostSplit(svc)
+        reset_counts()                               # this path's run
+        results, ms = [], []
+
+        def timed_flush(futs):
+            for _ in range(8):
+                if all(f.done for f in futs):
+                    return
+                t0 = time.perf_counter()
+                svc.flush()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            raise AssertionError("6(b): futures unresolved after 8 flushes")
+        for rnd in range(3):
+            puts = [svc.kput_many(x, keys, [f"v{rnd}:{x}:{i}"
+                                            for i in range(len(keys))])
+                    for x in sub]
+            timed_flush(puts)
+            results.append([f.value for f in puts])
+            if rnd == 1:            # every active leader down: elections
+                for x in sub:
+                    svc.set_peer_up(x, int(svc.leader_np[x]), False)
+            svc.runtime.now += 1.0  # leases lapse: the reads go round
+            gets = [svc.kget_many(x, keys) for x in sub]
+            timed_flush(gets)
+            results.append([f.value for f in gets])
+            want = [[("ok", f"v{rnd}:{x}:{i}") for i in range(len(keys))]
+                    for x in sub]
+            if results[-1] != want:
+                raise AssertionError(f"6(b) compact={compact} round {rnd}: "
+                                     f"acknowledged puts did not read back")
+        # a damaged replica on three active rows: the read flags it and
+        # the settle runs the exchange
+        hot = sub[:3]
+        slot = svc.key_slot[hot[0]]["user:0"]
+        svc.state.obj_val[torch.as_tensor(hot, device=dev), 1, slot] += 5
+        svc.runtime.now += 1.0
+        gets = [svc.kget_many(x, ["user:0"]) for x in hot]
+        timed_flush(gets)
+        results.append([f.value for f in gets])
+        counts = read_counts()
+        if counts["F1"] != chk.launches:
+            raise AssertionError(f"6(b): F1 launched {counts['F1']} times in "
+                                 f"{chk.launches} launches")
+        arms[compact] = {
+            "results": results, "ms": ms, "counts": counts,
+            "launches": chk.launches, "sliced": svc.sliced_launches,
+            "payload": svc.payload_bytes,
+            "full": svc.payload_bytes_full_width,
+            "occupancy": svc.grid_occupancy,
+            "healed": (svc.corruptions, svc.repairs),
+            "split": split.take(), "state": svc.state}
+    on, off = arms[True], arms[False]
+    if on["results"] != off["results"]:
+        raise AssertionError("6(b): compacted and full-width results differ")
+    if not (on["sliced"] == on["launches"] == on["counts"]["F1 sliced"]
+            and off["sliced"] == off["counts"]["F1 sliced"] == 0):
+        raise AssertionError(f"6(b): sliced launches {on['sliced']} of "
+                             f"{on['launches']}, counts {on['counts']}; "
+                             f"full arm {off['counts']}")
+    if not (on["healed"] == off["healed"] and on["healed"][0] > 0
+            and on["counts"]["K1"] > 0):
+        raise AssertionError(f"6(b): corruption path {on['healed']} vs "
+                             f"{off['healed']}, K1 {on['counts']['K1']}")
+    # idle rows only ever saw NOOP rounds with every member at the
+    # leader's epoch, so the two arms' states agree on every row
+    bad = diff_fields(on["state"], off["state"], eng.EngineState._fields)
+    if bad:
+        raise AssertionError(f"6(b): state planes {bad} differ between "
+                             f"the arms")
+    for name, arm in (("compact", on), ("full width", off)):
+        print(f"6(b) keyed service {e}x{m}x{s} K={k}, 256 active, {name} "
+              f"[{card}]: median flush {statistics.median(arm['ms']):.3f} "
+              f"ms over {len(arm['ms'])} flushes; payload {arm['payload']} "
+              f"B vs full width {arm['full']} B; grid occupancy "
+              f"{arm['occupancy']:.6f}; launches {arm['counts']} "
+              f"(service launches {arm['launches']}, sliced "
+              f"{arm['sliced']}); corruptions/repairs {arm['healed']}")
+        print(f"6(b) {name} [{card}]: flush ms "
+              f"{[round(x, 3) for x in arm['ms']]}; host ms per flush: "
+              f"{split_line(arm['split'], len(arm['ms']))}")
+    return on["counts"]
+
+
+class HostSplit:
+    """Host time of a service's launch path by stage, from wrappers around
+    its methods: the enqueue half (plane slicing, uploads, step, pack, the
+    copy's start), the wait for the packed result, the unpack with the
+    leader / lease mirrors (and any exchange), and the fan-out to the
+    futures.  What a flush spends outside these is the queue walk and the
+    [K, E] plane build."""
+
+    STAGES = ("enqueue", "wait", "unpack", "fanout")
+
+    def __init__(self, svc: BatchedEnsembleService) -> None:
+        self.ms = dict.fromkeys(self.STAGES + ("resolve", "settle"), 0.0)
+        for name, key in (("_launch_enqueue", "enqueue"),
+                          ("_fetch_packed", "wait"),
+                          ("_launch_resolve", "resolve"),
+                          ("_settle_launch", "settle")):
+            setattr(svc, name, self._timed(getattr(svc, name), key))
+
+    def _timed(self, fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    def take(self) -> dict:
+        """The stages' ms since the last take, then zero them."""
+        ms = self.ms
+        out = {"enqueue": ms["enqueue"], "wait": ms["wait"],
+               "unpack": ms["resolve"] - ms["wait"],
+               "fanout": max(ms["settle"] - ms["resolve"], 0.0)}
+        for key in ms:
+            ms[key] = 0.0
+        return out
+
+
+def split_line(split: dict, n: int) -> str:
+    return ", ".join(f"{k} {v / n:.3f}" for k, v in split.items())
+
+
+def phase_pipeline(dev: torch.device, card: str,
+                   profile: Optional[str] = None) -> dict:
+    """6(c): a stream of K = 64 flushes at the headline size through
+    ``execute`` at depth 1 and ``execute_async`` at depth 2, each run
+    twice in the order 1, 2, 2, 1: equal results (first runs) and final
+    state, the wall and host split per flush of every run, and the
+    overlap — at depth 2 the settle of launch N starts while launch N + 1
+    still runs on the card.  Returns the first depth-2 run's counts."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(16)
+    n = 12
+    rows = np.arange(k)[:, None]
+    slots = ((rows + rng.integers(0, s, (1, e))) % s).astype(np.int32)
+    batches = []
+    for i in range(n + 1):
+        kind = np.where(rng.random((k, e)) < 0.6, eng.OP_PUT,
+                        eng.OP_GET).astype(np.int32)
+        vals = rng.integers(1, 2 ** 31 - 1, (k, e)).astype(np.int32)
+        batches.append((kind, slots, vals))
+    stream = torch.cuda.current_stream(dev)
+    svcs, busy, splits = {}, {}, {}
+    for depth in (1, 2):
+        svc = svcs[depth] = BatchedEnsembleService(
+            FixedClock(), e, m, s, tick=None, max_ops_per_tick=k, device=dev,
+            pipeline_depth=depth)
+        # elections, and every upload slot's pinned buffers, before the
+        # runs: set-up, not flush time (the same count at both depths)
+        for _ in range(4):
+            svc.execute(*batches[0])
+        torch.cuda.synchronize()
+        busy[depth] = []
+        fetch = svc._fetch_packed
+
+        def watched(fl, fetch=fetch, out=busy[depth]):
+            got = fetch(fl)
+            out.append(not stream.query())  # a later launch still runs
+            return got
+        svc._fetch_packed = watched
+        splits[depth] = HostSplit(svc)
+
+    def run(depth):
+        svc = svcs[depth]
+        if depth == 1:
+            return [svc.execute(*b) for b in batches[1:]]
+        futs = [svc.execute_async(*b) for b in batches[1:]]
+        svc.flush()
+        return [f.value for f in futs]
+    runs, outs, counts = [], {}, {}
+    for depth in (1, 2, 2, 1):
+        busy[depth].clear()
+        splits[depth].take()
+        reset_counts()                                # this path's run
+        t0 = time.perf_counter()
+        out = run(depth)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if depth not in outs:
+            outs[depth], counts[depth] = out, read_counts()
+        runs.append((depth, wall, splits[depth].take(), sum(busy[depth][:-1]),
+                     len(busy[depth])))
+    for i, (a, b) in enumerate(zip(outs[1], outs[2])):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"6(c): flush {i} results differ between "
+                                 f"depth 1 and depth 2")
+    shares = {}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        for depth in (1, 2):
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                run(depth)
+                torch.cuda.synchronize()
+                pwall = time.perf_counter() - t1
+            dev_us = sum(ev.self_device_time_total
+                         for ev in prof.key_averages()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
+            shares[depth] = (dev_us / n, dev_us / (pwall * 1e6))
+    bad = diff_fields(svcs[1].state, svcs[2].state, eng.EngineState._fields)
+    if bad:
+        raise AssertionError(f"6(c): final state planes {bad} differ")
+    for depth, wall, split, overlapped, settles in runs:
+        if overlapped < (n - 1) // 2 if depth == 2 else overlapped:
+            raise AssertionError(f"6(c): depth {depth}: the card was busy at "
+                                 f"{overlapped} of {settles - 1} settles")
+        print(f"6(c) pipeline depth {depth} [{card}]: {n} flushes of K={k} x "
+              f"{e} in {wall * 1e3:.3f} ms, {wall / n * 1e3:.3f} ms per "
+              f"flush, {n * k * e / wall:.1f} ops/s; card busy at "
+              f"{overlapped} of {settles - 1} settles; host ms per flush: "
+              f"{split_line(split, n)}")
+    for depth, (dev_us, share) in shares.items():
+        print(f"6(c) pipeline depth {depth} [{card}]: device kernel time "
+              f"{dev_us:.1f} us per flush, busy share {share:.3f} "
+              f"(profiled)")
+    print(f"6(c) launches [{card}]: depth 1 {counts[1]}, depth 2 "
+          f"{counts[2]}")
+    return counts[2]
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -1028,13 +1455,20 @@ def main(argv) -> int:
     f1 = phase_f1(dev, card)
     reset_counts()
     k1_exchange = phase_exchange(dev, card)
+    f1_sliced = phase_f1_sliced(dev, card)
     by_path = {"phase4 keyed service": phase_service(dev, card, profile),
-               "phase5 rmw + fast reads": phase_rmw(dev, card)}
+               "phase5 rmw + fast reads": phase_rmw(dev, card),
+               "phase6b compacted keyed service":
+                   phase_compaction_service(dev, card),
+               "phase6c pipeline depth 2": phase_pipeline(dev, card,
+                                                          profile)}
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
-    if not (all(f1_by_path.values()) and k1_exchange and k2_launches):
+    sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
+    if not (all(f1_by_path.values()) and k1_exchange and k2_launches
+            and sliced_by_path["phase6b compacted keyed service"]):
         raise AssertionError(f"a kernel did not launch on its path: F1 "
-                             f"{f1_by_path}, K1 {k1_exchange}, K2 "
-                             f"{k2_launches}")
+                             f"{f1_by_path} (sliced {sliced_by_path}), K1 "
+                             f"{k1_exchange}, K2 {k2_launches}")
     kernels = [{
         "name": "F1 engine_step", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
@@ -1042,16 +1476,20 @@ def main(argv) -> int:
         "fuses": "riak_ensemble_tpu/ops/engine.py:1386",
         "launches": sum(f1_by_path.values()),
         "launches_by_path": f1_by_path,
+        "sliced_launches": sum(sliced_by_path.values()),
+        "sliced_launches_by_path": sliced_by_path,
         "max_abs_err": f1["max_abs_err"], "ms": f1["ms"],
         "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
         "bound_by": f1["bound_by"], "library_ms": None,
-        "device_us": f1["device_us"]}, {
+        "device_us": f1["device_us"], "sliced": f1_sliced}, {
         "name": "K1 quorum_met_e", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
-        "launches": k1_exchange,
+        "launches": k1_exchange + sum(c["K1"] for c in by_path.values()),
         "launches_by_path": {"phase3c exchange": k1_exchange,
                              **{p: c["K1"] for p, c in by_path.items()}},
+        "compacted_exchange_launches":
+            by_path["phase6b compacted keyed service"]["K1"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,

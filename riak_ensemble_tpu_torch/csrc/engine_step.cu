@@ -48,6 +48,21 @@
 // Contract (the Python wrapper checks it and raises; the entry point
 // refuses it again): 1 <= M <= 32, 1 <= V <= 8, the staged planes within
 // the card's shared memory, 16-byte aligned contiguous planes.
+//
+// Sliced mode (_full_step_sliced_body, riak_ensemble_tpu/ops/engine.py:1481):
+// with an `active_idx [A]` the grid is A blocks and block b steps state row
+// active_idx[b] IN PLACE — the same staging and rounds as above — reading
+// `elect`/`cand` at [b] and the [K, A] op planes at column b, and writing
+// every result at column b.  Idle rows are not touched: no epoch adoption,
+// no quorum_ok.  No state plane is gathered into or scattered out of a
+// copy.  The wrapper checks that the real indices ascend, are distinct and
+// lie below E; the padding entries (index E) follow them.  The reference
+// steps a pad as a copy of row E - 1 taken before the step, with NOOP
+// rounds and no election, so a pad block only writes results: won = 0,
+// quorum_ok = that copy's epoch check, everything else 0.  It reads row
+// E - 1's view mask and up mask, which no block writes, and its epoch and
+// leader from `pad_ballot` — a copy made before the launch — when row E - 1
+// is itself active (its block rewrites them); otherwise from the state.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,9 +94,10 @@ enum Ptr {
   kEpoch, kFactSeq, kLeader, kObjSeqCtr, kViewMask, kObjEpoch, kObjSeq,
   kObjVal, kTreeLeaf, kTreeNode, kElect, kCand, kKind, kSlot, kVal,
   kLeaseOk, kExpEpoch, kExpSeq, kUp, kFoldConsts, kWon, kCommitted,
-  kGetOk, kFound, kValue, kObjVsn, kQuorumOk, kTreeCorrupt, kNumPtrs
+  kGetOk, kFound, kValue, kObjVsn, kQuorumOk, kTreeCorrupt, kActiveIdx,
+  kPadBallot, kNumPtrs
 };
-enum Dim { kE, kM, kS, kU, kV, kK, kNumDims };
+enum Dim { kE, kM, kS, kU, kV, kK, kA, kNumDims };
 
 struct Params {
   int32_t* epoch;
@@ -112,7 +128,9 @@ struct Params {
   int32_t* obj_vsn;
   uint8_t* quorum_ok;
   uint8_t* tree_corrupt;
-  int e, m, s, u, v, k;
+  const int32_t* active_idx;  // null: every row, A = E
+  const int32_t* pad_ballot;  // row E - 1's epoch [M] then leader; or null
+  int e, m, s, u, v, k, a;
 };
 
 // ---------------------------------------------------------------------------
@@ -169,6 +187,24 @@ __device__ __forceinline__ uint32_t fold_warp(const uint32_t* arr, int n,
   acc = fmix(acc ^ __shfl_sync(kFull, acc, quad | ((li + 3) & 3)));
   acc ^= __shfl_sync(kFull, acc, quad | ((li + 2) & 3));
   return fmix(acc ^ (uint32_t)kWidth);
+}
+
+// The round context's epoch check on warp 0 (lane = replica): the leader's
+// epoch (0 with no leader), whether it is up, and whether the heard members
+// at that epoch reach a quorum in every view.
+__device__ __forceinline__ bool epoch_check(int32_t epoch_m, int leader,
+                                            uint32_t heard, bool in, int m,
+                                            const uint32_t* views, int v,
+                                            int32_t* lead_epoch,
+                                            bool* leader_up) {
+  const bool leader_in = leader >= 0 && leader < m;
+  int32_t le = __shfl_sync(kFull, epoch_m, leader_in ? leader : 0);
+  if (!leader_in) le = 0;
+  const bool lu = leader_in && ((heard >> leader) & 1u);
+  const uint32_t ack = heard & __ballot_sync(kFull, in && epoch_m == le);
+  *lead_epoch = le;
+  *leader_up = lu;
+  return lu && quorum_met_bits(ack, heard & ~ack, views, v) == 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -234,12 +270,54 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   __shared__ uint32_t s_write;        // replicas that write this round
   __shared__ __align__(8) uint64_t s_bar;
 
-  const int e = blockIdx.x;
   const int E = p.e, M = p.m, S = p.s, U = p.u, V = p.v, K = p.k;
+  const int C = p.a;  // columns of the op, election and result planes
+  const int col = blockIdx.x;
+  const int e = p.active_idx ? p.active_idx[col] : col;  // the state row
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int MS = M * S;
+
+  if (e >= E) {
+    // A pad column: the epoch check of row E - 1 as it stood before the
+    // launch, then NOOP results for every round.
+    if (warp != 0) return;
+    const int row = E - 1;
+    const bool in = lane < M;
+    uint32_t views_any = 0;
+    for (int j = 0; j < V; ++j) {
+      const bool b = in && p.view_mask[((size_t)row * V + j) * M + lane];
+      const uint32_t bits = __ballot_sync(kFull, b);
+      if (lane == 0) s_views[j] = bits;
+      views_any |= bits;
+    }
+    __syncwarp();
+    const uint32_t heard =
+        __ballot_sync(kFull, in && p.up[(size_t)row * M + lane]) & views_any;
+    const int32_t* ballot_epoch =
+        p.pad_ballot ? p.pad_ballot : p.epoch + (size_t)row * M;
+    const int32_t epoch_m = in ? ballot_epoch[lane] : 0;
+    const int leader = p.pad_ballot ? p.pad_ballot[M] : p.leader[row];
+    int32_t lead_epoch;
+    bool leader_up;
+    const bool epoch_ok = epoch_check(epoch_m, leader, heard, in, M, s_views,
+                                      V, &lead_epoch, &leader_up);
+    if (lane == 0 && p.won != nullptr) p.won[col] = 0;
+    for (int j = lane; j < K; j += 32) {
+      const size_t op = (size_t)j * C + col;
+      p.committed[op] = 0;
+      p.get_ok[op] = 0;
+      p.found[op] = 0;
+      p.value[op] = 0;
+      p.obj_vsn[op * 2] = 0;
+      p.obj_vsn[op * 2 + 1] = 0;
+      p.quorum_ok[op] = epoch_ok;
+    }
+    for (int i = lane; i < K * M; i += 32)
+      p.tree_corrupt[((size_t)(i / M) * C + col) * M + i % M] = 0;
+    return;
+  }
 
   int32_t* s_oe = reinterpret_cast<int32_t*>(smem);
   int32_t* s_os = s_oe + pad4(MS);
@@ -345,9 +423,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       // candidate must itself be an up member.
       const int next_epoch =
           __reduce_max_sync(kFull, heard_m ? epoch_m : -1) + 1;
-      const int cand = p.cand[e];
+      const int cand = p.cand[col];
       const bool cand_heard = cand >= 0 && cand < M && ((heard >> cand) & 1u);
-      const bool won = p.elect[e] && cand_heard &&
+      const bool won = p.elect[col] && cand_heard &&
                        quorum_met_bits(heard, 0u, s_views, V) == 1;
       if (won) {
         if (heard_m) {
@@ -357,25 +435,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         leader = cand;
         ctr = 0;
       }
-      if (lane == 0) p.won[e] = won;
+      if (lane == 0) p.won[col] = won;
     }
 
-    // The round context: the leader's epoch (0 with no leader), whether
-    // it is up, and the epoch-check quorum shared by every round.
-    const bool has_leader = leader >= 0;
-    const bool leader_in = has_leader && leader < M;
-    lead_epoch = __shfl_sync(kFull, epoch_m, leader_in ? leader : 0);
-    if (!leader_in) lead_epoch = 0;
-    leader_up = leader_in && ((heard >> leader) & 1u);
-    const uint32_t ack =
-        heard & __ballot_sync(kFull, in && epoch_m == lead_epoch);
-    epoch_ok = leader_up && quorum_met_bits(ack, heard & ~ack, s_views, V) == 1;
+    // The round context: the epoch-check quorum shared by every round.
+    epoch_ok = epoch_check(epoch_m, leader, heard, in, M, s_views, V,
+                           &lead_epoch, &leader_up);
     n_member = __popc(views_any);
   }
   __syncthreads();
 
   for (int j = 0; j < K; ++j) {
-    const size_t op = (size_t)j * E + e;
+    const size_t op = (size_t)j * C + col;
     const int slot = p.slot[op];
     const bool slot_valid = slot >= 0 && slot < S;
     const int sc = slot < 0 ? 0 : (slot >= S ? S - 1 : slot);
@@ -623,21 +694,27 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
   p.obj_vsn = (int32_t*)ptrs[kObjVsn];
   p.quorum_ok = (uint8_t*)ptrs[kQuorumOk];
   p.tree_corrupt = (uint8_t*)ptrs[kTreeCorrupt];
+  p.active_idx = (const int32_t*)ptrs[kActiveIdx];
+  p.pad_ballot = (const int32_t*)ptrs[kPadBallot];
   p.e = dims[kE];
   p.m = dims[kM];
   p.s = dims[kS];
   p.u = dims[kU];
   p.v = dims[kV];
   p.k = dims[kK];
-  if (p.e <= 0) return 0;
+  p.a = dims[kA];
+  if (p.e <= 0 || p.a <= 0) return 0;
   if (p.m < 1 || p.m > kMaxPeers || p.v < 1 || p.v > kMaxViews ||
-      p.s < 1 || p.u < 1 || p.k < 0 || (p.elect != nullptr) != (p.won != nullptr))
+      p.s < 1 || p.u < 1 || p.k < 0 ||
+      (p.elect != nullptr) != (p.won != nullptr) ||
+      (p.active_idx == nullptr && p.a != p.e) ||
+      (p.active_idx == nullptr && p.pad_ballot != nullptr))
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(p.m, p.s, p.u);
   const int warps = p.m < kMaxWarps ? p.m : kMaxWarps;
   cudaError_t err = cudaFuncSetAttribute(
       engine_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  engine_step_kernel<<<p.e, warps * 32, smem, (cudaStream_t)stream>>>(p);
+  engine_step_kernel<<<p.a, warps * 32, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,11 @@ that loop: ``engine.full_step``, ``kv_step_scan`` and ``kv_step`` call
 ``KvResult`` field order.  It raises on anything outside the kernel's
 contract (:func:`check_contract`) and on a device other than CUDA; it
 never runs the plain version.
+
+Sliced mode (``engine.full_step_sliced``): with a host ``active_idx [A]``
+the grid is A blocks, block b steps state row ``active_idx[b]`` in place,
+and the op, election and result planes are A-wide.  The wrapper checks
+the index on the host (:func:`check_active`) and uploads it itself.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import ctypes
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from riak_ensemble_tpu_torch.ops import build
@@ -37,10 +43,12 @@ MAX_ROUNDS = 4096
 MAX_SHARED_BYTES = 232_448 - 1_024
 
 #: launches of F1 since the count was last set to 0 — counted where the
-#: kernel launches and nowhere else
+#: kernel launches and nowhere else; the sliced ones also in the second
 engine_step_launches = 0
+engine_step_sliced_launches = 0
 
-_N_PTRS = 28
+_N_PTRS = 30
+_N_DIMS = 7
 _fn = None
 
 
@@ -93,17 +101,48 @@ def _want(name, t, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
 
 
+def check_active(active_idx, e: int) -> int:
+    """Raise ``TypeError`` / ``ValueError`` unless ``active_idx`` is a
+    sliced launch's host index: a 1-D numpy int32 array of A >= 1 entries,
+    the real ones ascending, distinct and below ``e``, then any number of
+    padding entries equal to ``e``.  Two blocks stepping one row would race,
+    so a duplicate raises here instead of launching.  Returns how many
+    entries are real."""
+    if not isinstance(active_idx, np.ndarray):
+        raise TypeError("active_idx must be a host numpy array, got "
+                        f"{type(active_idx).__name__}")
+    if active_idx.dtype != np.int32 or active_idx.ndim != 1:
+        raise TypeError(f"active_idx must be 1-D int32, got "
+                        f"{active_idx.dtype} {active_idx.shape}")
+    if active_idx.size == 0:
+        raise ValueError("active_idx is empty")
+    n_real = int(np.count_nonzero(active_idx < e))
+    real, pads = active_idx[:n_real], active_idx[n_real:]
+    if (real < 0).any():
+        raise ValueError("active_idx holds a negative row")
+    if (pads != e).any():
+        raise ValueError(f"active_idx: after the real rows every entry must "
+                         f"be the padding index {e}")
+    if n_real > 1 and not (np.diff(real) > 0).all():
+        raise ValueError("active_idx: the real rows must ascend with no "
+                         "duplicate")
+    return n_real
+
+
 def check_contract(state, elect: Optional[torch.Tensor],
                    cand: Optional[torch.Tensor], kind: torch.Tensor,
                    slot: torch.Tensor, val: torch.Tensor,
                    lease_ok: torch.Tensor, up: torch.Tensor,
                    exp_epoch: Optional[torch.Tensor] = None,
-                   exp_seq: Optional[torch.Tensor] = None) -> None:
+                   exp_seq: Optional[torch.Tensor] = None,
+                   n_cols: Optional[int] = None) -> None:
     """Raise ``TypeError`` / ``ValueError`` unless every argument lies
     inside F1's contract: the engine's dtypes and shapes, one device,
     contiguous 16-byte aligned tensors, ``1 <= M <= 32``,
     ``1 <= V <= 8``, ``K <= MAX_ROUNDS`` and the block's staged planes
-    within ``MAX_SHARED_BYTES``."""
+    within ``MAX_SHARED_BYTES``.  ``n_cols`` is the width of the op,
+    election and result planes: E (the default), or A for a sliced
+    launch."""
     i32, b = torch.int32, torch.bool
     e, m = state.epoch.shape if state.epoch.dim() == 2 else (-1, -1)
     if e < 0:
@@ -123,6 +162,7 @@ def check_contract(state, elect: Optional[torch.Tensor],
     if kind.dim() != 2:
         raise ValueError(f"kind must be [K, E], got {tuple(kind.shape)}")
     k = kind.shape[0]
+    a = e if n_cols is None else n_cols
     if k > MAX_ROUNDS:
         raise ValueError(f"F1 takes K <= {MAX_ROUNDS} rounds, got {k}")
     need = shared_bytes(m, s, u)
@@ -140,17 +180,17 @@ def check_contract(state, elect: Optional[torch.Tensor],
         ("obj_val", state.obj_val, i32, (e, m, s)),
         ("tree_leaf", state.tree_leaf, i32, (e, m, s, hashk.LANES)),
         ("tree_node", state.tree_node, i32, (e, m, u, hashk.LANES)),
-        ("kind", kind, i32, (k, e)), ("slot", slot, i32, (k, e)),
-        ("val", val, i32, (k, e)), ("lease_ok", lease_ok, b, (k, e)),
+        ("kind", kind, i32, (k, a)), ("slot", slot, i32, (k, a)),
+        ("val", val, i32, (k, a)), ("lease_ok", lease_ok, b, (k, a)),
         ("up", up, b, (e, m)),
     ]
     if (elect is None) != (cand is None):
         raise ValueError("elect and cand go together")
     if elect is not None:
-        named += [("elect", elect, b, (e,)), ("cand", cand, i32, (e,))]
+        named += [("elect", elect, b, (a,)), ("cand", cand, i32, (a,))]
     for name, t in (("exp_epoch", exp_epoch), ("exp_seq", exp_seq)):
         if t is not None:
-            named.append((name, t, i32, (k, e)))
+            named.append((name, t, i32, (k, a)))
     dev = state.epoch.device
     for name, t, dtype, shape in named:
         _want(name, t, dtype, shape)
@@ -167,18 +207,35 @@ def engine_step(state, elect: Optional[torch.Tensor],
                 slot: torch.Tensor, val: torch.Tensor,
                 lease_ok: torch.Tensor, up: torch.Tensor,
                 exp_epoch: Optional[torch.Tensor] = None,
-                exp_seq: Optional[torch.Tensor] = None
+                exp_seq: Optional[torch.Tensor] = None,
+                active_idx: Optional[np.ndarray] = None
                 ) -> Tuple[Optional[torch.Tensor], Tuple[torch.Tensor, ...]]:
     """One F1 launch over a CUDA engine state (see the module docstring).
-    ``elect``/``cand`` None skip the election (``kv_step_scan``).
+    ``elect``/``cand`` None skip the election (``kv_step_scan``);
+    ``active_idx`` (host int32 ``[A]``) makes it a sliced launch.
     Returns ``(won, (committed, get_ok, found, value, obj_vsn,
-    quorum_ok, tree_corrupt))``."""
-    global engine_step_launches
+    quorum_ok, tree_corrupt))``, A-wide when sliced."""
+    global engine_step_launches, engine_step_sliced_launches
     if state.epoch.device.type != "cuda":
         raise ValueError(f"F1 runs on cuda, not {state.epoch.device}")
-    check_contract(state, elect, cand, kind, slot, val, lease_ok, up,
-                   exp_epoch, exp_seq)
+    n_rows = state.epoch.shape[0]
     dev = state.epoch.device
+    idx_dev = pad_ballot = None
+    if active_idx is not None:
+        n_real = check_active(active_idx, n_rows)
+        check_contract(state, elect, cand, kind, slot, val, lease_ok, up,
+                       exp_epoch, exp_seq, n_cols=active_idx.size)
+        idx_dev = torch.from_numpy(active_idx).pin_memory().to(
+            dev, non_blocking=True)
+        if n_real < active_idx.size and n_real \
+                and active_idx[n_real - 1] == n_rows - 1:
+            # the pads read row E - 1 as it was before this launch, which
+            # its own block rewrites: hand them a copy of its ballot
+            pad_ballot = torch.cat((state.epoch[n_rows - 1],
+                                    state.leader[n_rows - 1:]))
+    else:
+        check_contract(state, elect, cand, kind, slot, val, lease_ok, up,
+                       exp_epoch, exp_seq)
     k, e = kind.shape
     m = state.epoch.shape[1]
 
@@ -198,13 +255,15 @@ def engine_step(state, elect: Optional[torch.Tensor],
         state.view_mask, state.obj_epoch, state.obj_seq, state.obj_val,
         state.tree_leaf, state.tree_node, elect, cand, kind, slot, val,
         lease_ok, exp_epoch, exp_seq, up, _fold_consts_on(dev), won,
-        *res)))
-    dims = (ctypes.c_int * 6)(
-        e, m, state.obj_epoch.shape[2], state.tree_node.shape[2],
-        state.view_mask.shape[1], k)
+        *res, idx_dev, pad_ballot)))
+    dims = (ctypes.c_int * _N_DIMS)(
+        n_rows, m, state.obj_epoch.shape[2], state.tree_node.shape[2],
+        state.view_mask.shape[1], k, e)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel()(ptrs, dims, stream)
     if rc != 0:
         raise RuntimeError(f"F1 launch failed: cudaGetLastError() = {rc}")
     engine_step_launches += 1
+    if idx_dev is not None:
+        engine_step_sliced_launches += 1
     return won, res

@@ -4,8 +4,9 @@ Port of the main-path part of ``riak_ensemble_tpu/ops/engine.py``: the
 state layout (:class:`EngineState`, :class:`KvResult`, identical field
 names, dtypes and shapes), the Merkle path kernels, the election step,
 the K/V round with its whole RMW table, the K-round scan, the fused
-:func:`full_step` the service launches once per flush, and the
-anti-entropy exchange (:func:`verify_trees`, :func:`exchange_step`).
+:func:`full_step` the service launches once per flush, its sliced form
+on the active rows only (:func:`full_step_sliced`), and the anti-entropy
+exchange (:func:`verify_trees`, :func:`exchange_step`).
 Semantics are the reference's, bit for bit; the docstrings there carry
 the protocol citations (riak_ensemble_peer.erl / msg.erl /
 synctree.erl) and are not repeated at length here.
@@ -20,12 +21,14 @@ What differs from the reference, and why:
 - Every integer reduction names ``dtype=torch.int32`` and every factory
   names ``torch.int32``: torch widens int sums to int64 where JAX (x64
   off) stays int32.
-- On a CUDA state :func:`full_step`, :func:`kv_step_scan` and
-  :func:`kv_step` are ONE launch of kernel F1 (:mod:`.cuda_engine`):
+- On a CUDA state :func:`full_step`, :func:`full_step_sliced`,
+  :func:`kv_step_scan` and :func:`kv_step` are ONE launch of kernel F1
+  (:mod:`.cuda_engine`):
   election, context, all K rounds and the epoch adoption, with the
   quorum predicate inside, updating every state plane IN PLACE.  On a
   CPU state they run the plain versions below (:func:`full_step_plain`,
-  :func:`kv_step_scan_plain`), where ``lax.scan`` is a Python loop whose
+  :func:`full_step_sliced_plain`, :func:`kv_step_scan_plain`), where
+  ``lax.scan`` is a Python loop whose
   rounds update the object and tree planes IN PLACE.  Either way a
   caller that needs its input state afterwards passes a copy.
 - The quorum predicate (:func:`_quorum_met`, used by the plain step,
@@ -744,6 +747,66 @@ def full_step_plain(state: EngineState, elect: torch.Tensor,
     state, won = elect_step(state, elect, cand, up)
     state, res = kv_step_scan_plain(state, kind, slot, val, lease_ok, up,
                                     exp_epoch=exp_epoch, exp_seq=exp_seq)
+    return state, won, res
+
+
+# ---------------------------------------------------------------------------
+# Active-column SLICED full step (the shrunk [K, A] launch grid)
+
+
+def full_step_sliced(state: EngineState, active_idx: np.ndarray,
+                     elect: torch.Tensor, cand: torch.Tensor,
+                     kind: torch.Tensor, slot: torch.Tensor,
+                     val: torch.Tensor, lease_ok: torch.Tensor,
+                     up: torch.Tensor,
+                     exp_epoch: Optional[torch.Tensor] = None,
+                     exp_seq: Optional[torch.Tensor] = None
+                     ) -> Tuple[EngineState, torch.Tensor, KvResult]:
+    """:func:`full_step` on the ACTIVE COLUMNS ONLY (engine.py:1481-1521):
+    ``active_idx [A]`` (a host int32 array: the active rows in ascending
+    order, then padding entries equal to E) selects the rows, ``elect`` /
+    ``cand`` are ``[A]``, the op planes ``[K, A]``, ``up`` stays ``[E, M]``.
+    Results come back A-wide.  Idle rows get neither epoch adoption nor
+    the lease-renewing ``quorum_ok`` — the reference's semantics.  Pad
+    lanes must carry NOOP rounds and no election, as the service builds
+    them.  One sliced F1 launch for a CUDA state (rows stepped in place),
+    :func:`full_step_sliced_plain` for a CPU state."""
+    if state.epoch.device.type == "cpu":
+        return full_step_sliced_plain(state, active_idx, elect, cand, kind,
+                                      slot, val, lease_ok, up, exp_epoch,
+                                      exp_seq)
+    won, res = cuda_engine.engine_step(state, elect, cand, kind, slot, val,
+                                       lease_ok, up, exp_epoch, exp_seq,
+                                       active_idx=active_idx)
+    return state, won, KvResult(*res)
+
+
+def full_step_sliced_plain(state: EngineState, active_idx,
+                           elect: torch.Tensor, cand: torch.Tensor,
+                           kind: torch.Tensor, slot: torch.Tensor,
+                           val: torch.Tensor, lease_ok: torch.Tensor,
+                           up: torch.Tensor,
+                           exp_epoch: Optional[torch.Tensor] = None,
+                           exp_seq: Optional[torch.Tensor] = None
+                           ) -> Tuple[EngineState, torch.Tensor, KvResult]:
+    """:func:`full_step_sliced` as torch ops — sliced F1's plain version
+    and oracle, the reference's ``_slice_columns`` / ``_full_step_body`` /
+    ``_scatter_columns``: gather every state plane and ``up`` at the
+    clipped index (a pad, index E, reads a copy of row E - 1), run
+    :func:`full_step_plain` on the gathered rows, and copy the real rows
+    back into ``state``'s planes IN PLACE, dropping the pads."""
+    e = state.epoch.shape[0]
+    dev = state.epoch.device
+    idx = torch.as_tensor(np.asarray(active_idx), device=dev).to(torch.int64)
+    idx_c = idx.clamp(0, e - 1)
+    sub = EngineState(*(torch.index_select(t, 0, idx_c) for t in state))
+    sub, won, res = full_step_plain(sub, elect, cand, kind, slot, val,
+                                    lease_ok, torch.index_select(up, 0, idx_c),
+                                    exp_epoch, exp_seq)
+    keep = torch.nonzero(idx < e).squeeze(1)
+    rows = idx.index_select(0, keep)
+    for full, part in zip(state, sub):
+        full.index_copy_(0, rows, part.index_select(0, keep))
     return state, won, res
 
 

@@ -24,19 +24,33 @@ its read.  Lease-protected fast reads serve ``kget`` / ``kget_vsn`` /
 ``kget_many`` from the leader's committed host mirrors, with no device
 round, while the row's lease holds and the slot has no pending write.
 A launch that flags synctree corruption runs the anti-entropy exchange
-(:func:`engine.exchange_step`) at once, and :meth:`BatchedEnsembleService.scrub`
-sweeps every replica's tree, on demand or every ``scrub_every_flushes``
-flushes.
+(:func:`engine.exchange_step`) when it settles, and
+:meth:`BatchedEnsembleService.scrub` sweeps every replica's tree, on
+demand or every ``scrub_every_flushes`` flushes.
 
-It implements one configuration of the reference service — the one the
-reference runs with ``RETPU_COMPACT=0 RETPU_NATIVE_RESOLVE=0
-RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0`` and no ``RETPU_WIDE``: full-width
-launches, the per-entry plane pack and the pure-Python resolve, launch
-pipeline depth 1, no WAL and a caller-driven flush (``tick=None``).
-It reads no environment variables: the reference's ``RETPU_FAST_READS``
-is :meth:`BatchedEnsembleService.set_fast_reads` and its
-``RETPU_COMM_REPL`` the ``comm_repl`` argument.  Wide rounds,
-compaction, the WAL and membership are later slices.
+Active-column compaction (on by default, ``compact=False`` turns it off,
+the reference's ``RETPU_COMPACT``): a launch packs only the columns that
+carry ops or elections (pow2-bucketed, ``A_BUCKET_MIN`` at least), and when
+``E >= SLICE_MIN_E`` and the bucket is at most E/4 the step itself runs on
+those rows only (:func:`engine.full_step_sliced`, sliced kernel F1 on CUDA).
+
+The launch pipeline: every launch has an ENQUEUE half (plane build,
+uploads, step, pack, start of the device→host copy) and a SETTLE half
+(wait for the packed buffer, unpack, leader and lease mirrors, the
+corruption-triggered exchange, the futures).  ``pipeline_depth`` launches
+may be enqueued but unsettled, so launch N's copy and host resolve run
+under launch N + 1's step; settles are FIFO.  :meth:`execute_async` is the
+pipelined form of :meth:`execute`.
+
+It implements the reference service with ``RETPU_NATIVE_RESOLVE=0
+RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0 RETPU_DONATE=1`` and no
+``RETPU_WIDE``: the per-entry plane pack and the pure-Python resolve, the
+donated (no rollback) launch, no WAL and a caller-driven flush
+(``tick=None``).  It reads no environment variables: the reference's
+``RETPU_FAST_READS`` is :meth:`BatchedEnsembleService.set_fast_reads`,
+its ``RETPU_COMM_REPL`` the ``comm_repl`` argument and its
+``RETPU_COMPACT`` the ``compact`` argument.  Wide rounds, the WAL and
+membership are later slices.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ import functools
 import logging
 import random
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -81,17 +96,24 @@ def packbits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_results_body(won: torch.Tensor, res: eng.KvResult,
-                       want_vsn: bool) -> torch.Tensor:
+                       want_vsn: bool,
+                       active_idx: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Flatten a launch's results into ONE uint8 vector on the device
     (batched_host.py:115-157), byte-identical to the reference.
 
-    Layout: packbits([won E | quorum_ok E | corrupt E*M | committed K*E
-    | get_ok K*E | found K*E]) ++ bytes([value K*E | (vsn_epoch K*E |
-    vsn_seq K*E)]).  The integer planes are the little-endian bytes of
-    int32 — the reference's ``bitcast_convert_type(int32 → uint8)`` —
-    taken here with ``.view(torch.uint8)`` on a contiguous int32
-    tensor.  The reference's ``active_idx`` (compacted-column) form
-    waits for the compaction slice."""
+    Layout: packbits([won E | quorum_ok E | corrupt E*M | committed K*A
+    | get_ok K*A | found K*A]) ++ bytes([value K*A | (vsn_epoch K*A |
+    vsn_seq K*A)]), A = E when uncompacted.  ``active_idx [A]`` (the
+    pack-gather strength: pow2-bucketed, padding = column 0, ignored by
+    the unpack) gathers the client planes down to the active columns
+    (:func:`engine.gather_result_columns`); the won / quorum / corrupt
+    planes stay full width.  A sliced launch hands in A-wide planes and no
+    index.  The integer planes are the little-endian bytes of int32 — the
+    reference's ``bitcast_convert_type(int32 → uint8)`` — taken here with
+    ``.view(torch.uint8)`` on a contiguous int32 tensor."""
+    if active_idx is not None:
+        res = eng.gather_result_columns(res, active_idx)
     flags = torch.cat([
         won.reshape(-1),
         res.quorum_ok.any(0).reshape(-1),
@@ -108,14 +130,42 @@ def _pack_results_body(won: torch.Tensor, res: eng.KvResult,
     return torch.cat([packbits(flags), ints_u8])
 
 
+#: Copied from ``riak_ensemble_tpu/parallel/batched_host.py:326-347``.
+#: Smallest active-column bucket a compacted launch packs.
+A_BUCKET_MIN = 8
+
+#: Smallest grid width the SLICED launch engages at; below it compaction
+#: only gathers the packed result (the pack-gather strength).
+SLICE_MIN_E = 256
+
+
+def packed_nbytes(e: int, m: int, k: int, want_vsn: bool,
+                  a_width: Optional[int] = None) -> int:
+    """Size in bytes of one :func:`_pack_results_body` payload — the
+    per-flush device→host transfer.  ``a_width`` is the compacted column
+    count (None = full width E)."""
+    aw = e if a_width is None else a_width
+    nbits = 2 * e + e * m + 3 * k * aw
+    return (nbits + 7) // 8 + 4 * k * aw * (3 if want_vsn else 1)
+
+
 def unpack_results(flat: np.ndarray, e: int, m: int, k: int,
-                   want_vsn: bool):
+                   want_vsn: bool, active: Optional[np.ndarray] = None,
+                   a_width: int = 0, sliced: bool = False):
     """Invert :func:`_pack_results_body`: one packed uint8 vector →
     ``(won, quorum_ok, corrupt, committed, get_ok, found, value, vsn)``
-    host arrays (the k == 0 planes are None).  The reference's unpack
-    (batched_host.py:349-428) at full width only: its compacted and
-    sliced-step layouts wait for the compaction slice."""
-    nbits = 2 * e + e * m + 3 * k * e
+    full-width host arrays (the k == 0 planes are None); copied from
+    the reference (batched_host.py:350-430).
+
+    With ``active`` (the launch's active columns, packed at ``a_width``
+    pow2-padded columns) the per-round planes arrive ``[K, A]`` and are
+    scattered back to ``[K, E]``: inactive columns get the all-false /
+    zero NOOP results.  ``sliced`` marks a launch whose step ran on the
+    A rows only: then the won / quorum_ok / corrupt planes are A-wide
+    too and scatter the same way."""
+    aw = e if active is None else a_width
+    hw = aw if sliced else e  # election/quorum/corrupt plane width
+    nbits = 2 * hw + hw * m + 3 * k * aw
     bits = np.unpackbits(flat[:(nbits + 7) // 8],
                          count=nbits).astype(bool)
     ints = flat[(nbits + 7) // 8:].copy().view(np.int32)
@@ -133,21 +183,139 @@ def unpack_results(flat: np.ndarray, e: int, m: int, k: int,
         ioff += n
         return out.reshape(shape) if shape is not None else out
 
-    won = take_bits(e)
-    quorum_ok = take_bits(e)
-    corrupt = take_bits(e * m, (e, m))
+    won = take_bits(hw)
+    quorum_ok = take_bits(hw)
+    corrupt = take_bits(hw * m, (hw, m))
+    if sliced and active is not None:
+        a = len(active)
+
+        def scat_cols(c, shape):
+            out = np.zeros(shape, bool)
+            out[active] = c[:a]
+            return out
+        won = scat_cols(won, (e,))
+        quorum_ok = scat_cols(quorum_ok, (e,))
+        corrupt = scat_cols(corrupt, (e, m))
     if k:
-        committed = take_bits(k * e, (k, e))
-        get_ok = take_bits(k * e, (k, e))
-        found = take_bits(k * e, (k, e))
-        value = take_ints(k * e, (k, e))
+        committed = take_bits(k * aw, (k, aw))
+        get_ok = take_bits(k * aw, (k, aw))
+        found = take_bits(k * aw, (k, aw))
+        value = take_ints(k * aw, (k, aw))
         vsn = None
         if want_vsn:
-            vsn = np.stack([take_ints(k * e, (k, e)),
-                            take_ints(k * e, (k, e))], axis=-1)
+            vsn = np.stack([take_ints(k * aw, (k, aw)),
+                            take_ints(k * aw, (k, aw))], axis=-1)
+        if active is not None:
+            a = len(active)
+
+            def scatter(c, dtype):
+                out = np.zeros((k, e) + c.shape[2:], dtype)
+                out[:, active] = c[:, :a]
+                return out
+            committed = scatter(committed, bool)
+            get_ok = scatter(get_ok, bool)
+            found = scatter(found, bool)
+            value = scatter(value, np.int32)
+            if vsn is not None:
+                vsn = scatter(vsn, np.int32)
     else:
         committed = get_ok = found = value = vsn = None
     return won, quorum_ok, corrupt, committed, get_ok, found, value, vsn
+
+
+def _bulk_planes(kind, slot, val, exp_epoch, exp_seq):
+    """A bulk call's host planes as int32 arrays; raises on a put of a
+    negative payload (not encodable: int32 handles, 0 = tombstone)."""
+    kind = np.asarray(kind, np.int32)
+    val = np.asarray(val, np.int32)
+    if ((kind == eng.OP_PUT) & (val < 0)).any():
+        raise ValueError("negative put payloads are not encodable "
+                         "(int32 handles; 0 = tombstone/delete)")
+    return (kind, np.asarray(slot, np.int32), val,
+            None if exp_epoch is None else np.asarray(exp_epoch, np.int32),
+            None if exp_seq is None else np.asarray(exp_seq, np.int32))
+
+
+@dataclass(slots=True)
+class _InFlightLaunch:
+    """One enqueued-but-unsettled launch (batched_host.py:645-700, the
+    fields this port uses): what the settle half needs to finish it."""
+
+    flat: torch.Tensor      # packed result on the device (kept alive
+    #                         until the copy below has landed)
+    host: Optional[torch.Tensor]  # pinned buffer the d2h copy fills (CUDA)
+    done: Any               # CUDA event after that copy (None on the CPU)
+    k: int
+    want_vsn: bool
+    elect: np.ndarray       # [E] this launch's election vector
+    cand: np.ndarray        # [E] its candidates
+    now: float              # runtime.now at enqueue (lease renewal)
+    #: active-column compaction: the active columns (None = full-width
+    #: pack), the pow2-bucketed packed width, and whether the STEP ran on
+    #: those rows only (then won / quorum / corrupt are A-wide too)
+    active: Optional[np.ndarray] = None
+    a_width: int = 0
+    sliced: bool = False
+    #: flush path: the (ensemble, taken ops) pairs this launch serves
+    taken: Any = None
+    #: execute_async path: the client future and its op count
+    exec_fut: Optional[Future] = None
+    exec_ops: int = 0
+
+
+class _Uploads:
+    """Host buffers a launch's inputs are built in and uploaded from.
+
+    On CUDA they are pinned, one set per in-flight slot, and the copies
+    are ``non_blocking``: the host never waits for the device to take
+    them.  A slot is handed out again only after the event recorded at
+    the end of the launch that last used it (its device→host copy, after
+    every upload and the step) has completed, so no enqueue overwrites a
+    buffer whose copy is still pending.  On the CPU the buffers are fresh
+    arrays the step reads directly."""
+
+    def __init__(self, device: torch.device, n_slots: int) -> None:
+        self.pinned = device.type == "cuda"
+        self.device = device
+        self._slots: List[Dict[str, torch.Tensor]] = [
+            {} for _ in range(n_slots)]
+        self._events: List[Any] = [None] * n_slots
+        self._next = 0
+        self._cur: Dict[str, torch.Tensor] = self._slots[0]
+        self._cur_i = 0
+
+    def begin(self) -> None:
+        """Take the next slot, waiting for its last launch's copies."""
+        i = self._cur_i = self._next
+        self._next = (i + 1) % len(self._slots)
+        ev = self._events[i]
+        if ev is not None:
+            ev.synchronize()
+            self._events[i] = None
+        self._cur = self._slots[i]
+
+    def buffer(self, name: str, shape: Tuple[int, ...],
+               dtype: torch.dtype) -> torch.Tensor:
+        """A host tensor of ``shape`` to fill (through ``.numpy()``)."""
+        if not self.pinned:
+            return torch.empty(shape, dtype=dtype)
+        n = 1
+        for d in shape:
+            n *= d
+        t = self._cur.get(name)
+        if t is None or t.numel() < n:
+            t = self._cur[name] = torch.empty(max(n, 1), dtype=dtype,
+                                              pin_memory=True)
+        return t[:n].view(shape)
+
+    def upload(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.pinned:
+            return t
+        return t.to(self.device, non_blocking=True)
+
+    def end(self, event: Any) -> None:
+        """Record the event that frees the current slot."""
+        self._events[self._cur_i] = event
 
 
 class WallRuntime:
@@ -263,6 +431,16 @@ class BatchedEnsembleService:
     enqueue-side coalescing of commutative and semilattice funs, as the
     reference's ``RETPU_COMM_REPL`` does.  ``scrub_every_flushes`` runs
     :meth:`scrub` every that many flushes (None: on demand only).
+    ``compact`` turns active-column compaction on (the default, as the
+    reference's ``RETPU_COMPACT``).  ``pipeline_depth`` bounds the
+    launches that may be enqueued but unsettled (1: every flush settles
+    its own launch).
+
+    The step updates the engine state in place: a launch has the
+    reference's DONATED contract (``RETPU_DONATE=1``) and keeps no
+    rollback snapshot.  A launch that fails leaves the state and mirrors
+    as the failure left them; its ops, and those of every later launch
+    still in flight, resolve 'failed' and the error reaches the caller.
     """
 
     def __init__(self, runtime: Any, n_ens: int, n_peers: int,
@@ -271,7 +449,9 @@ class BatchedEnsembleService:
                  config: Optional[Config] = None,
                  device: DeviceLike = None,
                  comm_repl: bool = True,
-                 scrub_every_flushes: Optional[int] = None) -> None:
+                 scrub_every_flushes: Optional[int] = None,
+                 compact: bool = True,
+                 pipeline_depth: int = 1) -> None:
         if tick is not None:
             raise NotImplementedError(
                 "timer-driven flushing is not ported; pass tick=None "
@@ -400,6 +580,41 @@ class BatchedEnsembleService:
         #: one bounded extra launch cycle inside the same flush call
         self._chain_kick = False
         self._chain_depth = 0
+        #: active-column compaction, and its observability: packed d2h
+        #: bytes moved, the bytes the full-width layout would have moved,
+        #: and the packed-grid occupancy (a_width / E; 1.0 uncompacted)
+        self._compact = bool(compact)
+        self.payload_bytes = 0
+        self.payload_bytes_full_width = 0
+        self._occ_sum = 0.0
+        self._occ_launches = 0
+        #: launches whose step ran on the active rows only
+        self.sliced_launches = 0
+        #: the bounded launch pipeline: enqueued, unsettled launches, FIFO
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self._inflight: "deque[_InFlightLaunch]" = deque()
+        self._uploads = _Uploads(self.device, self.pipeline_depth + 1)
+        #: CUDA: the side stream the packed result's d2h copy runs on
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    @property
+    def grid_occupancy(self) -> float:
+        """Mean packed-grid occupancy over the launches settled so far
+        (the reference's ``stats()["grid_occupancy"]``)."""
+        return (self._occ_sum / self._occ_launches
+                if self._occ_launches else 1.0)
+
+    def set_pipeline_depth(self, depth: int) -> int:
+        """Change the launch pipeline depth; every in-flight launch
+        settles first (batched_host.py:2223).  Returns the old depth."""
+        depth = max(1, int(depth))
+        old = self.pipeline_depth
+        if depth != old:
+            self._drain_launches()
+            self.pipeline_depth = depth
+            self._uploads = _Uploads(self.device, depth + 1)
+        return old
 
     # -- client API --------------------------------------------------------
 
@@ -1051,7 +1266,7 @@ class BatchedEnsembleService:
         parked retry now: with no concurrent writer left the backoff is
         pure latency, and a caller looping ``while any(svc.queues):
         flush()`` would otherwise stop with the futures unresolved."""
-        if self._retry_at and not self._active:
+        if self._retry_at and not self._active and not self._inflight:
             parked, self._retry_at = self._retry_at, []
             for _at, _e, fut, thunk in parked:
                 if not fut.done:
@@ -1088,27 +1303,63 @@ class BatchedEnsembleService:
         int32 payloads inline (no host handle store).  Payload 0 is the
         tombstone (a put of 0 is a delete).  OP_RMW rows carry the fun
         code in ``exp_epoch`` and return the computed value.  Elections
-        fold in and leases check/renew as for queued ops."""
-        kind = np.asarray(kind, np.int32)
-        val = np.asarray(val, np.int32)
-        if ((kind == eng.OP_PUT) & (val < 0)).any():
-            raise ValueError("negative put payloads are not encodable "
-                             "(int32 handles; 0 = tombstone/delete)")
-        k = int(kind.shape[0])
-        slot = np.asarray(slot, np.int32)
+        fold in and leases check/renew as for queued ops.  It settles
+        every launch in flight first, so its results land behind them."""
+        self._drain_launches()
+        kind, slot, val, exp_e, exp_s = _bulk_planes(kind, slot, val,
+                                                     exp_epoch, exp_seq)
         committed, get_ok, found, value, _ = self._launch(
-            kind, slot, val, k, want_vsn=False,
-            exp_e=None if exp_epoch is None
-            else np.asarray(exp_epoch, np.int32),
-            exp_s=None if exp_seq is None
-            else np.asarray(exp_seq, np.int32))
+            kind, slot, val, int(kind.shape[0]), want_vsn=False,
+            exp_e=exp_e, exp_s=exp_s)
         self.ops_served += int((kind != eng.OP_NOOP).sum())
         return committed, get_ok, found, value
 
+    def execute_async(self, kind: np.ndarray, slot: np.ndarray,
+                      val: np.ndarray,
+                      exp_epoch: Optional[np.ndarray] = None,
+                      exp_seq: Optional[np.ndarray] = None) -> Future:
+        """Pipelined :meth:`execute` (batched_host.py:5089-5150): enqueue
+        the ``[K, E]`` batch and return a :class:`Future` resolving to
+        ``(committed, get_ok, found, value)`` (or 'failed' on a failed
+        launch).  Up to ``pipeline_depth`` batches overlap — batch N's
+        copy and host resolve run under batch N + 1's step — and results
+        resolve strictly in submission order; a later call, or an idle
+        :meth:`flush`, settles the tail."""
+        fut = Future()
+        kind, slot, val, exp_e, exp_s = _bulk_planes(kind, slot, val,
+                                                     exp_epoch, exp_seq)
+        k = int(kind.shape[0])
+        n_ops = int((kind != eng.OP_NOOP).sum())
+        # an in-flight launch may be about to install a leader: electing
+        # again would re-version its objects, so settle first
+        elect, cand = self._election_inputs()
+        if elect.any() and self._inflight:
+            self._drain_launches()
+            elect, cand = self._election_inputs()
+        try:
+            fl = self._launch_enqueue(kind, slot, val, k, want_vsn=False,
+                                      exp_e=exp_e, exp_s=exp_s,
+                                      elect=elect, cand=cand)
+        except BaseException:
+            self._safe_resolve(fut, "failed")
+            raise
+        fl.exec_fut = fut
+        fl.exec_ops = n_ops
+        self._inflight.append(fl)
+        self._drain_launches(keep=self.pipeline_depth - 1)
+        return fut
+
     def flush(self) -> int:
         """One device launch for everything queued, plus at most two
-        chained launches for follow-ups its resolve enqueued (kmodify
-        CAS halves, immediate retries); returns ops served."""
+        chained launches for follow-ups its settle enqueued (kmodify
+        CAS halves, immediate retries); returns ops served by the
+        launches SETTLED during this call.
+
+        With ``pipeline_depth`` > 1 the launch is only enqueued here while
+        work stays queued: it settles during a later flush, after that
+        flush's launch is enqueued (FIFO).  A flush that empties the queues
+        settles everything, so flush-until-done callers see resolved
+        futures exactly as at depth 1 (batched_host.py:5152-5170)."""
         self._flush_calls += 1
         self._run_due_retries()
         active = self._active
@@ -1116,8 +1367,10 @@ class BatchedEnsembleService:
                 max((self._queue_rounds[e] for e in active), default=0))
         served = 0
         if k == 0:
-            # idle flush: chained follow-ups get their own launch
-            # cycle; an election-only launch runs if one is needed
+            # idle flush: settle the pipeline; chained follow-ups get
+            # their own launch cycle; an election-only launch runs if one
+            # is needed
+            served += self._drain_launches()
             served += self._chain_flush()
             if not self._election_inputs()[0].any():
                 self._flush_maintenance()
@@ -1182,9 +1435,18 @@ class BatchedEnsembleService:
                     exp_e[j, e], exp_s[j, e] = op.exp
                     j += 1
         self._active = still_active
+        # Elections plan from the host mirrors, which an in-flight launch
+        # may still be about to update (a won election lands at settle):
+        # settle first, or the row re-elects and the epoch bump
+        # re-versions its objects.
+        elect, cand = self._election_inputs()
+        if elect.any() and self._inflight:
+            served += self._drain_launches()
+            elect, cand = self._election_inputs()
         try:
-            planes = self._launch(kind, slot, val, k, want_vsn=True,
-                                  exp_e=exp_e, exp_s=exp_s)
+            fl = self._launch_enqueue(kind, slot, val, k, want_vsn=True,
+                                      exp_e=exp_e, exp_s=exp_s,
+                                      elect=elect, cand=cand)
         except BaseException:
             # A failed device launch must not orphan the taken ops:
             # fail them all, then let the error reach the flush() caller.
@@ -1192,7 +1454,12 @@ class BatchedEnsembleService:
                 for op in ops:
                     self._fail_entry(e, op)
             raise
-        served += self._resolve_flush(taken, planes)
+        fl.taken = taken
+        self._inflight.append(fl)
+        # settle everything when the queues drained, else down to
+        # depth - 1 in flight: the window the next flush overlaps
+        keep = self.pipeline_depth - 1 if self._active else 0
+        served += self._drain_launches(keep=keep)
         served += self._chain_flush()
         self._flush_maintenance()
         return served
@@ -1220,7 +1487,10 @@ class BatchedEnsembleService:
         """Device copy of the up mask, re-uploaded only after a
         failure-detector change (steady state: zero h2d bytes)."""
         if self._up_dev is None:
-            self._up_dev = torch.from_numpy(self.up.copy()).to(self.device)
+            up = torch.from_numpy(self.up.copy())
+            if self.device.type == "cuda":
+                up = up.pin_memory().to(self.device, non_blocking=True)
+            self._up_dev = up
         return self._up_dev
 
     def _alloc_handle(self) -> int:
@@ -1344,60 +1614,176 @@ class BatchedEnsembleService:
         elect = (~has | ~leader_up) & any_up
         return elect, cand
 
-    def _fetch_packed(self, flat: torch.Tensor) -> np.ndarray:
+    def _fetch_packed(self, fl: _InFlightLaunch) -> np.ndarray:
         """Block until the launch's packed result is on the host (the
         ONE device→host transfer per launch)."""
-        return flat.cpu().numpy()
+        if fl.done is None:
+            return fl.flat.numpy()
+        fl.done.synchronize()
+        return fl.host.numpy()
 
-    def _launch(self, kind: np.ndarray, slot: np.ndarray, val: np.ndarray,
-                k: int, want_vsn: bool,
-                exp_e: Optional[np.ndarray] = None,
-                exp_s: Optional[np.ndarray] = None):
-        """One synchronous :func:`engine.full_step` launch + host
-        bookkeeping: upload the planes, step, pack, fetch the packed
-        buffer, unpack, and apply the leader/lease mirrors.  Returns np
-        result planes ``(committed, get_ok, found, value, vsn)`` (None
-        planes for k == 0; vsn None unless asked).
+    def _launch_enqueue(self, kind: np.ndarray, slot: np.ndarray,
+                        val: np.ndarray, k: int, want_vsn: bool,
+                        exp_e: Optional[np.ndarray] = None,
+                        exp_s: Optional[np.ndarray] = None,
+                        elect: Optional[np.ndarray] = None,
+                        cand: Optional[np.ndarray] = None
+                        ) -> _InFlightLaunch:
+        """ENQUEUE half of a launch (batched_host.py:3405-3640): choose
+        the active set, build and upload the inputs, step, pack, and
+        start the packed result's device→host copy.  Nothing here waits
+        for the device on CUDA: uploads come from pinned buffers, and the
+        copy runs on a side stream that waits on an event recorded after
+        the pack.  On the CPU the same steps run synchronously.
 
-        The step updates the engine state in place, so a launch that
-        fails on the device leaves the state as the failed step left it
-        (the reference's donated launch has the same contract)."""
-        elect, cand = self._election_inputs()
+        Active-column compaction, two strengths: the columns holding ops
+        or elections, pow2-bucketed from ``A_BUCKET_MIN``.  With
+        ``E >= SLICE_MIN_E`` and a bucket of at most E/4 the step itself
+        runs on those rows (SLICED: inputs and results A-wide, pads =
+        index E, NOOP and not electing); otherwise, while the bucket is
+        below E, the step keeps the full grid and only the pack gathers
+        the client planes (pads = column 0)."""
+        if elect is None:
+            elect, cand = self._election_inputs()
         now = self.runtime.now
         lease_ok = self.lease_until > now
-        dev = self.device
-
-        def up_(a) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         e = self.n_ens
-        lease_j = up_(np.repeat(lease_ok[None, :], k, axis=0))
-        state, won, res = eng.full_step(
-            self.state, up_(elect), up_(cand), up_(kind), up_(slot),
-            up_(val), lease_j, self._up_device(),
-            exp_epoch=None if exp_e is None else up_(exp_e),
-            exp_seq=None if exp_s is None else up_(exp_s))
+        active = pad = None
+        a_width = 0
+        sliced = False
+        if self._compact and k:
+            cols = np.flatnonzero((kind != eng.OP_NOOP).any(axis=0)
+                                  | elect)
+            if cols.size:
+                a_b = A_BUCKET_MIN
+                while a_b < cols.size:
+                    a_b <<= 1
+                if a_b < e:
+                    active = cols.astype(np.int32)
+                    a_width = a_b
+                    sliced = e >= SLICE_MIN_E and a_b * 4 <= e
+                    pad = np.full((a_b,), e if sliced else 0, np.int32)
+                    pad[:cols.size] = active
+        width = a_width if sliced else e
+        a_n = 0 if active is None else active.size
+        ups = self._uploads
+        ups.begin()
+
+        def plane(name: str, src: np.ndarray, dtype: torch.dtype):
+            """Upload a [K, E] host plane, column-sliced when sliced."""
+            buf = ups.buffer(name, (k, width), dtype)
+            out = buf.numpy()
+            if sliced:
+                out[:, :a_n] = src[:, active]
+                out[:, a_n:] = 0
+            else:
+                out[...] = src
+            return ups.upload(buf)
+
+        def vector(name: str, src: np.ndarray, dtype: torch.dtype):
+            buf = ups.buffer(name, (width,), dtype)
+            out = buf.numpy()
+            if sliced:
+                out[:a_n] = src[active]
+                out[a_n:] = 0
+            else:
+                out[...] = src
+            return ups.upload(buf)
+
+        kind_j = plane("kind", kind, torch.int32)
+        slot_j = plane("slot", slot, torch.int32)
+        val_j = plane("val", val, torch.int32)
+        exp_e_j = None if exp_e is None else plane("exp_e", exp_e,
+                                                   torch.int32)
+        exp_s_j = None if exp_s is None else plane("exp_s", exp_s,
+                                                   torch.int32)
+        # the lease plane travels contiguous [K, width]: F1 refuses
+        # broadcast views
+        lease_buf = ups.buffer("lease", (k, width), torch.bool)
+        lease_np = lease_buf.numpy()
+        if sliced:
+            lease_np[:, :a_n] = lease_ok[active][None, :]
+            lease_np[:, a_n:] = False
+        else:
+            lease_np[...] = lease_ok[None, :]
+        lease_j = ups.upload(lease_buf)
+        elect_j = vector("elect", elect, torch.bool)
+        cand_j = vector("cand", cand, torch.int32)
+        aidx_j = None
+        if active is not None and not sliced:
+            abuf = ups.buffer("aidx", (a_width,), torch.int32)
+            abuf.numpy()[...] = pad
+            aidx_j = ups.upload(abuf)
+        up_j = self._up_device()
+        if sliced:
+            state, won, res = eng.full_step_sliced(
+                self.state, pad, elect_j, cand_j, kind_j, slot_j, val_j,
+                lease_j, up_j, exp_epoch=exp_e_j, exp_seq=exp_s_j)
+            self.sliced_launches += 1
+        else:
+            state, won, res = eng.full_step(
+                self.state, elect_j, cand_j, kind_j, slot_j, val_j,
+                lease_j, up_j, exp_epoch=exp_e_j, exp_seq=exp_s_j)
         self.state = state
-        flat = self._fetch_packed(_pack_results_body(won, res, want_vsn))
+        # a sliced launch's planes are already A-wide; pack-gather
+        # hands the pack the index
+        flat = _pack_results_body(won, res, want_vsn, active_idx=aidx_j)
+        host = done = None
+        if self._copy_stream is not None:
+            packed = torch.cuda.Event()
+            packed.record(torch.cuda.current_stream(self.device))
+            self._copy_stream.wait_event(packed)
+            host = ups.buffer("out", (flat.numel(),), torch.uint8)
+            with torch.cuda.stream(self._copy_stream):
+                host.copy_(flat, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            ups.end(done)
+        return _InFlightLaunch(
+            flat=flat, host=host, done=done, k=k, want_vsn=want_vsn,
+            elect=elect, cand=cand, now=now, active=active,
+            a_width=a_width, sliced=sliced)
+
+    def _launch_resolve(self, fl: _InFlightLaunch):
+        """RESOLVE half of a launch (batched_host.py:3667-3880): wait for
+        the packed result, unpack it to full-width planes, apply the
+        leader and lease mirrors, and run the anti-entropy exchange for
+        rows it flagged corrupt — on the CURRENT state, which at depth 2
+        already holds the next launch's step, so a flagged row is
+        repaired before any later result is acked.  Returns np result
+        planes ``(committed, get_ok, found, value, vsn)`` (None planes
+        for k == 0; vsn None unless asked)."""
+        flat = self._fetch_packed(fl)
+        e, m = self.n_ens, self.n_peers
         (won_np, quorum_ok, corrupt_np, committed, get_ok, found, value,
-         vsn) = unpack_results(flat, e, self.n_peers, k, want_vsn)
+         vsn) = unpack_results(flat, e, m, fl.k, fl.want_vsn,
+                               active=fl.active, a_width=fl.a_width,
+                               sliced=fl.sliced)
+        self.payload_bytes += int(flat.nbytes)
+        self.payload_bytes_full_width += packed_nbytes(e, m, fl.k,
+                                                       fl.want_vsn)
+        self._occ_sum += (fl.a_width / e if fl.active is not None
+                          else 1.0)
+        self._occ_launches += 1
         # Host mirror: a won election installed our candidate.
-        self.leader_np = np.where(won_np, cand, self.leader_np)
+        self.leader_np = np.where(won_np, fl.cand, self.leader_np)
         # Lease renewal: a won election, or any round in which the
         # leader confirmed its epoch with a quorum (peer.erl:1092-1095).
         renew = won_np | quorum_ok
-        self.lease_until[renew] = now + self.config.lease()
+        self.lease_until[renew] = fl.now + self.config.lease()
         # Device-detected integrity failures -> anti-entropy exchange for
         # the affected ensembles (tree_corrupted -> repair -> exchange,
         # peer.erl:1276-1277): divergent slots re-adopt the newest
         # hash-valid copy and the replicas' trees are rebuilt.  Flagged
         # rows take the device round for reads until the exchange syncs
         # them; residual damage re-flags on its next device access.
-        if k and corrupt_np.any():
+        if fl.k and corrupt_np.any():
             self.corruptions += int(corrupt_np.sum())
             run = corrupt_np.any(1)
             self._corrupt_rows |= run
             self.state, diverged, synced = eng.exchange_step(
-                self.state, up_(run), self._up_device())
+                self.state, torch.from_numpy(run).to(self.device),
+                self._up_device())
             synced_np = synced.cpu().numpy()
             self.repairs += int(diverged.cpu().numpy()[synced_np].sum())
             self._corrupt_rows &= ~(run & synced_np)
@@ -1409,8 +1795,59 @@ class BatchedEnsembleService:
             self._slot_vsn_ok[won_np] = False
         return committed, get_ok, found, value, vsn
 
+    def _launch(self, kind: np.ndarray, slot: np.ndarray, val: np.ndarray,
+                k: int, want_vsn: bool,
+                exp_e: Optional[np.ndarray] = None,
+                exp_s: Optional[np.ndarray] = None):
+        """One SYNCHRONOUS launch: the two halves back to back (the bulk
+        :meth:`execute` path)."""
+        return self._launch_resolve(self._launch_enqueue(
+            kind, slot, val, k, want_vsn, exp_e, exp_s))
+
+    def _settle_launch(self, fl: _InFlightLaunch) -> int:
+        """SETTLE one in-flight launch end to end (batched_host.py:
+        5649-5700): resolve it, then fan out its futures — the flush's
+        taken ops or the ``execute_async`` future.  Returns ops served.
+        A failure fails the launch's clients and re-raises."""
+        try:
+            planes = self._launch_resolve(fl)
+        except BaseException:
+            self._abandon_launch(fl)
+            raise
+        if fl.exec_fut is not None:
+            self.ops_served += fl.exec_ops
+            self._safe_resolve(fl.exec_fut, planes[:4])
+            return fl.exec_ops
+        return self._resolve_flush(fl.taken or [], planes)
+
+    def _drain_launches(self, keep: int = 0) -> int:
+        """Settle in-flight launches oldest-first until at most ``keep``
+        remain; returns ops served (batched_host.py:5532).  When a settle
+        fails, every later in-flight launch stepped on the state the
+        failed one left, so their clients fail too (``_abandon_launch``)
+        and the error re-raises."""
+        served = 0
+        while len(self._inflight) > keep:
+            fl = self._inflight.popleft()
+            try:
+                served += self._settle_launch(fl)
+            except BaseException:
+                while self._inflight:
+                    self._abandon_launch(self._inflight.popleft())
+                raise
+        return served
+
+    def _abandon_launch(self, fl: _InFlightLaunch) -> None:
+        """Fail an in-flight launch's clients (batched_host.py:5639)."""
+        if fl.exec_fut is not None:
+            self._safe_resolve(fl.exec_fut, "failed")
+        if fl.taken:
+            for e, ops in fl.taken:
+                for op in ops:
+                    self._fail_entry(e, op)
+
     def _flush_maintenance(self) -> None:
-        """Post-launch upkeep of every flush: the periodic scrub against
+        """Post-settle upkeep of every flush: the periodic scrub against
         its flush-count watermark, then the idle retry collapse."""
         if (self.scrub_every_flushes
                 and self.flushes - self._scrubbed_at_flush
@@ -1425,7 +1862,9 @@ class BatchedEnsembleService:
         Damage on a slot no read touches is invisible to the data path
         until a scrub.  Swept rows with residual damage stay off the
         read fast path; healed ones re-admit it.  If the exchange
-        raises, the state is left as it was."""
+        raises, the state is left as it was.  In-flight launches settle
+        first."""
+        self._drain_launches()
         self._scrubbed_at_flush = self.flushes
         node_bad, leaf_bad = eng.verify_trees(self.state)
         bad = (node_bad | leaf_bad).cpu().numpy()             # [E, M]

@@ -10,8 +10,9 @@ masks.
 
 Service level: the corruption-triggered exchange, ``scrub()`` and the
 ``scrub_every_flushes`` cadence run in lockstep through the JAX service
-on its oracle arm and the port's service on the CPU (the harness of
-``test_torch_kmodify.py``) — the flows of ``test_batched_host.py``
+on its oracle arm and the port's service on the CPU with
+``compact=False`` (the harness of ``test_torch_kmodify.py``; one case at
+both services' default compaction arm) — the flows of ``test_batched_host.py``
 (``test_service_heals_device_corruption``,
 ``test_service_scrub_heals_cold_slot_damage``,
 ``test_periodic_scrub_cadence``) and ``test_read_fastpath.py``
@@ -231,9 +232,12 @@ def svc_pair(monkeypatch):
             return type(x)(norm(y) for y in x)
         return x
 
-    def make(fast=True, e=4, m=5, s=16, k=8, scrub_every=None):
+    def make(fast=True, e=4, m=5, s=16, k=8, scrub_every=None,
+             compact=False):
         for key, v in ORACLE_ENV.items():
             monkeypatch.setenv(key, v)
+        if compact:
+            monkeypatch.delenv("RETPU_COMPACT")
         monkeypatch.setenv("RETPU_FAST_READS", "1" if fast else "0")
         monkeypatch.delenv("RETPU_WIDE", raising=False)
         js = jb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
@@ -241,9 +245,11 @@ def svc_pair(monkeypatch):
                                        scrub_every_flushes=scrub_every)
         ts = tb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
                                        max_ops_per_tick=k, device="cpu",
-                                       scrub_every_flushes=scrub_every)
+                                       scrub_every_flushes=scrub_every,
+                                       compact=compact)
         ts.set_fast_reads(fast)
         assert js._fast_reads == ts._fast_reads == fast
+        assert js._compact == ts._compact == compact
         bufs = ([], [])
         _record_packed(js, bufs[0])
         _record_packed(ts, bufs[1])
@@ -269,9 +275,12 @@ def _check_healed(p):
         assert not np.asarray(bad).any()
 
 
-@pytest.mark.parametrize("fast", [True, False], ids=["fast", "nofast"])
-def test_service_heals_device_corruption_like_jax(svc_pair, fast):
-    p = svc_pair(fast)
+@pytest.mark.parametrize("fast,compact", [(True, False), (False, False),
+                                          (True, True)],
+                         ids=["fast", "nofast", "fast-default-arm"])
+def test_service_heals_device_corruption_like_jax(svc_pair, fast, compact):
+    # the default arm on 16 rows: each one-row launch pack-gathers
+    p = svc_pair(fast, e=16 if compact else 4, compact=compact)
     for e in range(4):
         assert p.run(lambda s: s.kput(e, "k", b"v"))[0][0][0] == "ok"
         p.run(lambda s: s.kput(e, "j", b"w"))
@@ -287,6 +296,9 @@ def test_service_heals_device_corruption_like_jax(svc_pair, fast):
     assert p.ts.corruptions == 4 and p.ts.repairs == 0
     assert not p.ts._corrupt_rows.any()
     _check_healed(p)
+    if compact:
+        assert p.ts.payload_bytes < p.ts.payload_bytes_full_width
+        assert p.js.payload_bytes == p.ts.payload_bytes
 
 
 def test_service_scrub_heals_cold_slot_damage_like_jax(svc_pair):

@@ -130,11 +130,16 @@ def test_fastread_scripted_stream_matches_jax(pair, fast):  # noqa: F811
     p.check()
 
 
-@pytest.mark.parametrize("fast,seed", [(True, 3), (False, 4)],
-                         ids=["fast", "nofast"])
-def test_fastread_random_stream_matches_jax(pair, fast, seed):  # noqa: F811
+@pytest.mark.parametrize("fast,seed,compact", [
+    (True, 3, False), (False, 4, False), (True, 5, True)],
+    ids=["fast", "nofast", "fast-default-arm"])
+def test_fastread_random_stream_matches_jax(pair, fast, seed,  # noqa: F811
+                                            compact):
+    # the stream touches rows 0-2; the default arm (compaction on) runs
+    # on 12 rows, where those launches take the pack-gather strength
     e, m, s = 3, 3, 8
-    p = pair(fast, True, e=e, m=m, s=s, k=4)
+    p = pair(fast, True, e=12 if compact else e, m=m, s=s, k=4,
+             compact=compact)
     rng = np.random.default_rng(seed)
     ref = tfunref.ref
     for step in range(40):
@@ -172,6 +177,8 @@ def test_fastread_random_stream_matches_jax(pair, fast, seed):  # noqa: F811
         svc.up[:] = True
         svc._up_dev = None
     p.check()
+    if compact:
+        assert p.ts.payload_bytes < p.ts.payload_bytes_full_width
     if fast:
         assert p.ts.read_fastpath_hits > 20, p.ts.read_fastpath_hits
         assert set(p.ts.read_fastpath_miss_reasons) >= {

@@ -3,9 +3,11 @@
 ``kmodify`` / ``kmodify_many`` / ``ksafe_delete`` go through the JAX
 service on its oracle arm (``RETPU_COMPACT=0 RETPU_NATIVE_RESOLVE=0
 RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0``, no ``RETPU_WIDE``) and through the
-port's service on the CPU, both on one fixed clock each, with fast reads
-on and off (``RETPU_FAST_READS`` / ``set_fast_reads``) and enqueue-side
-coalescing on and off (``RETPU_COMM_REPL`` / ``comm_repl``).
+port's service on the CPU with ``compact=False``, both on one fixed clock
+each, with fast reads on and off (``RETPU_FAST_READS`` /
+``set_fast_reads``) and enqueue-side coalescing on and off
+(``RETPU_COMM_REPL`` / ``comm_repl``); one arm runs both at their default
+compaction (``RETPU_COMPACT`` unset, ``compact=True``).
 
 A scripted stream covers the behaviours of ``tests/test_kmodify.py`` and
 ``tests/test_rmw.py`` (device single flush, concurrent increments,
@@ -171,9 +173,11 @@ def pair(monkeypatch):
             return type(x)(norm(y) for y in x)
         return x
 
-    def make(fast, comm, e=4, m=3, s=16, k=8):
+    def make(fast, comm, e=4, m=3, s=16, k=8, compact=False):
         for key, v in ORACLE_ENV.items():
             monkeypatch.setenv(key, v)
+        if compact:
+            monkeypatch.delenv("RETPU_COMPACT")
         monkeypatch.setenv("RETPU_FAST_READS", "1" if fast else "0")
         monkeypatch.setenv("RETPU_COMM_REPL", "1" if comm else "0")
         monkeypatch.delenv("RETPU_WIDE", raising=False)
@@ -181,10 +185,10 @@ def pair(monkeypatch):
                                        max_ops_per_tick=k)
         ts = tb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
                                        max_ops_per_tick=k, device="cpu",
-                                       comm_repl=comm)
+                                       comm_repl=comm, compact=compact)
         ts.set_fast_reads(fast)
         assert js._native_resolve is None and not js._enq_slab
-        assert not js._compact and not js._obs
+        assert js._compact == ts._compact == compact and not js._obs
         assert js._fast_reads == ts._fast_reads == fast
         assert js._comm_repl == comm
         bufs = ([], [])
@@ -194,13 +198,16 @@ def pair(monkeypatch):
     return make
 
 
-ARMS = [(True, True), (True, False), (False, True), (False, False)]
-ARM_IDS = ["fast-comm", "fast-nocomm", "nofast-comm", "nofast-nocomm"]
+ARMS = [(True, True, False), (True, False, False), (False, True, False),
+        (False, False, False), (True, True, True)]
+ARM_IDS = ["fast-comm", "fast-nocomm", "nofast-comm", "nofast-nocomm",
+           "fast-comm-default-arm"]
 
 
-@pytest.mark.parametrize("fast,comm", ARMS, ids=ARM_IDS)
-def test_rmw_scripted_stream_matches_jax(pair, fast, comm):
-    p = pair(fast, comm)
+@pytest.mark.parametrize("fast,comm,compact", ARMS, ids=ARM_IDS)
+def test_rmw_scripted_stream_matches_jax(pair, fast, comm, compact):
+    # the default arm on 16 rows: launches touching 1-4 rows pack-gather
+    p = pair(fast, comm, e=16 if compact else 4, compact=compact)
     ref = tfunref.ref
 
     # device single flush; versions ride like any write
@@ -338,6 +345,9 @@ def test_rmw_scripted_stream_matches_jax(pair, fast, comm):
     (r,), _ = p.run(lambda s: s.kmodify(0, "ctr", lambda v, c: c + 1, 0))
     assert r[0] == "ok"
     p.check()
+    if compact:
+        assert p.ts.payload_bytes < p.ts.payload_bytes_full_width
+        assert p.js.payload_bytes == p.ts.payload_bytes
 
 
 def _random_op(rng, s, e, key, ref):

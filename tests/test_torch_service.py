@@ -7,8 +7,11 @@ splits batches across flushes — goes through the JAX service on its
 oracle arm (``RETPU_COMPACT=0 RETPU_FAST_READS=0 RETPU_NATIVE_RESOLVE=0
 RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0``, no ``RETPU_WIDE``) and through the
 port's service on the CPU with fast reads off (``set_fast_reads(False)``;
-``tests/test_torch_fastread.py`` covers the fast-read arm).  Both run on
-the same fixed clock.  Every future must resolve to the same value,
+``tests/test_torch_fastread.py`` covers the fast-read arm) and with
+compaction off (``compact=False``).  One case runs both at their default
+compaction arm (``RETPU_COMPACT`` unset, ``compact=True``) on a grid wide
+enough for the pack-gather strength to engage.  Both run on the same
+fixed clock.  Every future must resolve to the same value,
 every flush's packed result buffer must be byte-identical, and the final
 engine states bit-equal.
 """
@@ -54,17 +57,21 @@ def services(monkeypatch):
     from riak_ensemble_tpu.parallel import batched_host as jb
     from riak_ensemble_tpu.types import NOTFOUND as J_NOTFOUND
 
-    def make(e, m, s, k):
+    def make(e, m, s, k, compact=False):
+        if compact:
+            monkeypatch.delenv("RETPU_COMPACT")
         cj, ct = FixedClock(), FixedClock()
         js = jb.BatchedEnsembleService(cj, e, m, s, tick=None,
                                        max_ops_per_tick=k)
         ts = tb.BatchedEnsembleService(ct, e, m, s, tick=None,
-                                       max_ops_per_tick=k, device="cpu")
+                                       max_ops_per_tick=k, device="cpu",
+                                       compact=compact)
         # the port's counterpart of RETPU_FAST_READS=0: this oracle arm
         # routes every read through a device round
         ts.set_fast_reads(False)
         assert js._native_resolve is None and not js._enq_slab
-        assert not js._compact and not js._fast_reads and not js._obs
+        assert not js._fast_reads and not js._obs
+        assert js._compact == ts._compact == compact
         assert not ts._fast_reads
         bufs = ([], [])
         _record_packed(js, bufs[0])
@@ -101,10 +108,13 @@ def _submit(svc, rng_draw, e, key):
                          want_vsn=want_vsn)
 
 
-@pytest.mark.parametrize("e,m,s,k,seed", [(6, 5, 16, 8, 1), (4, 3, 8, 4, 2)])
-def test_keyed_stream_matches_jax_oracle_arm(services, e, m, s, k, seed):
+@pytest.mark.parametrize("e,m,s,k,seed,compact", [
+    (6, 5, 16, 8, 1, False), (4, 3, 8, 4, 2, False),
+    (24, 3, 8, 4, 3, True)], ids=["oracle-1", "oracle-2", "default-arm"])
+def test_keyed_stream_matches_jax_oracle_arm(services, e, m, s, k, seed,
+                                             compact):
     make, norm = services
-    js, ts, clocks, bufs = make(e, m, s, k)
+    js, ts, clocks, bufs = make(e, m, s, k, compact)
     rng = np.random.default_rng(seed)
     futs = ([], [])
     for step in range(30):
@@ -164,6 +174,9 @@ def test_keyed_stream_matches_jax_oracle_arm(services, e, m, s, k, seed):
     assert js.key_slot == ts.key_slot and js.slot_handle == ts.slot_handle
     assert js.values == ts.values and js.ops_served == ts.ops_served
     assert js.flushes == ts.flushes
+    assert js.payload_bytes == ts.payload_bytes
+    if compact:
+        assert ts.payload_bytes < ts.payload_bytes_full_width
     # the stream really committed, failed, elected and hit tombstones
     flat = [r for v in got_t for r in (v if isinstance(v, list) else [v])]
     assert any(r == "failed" for r in flat)
