@@ -7,7 +7,9 @@ toolkit (``nvcc``)::
 
 Phases (each raises on failure, so any failure exits non-zero):
 
-1. build every CUDA kernel of the package from ``csrc/`` with nvcc;
+1. build every CUDA kernel of the package from ``csrc/`` with nvcc and,
+   at the same time, the service's host passes (``csrc/host/*.cc``) with
+   g++;
 2. hold kernel K1 (``ops/cuda_quorum.py``) against its plain torch
    version on the card — exact equality — at the main-path shape and
    the edge cases, and time both;
@@ -50,10 +52,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    launches, median flush time per arm); (c) a stream of K = 64 flushes
    through ``execute_async`` at depth 2 against ``execute`` at depth 1
    (equal results and final state; wall per flush; the host's settle of
-   launch N returning while launch N + 1 still runs on the card).
+   launch N returning while launch N + 1 still runs on the card);
+7. the host passes of the service's default arm: (a) one mixed keyed
+   flush of the phase-4 pattern with a sliced A = 256 payload and a
+   full-width one, and one flush of phase 5's RMW traffic (RMW and CAS
+   rows, sliced A = 512), the inputs of every pass (the pending-slab
+   pack, the completion-slab gather, the unpack, the mirror scatter) replayed
+   through the C++ pass and its plain version, equal byte for byte and
+   timed per call; (b) the phase-4 keyed pattern and the 6(c) execute
+   stream at depth 1 and 2 on the default arm and on
+   ``native_enqueue=False, native_resolve=False``: equal futures, mirror
+   slabs, engine state and exchange counters, one completion-slab wake
+   per settled flush with ops, the median flush and the host split per
+   arm.
 
-It prints the card (``nvidia-smi``), one JSON line of kernel numbers,
-and as its last line ``{"ok": true, "device": {...}}``.  It exits
+Phases 4-6 run the service's default (native) host arm.
+
+It prints the card (``nvidia-smi``), one JSON line of kernel numbers
+(with the host passes' times under ``host``), and as its last line
+``{"ok": true, "device": {...}}``.  It exits
 non-zero without that line when no CUDA device is visible.  With
 ``--profile PATH`` it also traces one full-size flush with
 torch.profiler (kernels per flush, device time, F1's device time per
@@ -61,6 +78,7 @@ launch) and writes the table to PATH, and prints the device's busy share
 of the depth-1 and depth-2 streams of phase 6(c).
 """
 
+import gc
 import json
 import os
 import statistics
@@ -77,6 +95,7 @@ from riak_ensemble_tpu_torch.ops import build
 from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops.quorum import REQUIRED_MODES
+from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
 from riak_ensemble_tpu_torch.parallel.batched_host import (
     BatchedEnsembleService, WallRuntime)
 
@@ -1133,6 +1152,55 @@ def phase_f1_sliced(dev: torch.device, card: str) -> dict:
             for n, b in ((250, 256), (2000, 2048))}
 
 
+def keyed_rounds(svc: BatchedEnsembleService, dev: torch.device, sub: list,
+                 keys: list, ms: list) -> list:
+    """The phase-4 keyed pattern on the ensembles ``sub``: three rounds of
+    ``kput_many`` then ``kget_many`` of ``keys`` (every active leader down
+    after the second round's puts), the reads after the leases lapse, then
+    a damaged replica on three rows whose read flags it (the settle runs
+    the exchange).  Appends each flush's wall ms to ``ms``; returns every
+    future's value, and raises when an acknowledged put does not read
+    back."""
+    results = []
+
+    def timed_flush(futs):
+        for _ in range(8):
+            if all(f.done for f in futs):
+                return
+            t0 = time.perf_counter()
+            svc.flush()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        raise AssertionError("keyed pattern: futures unresolved after 8 "
+                             "flushes")
+    for rnd in range(3):
+        puts = [svc.kput_many(x, keys, [f"v{rnd}:{x}:{i}"
+                                        for i in range(len(keys))])
+                for x in sub]
+        timed_flush(puts)
+        results.append([f.value for f in puts])
+        if rnd == 1:            # every active leader down: elections
+            for x in sub:
+                svc.set_peer_up(x, int(svc.leader_np[x]), False)
+        svc.runtime.now += 1.0  # leases lapse: the reads go round
+        gets = [svc.kget_many(x, keys) for x in sub]
+        timed_flush(gets)
+        results.append([f.value for f in gets])
+        want = [[("ok", f"v{rnd}:{x}:{i}") for i in range(len(keys))]
+                for x in sub]
+        if results[-1] != want:
+            raise AssertionError(f"keyed pattern round {rnd}: acknowledged "
+                                 f"puts did not read back")
+    hot = sub[:3]
+    slot = svc.key_slot[hot[0]]["user:0"]
+    svc.state.obj_val[torch.as_tensor(hot, device=dev), 1, slot] += 5
+    svc.runtime.now += 1.0
+    gets = [svc.kget_many(x, ["user:0"]) for x in hot]
+    timed_flush(gets)
+    results.append([f.value for f in gets])
+    return results
+
+
 def phase_compaction_service(dev: torch.device, card: str) -> dict:
     """6(b): the keyed service at the headline size with 256 of 10,000
     ensembles active, ``compact=True`` against ``compact=False``: puts,
@@ -1155,44 +1223,8 @@ def phase_compaction_service(dev: torch.device, card: str) -> dict:
         chk = LaunchCheck(svc)
         split = HostSplit(svc)
         reset_counts()                               # this path's run
-        results, ms = [], []
-
-        def timed_flush(futs):
-            for _ in range(8):
-                if all(f.done for f in futs):
-                    return
-                t0 = time.perf_counter()
-                svc.flush()
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            raise AssertionError("6(b): futures unresolved after 8 flushes")
-        for rnd in range(3):
-            puts = [svc.kput_many(x, keys, [f"v{rnd}:{x}:{i}"
-                                            for i in range(len(keys))])
-                    for x in sub]
-            timed_flush(puts)
-            results.append([f.value for f in puts])
-            if rnd == 1:            # every active leader down: elections
-                for x in sub:
-                    svc.set_peer_up(x, int(svc.leader_np[x]), False)
-            svc.runtime.now += 1.0  # leases lapse: the reads go round
-            gets = [svc.kget_many(x, keys) for x in sub]
-            timed_flush(gets)
-            results.append([f.value for f in gets])
-            want = [[("ok", f"v{rnd}:{x}:{i}") for i in range(len(keys))]
-                    for x in sub]
-            if results[-1] != want:
-                raise AssertionError(f"6(b) compact={compact} round {rnd}: "
-                                     f"acknowledged puts did not read back")
-        # a damaged replica on three active rows: the read flags it and
-        # the settle runs the exchange
-        hot = sub[:3]
-        slot = svc.key_slot[hot[0]]["user:0"]
-        svc.state.obj_val[torch.as_tensor(hot, device=dev), 1, slot] += 5
-        svc.runtime.now += 1.0
-        gets = [svc.kget_many(x, ["user:0"]) for x in hot]
-        timed_flush(gets)
-        results.append([f.value for f in gets])
+        ms = []
+        results = keyed_rounds(svc, dev, sub, keys, ms)
         counts = read_counts()
         if counts["F1"] != chk.launches:
             raise AssertionError(f"6(b): F1 launched {counts['F1']} times in "
@@ -1239,21 +1271,35 @@ def phase_compaction_service(dev: torch.device, card: str) -> dict:
 
 class HostSplit:
     """Host time of a service's launch path by stage, from wrappers around
-    its methods: the enqueue half (plane slicing, uploads, step, pack, the
-    copy's start), the wait for the packed result, the unpack with the
-    leader / lease mirrors (and any exchange), and the fan-out to the
-    futures.  What a flush spends outside these is the queue walk and the
-    [K, E] plane build."""
+    its methods and host passes: the enqueue half (plane slicing, uploads,
+    step, pack of the result, the copy's start), the C++ pack of the op
+    planes, the wait for the packed result, the unpack with the leader /
+    lease mirrors (and any exchange), the C++ mirror scatter, and the
+    fan-out to the futures.  What a flush spends outside these is the
+    queue walk (with the [K, E] plane build on the oracle arm, whose
+    mirror writes sit inside the fan-out).  It also counts the settled
+    launches that carried ops."""
 
-    STAGES = ("enqueue", "wait", "unpack", "fanout")
+    STAGES = ("enqueue", "pack", "wait", "unpack", "mirrors", "fanout")
 
     def __init__(self, svc: BatchedEnsembleService) -> None:
         self.ms = dict.fromkeys(self.STAGES + ("resolve", "settle"), 0.0)
-        for name, key in (("_launch_enqueue", "enqueue"),
-                          ("_fetch_packed", "wait"),
-                          ("_launch_resolve", "resolve"),
-                          ("_settle_launch", "settle")):
-            setattr(svc, name, self._timed(getattr(svc, name), key))
+        self.op_settles = 0
+        for obj, name, key in ((svc, "_launch_enqueue", "enqueue"),
+                               (svc, "_fetch_packed", "wait"),
+                               (svc, "_launch_resolve", "resolve"),
+                               (svc, "_settle_launch", "settle"),
+                               (svc._native_enqueue, "pack", "pack"),
+                               (svc._native_resolve, "scatter_mirrors",
+                                "mirrors")):
+            if obj is not None:
+                setattr(obj, name, self._timed(getattr(obj, name), key))
+        settle = svc._settle_launch
+
+        def counted(fl):
+            self.op_settles += bool(fl.taken)
+            return settle(fl)
+        svc._settle_launch = counted
 
     def _timed(self, fn, key):
         def run(*args, **kwargs):
@@ -1267,9 +1313,11 @@ class HostSplit:
     def take(self) -> dict:
         """The stages' ms since the last take, then zero them."""
         ms = self.ms
-        out = {"enqueue": ms["enqueue"], "wait": ms["wait"],
-               "unpack": ms["resolve"] - ms["wait"],
-               "fanout": max(ms["settle"] - ms["resolve"], 0.0)}
+        out = {"enqueue": ms["enqueue"], "pack": ms["pack"],
+               "wait": ms["wait"], "unpack": ms["resolve"] - ms["wait"],
+               "mirrors": ms["mirrors"],
+               "fanout": max(ms["settle"] - ms["resolve"] - ms["mirrors"],
+                             0.0)}
         for key in ms:
             ms[key] = 0.0
         return out
@@ -1277,6 +1325,22 @@ class HostSplit:
 
 def split_line(split: dict, n: int) -> str:
     return ", ".join(f"{k} {v / n:.3f}" for k, v in split.items())
+
+
+def execute_batches(n: int) -> list:
+    """The 6(c) stream: ``n + 1`` full-width K = 64 batches (60 % puts,
+    40 % gets) over fixed slots; the first is the warm-up batch."""
+    e, s, k = E_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(16)
+    rows = np.arange(k)[:, None]
+    slots = ((rows + rng.integers(0, s, (1, e))) % s).astype(np.int32)
+    batches = []
+    for _ in range(n + 1):
+        kind = np.where(rng.random((k, e)) < 0.6, eng.OP_PUT,
+                        eng.OP_GET).astype(np.int32)
+        vals = rng.integers(1, 2 ** 31 - 1, (k, e)).astype(np.int32)
+        batches.append((kind, slots, vals))
+    return batches
 
 
 def phase_pipeline(dev: torch.device, card: str,
@@ -1288,16 +1352,8 @@ def phase_pipeline(dev: torch.device, card: str,
     overlap — at depth 2 the settle of launch N starts while launch N + 1
     still runs on the card.  Returns the first depth-2 run's counts."""
     e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
-    rng = np.random.default_rng(16)
     n = 12
-    rows = np.arange(k)[:, None]
-    slots = ((rows + rng.integers(0, s, (1, e))) % s).astype(np.int32)
-    batches = []
-    for i in range(n + 1):
-        kind = np.where(rng.random((k, e)) < 0.6, eng.OP_PUT,
-                        eng.OP_GET).astype(np.int32)
-        vals = rng.integers(1, 2 ** 31 - 1, (k, e)).astype(np.int32)
-        batches.append((kind, slots, vals))
+    batches = execute_batches(n)
     stream = torch.cuda.current_stream(dev)
     svcs, busy, splits = {}, {}, {}
     for depth in (1, 2):
@@ -1377,6 +1433,341 @@ def phase_pipeline(dev: torch.device, card: str,
     return counts[2]
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the host passes and the two host arms
+
+HOST_SRC = "riak_ensemble_tpu_torch/csrc/host/"
+REF = "riak_ensemble_tpu/parallel/batched_host.py:"
+#: (pass, source, the reference's call site)
+HOST_PASSES = (("pack", HOST_SRC + "enqueuekernel.cc", REF + "5346"),
+               ("gather", HOST_SRC + "enqueuekernel.cc", REF + "6184"),
+               ("unpack", HOST_SRC + "resolvekernel.cc", REF + "3728"),
+               ("scatter_mirrors", HOST_SRC + "resolvekernel.cc",
+                REF + "6527"))
+
+
+def copied(args) -> list:
+    return [np.array(a, copy=True) if isinstance(a, np.ndarray) else a
+            for a in args]
+
+
+class PassRecorder:
+    """Counts the calls of ``svc``'s four host passes and, while armed,
+    keeps copies of every call's arguments (taken before the call: the
+    mirror scatter writes its slabs in place).  The unpack's arguments
+    are taken from every op-carrying launch's packed result, since the
+    service unpacks a full-width payload with numpy."""
+
+    def __init__(self, svc: BatchedEnsembleService) -> None:
+        self.counts = {name: 0 for name, _, _ in HOST_PASSES}
+        self.calls = {name: [] for name, _, _ in HOST_PASSES}
+        self.armed = False
+        for obj, names in ((svc._native_enqueue, ("pack", "gather")),
+                           (svc._native_resolve,
+                            ("unpack", "scatter_mirrors"))):
+            for name in names:
+                setattr(obj, name, self._wrap(getattr(obj, name), name))
+        fetch = svc._fetch_packed
+
+        def fetched(fl):
+            flat = fetch(fl)
+            if self.armed and fl.k:
+                self.calls["unpack"].append(copied(
+                    [flat, svc.n_ens, svc.n_peers, fl.k, fl.want_vsn,
+                     fl.active, fl.a_width, fl.sliced]))
+            return flat
+        svc._fetch_packed = fetched
+
+    def _wrap(self, fn, name):
+        def run(*args):
+            self.counts[name] += 1
+            if self.armed and name != "unpack":
+                self.calls[name].append(copied(args))
+            return fn(*args)
+        return run
+
+
+def host_ms(fn, reps: int = 7) -> float:
+    """Median host ms of one call of ``fn()`` (a host pass: nothing of it
+    runs on the card), over ``reps`` calls after one warm-up."""
+    fn()
+    per = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        per.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(per)
+
+
+def hold_pass(name: str, args: list) -> tuple:
+    """Run one recorded call through the C++ pass and its plain version
+    on copies of the same inputs; raise unless every output is equal
+    byte for byte.  Returns (C++ ms, plain ms) per call."""
+    nat = (enqueue_native.get() if name in ("pack", "gather")
+           else resolve_native.get())
+    if name in ("pack", "gather"):
+        plain = getattr(enqueue_native, name + "_plain")
+    elif name == "unpack":
+        def plain(flat, e, m, k, want_vsn, active, a_width, sliced):
+            return resolve_native.unpack_results(
+                flat, e, m, k, want_vsn, active=active, a_width=a_width,
+                sliced=sliced)
+    else:
+        plain = resolve_native.scatter_mirrors_plain
+    n_in = {"pack": 10, "scatter_mirrors": 13}.get(name, len(args))
+
+    def run(fn):
+        """Outputs of ``fn`` on fresh copies of the written arguments."""
+        outs = [np.array(a, copy=True) for a in args[n_in:]]
+        ret = fn(*args[:n_in], *outs)
+        return outs if ret is None else list(ret)
+    got, want = run(getattr(nat, name)), run(plain)
+    if len(got) != len(want) or not all(
+            (a is None and b is None) or (
+                a is not None and b is not None and a.dtype == b.dtype
+                and np.array_equal(a, b)) for a, b in zip(got, want)):
+        raise AssertionError(f"7(a): the C++ {name} differs from its plain "
+                             f"version")
+    if n_in < len(args):          # the pass writes into its arguments
+        fresh = [[np.array(a, copy=True) for a in args[n_in:]]
+                 for _ in range(16)]
+
+        def timed(fn):
+            pool = iter(fresh * 2)
+            return host_ms(lambda: fn(*args[:n_in], *next(pool)))
+        return timed(getattr(nat, name)), timed(plain)
+    return (host_ms(lambda: getattr(nat, name)(*args)),
+            host_ms(lambda: plain(*args)))
+
+
+def rmw_cas_flush(svc: BatchedEnsembleService, rec: PassRecorder,
+                  sub: list) -> str:
+    """Phase 5's RMW traffic in one recorded flush: ``kmodify_many`` rows
+    (8 keys four times, rmw:add) on ``sub[64:]`` beside the CAS halves of
+    host kmodify increments (4 of one key) on ``sub[:64]``, whose reads
+    and first CAS round took the flush call before: its first launch
+    carries both, its second the CAS halves that read in the first.
+    Then every op is driven to its ack.  Returns what the first launch
+    carried."""
+    storm = [svc.kmodify(x, "hot", lambda vsn, cur: cur + 1, 0, retries=16)
+             for x in sub[:64] for _ in range(4)]
+    svc.flush()                                  # the storm's reads
+    keys = [f"ctr:{i}" for i in range(8)]
+    many = [svc.kmodify_many(x, keys * 4, funref.ref("rmw:add", 3))
+            for x in sub[64:]]
+    rec.armed = True
+    svc.flush()
+    rec.armed = False
+    drive(svc, storm + many, 32)
+    if not all(r[0] == "ok" for f in many for r in f.value) or \
+            not all(f.value[0] == "ok" for f in storm):
+        raise AssertionError("7(a) RMW + CAS: an op did not commit")
+    kinds = rec.calls["scatter_mirrors"][0][2]
+    if not ((kinds == eng.OP_RMW).any() and (kinds == eng.OP_CAS).any()):
+        raise AssertionError("7(a) RMW + CAS: the recorded flush lacks RMW "
+                             "or CAS rows")
+    return (f"{int((kinds == eng.OP_RMW).sum())} RMW and "
+            f"{int((kinds == eng.OP_CAS).sum())} CAS rows")
+
+
+def phase_host_passes(dev: torch.device, card: str) -> dict:
+    """7(a): every host pass's inputs recorded on three flushes at the
+    headline and replayed through the C++ pass and its plain version:
+    equal bytes, and each timed per call.  Two are one mixed keyed flush
+    of the phase-4 pattern (256 of 10,000 ensembles, 24 puts then 24
+    reads of the same keys each) with compaction (a sliced A = 256
+    payload) and without (a full-width one); the third carries phase
+    5's RMW traffic (:func:`rmw_cas_flush`, a sliced A = 512 payload)."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(17)
+    sub = np.sort(rng.choice(e, 256, replace=False)).tolist()
+    sub_rmw = rng.choice(e, 320, replace=False).tolist()
+    keys = [f"user:{i}" for i in range(24)]
+    out = {name: {"ms": {}, "plain_ms": {}} for name, _, _ in HOST_PASSES}
+    for label, compact in (("sliced A=256", True), ("full width", False),
+                           ("RMW + CAS, sliced A=512", True)):
+        svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                     max_ops_per_tick=k, device=dev,
+                                     compact=compact)
+        svc.flush()
+        rec = PassRecorder(svc)
+        if label.startswith("RMW"):
+            ops = rmw_cas_flush(svc, rec, sub_rmw)
+        else:
+            puts = [svc.kput_many(x, keys,
+                                  [f"p{x}:{i}" for i in range(len(keys))])
+                    for x in sub]
+            gets = [svc.kget_many(x, keys, want_vsn=True) for x in sub]
+            rec.armed = True
+            svc.flush()
+            rec.armed = False
+            torch.cuda.synchronize()
+            if not all(f.done for f in puts + gets) or any(
+                    r[0] != "ok" for f in gets for r in f.value):
+                raise AssertionError(f"7(a) {label}: the mixed flush did "
+                                     f"not serve its ops")
+            ops = f"{len(sub)} x {2 * len(keys)} ops"
+        # the flush's first launch (a kmodify chain launches again)
+        for name, _, _ in HOST_PASSES:
+            if len(rec.calls[name]) != 1 + label.startswith("RMW"):
+                raise AssertionError(f"7(a) {label}: {name} ran "
+                                     f"{len(rec.calls[name])} times")
+        unpack = rec.calls["unpack"][0]
+        if unpack[7] != compact or (unpack[5] is None) == compact:
+            raise AssertionError(f"7(a) {label}: the payload's layout is "
+                                 f"active {unpack[5] is not None}, sliced "
+                                 f"{unpack[7]}")
+        for name, _, _ in HOST_PASSES:
+            ms, plain_ms = hold_pass(name, rec.calls[name][0])
+            out[name]["ms"][label] = ms
+            out[name]["plain_ms"][label] = plain_ms
+            print(f"7(a) host pass {name} == plain, {label} [{card}]: "
+                  f"{ms:.6f} ms per call, plain {plain_ms:.6f} ms "
+                  f"({ops}, K={k})")
+        del svc, rec
+        torch.cuda.empty_cache()
+    return out
+
+
+class GcWatch:
+    """Python's cyclic garbage collections while a window runs: count
+    and pause ms per generation (a full, generation-2 collection walks
+    every tracked object the process holds)."""
+
+    def __init__(self) -> None:
+        self.n = [0, 0, 0]
+        self.ms = [0.0, 0.0, 0.0]
+        self._t0 = 0.0
+
+    def _cb(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            g = info["generation"]
+            self.n[g] += 1
+            self.ms[g] += (time.perf_counter() - self._t0) * 1e3
+
+    def __enter__(self) -> "GcWatch":
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._cb)
+
+    def line(self) -> str:
+        return ", ".join(f"gen{g} {self.n[g]} x {self.ms[g]:.1f} ms"
+                         for g in range(3))
+
+
+def mirrors_of(svc: BatchedEnsembleService) -> dict:
+    return {name: getattr(svc, name).copy() for name in (
+        "_slot_vsn_np", "_slot_vsn_ok", "_inline_value_np",
+        "_inline_value_ok", "_inline_np", "leader_np", "lease_until")}
+
+
+def phase_host_arms(dev: torch.device, card: str) -> dict:
+    """7(b): the phase-4 keyed pattern and the 6(c) execute stream at
+    depth 1 and 2, on the default (native) host arm and on
+    ``native_enqueue=False, native_resolve=False``: equal futures, mirror
+    slabs, engine state and exchange counters; one completion-slab wake
+    per settled flush that carried ops; the median flush and the host
+    split per arm.  Returns the host passes' call counts on the default
+    arm's keyed runs."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(18)
+    sub = np.sort(rng.choice(e, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    n = 8
+    batches = execute_batches(n)
+    calls = {name: 0 for name, _, _ in HOST_PASSES}
+    arms = {"native": {}, "oracle": {"native_enqueue": False,
+                                     "native_resolve": False}}
+    for stream in ("keyed", "execute"):
+        for depth in (1, 2):
+            runs = {}
+            for arm, kw in arms.items():
+                svc = BatchedEnsembleService(
+                    FixedClock(), e, m, s, tick=None, max_ops_per_tick=k,
+                    device=dev, pipeline_depth=depth, **kw)
+                if stream == "keyed":
+                    svc.flush()                  # elect all 10,000
+                else:
+                    for _ in range(depth + 2):   # elections, pinned slots
+                        svc.execute(*batches[0])
+                torch.cuda.synchronize()
+                rec = PassRecorder(svc) if arm == "native" else None
+                split = HostSplit(svc)
+                wakes0, ms = svc.completion_wakes, []
+                with GcWatch() as gcw:
+                    if stream == "keyed":
+                        results = keyed_rounds(svc, dev, sub, keys, ms)
+                    else:
+                        t0 = time.perf_counter()
+                        if depth == 1:
+                            results = [svc.execute(*b)
+                                       for b in batches[1:]]
+                        else:
+                            futs = [svc.execute_async(*b)
+                                    for b in batches[1:]]
+                            svc.flush()
+                            results = [f.value for f in futs]
+                        torch.cuda.synchronize()
+                        ms = [(time.perf_counter() - t0) * 1e3]
+                wakes = svc.completion_wakes - wakes0
+                want = split.op_settles if arm == "native" else 0
+                if wakes != want:
+                    raise AssertionError(
+                        f"7(b) {stream} depth {depth} {arm}: {wakes} "
+                        f"completion wakes for {split.op_settles} settled "
+                        f"flushes with ops")
+                if rec is not None and stream == "keyed":
+                    for name in calls:
+                        calls[name] += rec.counts[name]
+                runs[arm] = {
+                    "results": results, "ms": ms, "split": split.take(),
+                    "gc": gcw.line(),
+                    "mirrors": mirrors_of(svc), "state": svc.state,
+                    "healed": (svc.corruptions, svc.repairs),
+                    "counters": (svc.native_enqueue_flushes,
+                                 svc.fallback_enqueue_flushes,
+                                 svc.native_resolve_flushes,
+                                 svc.fallback_resolve_flushes)}
+                del svc, rec, split
+            a, b = runs["native"], runs["oracle"]
+            same = (a["results"] == b["results"] if stream == "keyed"
+                    else all(np.array_equal(x, y)
+                             for ra, rb in zip(a["results"], b["results"])
+                             for x, y in zip(ra, rb)))
+            bad = [f for f in a["mirrors"]
+                   if not np.array_equal(a["mirrors"][f], b["mirrors"][f])]
+            bad += diff_fields(a["state"], b["state"],
+                               eng.EngineState._fields)
+            if not same or bad or a["healed"] != b["healed"]:
+                raise AssertionError(
+                    f"7(b) {stream} depth {depth}: the arms differ (results "
+                    f"equal {same}, planes {bad}, exchange {a['healed']} vs "
+                    f"{b['healed']})")
+            for arm, r in runs.items():
+                n_fl = len(r["ms"]) if stream == "keyed" else n
+                per = (f"median flush {statistics.median(r['ms']):.3f} ms"
+                       if stream == "keyed" else
+                       f"wall per flush {r['ms'][0] / n:.3f} ms")
+                rest = (sum(r["ms"]) - sum(r["split"].values())) / n_fl
+                print(f"7(b) {stream} depth {depth} {arm} arm [{card}]: "
+                      f"{per} over {n_fl} flushes "
+                      f"{[round(x, 3) for x in r['ms']]}; host ms per "
+                      f"flush: {split_line(r['split'], n_fl)}, rest "
+                      f"{rest:.3f}; garbage collections {r['gc']}; counters "
+                      f"(native/fallback enqueue, native/fallback resolve) "
+                      f"{r['counters']}; exchange {r['healed']}")
+            del runs, a, b
+            torch.cuda.empty_cache()
+    if not all(calls.values()):
+        raise AssertionError(f"7(b): a host pass never ran on the default "
+                             f"arm: {calls}")
+    return calls
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -1442,7 +1833,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s wall "
-          f"({', '.join(f'{n}.cu {v:.3f} s' for n, v in secs.items())})")
+          f"({', '.join(f'{n} {v:.3f} s' for n, v in secs.items())})")
     for name, text in build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1462,6 +1853,8 @@ def main(argv) -> int:
                    phase_compaction_service(dev, card),
                "phase6c pipeline depth 2": phase_pipeline(dev, card,
                                                           profile)}
+    host = phase_host_passes(dev, card)
+    host_calls = phase_host_arms(dev, card)
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     if not (all(f1_by_path.values()) and k1_exchange and k2_launches
@@ -1502,8 +1895,12 @@ def main(argv) -> int:
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None}]
+    host_line = [{"name": name, "route": "host c++", "source": src,
+                  "replaces": ref, "calls": host_calls[name],
+                  "max_abs_err": 0, **host[name]}
+                 for name, src, ref in HOST_PASSES]
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "host": host_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,616 @@
+// Copied unchanged from native/resolvekernel.cc of the repository (the reference
+// package's host pass); only this header is new.  Built by
+// riak_ensemble_tpu_torch/ops/build.py (load_host) with g++ into one
+// shared library under riak_ensemble_tpu_torch/build/.
+
+// Single-pass resolve kernel for the batched service's per-flush host
+// hot loop (the wirecodec.cc/treestore.cc precedent: plain-C ABI,
+// loaded through utils/native.py's ctypes builder, pure-Python
+// fallback stays the oracle — RETPU_NATIVE_RESOLVE=0).
+//
+// One C++ traversal replaces four Python/numpy traversals of the same
+// buffers per flush:
+//   1. retpu_resolve_unpack   — packed d2h payload -> full-width result
+//      planes (the np.unpackbits + fancy-index scatter pipeline of
+//      batched_host.unpack_results), active-column scatter included;
+//   2. retpu_resolve_mirrors  — committed-write scatter into the
+//      _slot_vsn / _inline_value int32 mirror slabs (the per-op dict
+//      writes of the resolve loops), with the same in-order, per-column
+//      semantics as the Python loop (puts flip slots to handle class,
+//      RMWs to inline, leased GET hits refresh);
+//   3. retpu_wal_encode       — the flush's committed keyed WAL records
+//      pickled (CPython protocol-4 byte-identical for the str/bytes/
+//      int32 subset) into one preallocated byte arena that
+//      parallel/wal.py appends verbatim;
+//   4. retpu_delta_sections   — the PR-5 changed-slot delta-frame
+//      sections (cols/counts/round/slot/val + packed rmw/quorum bits +
+//      zlib-compatible section CRC) repgroup.build_delta_entry ships.
+//
+// Contract: every output is BYTE-IDENTICAL to the Python fallback's
+// (tests/test_native_resolve.py fuzzes the equivalence).  All
+// multi-byte integers are little-endian (x86/arm64 hosts; numpy
+// native order — the same contract the delta wire sections already
+// carry).
+
+#include <cstdint>
+#include <cstring>
+
+#include <unordered_map>
+
+namespace {
+
+// zlib-compatible CRC-32 (same polynomial/reflection as zlib.crc32,
+// mirroring treestore.cc's framing CRC).
+uint32_t crc32_update(uint32_t crc, const uint8_t* data, size_t len) {
+  static uint32_t table[256];
+  static bool init = false;
+  if (!init) {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int j = 0; j < 8; j++) {
+        c = (c & 1) ? (0xEDB88320u ^ (c >> 1)) : (c >> 1);
+      }
+      table[i] = c;
+    }
+    init = true;
+  }
+  crc = ~crc;
+  for (size_t i = 0; i < len; i++) {
+    crc = table[(crc ^ data[i]) & 0xFF] ^ (crc >> 8);
+  }
+  return ~crc;
+}
+
+// MSB-first bit read/write (numpy packbits/unpackbits default order).
+inline int get_bit(const uint8_t* buf, int64_t idx) {
+  return (buf[idx >> 3] >> (7 - (idx & 7))) & 1;
+}
+
+inline void set_bit(uint8_t* buf, int64_t idx) {
+  buf[idx >> 3] |= static_cast<uint8_t>(1u << (7 - (idx & 7)));
+}
+
+inline int32_t read_i32le(const uint8_t* p) {
+  int32_t v;
+  memcpy(&v, p, 4);  // little-endian host
+  return v;
+}
+
+// ---- CPython pickle protocol-4 emitter (restricted subset) ----------
+//
+// Templates verified against pickle.dumps(..., protocol=4):
+//   PROTO \x80\x04, FRAME \x95 + u64le length (always emitted: every
+//   record body exceeds the 4-byte framing floor), SHORT_BINUNICODE
+//   \x8c / BINUNICODE X, SHORT_BINBYTES C / BINBYTES B, BININT1 K /
+//   BININT2 M / BININT J, NONE N, TRUE \x88 / FALSE \x89, TUPLE3
+//   \x87, MARK ( + TUPLE t, MEMOIZE \x94, STOP '.'.
+// MEMOIZE uses the implicit next memo index, so no index bookkeeping
+// is needed; object-identity sharing (BINGET) cannot occur because
+// the Python side only routes records here whose key/payload types
+// make sharing impossible (str keys vs bytes/None payloads).
+
+inline size_t pk_int_size(int64_t x) {
+  if (x >= 0 && x < 256) return 2;       // K <u8>
+  if (x >= 0 && x < 65536) return 3;     // M <u16le>
+  return 5;                              // J <i32le>
+}
+
+inline size_t pk_str_size(int64_t n) {   // utf8 byte length n
+  return (n < 256 ? 2 : 5) + static_cast<size_t>(n) + 1;  // + MEMOIZE
+}
+
+inline size_t pk_bytes_size(int64_t n) {
+  return (n < 256 ? 2 : 5) + static_cast<size_t>(n) + 1;  // + MEMOIZE
+}
+
+inline uint8_t* pk_emit_int(uint8_t* p, int64_t x) {
+  if (x >= 0 && x < 256) {
+    *p++ = 'K';
+    *p++ = static_cast<uint8_t>(x);
+  } else if (x >= 0 && x < 65536) {
+    *p++ = 'M';
+    *p++ = static_cast<uint8_t>(x & 0xFF);
+    *p++ = static_cast<uint8_t>((x >> 8) & 0xFF);
+  } else {
+    *p++ = 'J';
+    int32_t v = static_cast<int32_t>(x);
+    memcpy(p, &v, 4);
+    p += 4;
+  }
+  return p;
+}
+
+inline uint8_t* pk_emit_strbytes(uint8_t* p, bool is_bytes,
+                                 const uint8_t* data, int64_t n) {
+  if (n < 256) {
+    *p++ = is_bytes ? 'C' : 0x8C;
+    *p++ = static_cast<uint8_t>(n);
+  } else {
+    *p++ = is_bytes ? 'B' : 'X';
+    uint32_t v = static_cast<uint32_t>(n);
+    memcpy(p, &v, 4);
+    p += 4;
+  }
+  memcpy(p, data, static_cast<size_t>(n));
+  p += n;
+  *p++ = 0x94;  // MEMOIZE
+  return p;
+}
+
+inline uint8_t* pk_emit_header(uint8_t* p, uint64_t body_len) {
+  *p++ = 0x80;
+  *p++ = 0x04;
+  *p++ = 0x95;  // FRAME
+  memcpy(p, &body_len, 8);
+  return p + 8;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Build-smoke / ABI handshake for utils/native.py and the tests.
+// 2 = commutative-lane fold (retpu_comm_fold) added.
+int retpu_resolve_version() { return 2; }
+
+// ---------------------------------------------------------------------
+// 1) Packed-result unpack: one pass over the flat d2h payload.
+//
+// Layout (batched_host._pack_results_body): packbits([won hw |
+// quorum hw | corrupt hw*m | committed k*aw | get_ok k*aw |
+// found k*aw]) ++ int32le[value k*aw | (vsn_e k*aw | vsn_s k*aw)],
+// hw = aw when `sliced` else e, aw = a_width when compacted else e.
+// Outputs are caller-zeroed full-width planes; only real (non-pad)
+// active columns are written — bit-identical to unpack_results'
+// scatter.  Returns 0, or -1 when flat_len can't hold the layout.
+int retpu_resolve_unpack(
+    const uint8_t* flat, int64_t flat_len,
+    int32_t e, int32_t m, int32_t k, int32_t want_vsn,
+    const int32_t* active, int32_t n_active, int32_t a_width,
+    int32_t sliced,
+    uint8_t* won, uint8_t* quorum, uint8_t* corrupt,
+    uint8_t* committed, uint8_t* get_ok, uint8_t* found,
+    int32_t* value, int32_t* vsn) {
+  const int64_t aw = active ? a_width : e;
+  const int64_t hw = (sliced && active) ? aw : e;
+  const int64_t nbits = 2 * hw + hw * m + 3 * k * aw;
+  const int64_t hdr = (nbits + 7) / 8;
+  const int64_t need = hdr + 4 * k * aw * (want_vsn ? 3 : 1);
+  if (flat_len < need || e <= 0 || m < 0 || k < 0) return -1;
+  if (active && (n_active > aw || n_active < 0)) return -1;
+
+  int64_t b = 0;
+  // Election / quorum / corrupt planes.
+  if (!(sliced && active)) {
+    for (int64_t i = 0; i < e; i++) won[i] = get_bit(flat, b++);
+    for (int64_t i = 0; i < e; i++) quorum[i] = get_bit(flat, b++);
+    for (int64_t i = 0; i < e * m; i++) corrupt[i] = get_bit(flat, b++);
+  } else {
+    // Sliced launch: rows are A-width, scattered through the active
+    // index list; pad rows (i >= n_active) are dropped.
+    for (int64_t i = 0; i < hw; i++) {
+      int v = get_bit(flat, b++);
+      if (i < n_active) won[active[i]] = static_cast<uint8_t>(v);
+    }
+    for (int64_t i = 0; i < hw; i++) {
+      int v = get_bit(flat, b++);
+      if (i < n_active) quorum[active[i]] = static_cast<uint8_t>(v);
+    }
+    for (int64_t i = 0; i < hw; i++) {
+      for (int64_t j = 0; j < m; j++) {
+        int v = get_bit(flat, b++);
+        if (i < n_active) {
+          corrupt[static_cast<int64_t>(active[i]) * m + j] =
+              static_cast<uint8_t>(v);
+        }
+      }
+    }
+  }
+  // Client planes [k, aw] -> [k, e].
+  uint8_t* bit_planes[3] = {committed, get_ok, found};
+  for (int p = 0; p < 3; p++) {
+    uint8_t* out = bit_planes[p];
+    for (int64_t r = 0; r < k; r++) {
+      for (int64_t c = 0; c < aw; c++) {
+        int v = get_bit(flat, b++);
+        if (!active) {
+          out[r * e + c] = static_cast<uint8_t>(v);
+        } else if (c < n_active) {
+          out[r * e + active[c]] = static_cast<uint8_t>(v);
+        }
+      }
+    }
+  }
+  // Int planes.
+  const uint8_t* ip = flat + hdr;
+  for (int64_t r = 0; r < k; r++) {
+    for (int64_t c = 0; c < aw; c++, ip += 4) {
+      if (!active) {
+        value[r * e + c] = read_i32le(ip);
+      } else if (c < n_active) {
+        value[r * e + active[c]] = read_i32le(ip);
+      }
+    }
+  }
+  if (want_vsn) {
+    for (int half = 0; half < 2; half++) {
+      for (int64_t r = 0; r < k; r++) {
+        for (int64_t c = 0; c < aw; c++, ip += 4) {
+          if (!active) {
+            vsn[(r * e + c) * 2 + half] = read_i32le(ip);
+          } else if (c < n_active) {
+            vsn[(r * e + active[c]) * 2 + half] = read_i32le(ip);
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------
+// 2) Mirror scatter: the committed-write updates of the resolve loop,
+// applied straight into the service's int32 mirror slabs.
+//
+// Per active column (cols/kcounts from the flush's taken list), lanes
+// run in round order — exactly the Python loop's per-op order, so
+// duplicate-slot writes land last-writer-wins identically:
+//   put/CAS committed : vsn slab <- vsn plane, inline-value invalid
+//                       (the slot flips back to handle storage);
+//   RMW committed     : vsn slab <- vsn plane, inline value <- result
+//                       value (0 = tombstone: invalidate);
+//   GET ok (&& ack_reads): vsn slab refresh; inline-value refresh only
+//                       for found, nonzero, device-native slots.
+// Storage-class transitions WITHIN the flush are tracked in a local
+// overlay over the read-only inline_cls slab (the Python loop remains
+// the slab's writer — it maintains _inline_slots either way).
+int retpu_resolve_mirrors(
+    int32_t e_total, int32_t s_dim,
+    const int32_t* kind, const int32_t* slot,
+    const uint8_t* committed, const uint8_t* get_ok,
+    const uint8_t* found, const int32_t* value, const int32_t* vsn,
+    const int32_t* cols, const int32_t* kcounts, int32_t n_cols,
+    int32_t ack_reads,
+    int32_t op_put, int32_t op_cas, int32_t op_get, int32_t op_rmw,
+    int32_t* vsn_np, uint8_t* vsn_ok,
+    int32_t* inl_np, uint8_t* inl_ok,
+    const uint8_t* inline_cls) {
+  if (e_total <= 0 || s_dim <= 0) return -1;
+  std::unordered_map<int64_t, uint8_t> overlay;
+  for (int32_t ci = 0; ci < n_cols; ci++) {
+    const int64_t c = cols[ci];
+    const int32_t kc = kcounts[ci];
+    for (int32_t j = 0; j < kc; j++) {
+      const int64_t idx = static_cast<int64_t>(j) * e_total + c;
+      const int32_t kd = kind[idx];
+      const int32_t s = slot[idx];
+      if (s < 0 || s >= s_dim) continue;
+      const int64_t cell = c * s_dim + s;
+      if (kd == op_put || kd == op_cas) {
+        if (!committed[idx]) continue;
+        if (vsn) {
+          vsn_np[cell * 2] = vsn[idx * 2];
+          vsn_np[cell * 2 + 1] = vsn[idx * 2 + 1];
+          vsn_ok[cell] = 1;
+        }
+        inl_ok[cell] = 0;
+        overlay[cell] = 0;
+      } else if (kd == op_rmw) {
+        if (!committed[idx]) continue;
+        if (vsn) {
+          vsn_np[cell * 2] = vsn[idx * 2];
+          vsn_np[cell * 2 + 1] = vsn[idx * 2 + 1];
+          vsn_ok[cell] = 1;
+        }
+        const int32_t v = value[idx];
+        if (v != 0) {
+          inl_np[cell] = v;
+          inl_ok[cell] = 1;
+        } else {
+          inl_ok[cell] = 0;  // computed tombstone
+        }
+        overlay[cell] = 1;
+      } else if (kd == op_get) {
+        if (!get_ok[idx] || !ack_reads) continue;
+        if (vsn) {
+          vsn_np[cell * 2] = vsn[idx * 2];
+          vsn_np[cell * 2 + 1] = vsn[idx * 2 + 1];
+          vsn_ok[cell] = 1;
+        }
+        const int32_t v = value[idx];
+        if (found[idx] && v != 0) {
+          auto it = overlay.find(cell);
+          const uint8_t cls =
+              (it != overlay.end()) ? it->second : inline_cls[cell];
+          if (cls) {
+            inl_np[cell] = v;
+            inl_ok[cell] = 1;
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------
+// 3) WAL record encode: pickle the flush's committed keyed records
+// into one preallocated arena.
+//
+// Per lane (taken order): key pickle ("kv", e, slot) and value pickle
+// (key_obj, handle|computed_value, epoch, seq, payload, inline) —
+// byte-identical to pickle.dumps(..., protocol=4) for the routed
+// subset (str/bytes keys, bytes/None payloads, int32 ints).
+// Uncommitted lanes get out_idx lengths of 0 and emit nothing.
+// Returns bytes used, or -1 when `cap` would overflow (the Python
+// side sizes the arena exactly, so -1 is a logic error there).
+int64_t retpu_wal_encode(
+    int64_t n, int32_t e_total,
+    const int32_t* lane_j, const int32_t* lane_e,
+    const int32_t* lane_slot, const int32_t* lane_f2,
+    const uint8_t* lane_inline, const uint8_t* key_is_bytes,
+    const int64_t* key_off, const int64_t* key_len,
+    const uint8_t* key_arena,
+    const int64_t* pay_off, const int64_t* pay_len,
+    const uint8_t* pay_arena,
+    const uint8_t* committed, const int32_t* value,
+    const int32_t* vsn,
+    uint8_t* arena, int64_t cap, int64_t* out_idx) {
+  uint8_t* p = arena;
+  uint8_t* const end = arena + cap;
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t idx =
+        static_cast<int64_t>(lane_j[i]) * e_total + lane_e[i];
+    if (!committed[idx]) {
+      out_idx[i * 4] = 0;
+      out_idx[i * 4 + 1] = 0;
+      out_idx[i * 4 + 2] = 0;
+      out_idx[i * 4 + 3] = 0;
+      continue;
+    }
+    // -- key: ("kv", e, slot) ---------------------------------------
+    const int64_t ev = lane_e[i];
+    const int64_t sv = lane_slot[i];
+    const uint64_t kbody =
+        5 + pk_int_size(ev) + pk_int_size(sv) + 3;
+    if (p + 11 + kbody > end) return -1;
+    const uint8_t* kstart = p;
+    p = pk_emit_header(p, kbody);
+    *p++ = 0x8C;  // SHORT_BINUNICODE "kv"
+    *p++ = 2;
+    *p++ = 'k';
+    *p++ = 'v';
+    *p++ = 0x94;
+    p = pk_emit_int(p, ev);
+    p = pk_emit_int(p, sv);
+    *p++ = 0x87;  // TUPLE3
+    *p++ = 0x94;
+    *p++ = '.';
+    out_idx[i * 4] = kstart - arena;
+    out_idx[i * 4 + 1] = p - kstart;
+    // -- value: (key, f2, epoch, seq, payload, inline) --------------
+    const bool inl = lane_inline[i] != 0;
+    const int64_t f2 = inl ? value[idx] : lane_f2[i];
+    const int64_t ve = vsn[idx * 2];
+    const int64_t vs = vsn[idx * 2 + 1];
+    const int64_t kl = key_len[i];
+    const int64_t pl = pay_len[i];  // -1 = None
+    uint64_t vbody = 1                      // MARK
+        + pk_str_size(kl)                   // key (str or bytes: same size)
+        + pk_int_size(f2) + pk_int_size(ve) + pk_int_size(vs)
+        + (pl < 0 ? 1 : pk_bytes_size(pl))  // payload
+        + 1                                 // bool
+        + 3;                                // TUPLE + MEMOIZE + STOP
+    if (p + 11 + vbody > end) return -1;
+    const uint8_t* vstart = p;
+    p = pk_emit_header(p, vbody);
+    *p++ = '(';  // MARK
+    p = pk_emit_strbytes(p, key_is_bytes[i] != 0,
+                         key_arena + key_off[i], kl);
+    p = pk_emit_int(p, f2);
+    p = pk_emit_int(p, ve);
+    p = pk_emit_int(p, vs);
+    if (pl < 0) {
+      *p++ = 'N';
+    } else {
+      p = pk_emit_strbytes(p, true, pay_arena + pay_off[i], pl);
+    }
+    *p++ = inl ? 0x88 : 0x89;  // TRUE / FALSE
+    *p++ = 't';                // TUPLE
+    *p++ = 0x94;
+    *p++ = '.';
+    out_idx[i * 4 + 2] = vstart - arena;
+    out_idx[i * 4 + 3] = p - vstart;
+  }
+  return p - arena;
+}
+
+// ---------------------------------------------------------------------
+// 4) Changed-slot delta-frame sections (repgroup.build_delta_entry):
+// committed cells in column-major (ensemble asc, round asc) order —
+// the lexsort((jj, ee)) order — emitting the cols/counts/round/slot/
+// val sections, the packed rmw/quorum bit vectors and the chained
+// zlib CRC over the section bytes in wire order.
+// out_meta = {ncells, ncols}; section buffers are caller-allocated at
+// worst case (k*e cells) and consumed at the returned counts.
+int retpu_delta_sections(
+    int32_t k, int32_t e_dim,
+    const uint8_t* committed, const int32_t* value,
+    const int32_t* kind, const int32_t* slot, const int32_t* opval,
+    const uint8_t* quorum,
+    int32_t op_put, int32_t op_cas, int32_t op_rmw,
+    int32_t j_bytes, int32_t s_bytes,
+    uint16_t* cols, uint16_t* counts,
+    uint8_t* jj, uint8_t* slots, int32_t* vals, uint8_t* rmw_bits,
+    uint8_t* q_bits,
+    int64_t* out_meta, uint32_t* out_crc) {
+  if ((j_bytes != 1 && j_bytes != 2) ||
+      (s_bytes != 1 && s_bytes != 2)) {
+    return -1;
+  }
+  int64_t ncells = 0;
+  int64_t ncols = 0;
+  const int64_t rmw_cap = (static_cast<int64_t>(k) * e_dim + 7) / 8;
+  memset(rmw_bits, 0, static_cast<size_t>(rmw_cap));
+  for (int64_t c = 0; c < e_dim; c++) {
+    int64_t col_count = 0;
+    for (int64_t j = 0; j < k; j++) {
+      const int64_t idx = j * e_dim + c;
+      if (!committed[idx]) continue;
+      if (j_bytes == 1) {
+        jj[ncells] = static_cast<uint8_t>(j);
+      } else {
+        uint16_t v = static_cast<uint16_t>(j);
+        memcpy(jj + ncells * 2, &v, 2);
+      }
+      if (s_bytes == 1) {
+        slots[ncells] = static_cast<uint8_t>(slot[idx]);
+      } else {
+        uint16_t v = static_cast<uint16_t>(slot[idx]);
+        memcpy(slots + ncells * 2, &v, 2);
+      }
+      const int32_t kd = kind[idx];
+      vals[ncells] = (kd == op_put || kd == op_cas) ? opval[idx]
+                                                    : value[idx];
+      if (kd == op_rmw) set_bit(rmw_bits, ncells);
+      ncells++;
+      col_count++;
+    }
+    if (col_count) {
+      cols[ncols] = static_cast<uint16_t>(c);
+      counts[ncols] = static_cast<uint16_t>(col_count);
+      ncols++;
+    }
+  }
+  const int64_t qb = (e_dim + 7) / 8;
+  memset(q_bits, 0, static_cast<size_t>(qb));
+  for (int64_t i = 0; i < e_dim; i++) {
+    if (quorum[i]) set_bit(q_bits, i);
+  }
+  uint32_t crc = 0;
+  crc = crc32_update(crc, reinterpret_cast<const uint8_t*>(cols),
+                     static_cast<size_t>(ncols) * 2);
+  crc = crc32_update(crc, reinterpret_cast<const uint8_t*>(counts),
+                     static_cast<size_t>(ncols) * 2);
+  crc = crc32_update(crc, jj, static_cast<size_t>(ncells) * j_bytes);
+  crc = crc32_update(crc, slots,
+                     static_cast<size_t>(ncells) * s_bytes);
+  crc = crc32_update(crc, reinterpret_cast<const uint8_t*>(vals),
+                     static_cast<size_t>(ncells) * 4);
+  crc = crc32_update(crc, rmw_bits,
+                     static_cast<size_t>((ncells + 7) / 8));
+  crc = crc32_update(crc, q_bits, static_cast<size_t>(qb));
+  out_meta[0] = ncells;
+  out_meta[1] = ncols;
+  *out_crc = crc;
+  return 0;
+}
+
+// ---------------------------------------------------------------------
+// 5) Commutative-lane per-column fold (repgroup.build_comm_entry's
+// Python fold, one pass; docs/ARCHITECTURE.md §18): for every
+// candidate column, coalesce its committed OP_RMW cells per slot in
+// FIRST-SEEN slot order, folding operands with the exact int32
+// semantics of funref.fold_seed/fold_operand (sub enters negated —
+// MERGE_ADD normalization — under uint32 wraparound arithmetic).
+// Each surviving cell carries (slot, merge class, folded operand,
+// rank of the slot's LAST committed op within the column, that op's
+// round index).  A candidate column where one slot mixes merge
+// classes is DISQUALIFIED: omitted from out_cols entirely (the
+// caller ships it through the ordered sections).
+//
+// merge_of[16]: RMW fun code -> merge class, -1 = ordered (built from
+// funref.MERGE_OF — merge-class codes pinned by funref.MERGE_*);
+// negate[16]: 1 = the operand enters the fold negated (RMW_SUB).
+// out buffers are caller-allocated: cols/counts/nops at e_dim,
+// slots/funs/ops/rl/jl at the flush's committed-cell count.
+// out_meta = {n_qual_cols, n_cells}.
+int retpu_comm_fold(
+    int32_t k, int32_t e_dim,
+    const uint8_t* committed, const int32_t* exp_e,
+    const int32_t* slot, const int32_t* val,
+    const uint8_t* cand,
+    const int32_t* merge_of, const uint8_t* negate,
+    int32_t* out_cols, int32_t* out_counts, int32_t* out_nops,
+    int32_t* out_slots, uint8_t* out_funs, int32_t* out_ops,
+    int32_t* out_rl, int32_t* out_jl,
+    int64_t* out_meta) {
+  if (k < 0 || e_dim <= 0) return -1;
+  int64_t ncols = 0;
+  int64_t ncells = 0;
+  std::unordered_map<int32_t, int64_t> first;  // slot -> cell index
+  for (int64_t c = 0; c < e_dim; c++) {
+    if (!cand[c]) continue;
+    first.clear();
+    const int64_t base = ncells;
+    int32_t nops = 0;
+    bool ok = true;
+    for (int64_t j = 0; j < k; j++) {
+      const int64_t idx = j * e_dim + c;
+      if (!committed[idx]) continue;
+      const int32_t code = exp_e[idx];
+      const int32_t mcls =
+          (code >= 0 && code < 16) ? merge_of[code] : -1;
+      if (mcls < 0) {  // cand miscomputed: conservatively ordered
+        ok = false;
+        break;
+      }
+      const int32_t v = val[idx];
+      const int32_t nv = negate[code]
+          ? static_cast<int32_t>(0u - static_cast<uint32_t>(v))
+          : v;
+      const int32_t rank = nops++;
+      auto it = first.find(slot[idx]);
+      if (it == first.end()) {
+        first.emplace(slot[idx], ncells);
+        out_slots[ncells] = slot[idx];
+        out_funs[ncells] = static_cast<uint8_t>(mcls);
+        out_ops[ncells] = nv;
+        out_rl[ncells] = rank;
+        out_jl[ncells] = static_cast<int32_t>(j);
+        ncells++;
+      } else {
+        const int64_t ci = it->second;
+        if (out_funs[ci] != mcls) {  // mixed classes on one slot
+          ok = false;
+          break;
+        }
+        int32_t acc = out_ops[ci];
+        switch (mcls) {
+          case 0:  // MERGE_ADD (int32 wraparound)
+            acc = static_cast<int32_t>(static_cast<uint32_t>(acc) +
+                                       static_cast<uint32_t>(nv));
+            break;
+          case 1:  // MERGE_MAX
+            acc = acc > nv ? acc : nv;
+            break;
+          case 2:  // MERGE_MIN
+            acc = acc < nv ? acc : nv;
+            break;
+          case 3:  // MERGE_AND
+            acc = acc & nv;
+            break;
+          default:  // MERGE_OR
+            acc = acc | nv;
+            break;
+        }
+        out_ops[ci] = acc;
+        out_rl[ci] = rank;
+        out_jl[ci] = static_cast<int32_t>(j);
+      }
+    }
+    if (!ok) {
+      ncells = base;  // drop the column's partial cells
+      continue;
+    }
+    out_cols[ncols] = static_cast<int32_t>(c);
+    out_counts[ncols] = static_cast<int32_t>(ncells - base);
+    out_nops[ncols] = nops;
+    ncols++;
+  }
+  out_meta[0] = ncols;
+  out_meta[1] = ncells;
+  return 0;
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA and host sources and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles, at first use, into its own shared
 library with a plain C interface::
@@ -9,8 +9,18 @@ library with a plain C interface::
 under ``riak_ensemble_tpu_torch/build/`` (listed in ``.gitignore``).
 The file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
-and an unchanged one is reused.  Nothing here runs at
-import time; :func:`build_all` starts one nvcc per source, all at once.
+and an unchanged one is reused.
+
+The host passes of the service (``csrc/host/*.cc``: the enqueue pack and
+gather, the resolve unpack and mirror scatter) build the same way into
+ONE library, with the host compiler::
+
+    g++ -O2 -fPIC -std=c++17 -shared -o build/libretpu_host-<hash>.so \\
+        csrc/host/enqueuekernel.cc csrc/host/resolvekernel.cc
+
+its hash covering both sources, the compiler and the flags.  A failed
+build raises; nothing falls back.  Nothing here runs at import time;
+:func:`build_all` starts one compiler per library, all at once.
 """
 
 from __future__ import annotations
@@ -27,6 +37,14 @@ from typing import Dict, List, Optional, Tuple
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
+
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+HOST_SOURCES = ("enqueuekernel.cc", "resolvekernel.cc")
+#: the host compiler (a path or a name on PATH) and its flags
+HOST_CXX = "g++"
+HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+#: the name :func:`build_all` reports the host library's build under
+HOST = "host"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -68,33 +86,58 @@ def _nvcc_cmd(name: str, out: str) -> List[str]:
             os.path.join(CSRC_DIR, name + ".cu")]
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
-    """Compile every (or the named) source that has no current library
-    yet: one nvcc process per source, all started together.  Returns
-    the wall seconds of the whole build per source name (0.0 where the
+def _host_lib_path() -> str:
+    """The host library's path: its name carries a digest of the
+    compiler, the flags and both sources."""
+    digest = hashlib.sha256(" ".join((HOST_CXX, *HOST_FLAGS)).encode())
+    for f in HOST_SOURCES:
+        digest.update(f.encode())
+        with open(os.path.join(HOST_DIR, f), "rb") as src:
+            digest.update(src.read())
+    return os.path.join(BUILD_DIR,
+                        f"libretpu_host-{digest.hexdigest()[:12]}.so")
+
+
+def _host_cmd(out: str) -> List[str]:
+    return [HOST_CXX, *HOST_FLAGS, "-o", out,
+            *(os.path.join(HOST_DIR, f) for f in HOST_SOURCES)]
+
+
+def build_all(names: Optional[List[str]] = None,
+              host: bool = True) -> Dict[str, float]:
+    """Compile every (or the named) CUDA source, and with ``host`` the
+    host library, that has no current library yet: one compiler process
+    per library, all started together.  Returns the wall seconds of the
+    whole build per name (``HOST`` for the host library; 0.0 where the
     library was already current).  Raises on the first failed build,
-    with nvcc's output."""
+    with the compiler's output."""
     names = sources() if names is None else names
+    jobs = [(name, _lib_path(name), lambda out, n=name: _nvcc_cmd(n, out))
+            for name in names]
+    if host:
+        jobs.append((HOST, _host_lib_path(), _host_cmd))
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs: List[Tuple[str, str, str, subprocess.Popen]] = []
     secs: Dict[str, float] = {}
+    failed = []
     t0 = time.perf_counter()
-    for name in names:
-        out = _lib_path(name)
+    for name, out, cmd in jobs:
         if os.path.exists(out):
             secs[name] = 0.0
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        procs.append((name, out, tmp, subprocess.Popen(
-            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    failed = []
+        try:
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd(tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        except OSError as exc:   # the compiler itself is missing
+            failed.append(f"building {name} failed: {exc}")
     for name, out, tmp, p in procs:
         log, _ = p.communicate()
         secs[name] = time.perf_counter() - t0
         build_log[name] = log
         if p.returncode != 0:
-            failed.append(f"nvcc {name}.cu failed ({p.returncode}):\n{log}")
+            failed.append(f"building {name} failed ({p.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     if failed:
@@ -114,4 +157,20 @@ def load(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build_all([name])
             lib = _libs[name] = ctypes.CDLL(path)
+    return lib
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host library (``csrc/host/*.cc``), built first if
+    needed with ``HOST_CXX``; raises when it cannot be built."""
+    path = _host_lib_path()
+    lib = _libs.get(path)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(path)
+        if lib is None:
+            if not os.path.exists(path):
+                build_all([])
+            lib = _libs[path] = ctypes.CDLL(path)
     return lib

@@ -42,15 +42,25 @@ may be enqueued but unsettled, so launch N's copy and host resolve run
 under launch N + 1's step; settles are FIFO.  :meth:`execute_async` is the
 pipelined form of :meth:`execute`.
 
-It implements the reference service with ``RETPU_NATIVE_RESOLVE=0
-RETPU_NATIVE_ENQUEUE=0 RETPU_OBS=0 RETPU_DONATE=1`` and no
-``RETPU_WIDE``: the per-entry plane pack and the pure-Python resolve, the
-donated (no rollback) launch, no WAL and a caller-driven flush
-(``tick=None``).  It reads no environment variables: the reference's
-``RETPU_FAST_READS`` is :meth:`BatchedEnsembleService.set_fast_reads`,
-its ``RETPU_COMM_REPL`` the ``comm_repl`` argument and its
-``RETPU_COMPACT`` the ``compact`` argument.  Wide rounds, the WAL and
-membership are later slices.
+The host passes around a launch are the reference's default arm
+(``native_enqueue`` / ``native_resolve``, its ``RETPU_NATIVE_ENQUEUE`` and
+``RETPU_NATIVE_RESOLVE``): the flush walks its queues into a PENDING SLAB
+(run descriptors over flat int32 lanes) that one C++ pass packs into the
+op planes; one C++ pass unpacks a compacted packed result (numpy unpacks
+a full-width one, the faster of the two there) and one scatters the
+committed mirror updates; and every taken op resolves through the flush's
+COMPLETION SLAB, one gathered record per round and one wake per flush
+(:mod:`.enqueue_native`, :mod:`.resolve_native`, built from
+``csrc/host/``).  ``False`` pins the per-entry pack and the per-op resolve
+loops, the reference's oracle arm.
+
+It implements the reference service with ``RETPU_OBS=0 RETPU_DONATE=1``,
+``RETPU_RESOLVE_SHARDS=1`` and no ``RETPU_WIDE``: the donated (no
+rollback) launch, no WAL and a caller-driven flush (``tick=None``).  It
+reads no environment variables: the reference's ``RETPU_FAST_READS`` is
+:meth:`BatchedEnsembleService.set_fast_reads`, its ``RETPU_COMM_REPL`` the
+``comm_repl`` argument and its ``RETPU_COMPACT`` the ``compact`` argument.
+Wide rounds, the WAL and membership are later slices.
 """
 
 from __future__ import annotations
@@ -70,6 +80,8 @@ from riak_ensemble_tpu_torch import funref
 from riak_ensemble_tpu_torch.config import Config
 from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
 from riak_ensemble_tpu_torch.ops import engine as eng
+from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
+from riak_ensemble_tpu_torch.parallel.resolve_native import unpack_results
 from riak_ensemble_tpu_torch.runtime import Future, Timer
 from riak_ensemble_tpu_torch.types import NOTFOUND
 
@@ -149,78 +161,13 @@ def packed_nbytes(e: int, m: int, k: int, want_vsn: bool,
     return (nbits + 7) // 8 + 4 * k * aw * (3 if want_vsn else 1)
 
 
-def unpack_results(flat: np.ndarray, e: int, m: int, k: int,
-                   want_vsn: bool, active: Optional[np.ndarray] = None,
-                   a_width: int = 0, sliced: bool = False):
-    """Invert :func:`_pack_results_body`: one packed uint8 vector →
-    ``(won, quorum_ok, corrupt, committed, get_ok, found, value, vsn)``
-    full-width host arrays (the k == 0 planes are None); copied from
-    the reference (batched_host.py:350-430).
-
-    With ``active`` (the launch's active columns, packed at ``a_width``
-    pow2-padded columns) the per-round planes arrive ``[K, A]`` and are
-    scattered back to ``[K, E]``: inactive columns get the all-false /
-    zero NOOP results.  ``sliced`` marks a launch whose step ran on the
-    A rows only: then the won / quorum_ok / corrupt planes are A-wide
-    too and scatter the same way."""
-    aw = e if active is None else a_width
-    hw = aw if sliced else e  # election/quorum/corrupt plane width
-    nbits = 2 * hw + hw * m + 3 * k * aw
-    bits = np.unpackbits(flat[:(nbits + 7) // 8],
-                         count=nbits).astype(bool)
-    ints = flat[(nbits + 7) // 8:].copy().view(np.int32)
-    boff = ioff = 0
-
-    def take_bits(n, shape=None):
-        nonlocal boff
-        out = bits[boff:boff + n]
-        boff += n
-        return out.reshape(shape) if shape is not None else out
-
-    def take_ints(n, shape=None):
-        nonlocal ioff
-        out = ints[ioff:ioff + n]
-        ioff += n
-        return out.reshape(shape) if shape is not None else out
-
-    won = take_bits(hw)
-    quorum_ok = take_bits(hw)
-    corrupt = take_bits(hw * m, (hw, m))
-    if sliced and active is not None:
-        a = len(active)
-
-        def scat_cols(c, shape):
-            out = np.zeros(shape, bool)
-            out[active] = c[:a]
-            return out
-        won = scat_cols(won, (e,))
-        quorum_ok = scat_cols(quorum_ok, (e,))
-        corrupt = scat_cols(corrupt, (e, m))
-    if k:
-        committed = take_bits(k * aw, (k, aw))
-        get_ok = take_bits(k * aw, (k, aw))
-        found = take_bits(k * aw, (k, aw))
-        value = take_ints(k * aw, (k, aw))
-        vsn = None
-        if want_vsn:
-            vsn = np.stack([take_ints(k * aw, (k, aw)),
-                            take_ints(k * aw, (k, aw))], axis=-1)
-        if active is not None:
-            a = len(active)
-
-            def scatter(c, dtype):
-                out = np.zeros((k, e) + c.shape[2:], dtype)
-                out[:, active] = c[:, :a]
-                return out
-            committed = scatter(committed, bool)
-            get_ok = scatter(get_ok, bool)
-            found = scatter(found, bool)
-            value = scatter(value, np.int32)
-            if vsn is not None:
-                vsn = scatter(vsn, np.int32)
-    else:
-        committed = get_ok = found = value = vsn = None
-    return won, quorum_ok, corrupt, committed, get_ok, found, value, vsn
+def _u8view(x: np.ndarray) -> np.ndarray:
+    """Zero-copy uint8 view of a contiguous bool plane (the C passes'
+    input form); copies only when the plane is not contiguous, which a
+    view would read wrongly (batched_host.py:479)."""
+    if x.dtype == np.bool_ and x.flags.c_contiguous:
+        return x.view(np.uint8)
+    return np.ascontiguousarray(x, np.uint8)
 
 
 def _bulk_planes(kind, slot, val, exp_epoch, exp_seq):
@@ -250,6 +197,10 @@ class _InFlightLaunch:
     elect: np.ndarray       # [E] this launch's election vector
     cand: np.ndarray        # [E] its candidates
     now: float              # runtime.now at enqueue (lease renewal)
+    #: host kind and slot planes in op order (the mirror scatter reads
+    #: them at settle: this launch's own arrays, never a reused buffer)
+    kind_np: np.ndarray
+    op_slot_np: np.ndarray
     #: active-column compaction: the active columns (None = full-width
     #: pack), the pow2-bucketed packed width, and whether the STEP ran on
     #: those rows only (then won / quorum / corrupt are A-wide too)
@@ -258,6 +209,10 @@ class _InFlightLaunch:
     sliced: bool = False
     #: flush path: the (ensemble, taken ops) pairs this launch serves
     taken: Any = None
+    #: slab enqueue path: the flush's pending-slab record (ent_col,
+    #: ent_row0, ent_len run descriptors, the taken round count, each
+    #: entry's first slab row) — the completion slab gathers through it
+    lanes: Any = None
     #: execute_async path: the client future and its op count
     exec_fut: Optional[Future] = None
     exec_ops: int = 0
@@ -434,7 +389,16 @@ class BatchedEnsembleService:
     ``compact`` turns active-column compaction on (the default, as the
     reference's ``RETPU_COMPACT``).  ``pipeline_depth`` bounds the
     launches that may be enqueued but unsettled (1: every flush settles
-    its own launch).
+    its own launch).  ``native_enqueue`` (the pending slab, its C++ pack
+    and the completion-slab resolve) and ``native_resolve`` (the C++
+    unpack and mirror scatter) are the reference's default host arm;
+    ``False`` pins its per-entry pack and per-op resolve, and either
+    alone is the reference with that knob alone at 0.  Either builds
+    the host library when the service is constructed, and a failed build
+    raises.  ``plain_host_passes`` runs the passes' plain numpy versions
+    in their place (the reference's arm with no host library: the slab
+    path with the numpy pack and gather, the Python unpack and mirror
+    walk), and builds nothing.
 
     The step updates the engine state in place: a launch has the
     reference's DONATED contract (``RETPU_DONATE=1``) and keeps no
@@ -451,7 +415,10 @@ class BatchedEnsembleService:
                  comm_repl: bool = True,
                  scrub_every_flushes: Optional[int] = None,
                  compact: bool = True,
-                 pipeline_depth: int = 1) -> None:
+                 pipeline_depth: int = 1,
+                 native_enqueue: bool = True,
+                 native_resolve: bool = True,
+                 plain_host_passes: bool = False) -> None:
         if tick is not None:
             raise NotImplementedError(
                 "timer-driven flushing is not ported; pass tick=None "
@@ -597,6 +564,28 @@ class BatchedEnsembleService:
         #: CUDA: the side stream the packed result's d2h copy runs on
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        #: the host passes (batched_host.py:1101-1123).  The C++ unpack
+        #: and mirror scatter, or None for the Python ones; op-carrying
+        #: launches unpacked by each arm (the native arm's count includes
+        #: the full-width payloads it unpacks with numpy).
+        native = not plain_host_passes
+        self._native_resolve = (resolve_native.get()
+                                if native_resolve and native else None)
+        self.native_resolve_flushes = 0
+        self.fallback_resolve_flushes = 0
+        #: the slab enqueue path: pending ops pack into the op planes
+        #: from flat int32 lanes (the C++ pack, or the numpy pack when
+        #: None) and each flush resolves through its COMPLETION SLAB;
+        #: flushes packed by each arm
+        self._enq_slab = bool(native_enqueue)
+        self._native_enqueue = (enqueue_native.get()
+                                if native_enqueue and native else None)
+        self.native_enqueue_flushes = 0
+        self.fallback_enqueue_flushes = 0
+        #: completion-slab wakes (one per settled op-carrying flush) and
+        #: the rounds those wakes fanned in
+        self.completion_wakes = 0
+        self.completion_rows = 0
 
     @property
     def grid_occupancy(self) -> float:
@@ -1392,6 +1381,23 @@ class BatchedEnsembleService:
         #: (ensemble, taken ops) pairs — ACTIVE ensembles only
         taken: List[Tuple[int, List[Any]]] = []
         still_active = set()
+        #: the slab path (batched_host.py:5243-5345): the walk collects
+        #: the PENDING SLAB — one run descriptor per taken entry (its
+        #: column, first plane row, run length, op kind) over
+        #: concatenated per-op field lanes — and the planes are packed
+        #: from it in one pass below.  ``offs`` is each entry's first
+        #: slab row, which the completion-slab resolve indexes by.
+        use_slab = self._enq_slab
+        ent_col: List[int] = []
+        ent_row0: List[int] = []
+        ent_len: List[int] = []
+        ent_kind: List[int] = []
+        slot_l: List[int] = []
+        val_l: List[int] = []
+        expe_l: List[int] = []
+        exps_l: List[int] = []
+        offs: List[int] = []
+        lane_n = 0
         for e in sorted(active):
             q = self.queues[e]
             ops: List[Any] = []
@@ -1418,6 +1424,33 @@ class BatchedEnsembleService:
             if ops:
                 taken.append((e, ops))
             j = 0
+            if use_slab:
+                # list appends only: the lanes convert once per flush
+                for op in ops:
+                    n = op.n
+                    offs.append(lane_n)
+                    lane_n += n
+                    ent_col.append(e)
+                    ent_row0.append(j)
+                    ent_len.append(n)
+                    ent_kind.append(op.kind)
+                    if isinstance(op, _PendingBatch):
+                        slot_l.extend(op.slot)
+                        val_l.extend(op.handle)
+                        if op.exp_e is not None:
+                            expe_l.extend(op.exp_e)
+                            exps_l.extend(op.exp_s)
+                        else:
+                            z = [0] * n
+                            expe_l.extend(z)
+                            exps_l.extend(z)
+                    else:
+                        slot_l.append(op.slot)
+                        val_l.append(op.handle)
+                        expe_l.append(op.exp[0])
+                        exps_l.append(op.exp[1])
+                    j += n
+                continue
             for op in ops:
                 if isinstance(op, _PendingBatch):
                     n = op.n
@@ -1434,6 +1467,26 @@ class BatchedEnsembleService:
                     val[j, e] = op.handle
                     exp_e[j, e], exp_s[j, e] = op.exp
                     j += 1
+        lanes = None
+        if use_slab and lane_n:
+            # the pack (batched_host.py:5346-5405): one C++ traversal of
+            # the runs, or the numpy pack
+            ec = np.asarray(ent_col, np.int32)
+            er = np.asarray(ent_row0, np.int32)
+            el = np.asarray(ent_len, np.int32)
+            args = (k, self.n_ens, ec, er, el,
+                    np.asarray(ent_kind, np.int32),
+                    np.asarray(slot_l, np.int32), np.asarray(val_l, np.int32),
+                    np.asarray(expe_l, np.int32),
+                    np.asarray(exps_l, np.int32),
+                    kind, slot, val, exp_e, exp_s)
+            if self._native_enqueue is not None:
+                self._native_enqueue.pack(*args)
+                self.native_enqueue_flushes += 1
+            else:
+                enqueue_native.pack_plain(*args)
+                self.fallback_enqueue_flushes += 1
+            lanes = (ec, er, el, lane_n, offs)
         self._active = still_active
         # Elections plan from the host mirrors, which an in-flight launch
         # may still be about to update (a won election lands at settle):
@@ -1455,6 +1508,7 @@ class BatchedEnsembleService:
                     self._fail_entry(e, op)
             raise
         fl.taken = taken
+        fl.lanes = lanes
         self._inflight.append(fl)
         # settle everything when the queues drained, else down to
         # depth - 1 in flight: the window the next flush overlaps
@@ -1741,8 +1795,8 @@ class BatchedEnsembleService:
             ups.end(done)
         return _InFlightLaunch(
             flat=flat, host=host, done=done, k=k, want_vsn=want_vsn,
-            elect=elect, cand=cand, now=now, active=active,
-            a_width=a_width, sliced=sliced)
+            elect=elect, cand=cand, now=now, kind_np=kind, op_slot_np=slot,
+            active=active, a_width=a_width, sliced=sliced)
 
     def _launch_resolve(self, fl: _InFlightLaunch):
         """RESOLVE half of a launch (batched_host.py:3667-3880): wait for
@@ -1755,10 +1809,29 @@ class BatchedEnsembleService:
         for k == 0; vsn None unless asked)."""
         flat = self._fetch_packed(fl)
         e, m = self.n_ens, self.n_peers
+        # the native arm (batched_host.py:3728-3744): one C++ pass
+        # scatters a compacted payload into full-width planes.  A full-
+        # width payload has nothing to scatter, and there numpy's byte-
+        # wise unpackbits beats the pass's bit loop (3.0-4.8 against
+        # 1.7-2.1 ms per call on the H100 machine's host, PERF.md §6), so
+        # the arm unpacks it with numpy: the same bytes either way.
+        # Election-only launches (k == 0) take the oracle's unpack, as in
+        # the reference.
+        if self._native_resolve is not None and fl.k:
+            if fl.active is not None:
+                planes8 = self._native_resolve.unpack(
+                    flat, e, m, fl.k, fl.want_vsn, fl.active, fl.a_width,
+                    fl.sliced)
+            else:
+                planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn)
+            self.native_resolve_flushes += 1
+        else:
+            planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn,
+                                     active=fl.active, a_width=fl.a_width,
+                                     sliced=fl.sliced)
+            self.fallback_resolve_flushes += 1
         (won_np, quorum_ok, corrupt_np, committed, get_ok, found, value,
-         vsn) = unpack_results(flat, e, m, fl.k, fl.want_vsn,
-                               active=fl.active, a_width=fl.a_width,
-                               sliced=fl.sliced)
+         vsn) = planes8
         self.payload_bytes += int(flat.nbytes)
         self.payload_bytes_full_width += packed_nbytes(e, m, fl.k,
                                                        fl.want_vsn)
@@ -1818,7 +1891,7 @@ class BatchedEnsembleService:
             self.ops_served += fl.exec_ops
             self._safe_resolve(fl.exec_fut, planes[:4])
             return fl.exec_ops
-        return self._resolve_flush(fl.taken or [], planes)
+        return self._resolve_flush(fl, planes)
 
     def _drain_launches(self, keep: int = 0) -> int:
         """Settle in-flight launches oldest-first until at most ``keep``
@@ -1945,10 +2018,13 @@ class BatchedEnsembleService:
         self._safe_resolve(op.fut, "failed")
 
     def _resolve_batch(self, e: int, j: int, op: _PendingBatch,
-                       planes) -> None:
+                       planes, native_mirrors: bool = False) -> None:
         """Resolve one batch entry from result-plane column slices.
         Every committed write updates the fast path's mirrors before
-        its result is handed to the client."""
+        its result is handed to the client; with ``native_mirrors`` the
+        C++ pass already wrote this flush's ``_slot_vsn`` /
+        ``_inline_value`` slabs, so only the Python-owned bookkeeping
+        runs here."""
         committed, get_ok, found, value, vsn = planes
         n = op.n
         results: List[Any] = []
@@ -1987,9 +2063,10 @@ class BatchedEnsembleService:
                 # to handle storage
                 inline.discard(s)
                 inline_row[s] = False
-                inline_val_ok[s] = False
-                vsn_row[s] = vs
-                vsn_ok_row[s] = True
+                if not native_mirrors:
+                    inline_val_ok[s] = False
+                    vsn_row[s] = vs
+                    vsn_ok_row[s] = True
                 append(("ok", tuple(vs)))
         elif op.kind == eng.OP_RMW:
             comm_l = committed[j:j + n, e].tolist()
@@ -2012,16 +2089,19 @@ class BatchedEnsembleService:
                     release(old)
                 if v:  # live value; a computed 0 is the tombstone
                     slot_handle[s] = -1
-                    inline_val_np[s] = v
-                    inline_val_ok[s] = True
+                    if not native_mirrors:
+                        inline_val_np[s] = v
+                        inline_val_ok[s] = True
                 else:
-                    inline_val_ok[s] = False
+                    if not native_mirrors:
+                        inline_val_ok[s] = False
                     if key is not None:  # tombstone: recycle the slot
                         recycle((key, s, g))
                 inline.add(s)
                 inline_row[s] = True
-                vsn_row[s] = vs
-                vsn_ok_row[s] = True
+                if not native_mirrors:
+                    vsn_row[s] = vs
+                    vsn_ok_row[s] = True
                 append(("ok", tuple(vs)))
         else:  # OP_GET batch
             ok_l = get_ok[j:j + n, e].tolist()
@@ -2037,29 +2117,329 @@ class BatchedEnsembleService:
                             # device-native slots carry the value
                             # itself; the read refreshes its mirror
                             out = v
-                            inline_val_np[s] = v
-                            inline_val_ok[s] = True
+                            if not native_mirrors:
+                                inline_val_np[s] = v
+                                inline_val_ok[s] = True
                         else:
                             out = values.get(v, NOTFOUND)
                     else:
                         out = NOTFOUND
-                    vsn_row[s] = vs
-                    vsn_ok_row[s] = True
+                    if not native_mirrors:
+                        vsn_row[s] = vs
+                        vsn_ok_row[s] = True
                     append(("ok", out, tuple(vs)) if op.want_vsn
                            else ("ok", out))
                 else:
                     append("failed")
         op.accum.fill(op.fut, op.pos, results, self._safe_resolve)
 
-    def _resolve_flush(self, taken, planes) -> int:
-        """Resolve every taken op from the result planes, in device
-        round order per ensemble (the per-op oracle loop of the
-        reference, batch entries through :meth:`_resolve_batch`)."""
+    # -- completion-slab resolve (the slab enqueue path) ---------------------
+
+    def _resolve_taken_slab(self, taken, planes, lanes,
+                            native_mirrors: bool) -> int:
+        """Resolve every taken entry through the flush's COMPLETION SLAB
+        (batched_host.py:6134-6229): each result plane is gathered through
+        the flush's runs ONCE (``[R]`` records, R = taken rounds), the
+        lanes become Python lists once, and each entry resolves from its
+        row segment.  Exactly one wake per flush.  Results and mirror
+        slabs equal the per-op loops'."""
+        committed, get_ok, found, value, vsn = planes
+        ent_col, ent_row0, ent_len, n_rows, offs = lanes
+        k, e = committed.shape
+        if self._native_enqueue is not None:
+            got = self._native_enqueue.gather(
+                k, e, ent_col, ent_row0, ent_len, _u8view(committed),
+                _u8view(get_ok), _u8view(found),
+                np.ascontiguousarray(value, np.int32),
+                np.ascontiguousarray(vsn, np.int32), n_rows)
+        else:
+            got = enqueue_native.gather_plain(
+                k, e, ent_col, ent_row0, ent_len, committed, get_ok, found,
+                value, vsn, n_rows)
+        ok_l, gok_l, fnd_l, val_l = (a.tolist() for a in got[:4])
+        # (epoch, seq) as tuples of ints, not R two-int lists: the GC
+        # untracks such tuples, while R live lists survive into the old
+        # generation and bring its full collections sooner
+        vs_l = list(zip(*got[4].T.tolist()))
+        self.completion_wakes += 1
+        self.completion_rows += n_rows
+        served = 0
+        ei = 0
+        for e, ops in taken:
+            for op in ops:
+                off = offs[ei]
+                ei += 1
+                end = off + op.n
+                if isinstance(op, _PendingBatch):
+                    self._resolve_batch_slab(
+                        e, op, ok_l[off:end], gok_l[off:end],
+                        fnd_l[off:end], val_l[off:end], vs_l[off:end],
+                        native_mirrors, got, off)
+                else:
+                    self._resolve_scalar_slab(
+                        e, op, ok_l[off], gok_l[off], fnd_l[off],
+                        val_l[off], tuple(vs_l[off]), native_mirrors)
+                served += op.n
+        return served
+
+    def _resolve_batch_slab(self, e: int, op: _PendingBatch, comm_l,
+                            gok_l, fnd_l, val_l, vs_l,
+                            native_mirrors: bool, np_lanes, off: int
+                            ) -> None:
+        """One batch entry from its completion-slab segment
+        (batched_host.py:6230-6400): the slab form of
+        :meth:`_resolve_batch`, with identical results and mirror slabs.
+        The segments are plain-list slices; ``np_lanes`` (the gathered
+        numpy lanes, the segment at ``off``) is read only when the
+        Python writes the mirrors.  The mirrors are written before the
+        accumulator fill, the first effect a client sees."""
+        n = op.n
+        results: List[Any] = []
+        append = results.append
+        comm_slots: List[int] = []
+        if op.kind in (eng.OP_PUT, eng.OP_CAS):
+            slot_l = op.slot
+            handle_l = op.handle
+            gen_l = op.gen
+            keys = op.keys if op.keys is not None else [None] * n
+            slot_handle = self.slot_handle[e]
+            recycle = self._recycle_pending[e].append
+            self._recycle_dirty.add(e)
+            release = self._release_handle
+            pw = self._pending_writes[e]
+            qh = self._queued_handle_writes[e]
+            for i, comm in enumerate(comm_l):
+                h = handle_l[i]
+                s = slot_l[i]
+                # every op un-notes, committed or not, clamped at 0 as
+                # in _unnote_write
+                if pw[s] > 0:
+                    pw[s] -= 1
+                if h and qh[s] > 0:
+                    qh[s] -= 1
+                if not comm:
+                    release(h)
+                    if keys[i] is not None:
+                        recycle((keys[i], s, gen_l[i]))
+                    append("failed")
+                    continue
+                old = slot_handle.pop(s, 0)
+                if old != h:
+                    release(old)
+                if h:
+                    slot_handle[s] = h
+                comm_slots.append(s)
+                append(("ok", tuple(vs_l[i])))
+            if comm_slots:
+                # committed writes flip their slots to handle storage;
+                # the vsn mirror scatters in round order (numpy keeps the
+                # last of duplicate slots, the one committed last)
+                self._inline_slots[e].difference_update(comm_slots)
+                self._inline_np[e, comm_slots] = False
+                if not native_mirrors:
+                    ok_a, _g, _f, _v, vsn_a = np_lanes
+                    okm = ok_a[off:off + n]
+                    self._inline_value_ok[e, comm_slots] = False
+                    self._slot_vsn_np[e, comm_slots] = \
+                        vsn_a[off:off + n][okm]
+                    self._slot_vsn_ok[e, comm_slots] = True
+        elif op.kind == eng.OP_RMW:
+            slot_l = op.slot
+            gen_l = op.gen
+            keys = op.keys if op.keys is not None else [None] * n
+            slot_handle = self.slot_handle[e]
+            release = self._release_handle
+            recycle = self._recycle_pending[e].append
+            self._recycle_dirty.add(e)
+            pw = self._pending_writes[e]
+            for i, comm in enumerate(comm_l):
+                s = slot_l[i]
+                if pw[s] > 0:  # clamped, like _unnote_write
+                    pw[s] -= 1
+                if not comm:
+                    if keys[i] is not None:
+                        recycle((keys[i], s, gen_l[i]))
+                    append("failed")
+                    continue
+                old = slot_handle.pop(s, 0)
+                if old > 0:  # superseded host payload (-1 stays put)
+                    release(old)
+                if val_l[i]:  # live value; a computed 0 = tombstone
+                    slot_handle[s] = -1
+                elif keys[i] is not None:
+                    recycle((keys[i], s, gen_l[i]))
+                comm_slots.append(s)
+                append(("ok", tuple(vs_l[i])))
+            if comm_slots:
+                self._inline_slots[e].update(comm_slots)
+                self._inline_np[e, comm_slots] = True
+                if not native_mirrors:
+                    ok_a, _g, _f, val_a, vsn_a = np_lanes
+                    okm = ok_a[off:off + n]
+                    cvals = val_a[off:off + n][okm]
+                    cvs = vsn_a[off:off + n][okm]
+                    if len(set(comm_slots)) != len(comm_slots):
+                        # duplicate slots: live / tombstone interleavings
+                        # are round-ordered, so walk them in order
+                        for s, v, vv in zip(comm_slots, cvals.tolist(),
+                                            cvs.tolist()):
+                            if v:
+                                self._inline_value_np[e, s] = v
+                            self._inline_value_ok[e, s] = bool(v)
+                            self._slot_vsn_np[e, s] = vv
+                            self._slot_vsn_ok[e, s] = True
+                    else:
+                        csl = np.asarray(comm_slots, np.int32)
+                        live = cvals != 0
+                        lsl = csl[live]
+                        if lsl.size:
+                            self._inline_value_np[e, lsl] = cvals[live]
+                            self._inline_value_ok[e, lsl] = True
+                        self._inline_value_ok[e, csl[~live]] = False
+                        self._slot_vsn_np[e, csl] = cvs
+                        self._slot_vsn_ok[e, csl] = True
+        else:  # OP_GET segment
+            want_vsn = op.want_vsn
+            slot_l = op.slot
+            inline = self._inline_slots[e]
+            values = self.values
+            served_slots: List[int] = []
+            for i, okv in enumerate(gok_l):
+                if not okv:
+                    append("failed")
+                    continue
+                v = val_l[i]
+                if fnd_l[i] and v != 0:
+                    out = v if slot_l[i] in inline \
+                        else values.get(v, NOTFOUND)
+                else:
+                    out = NOTFOUND
+                served_slots.append(slot_l[i])
+                append(("ok", out, tuple(vs_l[i])) if want_vsn
+                       else ("ok", out))
+            if not native_mirrors and served_slots:
+                # served reads refresh the vsn mirror, reads of live
+                # inline slots the inline one (no write interleaves
+                # inside one entry's rounds, so scatter order is moot)
+                _o, gok_a, fnd_a, val_a, vsn_a = np_lanes
+                okm = gok_a[off:off + n]
+                self._slot_vsn_np[e, served_slots] = \
+                    vsn_a[off:off + n][okm]
+                self._slot_vsn_ok[e, served_slots] = True
+                sl_a = np.asarray(slot_l, np.intp)
+                refr = okm & fnd_a[off:off + n] \
+                    & (val_a[off:off + n] != 0) \
+                    & self._inline_np[e, sl_a]
+                if refr.any():
+                    rsl = sl_a[refr]
+                    self._inline_value_np[e, rsl] = \
+                        val_a[off:off + n][refr]
+                    self._inline_value_ok[e, rsl] = True
+        op.accum.fill(op.fut, op.pos, results, self._safe_resolve)
+
+    def _resolve_scalar_slab(self, e: int, op: _PendingOp, comm: bool,
+                             gok: bool, fnd: bool, v: int, vs,
+                             native_mirrors: bool) -> None:
+        """One scalar op from its completion-slab row
+        (batched_host.py:6406-6481): the per-op loop's logic on the
+        gathered row alone."""
+        slot_handle = self.slot_handle[e]
+        s = op.slot
+        if op.kind in (eng.OP_PUT, eng.OP_CAS, eng.OP_RMW) and not comm:
+            self._fail_op(e, op)
+        elif op.kind in (eng.OP_PUT, eng.OP_CAS):
+            self._unnote_write(e, s)
+            if op.handle:
+                self._unnote_handle_write(e, s)
+            old = slot_handle.pop(s, 0)
+            if old != op.handle:
+                self._release_handle(old)
+            if op.handle:
+                slot_handle[s] = op.handle
+            self._inline_slots[e].discard(s)
+            self._inline_np[e, s] = False
+            if not native_mirrors:
+                self._inline_value_ok[e, s] = False
+                self._slot_vsn_np[e, s] = vs
+                self._slot_vsn_ok[e, s] = True
+            self._safe_resolve(op.fut, ("ok", vs))
+        elif op.kind == eng.OP_RMW:
+            self._unnote_write(e, s)
+            old = slot_handle.pop(s, 0)
+            if old > 0:
+                self._release_handle(old)
+            if v:
+                slot_handle[s] = -1
+            elif op.key is not None:
+                self._queue_recycle(e, (op.key, s, op.gen))
+            self._inline_slots[e].add(s)
+            self._inline_np[e, s] = True
+            if not native_mirrors:
+                if v:
+                    self._inline_value_np[e, s] = v
+                self._inline_value_ok[e, s] = bool(v)
+                self._slot_vsn_np[e, s] = vs
+                self._slot_vsn_ok[e, s] = True
+            self._safe_resolve(op.fut, ("ok", vs))
+        elif gok:  # OP_GET
+            if fnd and v != 0:
+                if s in self._inline_slots[e]:
+                    out = v
+                    if not native_mirrors:
+                        self._inline_value_np[e, s] = v
+                        self._inline_value_ok[e, s] = True
+                else:
+                    out = self.values.get(v, NOTFOUND)
+            else:
+                out = NOTFOUND
+            if not native_mirrors:
+                self._slot_vsn_np[e, s] = vs
+                self._slot_vsn_ok[e, s] = True
+            self._safe_resolve(op.fut, ("ok", out, vs) if op.want_vsn
+                               else ("ok", out))
+        else:
+            self._fail_op(e, op)
+
+    def _resolve_flush(self, fl: _InFlightLaunch, planes) -> int:
+        """Resolve every op ``fl`` took from the result planes, in device
+        round order per ensemble (batched_host.py:6484-6720).
+
+        With the C++ resolve, one pass over the launch's own host kind
+        and slot planes scatters every committed mirror update
+        (``_slot_vsn`` / ``_inline_value`` slabs, read refreshes) in the
+        loops' per-column round order, and the loops below skip their
+        mirror writes.  When the flush has a pending-slab record
+        (``fl.lanes``), resolution runs through the completion slab
+        (:meth:`_resolve_taken_slab`) instead of the per-op loops, the
+        reference's oracle arm, with identical results and slabs."""
+        taken, lanes = fl.taken or [], fl.lanes
         committed, get_ok, found, value, vsn = planes
         if committed is None:  # k == 0: election-only launch, no ops
             assert not taken, "ops taken but no result planes"
             self._drain_recycles()
             return 0
+        native_mirrors = False
+        if self._native_resolve is not None and taken:
+            cols = np.fromiter((e for e, _ops in taken), np.int32,
+                               len(taken))
+            kcounts = np.fromiter((sum(op.n for op in ops)
+                                   for _e, ops in taken), np.int32,
+                                  len(taken))
+            # reads always ack here: no replication group withholds them
+            self._native_resolve.scatter_mirrors(
+                self.n_ens, self.n_slots, fl.kind_np, fl.op_slot_np,
+                committed, get_ok, found, value, vsn, cols, kcounts, True,
+                (eng.OP_PUT, eng.OP_CAS, eng.OP_GET, eng.OP_RMW),
+                self._slot_vsn_np, self._slot_vsn_ok,
+                self._inline_value_np, self._inline_value_ok,
+                self._inline_np)
+            native_mirrors = True
+        if lanes is not None and taken:
+            served = self._resolve_taken_slab(taken, planes, lanes,
+                                              native_mirrors)
+            self.ops_served += served
+            self._drain_recycles()
+            return served
         # one bulk conversion to Python lists, only if a scalar op needs
         # per-op cells
         committed_l = get_ok_l = found_l = value_l = vsn_l = None
@@ -2076,7 +2456,8 @@ class BatchedEnsembleService:
             j = -1
             for op in ops:
                 if isinstance(op, _PendingBatch):
-                    self._resolve_batch(e, j + 1, op, planes)
+                    self._resolve_batch(e, j + 1, op, planes,
+                                        native_mirrors)
                     served += op.n
                     j += op.n
                     continue
@@ -2102,9 +2483,10 @@ class BatchedEnsembleService:
                         self._inline_np[e, s] = False
                         # mirror before the ack: a fast read issued
                         # after this future resolves sees the write
-                        self._inline_value_ok[e, s] = False
-                        self._slot_vsn_np[e, s] = vsn_l[j][e]
-                        self._slot_vsn_ok[e, s] = True
+                        if not native_mirrors:
+                            self._inline_value_ok[e, s] = False
+                            self._slot_vsn_np[e, s] = vsn_l[j][e]
+                            self._slot_vsn_ok[e, s] = True
                         self._safe_resolve(op.fut,
                                            ("ok", tuple(vsn_l[j][e])))
                     else:
@@ -2119,19 +2501,19 @@ class BatchedEnsembleService:
                         # device-side.  A computed 0 is the tombstone:
                         # no sentinel, and the slot recycles like a
                         # committed delete.
-                        if value_l[j][e]:
+                        v = value_l[j][e]
+                        if v:
                             slot_handle[s] = -1
-                            self._inline_value_np[e, s] = value_l[j][e]
-                            self._inline_value_ok[e, s] = True
-                        else:
-                            self._inline_value_ok[e, s] = False
-                            if op.key is not None:
-                                self._queue_recycle(e, (op.key, s,
-                                                        op.gen))
+                        elif op.key is not None:
+                            self._queue_recycle(e, (op.key, s, op.gen))
+                        if not native_mirrors:
+                            if v:
+                                self._inline_value_np[e, s] = v
+                            self._inline_value_ok[e, s] = bool(v)
+                            self._slot_vsn_np[e, s] = vsn_l[j][e]
+                            self._slot_vsn_ok[e, s] = True
                         self._inline_slots[e].add(s)
                         self._inline_np[e, s] = True
-                        self._slot_vsn_np[e, s] = vsn_l[j][e]
-                        self._slot_vsn_ok[e, s] = True
                         self._safe_resolve(op.fut,
                                            ("ok", tuple(vsn_l[j][e])))
                     else:
@@ -2142,8 +2524,9 @@ class BatchedEnsembleService:
                         if s in self._inline_slots[e]:
                             # device-native slots carry the value itself
                             out = v
-                            self._inline_value_np[e, s] = v
-                            self._inline_value_ok[e, s] = True
+                            if not native_mirrors:
+                                self._inline_value_np[e, s] = v
+                                self._inline_value_ok[e, s] = True
                         else:
                             out = self.values.get(v, NOTFOUND)
                     else:
@@ -2151,8 +2534,9 @@ class BatchedEnsembleService:
                     # vsn is the object's — a tombstone's real version
                     # rides along with NOTFOUND, so CAS chains work; the
                     # device read also refreshes the vsn mirror
-                    self._slot_vsn_np[e, s] = vsn_l[j][e]
-                    self._slot_vsn_ok[e, s] = True
+                    if not native_mirrors:
+                        self._slot_vsn_np[e, s] = vsn_l[j][e]
+                        self._slot_vsn_ok[e, s] = True
                     self._safe_resolve(
                         op.fut, ("ok", out, tuple(vsn_l[j][e]))
                         if op.want_vsn else ("ok", out))

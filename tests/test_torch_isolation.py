@@ -1,9 +1,14 @@
 """The torch port stands alone: it imports neither ``jax`` nor any module
-of ``riak_ensemble_tpu``, and its entry points never drift onto the CPU.
+of ``riak_ensemble_tpu``, its entry points never drift onto the CPU, and
+the host library its service loads is its own build.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
-module-level imports; a source scan checks the same rule as text.
+module-level imports; a source scan checks the same rule as text.  A
+second subprocess builds a service with the native host passes and reads
+the shared objects it mapped: the host library lies under
+``riak_ensemble_tpu_torch/build/`` and nothing under ``native/`` is
+loaded.
 """
 
 import os
@@ -54,7 +59,7 @@ def _port_sources():
         if os.sep + "build" in dirpath[len(PKG):]:
             continue
         out += [os.path.join(dirpath, f) for f in files
-                if f.endswith((".py", ".cu", ".cuh"))]
+                if f.endswith((".py", ".cu", ".cuh", ".cc"))]
     return sorted(out)
 
 
@@ -78,6 +83,35 @@ def test_port_sources_name_no_jax_or_reference_module():
             for m in bad.finditer(f.read()):
                 hits.append(f"{os.path.relpath(path, ROOT)}: {m.group(0)}")
     assert not hits, hits
+
+
+_HOST_LIBRARY = r"""
+import sys
+sys.path.insert(0, ROOT)
+from riak_ensemble_tpu_torch.parallel.batched_host import (
+    BatchedEnsembleService, WallRuntime)
+svc = BatchedEnsembleService(WallRuntime(), 2, 3, 8, tick=None, device="cpu")
+f = svc.kput_many(0, ["k"], [1]); svc.flush()
+assert f.value == [("ok", (1, 1))] and svc.native_enqueue_flushes == 1
+with open("/proc/self/maps") as maps:
+    print("\n".join(sorted({ln.split()[-1] for ln in maps
+                            if ln.rstrip().endswith(".so")})))
+"""
+
+
+def test_host_library_is_the_ports_own_build():
+    code = f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + _HOST_LIBRARY
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    mapped = proc.stdout.split()
+    build_dir = os.path.join(PKG, "build") + os.sep
+    host = [p for p in mapped if "libretpu_host" in p]
+    assert len(host) == 1 and host[0].startswith(build_dir), mapped
+    native = os.path.join(ROOT, "native") + os.sep
+    assert not [p for p in mapped if p.startswith(native)
+                or "_retpu_resolve" in p], mapped
 
 
 def test_entry_points_default_to_cuda():
