@@ -64,9 +64,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``native_enqueue=False, native_resolve=False``: equal futures, mirror
    slabs, engine state and exchange counters, one completion-slab wake
    per settled flush with ops, the median flush and the host split per
-   arm.
+   arm;
+8. durable acks, at the headline shape on the default arm with a data
+   dir per run (``tempfile.mkdtemp()``, ``wal_sync="fsync"``): (a) 6(b)'s
+   keyed pattern with bytes payloads at depth 1 and 2 — the host split
+   with its ``wal`` stage, WAL records, bytes and fsyncs per flush — then
+   the service dropped without a save and restored on the card: every
+   acknowledged put reads back and a new write commits; (b) ``save`` then
+   ``restore``, every state plane ``torch.equal``, both timed; (c) one
+   keyed flush's WAL records through the C++ encode + ``log_arena`` and
+   through the Python walk + ``log``: arena byte-equal to the protocol-4
+   pickles, equal store contents, byte-identical files; (d) 6(c)'s stream
+   with a data dir, 2 flushes at depth 1 and 2 at depth 2 (WAL ms and
+   records per flush); (e) a launch failure injected through ``engine=``:
+   its ops fail, the stepped state stands (the donated contract), the
+   next flush serves.  6(c) also runs its stream as CUDA int32 planes
+   (device-resident ``execute``): bit-equal results, no op-plane byte
+   staged for the device.
 
-Phases 4-6 run the service's default (native) host arm.
+Phases 4-8 run the service's default (native) host arm.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -81,9 +97,11 @@ of the depth-1 and depth-2 streams of phase 6(c).
 import gc
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -97,7 +115,8 @@ from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops.quorum import REQUIRED_MODES
 from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
 from riak_ensemble_tpu_torch.parallel.batched_host import (
-    BatchedEnsembleService, WallRuntime)
+    BatchedEnsembleService, WallRuntime, _LocalEngine)
+from riak_ensemble_tpu_torch.parallel.wal import ServiceWAL
 
 #: H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1153,14 +1172,15 @@ def phase_f1_sliced(dev: torch.device, card: str) -> dict:
 
 
 def keyed_rounds(svc: BatchedEnsembleService, dev: torch.device, sub: list,
-                 keys: list, ms: list) -> list:
+                 keys: list, ms: list, enc=str) -> list:
     """The phase-4 keyed pattern on the ensembles ``sub``: three rounds of
     ``kput_many`` then ``kget_many`` of ``keys`` (every active leader down
     after the second round's puts), the reads after the leases lapse, then
     a damaged replica on three rows whose read flags it (the settle runs
-    the exchange).  Appends each flush's wall ms to ``ms``; returns every
-    future's value, and raises when an acknowledged put does not read
-    back."""
+    the exchange).  Payloads are ``enc(text)`` (str by default; phase 8
+    passes bytes, the C++ WAL encode's subset).  Appends each flush's
+    wall ms to ``ms``; returns every future's value, and raises when an
+    acknowledged put does not read back."""
     results = []
 
     def timed_flush(futs):
@@ -1174,7 +1194,7 @@ def keyed_rounds(svc: BatchedEnsembleService, dev: torch.device, sub: list,
         raise AssertionError("keyed pattern: futures unresolved after 8 "
                              "flushes")
     for rnd in range(3):
-        puts = [svc.kput_many(x, keys, [f"v{rnd}:{x}:{i}"
+        puts = [svc.kput_many(x, keys, [enc(f"v{rnd}:{x}:{i}")
                                         for i in range(len(keys))])
                 for x in sub]
         timed_flush(puts)
@@ -1186,7 +1206,7 @@ def keyed_rounds(svc: BatchedEnsembleService, dev: torch.device, sub: list,
         gets = [svc.kget_many(x, keys) for x in sub]
         timed_flush(gets)
         results.append([f.value for f in gets])
-        want = [[("ok", f"v{rnd}:{x}:{i}") for i in range(len(keys))]
+        want = [[("ok", enc(f"v{rnd}:{x}:{i}")) for i in range(len(keys))]
                 for x in sub]
         if results[-1] != want:
             raise AssertionError(f"keyed pattern round {rnd}: acknowledged "
@@ -1274,13 +1294,15 @@ class HostSplit:
     its methods and host passes: the enqueue half (plane slicing, uploads,
     step, pack of the result, the copy's start), the C++ pack of the op
     planes, the wait for the packed result, the unpack with the leader /
-    lease mirrors (and any exchange), the C++ mirror scatter, and the
-    fan-out to the futures.  What a flush spends outside these is the
+    lease mirrors (and any exchange), the C++ mirror scatter, the WAL
+    barrier (the records' encode, append and fsync), and the fan-out to
+    the futures.  What a flush spends outside these is the
     queue walk (with the [K, E] plane build on the oracle arm, whose
     mirror writes sit inside the fan-out).  It also counts the settled
     launches that carried ops."""
 
-    STAGES = ("enqueue", "pack", "wait", "unpack", "mirrors", "fanout")
+    STAGES = ("enqueue", "pack", "wait", "unpack", "mirrors", "wal",
+              "fanout")
 
     def __init__(self, svc: BatchedEnsembleService) -> None:
         self.ms = dict.fromkeys(self.STAGES + ("resolve", "settle"), 0.0)
@@ -1291,7 +1313,9 @@ class HostSplit:
                                (svc, "_settle_launch", "settle"),
                                (svc._native_enqueue, "pack", "pack"),
                                (svc._native_resolve, "scatter_mirrors",
-                                "mirrors")):
+                                "mirrors"),
+                               (svc, "_log_wal", "wal"),
+                               (svc, "_log_execute_wal", "wal")):
             if obj is not None:
                 setattr(obj, name, self._timed(getattr(obj, name), key))
         settle = svc._settle_launch
@@ -1315,9 +1339,9 @@ class HostSplit:
         ms = self.ms
         out = {"enqueue": ms["enqueue"], "pack": ms["pack"],
                "wait": ms["wait"], "unpack": ms["resolve"] - ms["wait"],
-               "mirrors": ms["mirrors"],
-               "fanout": max(ms["settle"] - ms["resolve"] - ms["mirrors"],
-                             0.0)}
+               "mirrors": ms["mirrors"], "wal": ms["wal"],
+               "fanout": max(ms["settle"] - ms["resolve"] - ms["mirrors"]
+                             - ms["wal"], 0.0)}
         for key in ms:
             ms[key] = 0.0
         return out
@@ -1430,7 +1454,54 @@ def phase_pipeline(dev: torch.device, card: str,
               f"(profiled)")
     print(f"6(c) launches [{card}]: depth 1 {counts[1]}, depth 2 "
           f"{counts[2]}")
+    device_resident_stream(dev, card, batches, outs[1])
     return counts[2]
+
+
+OP_PLANES = ("kind", "slot", "val", "exp_e", "exp_s")
+
+
+def device_resident_stream(dev: torch.device, card: str, batches: list,
+                           want: list) -> None:
+    """6(c), device-resident: the same stream as CUDA int32 planes
+    through ``execute`` at depth 1 on a service warmed like the
+    depth-1 one: results bit-equal to the host-array run, no op-plane
+    byte staged for the device, and ``k * E`` ops served per call."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                 max_ops_per_tick=k, device=dev)
+    for _ in range(4):
+        svc.execute(*batches[0])
+    staged = {"op planes": 0, "other": 0}
+    buffer = svc._uploads.buffer
+
+    def counted(name, shape, dtype):
+        t = buffer(name, shape, dtype)
+        staged["op planes" if name in OP_PLANES else "other"] += \
+            t.numel() * t.element_size()
+        return t
+    svc._uploads.buffer = counted
+    planes = [tuple(torch.from_numpy(x).to(dev) for x in b)
+              for b in batches[1:]]
+    torch.cuda.synchronize()
+    served = svc.ops_served
+    t0 = time.perf_counter()
+    outs = [svc.execute(*p) for p in planes]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(planes)
+    same = all(np.array_equal(x, y) for a, b in zip(outs, want)
+               for x, y in zip(a, b))
+    if not same or staged["op planes"] or \
+            svc.ops_served - served != n * k * e:
+        raise AssertionError(f"6(c) device-resident: results equal {same}, "
+                             f"op-plane bytes staged {staged['op planes']}, "
+                             f"served {svc.ops_served - served}")
+    print(f"6(c) device-resident stream [{card}]: {n} flushes, "
+          f"{wall / n * 1e3:.3f} ms per flush, results bit-equal to the "
+          f"host-array run; H2D op-plane bytes 0 (other inputs "
+          f"{staged['other'] / n:.0f} B per flush)")
+    del svc, planes
 
 
 # ---------------------------------------------------------------------------
@@ -1768,6 +1839,360 @@ def phase_host_arms(dev: torch.device, card: str) -> dict:
     return calls
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: durable acks (the WAL before the ack, checkpoints, restore)
+
+class WalMeter:
+    """Records, bytes and fsyncs of a service's WAL: wrappers on its
+    ``log`` / ``log_arena`` and its store's ``sync``.  Bytes are the
+    protocol-4 pickles of each record's key and value (the store adds
+    its frame); records logged through ``log`` are kept and pickled only
+    in :meth:`take`, outside any timed window."""
+
+    def __init__(self, svc: BatchedEnsembleService) -> None:
+        self.records = self.bytes = self.fsyncs = self.appends = 0
+        self._kept = []
+        w = svc._wal
+        log, arena, sync = w.log, w.log_arena, w._store.sync
+
+        def log_(recs):
+            self.appends += 1
+            self.records += len(recs)
+            self._kept.append(recs)
+            return log(recs)
+
+        def arena_(a, idx, extra=()):
+            self.appends += 1
+            self.records += len(idx)
+            self.bytes += int(idx[:, 1].sum() + idx[:, 3].sum())
+            return arena(a, idx, extra)
+
+        def sync_():
+            self.fsyncs += 1
+            return sync()
+        w.log, w.log_arena, w._store.sync = log_, arena_, sync_
+
+    def take(self) -> tuple:
+        """(records, bytes, fsyncs, appends) since the last take, then
+        zero them; an append is one flush's durability barrier."""
+        for recs in self._kept:
+            self.bytes += sum(len(pickle.dumps(k, protocol=4))
+                              + len(pickle.dumps(v, protocol=4))
+                              for k, v in recs)
+        out = (self.records, self.bytes, self.fsyncs, self.appends)
+        self.records = self.bytes = self.fsyncs = self.appends = 0
+        self._kept = []
+        return out
+
+
+def durable_service(dev, data: str, depth: int = 1,
+                    **kw) -> BatchedEnsembleService:
+    return BatchedEnsembleService(
+        FixedClock(), E_FULL, M_FULL, S_FULL, tick=None,
+        max_ops_per_tick=K_FULL, device=dev, pipeline_depth=depth,
+        data_dir=data, wal_sync="fsync", **kw)
+
+
+def restore_service(dev, data: str) -> tuple:
+    """The service restored from ``data`` on the card, and the ms it
+    took (the replay's device work included)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc = BatchedEnsembleService.restore(
+        FixedClock(), data, tick=None, max_ops_per_tick=K_FULL, device=dev,
+        data_dir=data, wal_sync="fsync")
+    torch.cuda.synchronize()
+    return svc, (time.perf_counter() - t0) * 1e3
+
+
+def read_back(svc: BatchedEnsembleService, sub: list, keys: list,
+              want: dict, label: str) -> None:
+    """kget_many of ``keys`` on ``sub``; raise unless each reads ``want``
+    (ensemble -> values in key order)."""
+    svc.runtime.now += 1.0          # leases lapse: the reads go round
+    futs = [svc.kget_many(x, keys) for x in sub]
+    drive(svc, futs, 8)
+    bad = [x for x, f in zip(sub, futs)
+           if f.value != [("ok", v) for v in want[x]]]
+    if bad:
+        raise AssertionError(f"{label}: acknowledged puts of {len(bad)} "
+                             f"ensembles did not read back (first "
+                             f"{bad[0]})")
+
+
+def wal_flush_capture(svc: BatchedEnsembleService, sub: list,
+                      keys: list, tag: str) -> tuple:
+    """8(c): one keyed put flush on ``sub`` whose WAL records are also
+    taken through the Python walk.  Returns (the Python walk's records,
+    the C++ pass's arena and index): the service's own WAL gets its
+    records as usual."""
+    got = {}
+    real_log_wal = svc._log_wal
+    real_wal = svc._wal
+
+    class Recorder:
+        def log(self, recs):
+            got["recs"] = list(recs)
+
+        def log_arena(self, arena, idx, extra=()):
+            got["arena"] = (np.array(arena, copy=True), idx.copy())
+
+    def capture(taken, planes):
+        if "arena" not in got and planes[0] is not None:
+            svc._wal = Recorder()
+            nat = svc._native_resolve
+            try:
+                svc._native_resolve = None
+                real_log_wal(taken, planes)       # the Python walk
+                svc._native_resolve = nat
+                real_log_wal(taken, planes)       # the C++ encode
+            finally:
+                svc._native_resolve = nat
+                svc._wal = real_wal
+        return real_log_wal(taken, planes)
+    svc._log_wal = capture
+    futs = [svc.kput_many(x, keys, [f"{tag}:{x}:{i}".encode()
+                                    for i in range(len(keys))])
+            for x in sub]
+    drive(svc, futs, 8)
+    svc._log_wal = real_log_wal
+    if not all(r[0] == "ok" for f in futs for r in f.value):
+        raise AssertionError("8(c): the captured put flush did not commit")
+    if "arena" not in got or "recs" not in got:
+        raise AssertionError("8(c): the flush did not take the C++ encode")
+    return got["recs"], got["arena"]
+
+
+def hold_wal_encode(recs: list, arena: np.ndarray, idx: np.ndarray,
+                    root: str, card: str) -> dict:
+    """8(c): the C++ pass's arena against the Python encoder: every
+    record's bytes equal ``pickle.dumps(..., protocol=4)`` of the Python
+    walk's record, and the two stores (``log`` of the records,
+    ``log_arena`` of the arena) hold equal contents in byte-identical
+    files.  Returns the two appends' ms."""
+    if len(recs) != len(idx):
+        raise AssertionError(f"8(c): {len(idx)} arena records against "
+                             f"{len(recs)} from the Python walk")
+    for i, (key, value) in enumerate(recs):
+        ko, kl, vo, vl = idx[i].tolist()
+        if (bytes(arena[ko:ko + kl]) != pickle.dumps(key, protocol=4)
+                or bytes(arena[vo:vo + vl])
+                != pickle.dumps(value, protocol=4)):
+            raise AssertionError(f"8(c): arena record {i} differs from the "
+                                 f"protocol-4 pickles of {key!r}")
+    ms = {}
+    stores = {}
+    for name in ("python", "arena"):
+        w = ServiceWAL(os.path.join(root, name), "fsync")
+        t0 = time.perf_counter()
+        if name == "python":
+            w.log(recs)
+        else:
+            w.log_arena(arena, idx)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        stores[name] = w.records()
+        w.close()
+    files = [{f: open(os.path.join(root, n, f), "rb").read()
+              for f in sorted(os.listdir(os.path.join(root, n)))}
+             for n in ("python", "arena")]
+    if stores["python"] != stores["arena"] or files[0] != files[1]:
+        raise AssertionError("8(c): the arena's store differs from the "
+                             "Python encoder's")
+    print(f"8(c) WAL encode [{card}]: {len(recs)} records, arena "
+          f"{arena.nbytes} B, byte-equal to the protocol-4 pickles; append "
+          f"+ fsync: log_arena {ms['arena']:.3f} ms, Python log "
+          f"{ms['python']:.3f} ms; stores equal, files byte-identical")
+    return ms
+
+
+def phase_durable(dev: torch.device, card: str) -> dict:
+    """Phase 8 at the headline shape, default native arm, each data dir
+    a fresh ``tempfile.mkdtemp()`` with ``wal_sync="fsync"``: (a) the
+    6(b) keyed pattern with bytes payloads at depth 1 and 2 (the wal
+    stage in the host split; records, bytes and fsyncs per flush), each
+    service then dropped without a save and restored on the card (every
+    acknowledged put reads back; a new write commits and reads back);
+    (b) ``save`` then ``restore`` (every plane ``torch.equal``); (c) one
+    keyed flush's records through the C++ encode + ``log_arena`` and
+    through the Python walk + ``log``; (d) the 6(c) execute stream with a
+    data dir (WAL ms and records per flush), 2 flushes at depth 1 and 2
+    at depth 2; (e) a launch failure injected through ``engine=``.
+    Returns the F1 counts of (a) and (d)."""
+    e = E_FULL
+    rng = np.random.default_rng(19)
+    sub = np.sort(rng.choice(e, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    counts = {}
+    restored = None
+    for depth in (1, 2):
+        data = tempfile.mkdtemp(prefix="retpu_durable_")
+        svc = durable_service(dev, data, depth)
+        svc.flush()                                     # elect all
+        torch.cuda.synchronize()
+        chk = LaunchCheck(svc)
+        split = HostSplit(svc)
+        meter = WalMeter(svc)
+        meter.take()
+        reset_counts()                                  # this path's run
+        ms = []
+        keyed_rounds(svc, dev, sub, keys, ms, enc=str.encode)
+        counts[f"phase8a durable keyed depth {depth}"] = c = read_counts()
+        if c["F1"] != chk.launches:
+            raise AssertionError(f"8(a): F1 launched {c['F1']} times in "
+                                 f"{chk.launches} launches")
+        recs, nbytes, fsyncs, put_flushes = meter.take()
+        sp = split.take()
+        n = len(ms)
+        print(f"8(a) durable keyed depth {depth} [{card}]: median flush "
+              f"{statistics.median(ms):.3f} ms over {n} flushes "
+              f"{[round(x, 3) for x in ms]}; host ms per flush: "
+              f"{split_line(sp, n)}; WAL {recs} records, {nbytes} B, "
+              f"{fsyncs} fsyncs in {n} flushes ({recs / put_flushes:.1f} "
+              f"records, {nbytes / put_flushes:.1f} B and "
+              f"{sp['wal'] / put_flushes:.3f} WAL ms per put flush, "
+              f"{fsyncs / n:.3f} fsyncs per flush); launches {c}")
+        want = {x: [f"v2:{x}:{i}".encode() for i in range(len(keys))]
+                for x in sub}
+        svc._wal.close()                       # dropped without a save
+        del svc, chk, split, meter
+        torch.cuda.empty_cache()
+        svc, r_ms = restore_service(dev, data)
+        read_back(svc, sub, keys, want, f"8(a) depth {depth} restore")
+        f = svc.kput_many(sub[0], ["after"], [b"restored"])
+        drive(svc, [f], 8)
+        read_back(svc, [sub[0]], ["after"], {sub[0]: [b"restored"]},
+                  f"8(a) depth {depth} post-restore write")
+        print(f"8(a) restore depth {depth} [{card}]: {r_ms:.3f} ms from "
+              f"META + WAL generation 0 ({len(sub) * len(keys)} acked "
+              f"keys read back, a new write served)")
+        if restored is not None:
+            restored._wal.close()
+        restored = svc
+    svc = restored
+    # (c) one keyed put flush through both encoders
+    recs, (arena, idx) = wal_flush_capture(svc, sub, keys, "c")
+    enc_root = tempfile.mkdtemp(prefix="retpu_walenc_")
+    enc_ms = hold_wal_encode(recs, arena, idx, enc_root, card)
+    # (b) save, then restore: every plane equal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.save()
+    torch.cuda.synchronize()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    saved = [t.clone() for t in svc.state]
+    nbytes = sum(t.numel() * t.element_size() for t in saved)
+    svc._wal.close()
+    data = svc.data_dir
+    del svc, restored
+    torch.cuda.empty_cache()
+    svc, r_ms = restore_service(dev, data)
+    bad = [f for f, a, b in zip(eng.EngineState._fields, saved, svc.state)
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"8(b): restored planes {bad} differ from "
+                             f"the saved ones")
+    print(f"8(b) save / restore [{card}]: save {save_ms:.3f} ms, restore "
+          f"{r_ms:.3f} ms, {nbytes} B of engine state, every plane "
+          f"torch.equal")
+    svc._wal.close()
+    del svc, saved
+    torch.cuda.empty_cache()
+    # (d) full-width execute with a data dir
+    batches = execute_batches(2)
+    for depth in (1, 2):
+        data = tempfile.mkdtemp(prefix="retpu_durable_x_")
+        svc = durable_service(dev, data, depth)
+        for _ in range(depth + 2):               # elections, pinned slots
+            svc.execute(*batches[0])
+        torch.cuda.synchronize()
+        split = HostSplit(svc)
+        meter = WalMeter(svc)
+        meter.take()
+        reset_counts()
+        t0 = time.perf_counter()
+        if depth == 1:
+            outs = [svc.execute(*b) for b in batches[1:]]
+        else:
+            futs = [svc.execute_async(*b) for b in batches[1:]]
+            svc.flush()
+            outs = [f.value for f in futs]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts[f"phase8d durable execute depth {depth}"] = read_counts()
+        sp = split.take()
+        recs, nbytes, fsyncs, _ = meter.take()
+        want = sum(int(((b[0] == eng.OP_PUT) & c[0]).sum())
+                   for b, c in zip(batches[1:], outs))
+        if recs != want or not all(isinstance(o, tuple) for o in outs):
+            raise AssertionError(f"8(d): {recs} WAL records for {want} "
+                                 f"committed puts")
+        nb = len(batches) - 1
+        print(f"8(d) durable execute depth {depth} [{card}]: {nb} flushes "
+              f"of K={K_FULL} x {e} in {wall:.3f} ms, "
+              f"{wall / nb:.3f} ms per flush; WAL {sp['wal'] / nb:.3f} ms, "
+              f"{recs / nb:.1f} records, {nbytes / nb:.1f} B and "
+              f"{fsyncs / nb:.3f} fsyncs per flush; host ms per flush: "
+              f"{split_line(sp, nb)}")
+        svc._wal.close()
+        del svc, split, meter
+        torch.cuda.empty_cache()
+    # (e) a launch failure on the card, injected through engine=
+    phase_launch_failure(dev, card)
+    return {"counts": counts, "encode_ms": enc_ms}
+
+
+class _FailingEngine(_LocalEngine):
+    """Steps the card (F1 updates the state in place), then raises once
+    when armed."""
+
+    armed = False
+
+    def full_step(self, *a, **kw):
+        out = _LocalEngine.full_step(*a, **kw)
+        if self.armed:
+            self.armed = False
+            raise RuntimeError("injected launch failure")
+        return out
+
+
+def phase_launch_failure(dev: torch.device, card: str) -> None:
+    """8(e): a launch that fails on CUDA: its ops fail, no snapshot was
+    taken (the donated contract: the stepped state stands), and the next
+    flush serves."""
+    eng_ = _FailingEngine()
+    svc = BatchedEnsembleService(FixedClock(), E_FULL, M_FULL, S_FULL,
+                                 tick=None, max_ops_per_tick=K_FULL,
+                                 device=dev, engine=eng_)
+    svc.flush()
+    f = svc.kput_many(7, ["a", "b"], [b"1", b"2"])
+    drive(svc, [f], 4)
+    eng_.armed = True
+    g = svc.kput_many(7, ["a", "c"], [b"3", b"4"])
+    slot_c = svc.key_slot[7]["c"]
+    try:
+        svc.flush()
+    except RuntimeError as exc:
+        if "injected" not in str(exc):
+            raise
+    else:
+        raise AssertionError("8(e): the injected failure did not reach "
+                             "the flush caller")
+    torch.cuda.synchronize()
+    # the failed launch's write of "c" stands on the leader's replica
+    stepped = int(svc.state.obj_seq[7, int(svc.leader_np[7]), slot_c])
+    if g.value != ["failed", "failed"] or not svc._donate or not stepped:
+        raise AssertionError(f"8(e): futures {g.value}, donate "
+                             f"{svc._donate}, seq of the failed write "
+                             f"{stepped} (the step must stand)")
+    h = svc.kput_many(7, ["a", "c"], [b"5", b"6"])
+    drive(svc, [h], 4)
+    read_back(svc, [7], ["a", "b", "c"], {7: [b"5", b"2", b"6"]},
+              "8(e) after the failure")
+    print(f"8(e) launch failure on CUDA [{card}]: ops failed, no rollback "
+          f"(the failed write stands at seq {stepped}, stepped in place), "
+          f"next flush served")
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -1855,6 +2280,8 @@ def main(argv) -> int:
                                                           profile)}
     host = phase_host_passes(dev, card)
     host_calls = phase_host_arms(dev, card)
+    durable = phase_durable(dev, card)
+    by_path.update(durable["counts"])
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     if not (all(f1_by_path.values()) and k1_exchange and k2_launches

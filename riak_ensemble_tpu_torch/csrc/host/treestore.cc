@@ -1,0 +1,403 @@
+// Copied unchanged from native/treestore.cc of the repository (the reference
+// package's WAL and synctree store); only this header is new.  Built by
+// riak_ensemble_tpu_torch/ops/build.py (load_host) with g++ into one
+// shared library under riak_ensemble_tpu_torch/build/.
+
+// Embedded ordered K/V storage engine for synctree persistence.
+//
+// The role the eleveldb C++ dependency plays for the reference
+// (synctree_leveldb.erl: persistent Merkle-tree buckets, shared-DB
+// registry, batched writes — synctree_leveldb.erl:52-83,141-152):
+// an append-only CRC-framed write-ahead log with an in-memory ordered
+// index (std::map) and snapshot compaction.  Writes are O(log n)
+// in-memory plus one sequential log append (batched); recovery replays
+// snapshot + log.  This is deliberately a log+index engine rather than
+// a full LSM: synctree working sets are bucket-granular (width 16,
+// ~1M segments) and the write pattern is small random upserts, which
+// a sequential log absorbs at disk bandwidth.
+//
+// C ABI (ctypes): handles are opaque pointers; keys/values are
+// arbitrary byte strings.  A shared-handle registry keyed by path
+// mirrors the reference's shared-DB ETS registry so many trees can
+// open one engine (synctree_leveldb.erl:52-83).
+
+#include <fcntl.h>
+#include <unistd.h>
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <string>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+// fsync the directory containing `path` so a just-renamed file's
+// directory entry survives power loss (the tmp+rename+dirsync rite).
+void sync_parent_dir(const std::string& path) {
+  std::string dir = ".";
+  auto slash = path.find_last_of('/');
+  if (slash != std::string::npos) {
+    dir = path.substr(0, slash);
+  }
+  int fd = open(dir.c_str(), O_RDONLY);
+  if (fd >= 0) {
+    fsync(fd);
+    close(fd);
+  }
+}
+
+// CRC-32 (IEEE), table-driven — the framing checksum.
+uint32_t crc32(const uint8_t* data, size_t len) {
+  static uint32_t table[256];
+  static bool init = false;
+  if (!init) {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++) {
+        c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      }
+      table[i] = c;
+    }
+    init = true;
+  }
+  uint32_t c = 0xFFFFFFFFu;
+  for (size_t i = 0; i < len; i++) {
+    c = table[(c ^ data[i]) & 0xFF] ^ (c >> 8);
+  }
+  return c ^ 0xFFFFFFFFu;
+}
+
+void append_u32(std::string* out, uint32_t v) {
+  char buf[4] = {static_cast<char>(v >> 24), static_cast<char>(v >> 16),
+                 static_cast<char>(v >> 8), static_cast<char>(v)};
+  out->append(buf, 4);
+}
+
+uint32_t read_u32(const uint8_t* p) {
+  return (static_cast<uint32_t>(p[0]) << 24) |
+         (static_cast<uint32_t>(p[1]) << 16) |
+         (static_cast<uint32_t>(p[2]) << 8) | static_cast<uint32_t>(p[3]);
+}
+
+struct Store {
+  std::string path;        // snapshot file; log is path + ".log"
+  std::map<std::string, std::string> data;
+  FILE* log = nullptr;
+  uint64_t log_records = 0;
+  int refcount = 1;
+  std::mutex mu;
+
+  // Record framing: [crc32(body)][len][body]; body = op(1B) keylen(4B)
+  // key [vallen(4B) val].  op: 1=put, 2=del.
+  void append_record(uint8_t op, const std::string& key,
+                     const std::string& val) {
+    std::string body;
+    body.push_back(static_cast<char>(op));
+    append_u32(&body, static_cast<uint32_t>(key.size()));
+    body.append(key);
+    if (op == 1) {
+      append_u32(&body, static_cast<uint32_t>(val.size()));
+      body.append(val);
+    }
+    std::string frame;
+    append_u32(&frame,
+               crc32(reinterpret_cast<const uint8_t*>(body.data()),
+                     body.size()));
+    append_u32(&frame, static_cast<uint32_t>(body.size()));
+    frame.append(body);
+    fwrite(frame.data(), 1, frame.size(), log);
+    log_records++;
+  }
+
+  bool replay_log() {
+    std::string logpath = path + ".log";
+    FILE* f = fopen(logpath.c_str(), "rb");
+    if (!f) {
+      return true;  // no log yet
+    }
+    std::vector<uint8_t> head(8);
+    while (fread(head.data(), 1, 8, f) == 8) {
+      uint32_t crc = read_u32(head.data());
+      uint32_t len = read_u32(head.data() + 4);
+      std::vector<uint8_t> body(len);
+      if (fread(body.data(), 1, len, f) != len) {
+        break;  // torn tail: stop at last good record
+      }
+      if (crc32(body.data(), len) != crc) {
+        break;
+      }
+      if (len < 5) {
+        break;
+      }
+      uint8_t op = body[0];
+      uint32_t klen = read_u32(body.data() + 1);
+      if (5 + klen > len) {
+        break;
+      }
+      std::string key(reinterpret_cast<char*>(body.data() + 5), klen);
+      if (op == 1) {
+        if (5 + klen + 4 > len) {
+          break;
+        }
+        uint32_t vlen = read_u32(body.data() + 5 + klen);
+        if (5 + klen + 4 + vlen > len) {
+          break;
+        }
+        data[key] = std::string(
+            reinterpret_cast<char*>(body.data() + 5 + klen + 4), vlen);
+      } else if (op == 2) {
+        data.erase(key);
+      }
+      log_records++;
+    }
+    fclose(f);
+    return true;
+  }
+
+  bool load_snapshot() {
+    FILE* f = fopen(path.c_str(), "rb");
+    if (!f) {
+      return true;
+    }
+    std::vector<uint8_t> head(8);
+    while (fread(head.data(), 1, 8, f) == 8) {
+      uint32_t crc = read_u32(head.data());
+      uint32_t len = read_u32(head.data() + 4);
+      std::vector<uint8_t> body(len);
+      if (fread(body.data(), 1, len, f) != len ||
+          crc32(body.data(), len) != crc || len < 8) {
+        break;
+      }
+      uint32_t klen = read_u32(body.data());
+      if (4 + klen + 4 > len) {
+        break;
+      }
+      uint32_t vlen = read_u32(body.data() + 4 + klen);
+      if (4 + klen + 4 + vlen > len) {
+        break;
+      }
+      std::string key(reinterpret_cast<char*>(body.data() + 4), klen);
+      data[key] = std::string(
+          reinterpret_cast<char*>(body.data() + 4 + klen + 4), vlen);
+    }
+    fclose(f);
+    return true;
+  }
+
+  // Rewrite snapshot from the live map, truncate the log.  Crash-safe:
+  // snapshot lands via rename; the log is only truncated afterwards.
+  void compact() {
+    std::string tmp = path + ".tmp";
+    FILE* f = fopen(tmp.c_str(), "wb");
+    if (!f) {
+      return;
+    }
+    for (const auto& kv : data) {
+      std::string body;
+      append_u32(&body, static_cast<uint32_t>(kv.first.size()));
+      body.append(kv.first);
+      append_u32(&body, static_cast<uint32_t>(kv.second.size()));
+      body.append(kv.second);
+      std::string frame;
+      append_u32(&frame,
+                 crc32(reinterpret_cast<const uint8_t*>(body.data()),
+                       body.size()));
+      append_u32(&frame, static_cast<uint32_t>(body.size()));
+      frame.append(body);
+      fwrite(frame.data(), 1, frame.size(), f);
+    }
+    // Durable ordering: snapshot bytes reach disk BEFORE the rename
+    // publishes it, and the rename reaches disk (directory fsync)
+    // BEFORE the log truncation discards the records it replaced.
+    fflush(f);
+    fsync(fileno(f));
+    fclose(f);
+    rename(tmp.c_str(), path.c_str());
+    sync_parent_dir(path);
+    if (log) {
+      fclose(log);
+    }
+    std::string logpath = path + ".log";
+    log = fopen(logpath.c_str(), "wb");  // truncate
+    log_records = 0;
+  }
+};
+
+std::mutex g_registry_mu;
+std::unordered_map<std::string, Store*> g_registry;
+
+constexpr uint64_t kCompactThreshold = 1 << 16;
+
+}  // namespace
+
+extern "C" {
+
+void* retpu_store_open(const char* path) {
+  std::lock_guard<std::mutex> g(g_registry_mu);
+  auto it = g_registry.find(path);
+  if (it != g_registry.end()) {
+    it->second->refcount++;
+    return it->second;
+  }
+  auto* s = new Store();
+  s->path = path;
+  s->load_snapshot();
+  s->replay_log();
+  std::string logpath = s->path + ".log";
+  s->log = fopen(logpath.c_str(), "ab");
+  if (!s->log) {
+    delete s;
+    return nullptr;
+  }
+  g_registry[path] = s;
+  return s;
+}
+
+void retpu_store_close(void* h) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(g_registry_mu);
+  if (--s->refcount > 0) {
+    return;
+  }
+  g_registry.erase(s->path);
+  {
+    std::lock_guard<std::mutex> lg(s->mu);
+    if (s->log) {
+      fflush(s->log);
+      fclose(s->log);
+      s->log = nullptr;
+    }
+  }
+  delete s;
+}
+
+int retpu_store_put(void* h, const uint8_t* key, uint32_t klen,
+                    const uint8_t* val, uint32_t vlen) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  std::string k(reinterpret_cast<const char*>(key), klen);
+  std::string v(reinterpret_cast<const char*>(val), vlen);
+  s->data[k] = v;
+  s->append_record(1, k, v);
+  if (s->log_records >= kCompactThreshold) {
+    s->compact();
+  }
+  return 0;
+}
+
+// Arena batch put: `idx` holds n rows of (key_off, key_len, val_off,
+// val_len) into `arena`; rows with key_len <= 0 are skipped (the
+// resolve kernel emits those for uncommitted lanes).  One ctypes call
+// and one lock acquisition appends a whole flush's WAL records with
+// byte-identical framing to per-record retpu_store_put calls.
+int retpu_store_put_many(void* h, const uint8_t* arena,
+                         const int64_t* idx, int64_t n) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  for (int64_t i = 0; i < n; i++) {
+    const int64_t klen = idx[i * 4 + 1];
+    if (klen <= 0) {
+      continue;
+    }
+    std::string k(reinterpret_cast<const char*>(arena + idx[i * 4]),
+                  static_cast<size_t>(klen));
+    std::string v(
+        reinterpret_cast<const char*>(arena + idx[i * 4 + 2]),
+        static_cast<size_t>(idx[i * 4 + 3]));
+    s->data[k] = v;
+    s->append_record(1, k, v);
+    // per-record threshold check, matching retpu_store_put — a batch
+    // crossing the bound must compact at the same record a sequence
+    // of single puts would (the byte-identical-framing contract)
+    if (s->log_records >= kCompactThreshold) {
+      s->compact();
+    }
+  }
+  return 0;
+}
+
+// Returns value length, or -1 if absent.  Caller provides the buffer;
+// call with buf=null to size first (value may not change between the
+// two calls from one Python thread holding the store).
+int64_t retpu_store_get(void* h, const uint8_t* key, uint32_t klen,
+                        uint8_t* buf, uint64_t buflen) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  auto it = s->data.find(
+      std::string(reinterpret_cast<const char*>(key), klen));
+  if (it == s->data.end()) {
+    return -1;
+  }
+  if (buf != nullptr && buflen >= it->second.size()) {
+    memcpy(buf, it->second.data(), it->second.size());
+  }
+  return static_cast<int64_t>(it->second.size());
+}
+
+int retpu_store_delete(void* h, const uint8_t* key, uint32_t klen) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  std::string k(reinterpret_cast<const char*>(key), klen);
+  s->data.erase(k);
+  s->append_record(2, k, std::string());
+  return 0;
+}
+
+uint64_t retpu_store_count(void* h) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  return s->data.size();
+}
+
+// Ordered iteration: copy key at `index` into buf (sized via
+// buf=null), -1 when out of range.  Index-based (vs cursor) keeps the
+// ABI trivial; Python iterates while mutating via snapshot indices.
+int64_t retpu_store_key_at(void* h, uint64_t index, uint8_t* buf,
+                           uint64_t buflen) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  if (index >= s->data.size()) {
+    return -1;
+  }
+  auto it = s->data.begin();
+  std::advance(it, index);
+  if (buf != nullptr && buflen >= it->first.size()) {
+    memcpy(buf, it->first.data(), it->first.size());
+  }
+  return static_cast<int64_t>(it->first.size());
+}
+
+// Flush-only (no fsync): pushes libc-buffered log bytes into the OS
+// page cache — the process-crash durability floor (the "buffer" WAL
+// sync mode); power-loss durability still needs retpu_store_sync.
+void retpu_store_flush(void* h) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  if (s->log) {
+    fflush(s->log);
+  }
+}
+
+void retpu_store_sync(void* h) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  if (s->log) {
+    // fflush alone survives process crash but not OS crash/power loss;
+    // the advertised durability contract needs the fsync.
+    fflush(s->log);
+    fsync(fileno(s->log));
+  }
+}
+
+void retpu_store_compact(void* h) {
+  auto* s = static_cast<Store*>(h);
+  std::lock_guard<std::mutex> g(s->mu);
+  s->compact();
+}
+
+}  // extern "C"

@@ -12,13 +12,15 @@ The file name carries a hash of the source, the shared headers
 and an unchanged one is reused.
 
 The host passes of the service (``csrc/host/*.cc``: the enqueue pack and
-gather, the resolve unpack and mirror scatter) build the same way into
-ONE library, with the host compiler::
+gather, the resolve unpack, mirror scatter and WAL encode, and the
+treestore that holds the WAL) build the same way into ONE library, with
+the host compiler::
 
     g++ -O2 -fPIC -std=c++17 -shared -o build/libretpu_host-<hash>.so \\
-        csrc/host/enqueuekernel.cc csrc/host/resolvekernel.cc
+        csrc/host/enqueuekernel.cc csrc/host/resolvekernel.cc \\
+        csrc/host/treestore.cc
 
-its hash covering both sources, the compiler and the flags.  A failed
+its hash covering every source, the compiler and the flags.  A failed
 build raises; nothing falls back.  Nothing here runs at import time;
 :func:`build_all` starts one compiler per library, all at once.
 """
@@ -39,7 +41,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 HOST_DIR = os.path.join(CSRC_DIR, "host")
-HOST_SOURCES = ("enqueuekernel.cc", "resolvekernel.cc")
+HOST_SOURCES = ("enqueuekernel.cc", "resolvekernel.cc", "treestore.cc")
 #: the host compiler (a path or a name on PATH) and its flags
 HOST_CXX = "g++"
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
@@ -88,7 +90,7 @@ def _nvcc_cmd(name: str, out: str) -> List[str]:
 
 def _host_lib_path() -> str:
     """The host library's path: its name carries a digest of the
-    compiler, the flags and both sources."""
+    compiler, the flags and every source."""
     digest = hashlib.sha256(" ".join((HOST_CXX, *HOST_FLAGS)).encode())
     for f in HOST_SOURCES:
         digest.update(f.encode())

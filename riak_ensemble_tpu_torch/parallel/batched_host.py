@@ -54,20 +54,42 @@ COMPLETION SLAB, one gathered record per round and one wake per flush
 ``csrc/host/``).  ``False`` pins the per-entry pack and the per-op resolve
 loops, the reference's oracle arm.
 
-It implements the reference service with ``RETPU_OBS=0 RETPU_DONATE=1``,
-``RETPU_RESOLVE_SHARDS=1`` and no ``RETPU_WIDE``: the donated (no
-rollback) launch, no WAL and a caller-driven flush (``tick=None``).  It
-reads no environment variables: the reference's ``RETPU_FAST_READS`` is
+Durability (``data_dir``): committed client writes reach a write-ahead
+log (:mod:`.wal`, forced down per ``wal_sync``) BEFORE any future of their
+launch resolves, at depth 2 in settle order;
+:meth:`BatchedEnsembleService.save` checkpoints the engine state
+(:mod:`..ops.checkpoint`) and the host mirrors and rotates the WAL;
+:meth:`BatchedEnsembleService.restore` replays the WAL over the latest
+checkpoint, or over ``META`` alone.  EIO or ENOSPC at the
+WAL barrier flips the service read-only (writes fail, reads serve).
+
+A launch's contract follows its device, as the reference's default does
+(``RETPU_DONATE`` unset): on the CPU the launch snapshots the state, the
+leader mirror and the leases, and a failed launch restores them; on CUDA
+F1 updates the state in place (the donated contract) and a failed launch
+leaves it as the failure left it.  Every launch and exchange runs through
+``engine`` (:class:`_LocalEngine` by default), the seam the tests inject
+launch failures through.
+
+It implements the reference service with ``RETPU_OBS=0``,
+``RETPU_RESOLVE_SHARDS=1`` and no ``RETPU_WIDE``, a static row set
+(``dynamic=False``) and a caller-driven flush (``tick=None``).  It reads
+no environment variables except the storage-fault knobs of
+:mod:`..faults`: the reference's ``RETPU_FAST_READS`` is
 :meth:`BatchedEnsembleService.set_fast_reads`, its ``RETPU_COMM_REPL`` the
 ``comm_repl`` argument and its ``RETPU_COMPACT`` the ``compact`` argument.
-Wide rounds, the WAL and membership are later slices.
+Wide rounds, membership and the timer are later slices.
 """
 
 from __future__ import annotations
 
+import errno
 import functools
 import logging
+import os
+import pickle
 import random
+import shutil
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -77,10 +99,14 @@ import numpy as np
 import torch
 
 from riak_ensemble_tpu_torch import funref
+from riak_ensemble_tpu_torch import save as savelib
 from riak_ensemble_tpu_torch.config import Config
 from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
+from riak_ensemble_tpu_torch.ops import checkpoint
 from riak_ensemble_tpu_torch.ops import engine as eng
+from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
+from riak_ensemble_tpu_torch.parallel.wal import ServiceWAL
 from riak_ensemble_tpu_torch.parallel.resolve_native import unpack_results
 from riak_ensemble_tpu_torch.runtime import Future, Timer
 from riak_ensemble_tpu_torch.types import NOTFOUND
@@ -183,6 +209,42 @@ def _bulk_planes(kind, slot, val, exp_epoch, exp_seq):
             None if exp_seq is None else np.asarray(exp_seq, np.int32))
 
 
+class _LocalEngine:
+    """The default engine adapter (batched_host.py:494-515): the engine
+    module's functions.  A subclass that overrides one of them (a test's
+    failure injector) slots in through the service's ``engine``
+    argument."""
+
+    init_state = staticmethod(eng.init_state)
+    full_step = staticmethod(eng.full_step)
+    full_step_sliced = staticmethod(eng.full_step_sliced)
+    exchange_step = staticmethod(eng.exchange_step)
+    verify_trees = staticmethod(eng.verify_trees)
+    rebuild_trees = staticmethod(eng.rebuild_trees)
+    reset_rows = staticmethod(eng.reset_rows)
+
+
+def _device_planes(device: torch.device, kind, slot, val, exp_epoch,
+                   exp_seq):
+    """A bulk call's DEVICE-RESIDENT planes: int32 ``[K, E]`` tensors
+    on the service's device, made contiguous (a no-op for contiguous
+    ones).  Nothing is copied to or checked on the host."""
+    planes = [kind, slot, val, exp_epoch, exp_seq]
+    shape = kind.shape
+    for i, (name, t) in enumerate(zip(
+            ("kind", "slot", "val", "exp_epoch", "exp_seq"), planes)):
+        if t is None and i >= 3:
+            continue
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
+                or t.device.type != device.type \
+                or device.index not in (None, t.device.index) \
+                or t.shape != shape or t.dim() != 2:
+            raise TypeError(f"device-resident execute: {name} must be an "
+                            f"int32 [K, E] tensor on {device}")
+        planes[i] = t.contiguous()
+    return planes
+
+
 @dataclass(slots=True)
 class _InFlightLaunch:
     """One enqueued-but-unsettled launch (batched_host.py:645-700, the
@@ -198,9 +260,10 @@ class _InFlightLaunch:
     cand: np.ndarray        # [E] its candidates
     now: float              # runtime.now at enqueue (lease renewal)
     #: host kind and slot planes in op order (the mirror scatter reads
-    #: them at settle: this launch's own arrays, never a reused buffer)
-    kind_np: np.ndarray
-    op_slot_np: np.ndarray
+    #: them at settle: this launch's own arrays, never a reused buffer;
+    #: None for device-resident planes)
+    kind_np: Optional[np.ndarray]
+    op_slot_np: Optional[np.ndarray]
     #: active-column compaction: the active columns (None = full-width
     #: pack), the pow2-bucketed packed width, and whether the STEP ran on
     #: those rows only (then won / quorum / corrupt are A-wide too)
@@ -213,9 +276,14 @@ class _InFlightLaunch:
     #: ent_row0, ent_len run descriptors, the taken round count, each
     #: entry's first slab row) — the completion slab gathers through it
     lanes: Any = None
-    #: execute_async path: the client future and its op count
+    #: execute_async path: the client future and its op count, and the
+    #: host planes its WAL records come from (None: nothing to log)
     exec_fut: Optional[Future] = None
     exec_ops: int = 0
+    exec_wal: Any = None
+    #: the rollback snapshot (CPU launches only; None = donated): the
+    #: pre-launch state, leader mirror and leases
+    snapshot: Any = None
 
 
 class _Uploads:
@@ -271,6 +339,16 @@ class _Uploads:
     def end(self, event: Any) -> None:
         """Record the event that frees the current slot."""
         self._events[self._cur_i] = event
+
+
+def _refuse_dynamic(meta: Dict[str, Any], path: str) -> None:
+    """The port has no dynamic rows: a data dir the reference wrote with
+    ``dynamic=True`` needs ROADMAP Queue 1 item 6 (dynamic rows and
+    membership)."""
+    if meta.get("dynamic"):
+        raise NotImplementedError(
+            f"{path} holds a dynamic-row service; dynamic rows and "
+            f"membership are not ported yet (ROADMAP Queue 1 item 6)")
 
 
 class WallRuntime:
@@ -398,13 +476,22 @@ class BatchedEnsembleService:
     raises.  ``plain_host_passes`` runs the passes' plain numpy versions
     in their place (the reference's arm with no host library: the slab
     path with the numpy pack and gather, the Python unpack and mirror
-    walk), and builds nothing.
+    walk, and the Python WAL store), and builds nothing.
 
-    The step updates the engine state in place: a launch has the
-    reference's DONATED contract (``RETPU_DONATE=1``) and keeps no
-    rollback snapshot.  A launch that fails leaves the state and mirrors
-    as the failure left them; its ops, and those of every later launch
-    still in flight, resolve 'failed' and the error reaches the caller.
+    ``engine`` is the adapter every launch and exchange runs through
+    (:class:`_LocalEngine` by default).  A launch that fails fails its
+    ops and those of every later launch still in flight, and the error
+    reaches the caller.  On the CPU the launch rolls the state, the
+    leader mirror and the leases back to their pre-launch snapshot, as
+    the reference's CPU default does; on CUDA the step updates the state
+    in place (the donated contract), no snapshot is taken and the state
+    stays as the failure left it.
+
+    ``data_dir`` makes acks durable: committed writes reach the WAL
+    under ``data_dir`` before their futures resolve, ``wal_sync``
+    ("fsync" or "buffer") says how far down, and past
+    ``wal_compact_records`` records an idle flush folds the WAL into a
+    checkpoint (:meth:`save`).  The reference's defaults.
     """
 
     def __init__(self, runtime: Any, n_ens: int, n_peers: int,
@@ -418,7 +505,11 @@ class BatchedEnsembleService:
                  pipeline_depth: int = 1,
                  native_enqueue: bool = True,
                  native_resolve: bool = True,
-                 plain_host_passes: bool = False) -> None:
+                 plain_host_passes: bool = False,
+                 engine: Optional[Any] = None,
+                 data_dir: Optional[str] = None,
+                 wal_sync: str = "fsync",
+                 wal_compact_records: int = 1 << 18) -> None:
         if tick is not None:
             raise NotImplementedError(
                 "timer-driven flushing is not ported; pass tick=None "
@@ -428,8 +519,13 @@ class BatchedEnsembleService:
         self.n_ens, self.n_peers, self.n_slots = n_ens, n_peers, n_slots
         self.max_k = max_ops_per_tick
         self.device = resolve_device(device)
-        self.state = eng.init_state(n_ens, n_peers, n_slots,
-                                    device=self.device)
+        self.engine = engine if engine is not None else _LocalEngine()
+        #: the launch contract, picked by the device as the reference's
+        #: default picks it (batched_host.py:1037-1043): CPU launches
+        #: snapshot for rollback, CUDA launches step in place
+        self._donate = self.device.type == "cuda"
+        self.state = self.engine.init_state(n_ens, n_peers, n_slots,
+                                            device=self.device)
         #: host failure detector input (set_peer_up)
         self.up = np.ones((n_ens, n_peers), dtype=bool)
         self._up_dev: Optional[torch.Tensor] = None  # see _up_device
@@ -586,6 +682,40 @@ class BatchedEnsembleService:
         #: the rounds those wakes fanned in
         self.completion_wakes = 0
         self.completion_rows = 0
+        #: durability (batched_host.py:1044-1097): the WAL of committed
+        #: writes, its compaction into checkpoints, and the read-only
+        #: degrade after a fatal storage error at its barrier
+        self.data_dir = data_dir
+        self.wal_sync = wal_sync
+        self.wal_compact_records = wal_compact_records
+        self.wal_compactions = 0
+        self.wal_compaction_ms_last = 0.0
+        self.wal_compaction_ms_total = 0.0
+        self._wal: Optional[ServiceWAL] = None
+        self._in_save = False
+        #: set once a WAL-enabled service served device-resident
+        #: execute planes, which skip the WAL
+        self._dev_exec_unlogged = False
+        #: the read-only decision record (None: healthy)
+        self._storage_degraded: Optional[Dict[str, Any]] = None
+        #: WAL OSErrors seen on the ack path
+        self.wal_storage_errors = 0
+        #: the WAL's store: the C++ treestore on the default arm, the
+        #: Python log on the plain one
+        self._wal_native = native
+        if data_dir is not None:
+            os.makedirs(data_dir, exist_ok=True)
+            meta_path = os.path.join(data_dir, "META")
+            raw = savelib.read(meta_path)
+            if raw is None:
+                savelib.write(meta_path, pickle.dumps(
+                    {"shape": (n_ens, n_peers, n_slots), "dynamic": False,
+                     "hash_format": hashk.HASH_FORMAT}, protocol=4))
+            else:
+                _refuse_dynamic(pickle.loads(raw), data_dir)
+            self._wal = ServiceWAL.open_gen(
+                data_dir, self._current_ckpt(data_dir), wal_sync,
+                native=self._wal_native)
 
     @property
     def grid_occupancy(self) -> float:
@@ -1293,15 +1423,51 @@ class BatchedEnsembleService:
         tombstone (a put of 0 is a delete).  OP_RMW rows carry the fun
         code in ``exp_epoch`` and return the computed value.  Elections
         fold in and leases check/renew as for queued ops.  It settles
-        every launch in flight first, so its results land behind them."""
+        every launch in flight first, so its results land behind them.
+
+        The planes may be DEVICE-RESIDENT: int32 tensors on the
+        service's device (batched_host.py:5002-5026).  Then no op plane
+        is copied to the device, the payloads are not checked on the
+        host, the launch is full width, and ``ops_served`` grows by
+        ``k * E``.  With a ``data_dir`` a host-array call logs its
+        committed writes before it returns (the result is the ack); a
+        device-resident call is not logged (its recovery point is the
+        last checkpoint) and sets ``_dev_exec_unlogged``."""
         self._drain_launches()
+        if isinstance(kind, torch.Tensor):
+            kind, slot, val, exp_e, exp_s = _device_planes(
+                self.device, kind, slot, val, exp_epoch, exp_seq)
+            self._note_dev_exec_unlogged()
+            k = int(kind.shape[0])
+            committed, get_ok, found, value, _ = self._launch(
+                kind, slot, val, k, want_vsn=False, exp_e=exp_e,
+                exp_s=exp_s)
+            self.ops_served += k * self.n_ens
+            return committed, get_ok, found, value
         kind, slot, val, exp_e, exp_s = _bulk_planes(kind, slot, val,
                                                      exp_epoch, exp_seq)
-        committed, get_ok, found, value, _ = self._launch(
-            kind, slot, val, int(kind.shape[0]), want_vsn=False,
+        if (self._wal is not None and self._storage_degraded is not None
+                and ((kind == eng.OP_PUT) | (kind == eng.OP_CAS)
+                     | (kind == eng.OP_RMW)).any()):
+            # read-only: the result is the ack, and these writes cannot
+            # be made durable (batched_host.py:5033-5042)
+            raise OSError(
+                errno.EIO, "service is read-only (storage degraded): "
+                "execute() writes cannot be made durable")
+        want_vsn = self._wal is not None
+        committed, get_ok, found, value, vsn = self._launch(
+            kind, slot, val, int(kind.shape[0]), want_vsn=want_vsn,
             exp_e=exp_e, exp_s=exp_s)
+        if self._wal is not None:
+            self._log_execute_wal(kind, slot, val, committed, vsn, value)
         self.ops_served += int((kind != eng.OP_NOOP).sum())
         return committed, get_ok, found, value
+
+    def _note_dev_exec_unlogged(self) -> None:
+        # the reference's trace event for this waits for obs (ROADMAP
+        # Queue 1 item 5); the flag is its record
+        if self._wal is not None:
+            self._dev_exec_unlogged = True
 
     def execute_async(self, kind: np.ndarray, slot: np.ndarray,
                       val: np.ndarray,
@@ -1310,15 +1476,28 @@ class BatchedEnsembleService:
         """Pipelined :meth:`execute` (batched_host.py:5089-5150): enqueue
         the ``[K, E]`` batch and return a :class:`Future` resolving to
         ``(committed, get_ok, found, value)`` (or 'failed' on a failed
-        launch).  Up to ``pipeline_depth`` batches overlap — batch N's
-        copy and host resolve run under batch N + 1's step — and results
-        resolve strictly in submission order; a later call, or an idle
-        :meth:`flush`, settles the tail."""
+        launch or WAL error).  Up to ``pipeline_depth`` batches overlap
+        — batch N's copy and host resolve run under batch N + 1's step —
+        and results resolve strictly in submission order; a later call,
+        or an idle :meth:`flush`, settles the tail.  The same
+        device-resident and WAL contract as :meth:`execute`."""
         fut = Future()
-        kind, slot, val, exp_e, exp_s = _bulk_planes(kind, slot, val,
-                                                     exp_epoch, exp_seq)
-        k = int(kind.shape[0])
-        n_ops = int((kind != eng.OP_NOOP).sum())
+        exec_wal = None
+        if isinstance(kind, torch.Tensor):
+            kind, slot, val, exp_e, exp_s = _device_planes(
+                self.device, kind, slot, val, exp_epoch, exp_seq)
+            self._note_dev_exec_unlogged()
+            k = int(kind.shape[0])
+            n_ops = k * self.n_ens
+            want_vsn = False
+        else:
+            kind, slot, val, exp_e, exp_s = _bulk_planes(
+                kind, slot, val, exp_epoch, exp_seq)
+            k = int(kind.shape[0])
+            n_ops = int((kind != eng.OP_NOOP).sum())
+            want_vsn = self._wal is not None
+            if want_vsn:
+                exec_wal = (kind, slot, val)
         # an in-flight launch may be about to install a leader: electing
         # again would re-version its objects, so settle first
         elect, cand = self._election_inputs()
@@ -1326,14 +1505,15 @@ class BatchedEnsembleService:
             self._drain_launches()
             elect, cand = self._election_inputs()
         try:
-            fl = self._launch_enqueue(kind, slot, val, k, want_vsn=False,
-                                      exp_e=exp_e, exp_s=exp_s,
-                                      elect=elect, cand=cand)
+            fl = self._launch_enqueue(kind, slot, val, k,
+                                      want_vsn=want_vsn, exp_e=exp_e,
+                                      exp_s=exp_s, elect=elect, cand=cand)
         except BaseException:
             self._safe_resolve(fut, "failed")
             raise
         fl.exec_fut = fut
         fl.exec_ops = n_ops
+        fl.exec_wal = exec_wal
         self._inflight.append(fl)
         self._drain_launches(keep=self.pipeline_depth - 1)
         return fut
@@ -1636,6 +1816,12 @@ class BatchedEnsembleService:
                     pw[s] += 1
             else:
                 self._note_write(ens, op.slot)
+            if self._storage_degraded is not None:
+                # read-only: the WAL cannot take the durability barrier,
+                # so no write may queue toward an ack; it fails through
+                # the normal path (batched_host.py:3214-3221)
+                self._fail_entry(ens, op)
+                return
         self.queues[ens].append(op)
         self._queue_rounds[ens] += op.n
         self._active.add(ens)
@@ -1696,16 +1882,23 @@ class BatchedEnsembleService:
         runs on those rows (SLICED: inputs and results A-wide, pads =
         index E, NOOP and not electing); otherwise, while the bucket is
         below E, the step keeps the full grid and only the pack gathers
-        the client planes (pads = column 0)."""
+        the client planes (pads = column 0).  Device-resident planes
+        (tensors) skip compaction and every op-plane upload.
+
+        On the CPU the launch first snapshots the state, the leader
+        mirror and the leases; a failure here restores them
+        (:meth:`_rollback_launch`), and so does one at settle."""
         if elect is None:
             elect, cand = self._election_inputs()
         now = self.runtime.now
         lease_ok = self.lease_until > now
         e = self.n_ens
+        step, step_sliced = self._step_fns()
+        host_planes = not isinstance(kind, torch.Tensor)
         active = pad = None
         a_width = 0
         sliced = False
-        if self._compact and k:
+        if self._compact and k and host_planes:
             cols = np.flatnonzero((kind != eng.OP_NOOP).any(axis=0)
                                   | elect)
             if cols.size:
@@ -1715,7 +1908,8 @@ class BatchedEnsembleService:
                 if a_b < e:
                     active = cols.astype(np.int32)
                     a_width = a_b
-                    sliced = e >= SLICE_MIN_E and a_b * 4 <= e
+                    sliced = (step_sliced is not None
+                              and e >= SLICE_MIN_E and a_b * 4 <= e)
                     pad = np.full((a_b,), e if sliced else 0, np.int32)
                     pad[:cols.size] = active
         width = a_width if sliced else e
@@ -1724,7 +1918,10 @@ class BatchedEnsembleService:
         ups.begin()
 
         def plane(name: str, src: np.ndarray, dtype: torch.dtype):
-            """Upload a [K, E] host plane, column-sliced when sliced."""
+            """Upload a [K, E] host plane, column-sliced when sliced (a
+            device-resident plane is used as it is)."""
+            if not host_planes:
+                return src
             buf = ups.buffer(name, (k, width), dtype)
             out = buf.numpy()
             if sliced:
@@ -1769,34 +1966,81 @@ class BatchedEnsembleService:
             abuf.numpy()[...] = pad
             aidx_j = ups.upload(abuf)
         up_j = self._up_device()
+        # the rollback snapshot (batched_host.py:3586-3598): the CPU
+        # step updates the object and tree planes in place, so they are
+        # cloned; CUDA launches keep the donated contract and no copy
+        snapshot = None if self._donate else (
+            eng.EngineState(*(t.clone() for t in self.state)),
+            self.leader_np.copy(), self.lease_until.copy())
+        try:
+            if sliced:
+                state, won, res = step_sliced(
+                    self.state, pad, elect_j, cand_j, kind_j, slot_j,
+                    val_j, lease_j, up_j, exp_epoch=exp_e_j,
+                    exp_seq=exp_s_j)
+            else:
+                state, won, res = step(
+                    self.state, elect_j, cand_j, kind_j, slot_j, val_j,
+                    lease_j, up_j, exp_epoch=exp_e_j, exp_seq=exp_s_j)
+            self.state = state
+            # a sliced launch's planes are already A-wide; pack-gather
+            # hands the pack the index
+            flat = _pack_results_body(won, res, want_vsn,
+                                      active_idx=aidx_j)
+            host = done = None
+            if self._copy_stream is not None:
+                packed = torch.cuda.Event()
+                packed.record(torch.cuda.current_stream(self.device))
+                self._copy_stream.wait_event(packed)
+                host = ups.buffer("out", (flat.numel(),), torch.uint8)
+                with torch.cuda.stream(self._copy_stream):
+                    host.copy_(flat, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(self._copy_stream)
+                ups.end(done)
+        except BaseException:
+            self._rollback_launch(snapshot)
+            raise
         if sliced:
-            state, won, res = eng.full_step_sliced(
-                self.state, pad, elect_j, cand_j, kind_j, slot_j, val_j,
-                lease_j, up_j, exp_epoch=exp_e_j, exp_seq=exp_s_j)
             self.sliced_launches += 1
-        else:
-            state, won, res = eng.full_step(
-                self.state, elect_j, cand_j, kind_j, slot_j, val_j,
-                lease_j, up_j, exp_epoch=exp_e_j, exp_seq=exp_s_j)
-        self.state = state
-        # a sliced launch's planes are already A-wide; pack-gather
-        # hands the pack the index
-        flat = _pack_results_body(won, res, want_vsn, active_idx=aidx_j)
-        host = done = None
-        if self._copy_stream is not None:
-            packed = torch.cuda.Event()
-            packed.record(torch.cuda.current_stream(self.device))
-            self._copy_stream.wait_event(packed)
-            host = ups.buffer("out", (flat.numel(),), torch.uint8)
-            with torch.cuda.stream(self._copy_stream):
-                host.copy_(flat, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._copy_stream)
-            ups.end(done)
         return _InFlightLaunch(
             flat=flat, host=host, done=done, k=k, want_vsn=want_vsn,
-            elect=elect, cand=cand, now=now, kind_np=kind, op_slot_np=slot,
-            active=active, a_width=a_width, sliced=sliced)
+            elect=elect, cand=cand, now=now,
+            kind_np=kind if host_planes else None,
+            op_slot_np=slot if host_planes else None,
+            active=active, a_width=a_width, sliced=sliced,
+            snapshot=snapshot)
+
+    def _step_fns(self) -> Tuple[Any, Any]:
+        """The engine's (full_step, full_step_sliced) programs
+        (batched_host.py:3324-3383).  An engine subclass that overrides
+        the plain step but inherits the sliced one must not have its
+        override bypassed: the sliced step is trusted only when the
+        class (or instance) that defines the plain step defines it too;
+        otherwise launches keep the full grid (None)."""
+        e = self.engine
+
+        def definer(attr):
+            for c in type(e).__mro__:
+                if attr in c.__dict__:
+                    return c
+            return None
+        sliced = getattr(e, "full_step_sliced", None)
+        if (sliced is not None
+                and "full_step_sliced" not in getattr(e, "__dict__", {})
+                and definer("full_step_sliced") is not definer("full_step")):
+            sliced = None
+        return e.full_step, sliced
+
+    def _rollback_launch(self, snapshot) -> None:
+        """Restore the pre-launch state and host mirrors after a failed
+        launch (batched_host.py:3667-3685): a mirror claiming a leader
+        the restored state does not have would suppress re-election.  A
+        donated launch (CUDA, ``snapshot`` None) has no rollback; the
+        state stays as the failure left it."""
+        if snapshot is None:
+            return
+        self.state, self.leader_np, self.lease_until = snapshot
 
     def _launch_resolve(self, fl: _InFlightLaunch):
         """RESOLVE half of a launch (batched_host.py:3667-3880): wait for
@@ -1806,61 +2050,66 @@ class BatchedEnsembleService:
         already holds the next launch's step, so a flagged row is
         repaired before any later result is acked.  Returns np result
         planes ``(committed, get_ok, found, value, vsn)`` (None planes
-        for k == 0; vsn None unless asked)."""
-        flat = self._fetch_packed(fl)
-        e, m = self.n_ens, self.n_peers
-        # the native arm (batched_host.py:3728-3744): one C++ pass
-        # scatters a compacted payload into full-width planes.  A full-
-        # width payload has nothing to scatter, and there numpy's byte-
-        # wise unpackbits beats the pass's bit loop (3.0-4.8 against
-        # 1.7-2.1 ms per call on the H100 machine's host, PERF.md §6), so
-        # the arm unpacks it with numpy: the same bytes either way.
-        # Election-only launches (k == 0) take the oracle's unpack, as in
-        # the reference.
-        if self._native_resolve is not None and fl.k:
-            if fl.active is not None:
-                planes8 = self._native_resolve.unpack(
-                    flat, e, m, fl.k, fl.want_vsn, fl.active, fl.a_width,
-                    fl.sliced)
+        for k == 0; vsn None unless asked).  A failure here rolls the
+        launch back as a failed enqueue does (CPU launches)."""
+        try:
+            flat = self._fetch_packed(fl)
+            e, m = self.n_ens, self.n_peers
+            # the native arm (batched_host.py:3728-3744): one C++ pass
+            # scatters a compacted payload into full-width planes.  A full-
+            # width payload has nothing to scatter, and there numpy's byte-
+            # wise unpackbits beats the pass's bit loop (3.0-4.8 against
+            # 1.7-2.1 ms per call on the H100 machine's host, PERF.md §6), so
+            # the arm unpacks it with numpy: the same bytes either way.
+            # Election-only launches (k == 0) take the oracle's unpack, as in
+            # the reference.
+            if self._native_resolve is not None and fl.k:
+                if fl.active is not None:
+                    planes8 = self._native_resolve.unpack(
+                        flat, e, m, fl.k, fl.want_vsn, fl.active, fl.a_width,
+                        fl.sliced)
+                else:
+                    planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn)
+                self.native_resolve_flushes += 1
             else:
-                planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn)
-            self.native_resolve_flushes += 1
-        else:
-            planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn,
-                                     active=fl.active, a_width=fl.a_width,
-                                     sliced=fl.sliced)
-            self.fallback_resolve_flushes += 1
-        (won_np, quorum_ok, corrupt_np, committed, get_ok, found, value,
-         vsn) = planes8
-        self.payload_bytes += int(flat.nbytes)
-        self.payload_bytes_full_width += packed_nbytes(e, m, fl.k,
-                                                       fl.want_vsn)
-        self._occ_sum += (fl.a_width / e if fl.active is not None
-                          else 1.0)
-        self._occ_launches += 1
-        # Host mirror: a won election installed our candidate.
-        self.leader_np = np.where(won_np, fl.cand, self.leader_np)
-        # Lease renewal: a won election, or any round in which the
-        # leader confirmed its epoch with a quorum (peer.erl:1092-1095).
-        renew = won_np | quorum_ok
-        self.lease_until[renew] = fl.now + self.config.lease()
-        # Device-detected integrity failures -> anti-entropy exchange for
-        # the affected ensembles (tree_corrupted -> repair -> exchange,
-        # peer.erl:1276-1277): divergent slots re-adopt the newest
-        # hash-valid copy and the replicas' trees are rebuilt.  Flagged
-        # rows take the device round for reads until the exchange syncs
-        # them; residual damage re-flags on its next device access.
-        if fl.k and corrupt_np.any():
-            self.corruptions += int(corrupt_np.sum())
-            run = corrupt_np.any(1)
-            self._corrupt_rows |= run
-            self.state, diverged, synced = eng.exchange_step(
-                self.state, torch.from_numpy(run).to(self.device),
-                self._up_device())
-            synced_np = synced.cpu().numpy()
-            self.repairs += int(diverged.cpu().numpy()[synced_np].sum())
-            self._corrupt_rows &= ~(run & synced_np)
-        self.flushes += 1
+                planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn,
+                                         active=fl.active, a_width=fl.a_width,
+                                         sliced=fl.sliced)
+                self.fallback_resolve_flushes += 1
+            (won_np, quorum_ok, corrupt_np, committed, get_ok, found, value,
+             vsn) = planes8
+            self.payload_bytes += int(flat.nbytes)
+            self.payload_bytes_full_width += packed_nbytes(e, m, fl.k,
+                                                           fl.want_vsn)
+            self._occ_sum += (fl.a_width / e if fl.active is not None
+                              else 1.0)
+            self._occ_launches += 1
+            # Host mirror: a won election installed our candidate.
+            self.leader_np = np.where(won_np, fl.cand, self.leader_np)
+            # Lease renewal: a won election, or any round in which the
+            # leader confirmed its epoch with a quorum (peer.erl:1092-1095).
+            renew = won_np | quorum_ok
+            self.lease_until[renew] = fl.now + self.config.lease()
+            # Device-detected integrity failures -> anti-entropy exchange for
+            # the affected ensembles (tree_corrupted -> repair -> exchange,
+            # peer.erl:1276-1277): divergent slots re-adopt the newest
+            # hash-valid copy and the replicas' trees are rebuilt.  Flagged
+            # rows take the device round for reads until the exchange syncs
+            # them; residual damage re-flags on its next device access.
+            if fl.k and corrupt_np.any():
+                self.corruptions += int(corrupt_np.sum())
+                run = corrupt_np.any(1)
+                self._corrupt_rows |= run
+                self.state, diverged, synced = self.engine.exchange_step(
+                    self.state, torch.from_numpy(run).to(self.device),
+                    self._up_device())
+                synced_np = synced.cpu().numpy()
+                self.repairs += int(diverged.cpu().numpy()[synced_np].sum())
+                self._corrupt_rows &= ~(run & synced_np)
+            self.flushes += 1
+        except BaseException:
+            self._rollback_launch(fl.snapshot)
+            raise
         # A won election bumped the row's ballot epoch: the next device
         # access of each object re-versions it, so the row's vsn mirror
         # is stale — drop it (plain value reads stay fast).
@@ -1877,38 +2126,132 @@ class BatchedEnsembleService:
         return self._launch_resolve(self._launch_enqueue(
             kind, slot, val, k, want_vsn, exp_e, exp_s))
 
-    def _settle_launch(self, fl: _InFlightLaunch) -> int:
+    def _settle_launch(self, fl: _InFlightLaunch
+                       ) -> Tuple[int, Optional[BaseException]]:
         """SETTLE one in-flight launch end to end (batched_host.py:
-        5649-5700): resolve it, then fan out its futures — the flush's
-        taken ops or the ``execute_async`` future.  Returns ops served.
-        A failure fails the launch's clients and re-raises."""
+        5649-5716): resolve it, log its committed writes to the WAL, then
+        fan out its futures — the flush's taken ops or the
+        ``execute_async`` future.  Returns (ops served, WAL error or
+        None): a WAL failure is reported, not raised, so the drain keeps
+        settling later launches, whose commits are independent of this
+        one's disk error.  A launch failure fails the launch's clients
+        and re-raises."""
         try:
             planes = self._launch_resolve(fl)
         except BaseException:
             self._abandon_launch(fl)
             raise
         if fl.exec_fut is not None:
-            self.ops_served += fl.exec_ops
-            self._safe_resolve(fl.exec_fut, planes[:4])
-            return fl.exec_ops
-        return self._resolve_flush(fl, planes)
+            return self._settle_execute(fl, planes)
+        # The durability barrier: committed writes reach the WAL (synced
+        # per wal_sync) BEFORE any future resolves.  If the WAL write
+        # fails, the commits stand on the device (the bookkeeping runs)
+        # but their clients get 'failed' — an unacked commit is an
+        # allowed outcome, a lost acked one is not.  A degraded service
+        # neither logs nor acks writes; its reads still serve.
+        wal_err: Optional[BaseException] = None
+        degraded = self._storage_degraded is not None
+        if self._wal is not None and not degraded:
+            try:
+                self._log_wal(fl.taken or [], planes)
+            except Exception as exc:
+                wal_err = exc
+        served = self._resolve_flush(fl, planes,
+                                     ack=wal_err is None and not degraded)
+        return served, wal_err
+
+    def _settle_execute(self, fl: _InFlightLaunch, planes
+                        ) -> Tuple[int, Optional[BaseException]]:
+        """Resolve one ``execute_async`` launch (batched_host.py:
+        5718-5755): log its committed writes (host-array planes with a
+        WAL), then resolve the future with the result planes.  An
+        unpersisted commit is never acked: the future resolves
+        'failed'."""
+        committed, get_ok, found, value, vsn = planes
+        if fl.exec_wal is not None and self._wal is not None:
+            if self._storage_degraded is not None:
+                self._safe_resolve(fl.exec_fut, "failed")
+                return 0, None
+            kind, slot, val = fl.exec_wal
+            try:
+                self._log_execute_wal(kind, slot, val, committed, vsn,
+                                      value)
+            except Exception as exc:
+                self._safe_resolve(fl.exec_fut, "failed")
+                return 0, exc
+        self.ops_served += fl.exec_ops
+        self._safe_resolve(fl.exec_fut, (committed, get_ok, found, value))
+        return fl.exec_ops, None
 
     def _drain_launches(self, keep: int = 0) -> int:
         """Settle in-flight launches oldest-first until at most ``keep``
-        remain; returns ops served (batched_host.py:5532).  When a settle
-        fails, every later in-flight launch stepped on the state the
-        failed one left, so their clients fail too (``_abandon_launch``)
-        and the error re-raises."""
+        remain; returns ops served (batched_host.py:5532-5583).  When a
+        launch fails, every later in-flight launch stepped on the state
+        the failed one left, so their clients fail too
+        (``_abandon_launch``) and the error re-raises.  A WAL failure is
+        different: the launch's commits are real, so later launches
+        settle normally; after the drain, EIO or ENOSPC degrades the
+        service to read-only and any other WAL error re-raises."""
         served = 0
+        wal_err: Optional[BaseException] = None
+        fatal_err: Optional[BaseException] = None
         while len(self._inflight) > keep:
             fl = self._inflight.popleft()
             try:
-                served += self._settle_launch(fl)
+                n, err = self._settle_launch(fl)
             except BaseException:
                 while self._inflight:
                     self._abandon_launch(self._inflight.popleft())
                 raise
+            served += n
+            if err is not None:
+                if wal_err is None:
+                    wal_err = err
+                if isinstance(err, OSError):
+                    self.wal_storage_errors += 1
+                    # a fatal errno on a LATER launch must still win
+                    if fatal_err is None and err.errno in (errno.EIO,
+                                                           errno.ENOSPC):
+                        fatal_err = err
+        if fatal_err is not None:
+            self._degrade_storage("wal", fatal_err)
+        elif wal_err is not None:
+            raise wal_err
         return served
+
+    def _degrade_storage(self, plane: str, exc: BaseException) -> None:
+        """Flip the service read-only after a fatal storage error on the
+        ack path (batched_host.py:5585-5617): queued and later writes
+        fail, reads keep serving, a degraded service never compacts, and
+        the decision is kept in ``_storage_degraded`` (the reference's
+        ``health()["storage"]``, which waits for obs).  Recovery is a
+        restart: :meth:`restore` replays the WAL on a healthy disk.  The
+        first error wins the record."""
+        if self._storage_degraded is not None:
+            return
+        code = getattr(exc, "errno", None)
+        self._storage_degraded = {
+            "plane": plane,
+            "mode": "read_only",
+            "errno": errno.errorcode.get(code, str(code)),
+            "error": repr(exc)[:200],
+            "at_flush": int(self.flushes),
+        }
+        self._fail_queued_writes()
+
+    def _fail_queued_writes(self) -> None:
+        """Fail every queued write entry, keeping queued reads
+        (batched_host.py:5619-5631)."""
+        for e in list(self._active):
+            q = self.queues[e]
+            drop = [op for op in q if op.kind != eng.OP_GET]
+            if not drop:
+                continue
+            keep = [op for op in q if op.kind == eng.OP_GET]
+            self.queues[e] = keep
+            self._queue_rounds[e] = sum(op.n for op in keep)
+            for op in drop:
+                self._fail_entry(e, op)
 
     def _abandon_launch(self, fl: _InFlightLaunch) -> None:
         """Fail an in-flight launch's clients (batched_host.py:5639)."""
@@ -1920,13 +2263,34 @@ class BatchedEnsembleService:
                     self._fail_entry(e, op)
 
     def _flush_maintenance(self) -> None:
-        """Post-settle upkeep of every flush: the periodic scrub against
-        its flush-count watermark, then the idle retry collapse."""
+        """Post-settle upkeep of every flush (batched_host.py:5471-5511):
+        WAL compaction past the record bound, the periodic scrub against
+        its flush-count watermark, then the idle retry collapse.
+        Compaction is a full checkpoint, so it waits for an idle flush
+        (queues empty, pipeline drained) and runs in-line only past twice
+        the bound; a degraded service never compacts (the save would
+        write the same dead disk)."""
+        if (self._wal is not None and not self._in_save
+                and self._storage_degraded is None
+                and self._wal.count >= self.wal_compact_records):
+            idle = not self._active and not self._inflight
+            if idle or self._wal.count >= 2 * self.wal_compact_records:
+                self._compact_wal()
         if (self.scrub_every_flushes
                 and self.flushes - self._scrubbed_at_flush
                 >= self.scrub_every_flushes):
             self.scrub()
         self._fire_idle_retries()
+
+    def _compact_wal(self) -> None:
+        """Fold the WAL into a fresh checkpoint, timed
+        (batched_host.py:5513-5530)."""
+        t0 = time.perf_counter()
+        self.save()
+        dt = (time.perf_counter() - t0) * 1e3
+        self.wal_compactions += 1
+        self.wal_compaction_ms_last = dt
+        self.wal_compaction_ms_total += dt
 
     def scrub(self) -> Dict[str, int]:
         """Full anti-entropy sweep (batched_host.py:3918-3961): verify
@@ -1939,7 +2303,7 @@ class BatchedEnsembleService:
         first."""
         self._drain_launches()
         self._scrubbed_at_flush = self.flushes
-        node_bad, leaf_bad = eng.verify_trees(self.state)
+        node_bad, leaf_bad = self.engine.verify_trees(self.state)
         bad = (node_bad | leaf_bad).cpu().numpy()             # [E, M]
         found = int(bad.sum())
         if not found:
@@ -1949,10 +2313,10 @@ class BatchedEnsembleService:
         self.corruptions += found
         snapshot = self.state
         try:
-            self.state, diverged, synced = eng.exchange_step(
+            self.state, diverged, synced = self.engine.exchange_step(
                 self.state, torch.from_numpy(run).to(self.device),
                 self._up_device())
-            node_bad2, leaf_bad2 = eng.verify_trees(self.state)
+            node_bad2, leaf_bad2 = self.engine.verify_trees(self.state)
             still = (node_bad2 | leaf_bad2).cpu().numpy() & bad
         except BaseException:
             self.state = snapshot
@@ -2018,13 +2382,15 @@ class BatchedEnsembleService:
         self._safe_resolve(op.fut, "failed")
 
     def _resolve_batch(self, e: int, j: int, op: _PendingBatch,
-                       planes, native_mirrors: bool = False) -> None:
+                       planes, ack: bool,
+                       native_mirrors: bool = False) -> None:
         """Resolve one batch entry from result-plane column slices.
         Every committed write updates the fast path's mirrors before
         its result is handed to the client; with ``native_mirrors`` the
         C++ pass already wrote this flush's ``_slot_vsn`` /
         ``_inline_value`` slabs, so only the Python-owned bookkeeping
-        runs here."""
+        runs here.  ``ack=False`` (the WAL write failed) keeps the
+        committed writes' bookkeeping but resolves them 'failed'."""
         committed, get_ok, found, value, vsn = planes
         n = op.n
         results: List[Any] = []
@@ -2067,7 +2433,7 @@ class BatchedEnsembleService:
                     inline_val_ok[s] = False
                     vsn_row[s] = vs
                     vsn_ok_row[s] = True
-                append(("ok", tuple(vs)))
+                append(("ok", tuple(vs)) if ack else "failed")
         elif op.kind == eng.OP_RMW:
             comm_l = committed[j:j + n, e].tolist()
             vs_l = vsn[j:j + n, e].tolist()
@@ -2102,7 +2468,7 @@ class BatchedEnsembleService:
                 if not native_mirrors:
                     vsn_row[s] = vs
                     vsn_ok_row[s] = True
-                append(("ok", tuple(vs)))
+                append(("ok", tuple(vs)) if ack else "failed")
         else:  # OP_GET batch
             ok_l = get_ok[j:j + n, e].tolist()
             found_l = found[j:j + n, e].tolist()
@@ -2135,7 +2501,7 @@ class BatchedEnsembleService:
 
     # -- completion-slab resolve (the slab enqueue path) ---------------------
 
-    def _resolve_taken_slab(self, taken, planes, lanes,
+    def _resolve_taken_slab(self, taken, planes, lanes, ack: bool,
                             native_mirrors: bool) -> int:
         """Resolve every taken entry through the flush's COMPLETION SLAB
         (batched_host.py:6134-6229): each result plane is gathered through
@@ -2174,16 +2540,17 @@ class BatchedEnsembleService:
                     self._resolve_batch_slab(
                         e, op, ok_l[off:end], gok_l[off:end],
                         fnd_l[off:end], val_l[off:end], vs_l[off:end],
-                        native_mirrors, got, off)
+                        ack, native_mirrors, got, off)
                 else:
                     self._resolve_scalar_slab(
                         e, op, ok_l[off], gok_l[off], fnd_l[off],
-                        val_l[off], tuple(vs_l[off]), native_mirrors)
+                        val_l[off], tuple(vs_l[off]), ack,
+                        native_mirrors)
                 served += op.n
         return served
 
     def _resolve_batch_slab(self, e: int, op: _PendingBatch, comm_l,
-                            gok_l, fnd_l, val_l, vs_l,
+                            gok_l, fnd_l, val_l, vs_l, ack: bool,
                             native_mirrors: bool, np_lanes, off: int
                             ) -> None:
         """One batch entry from its completion-slab segment
@@ -2229,7 +2596,7 @@ class BatchedEnsembleService:
                 if h:
                     slot_handle[s] = h
                 comm_slots.append(s)
-                append(("ok", tuple(vs_l[i])))
+                append(("ok", tuple(vs_l[i])) if ack else "failed")
             if comm_slots:
                 # committed writes flip their slots to handle storage;
                 # the vsn mirror scatters in round order (numpy keeps the
@@ -2269,7 +2636,7 @@ class BatchedEnsembleService:
                 elif keys[i] is not None:
                     recycle((keys[i], s, gen_l[i]))
                 comm_slots.append(s)
-                append(("ok", tuple(vs_l[i])))
+                append(("ok", tuple(vs_l[i])) if ack else "failed")
             if comm_slots:
                 self._inline_slots[e].update(comm_slots)
                 self._inline_np[e, comm_slots] = True
@@ -2338,7 +2705,7 @@ class BatchedEnsembleService:
         op.accum.fill(op.fut, op.pos, results, self._safe_resolve)
 
     def _resolve_scalar_slab(self, e: int, op: _PendingOp, comm: bool,
-                             gok: bool, fnd: bool, v: int, vs,
+                             gok: bool, fnd: bool, v: int, vs, ack: bool,
                              native_mirrors: bool) -> None:
         """One scalar op from its completion-slab row
         (batched_host.py:6406-6481): the per-op loop's logic on the
@@ -2362,7 +2729,7 @@ class BatchedEnsembleService:
                 self._inline_value_ok[e, s] = False
                 self._slot_vsn_np[e, s] = vs
                 self._slot_vsn_ok[e, s] = True
-            self._safe_resolve(op.fut, ("ok", vs))
+            self._safe_resolve(op.fut, ("ok", vs) if ack else "failed")
         elif op.kind == eng.OP_RMW:
             self._unnote_write(e, s)
             old = slot_handle.pop(s, 0)
@@ -2380,7 +2747,7 @@ class BatchedEnsembleService:
                 self._inline_value_ok[e, s] = bool(v)
                 self._slot_vsn_np[e, s] = vs
                 self._slot_vsn_ok[e, s] = True
-            self._safe_resolve(op.fut, ("ok", vs))
+            self._safe_resolve(op.fut, ("ok", vs) if ack else "failed")
         elif gok:  # OP_GET
             if fnd and v != 0:
                 if s in self._inline_slots[e]:
@@ -2400,7 +2767,8 @@ class BatchedEnsembleService:
         else:
             self._fail_op(e, op)
 
-    def _resolve_flush(self, fl: _InFlightLaunch, planes) -> int:
+    def _resolve_flush(self, fl: _InFlightLaunch, planes,
+                       ack: bool = True) -> int:
         """Resolve every op ``fl`` took from the result planes, in device
         round order per ensemble (batched_host.py:6484-6720).
 
@@ -2411,7 +2779,10 @@ class BatchedEnsembleService:
         mirror writes.  When the flush has a pending-slab record
         (``fl.lanes``), resolution runs through the completion slab
         (:meth:`_resolve_taken_slab`) instead of the per-op loops, the
-        reference's oracle arm, with identical results and slabs."""
+        reference's oracle arm, with identical results and slabs.
+        ``ack=False`` (the WAL write failed, or the service is read-only)
+        resolves committed writes 'failed' with their bookkeeping kept;
+        reads still serve (batched_host.py:6484-6500)."""
         taken, lanes = fl.taken or [], fl.lanes
         committed, get_ok, found, value, vsn = planes
         if committed is None:  # k == 0: election-only launch, no ops
@@ -2435,7 +2806,7 @@ class BatchedEnsembleService:
                 self._inline_np)
             native_mirrors = True
         if lanes is not None and taken:
-            served = self._resolve_taken_slab(taken, planes, lanes,
+            served = self._resolve_taken_slab(taken, planes, lanes, ack,
                                               native_mirrors)
             self.ops_served += served
             self._drain_recycles()
@@ -2456,7 +2827,7 @@ class BatchedEnsembleService:
             j = -1
             for op in ops:
                 if isinstance(op, _PendingBatch):
-                    self._resolve_batch(e, j + 1, op, planes,
+                    self._resolve_batch(e, j + 1, op, planes, ack,
                                         native_mirrors)
                     served += op.n
                     j += op.n
@@ -2488,7 +2859,8 @@ class BatchedEnsembleService:
                             self._slot_vsn_np[e, s] = vsn_l[j][e]
                             self._slot_vsn_ok[e, s] = True
                         self._safe_resolve(op.fut,
-                                           ("ok", tuple(vsn_l[j][e])))
+                                           ("ok", tuple(vsn_l[j][e]))
+                                           if ack else "failed")
                     else:
                         self._fail_op(e, op)
                 elif op.kind == eng.OP_RMW:
@@ -2515,7 +2887,8 @@ class BatchedEnsembleService:
                         self._inline_slots[e].add(s)
                         self._inline_np[e, s] = True
                         self._safe_resolve(op.fut,
-                                           ("ok", tuple(vsn_l[j][e])))
+                                           ("ok", tuple(vsn_l[j][e]))
+                                           if ack else "failed")
                     else:
                         self._fail_op(e, op)
                 elif get_ok_l[j][e]:
@@ -2545,3 +2918,399 @@ class BatchedEnsembleService:
         self.ops_served += served
         self._drain_recycles()
         return served
+
+    # -- durability: the WAL barrier, checkpoints, restore -------------------
+
+    def _log_wal(self, taken, planes) -> None:
+        """Append this flush's committed client writes to the WAL,
+        latest record per (ensemble, slot); called BEFORE any future
+        resolves (batched_host.py:5764-5832).  Records:
+        ``("kv", e, slot) -> (key, handle, epoch, seq, payload, False)``
+        for a put / CAS (payload None for a tombstone), and
+        ``(key, computed value, epoch, seq, None, True)`` for an RMW.
+
+        The native arm encodes batch-only flushes whose keys and payloads
+        fit the C++ pickler's subset in one pass
+        (:meth:`_log_wal_native`); the store contents are byte-identical
+        to this Python walk, which logs everything else."""
+        committed, _get_ok, _found, value, vsn = planes
+        if committed is None:
+            return
+        if (self._native_resolve is not None and vsn is not None
+                and self._log_wal_native(taken, planes)):
+            return
+        committed_l = committed.tolist()
+        vsn_l = vsn.tolist()
+        puts = (eng.OP_PUT, eng.OP_CAS)
+        recs = []
+        for e, ops in taken:
+            j = -1
+            for op in ops:
+                if isinstance(op, _PendingBatch):
+                    if op.kind in puts:
+                        comm = committed[j + 1:j + 1 + op.n, e]
+                        vs2 = vsn[j + 1:j + 1 + op.n, e]
+                        for i in np.nonzero(comm)[0]:
+                            h = int(op.handle[i])
+                            recs.append((
+                                ("kv", e, int(op.slot[i])),
+                                (op.keys[i], h, int(vs2[i, 0]),
+                                 int(vs2[i, 1]),
+                                 self.values.get(h) if h else None,
+                                 False)))
+                    elif op.kind == eng.OP_RMW:
+                        # the committed COMPUTED value rides the handle
+                        # field of a keyed inline record
+                        comm = committed[j + 1:j + 1 + op.n, e]
+                        vs2 = vsn[j + 1:j + 1 + op.n, e]
+                        vv = value[j + 1:j + 1 + op.n, e]
+                        for i in np.nonzero(comm)[0]:
+                            recs.append((
+                                ("kv", e, int(op.slot[i])),
+                                (op.keys[i], int(vv[i]),
+                                 int(vs2[i, 0]), int(vs2[i, 1]),
+                                 None, True)))
+                    j += op.n
+                    continue
+                j += 1
+                if op.kind in puts and committed_l[j][e]:
+                    payload = (self.values.get(op.handle)
+                               if op.handle else None)
+                    ve, vs = vsn_l[j][e]
+                    recs.append((("kv", e, op.slot),
+                                 (op.key, op.handle, ve, vs, payload,
+                                  False)))
+                elif op.kind == eng.OP_RMW and committed_l[j][e]:
+                    ve, vs = vsn_l[j][e]
+                    recs.append((("kv", e, op.slot),
+                                 (op.key, int(value[j, e]), ve, vs,
+                                  None, True)))
+        if recs:
+            self._wal.log(recs)
+
+    def _log_wal_native(self, taken, planes) -> bool:
+        """The single-pass WAL encode (batched_host.py:5834-5930): gather
+        the flush's write lanes and joined key / payload arenas, pickle
+        every record in one C++ pass (:meth:`.resolve_native.
+        NativeResolve.wal_encode`) and append the arena verbatim
+        (:meth:`.wal.ServiceWAL.log_arena`).  Returns False when a lane
+        lies outside the pass's subset — a scalar write, a key that is
+        not a str, a payload that is neither bytes nor None, a non-ASCII
+        key, or a record of 64 KiB or more — and the caller's Python walk
+        then logs EVERY record, so the order within the flush holds."""
+        committed, _get_ok, _found, value, vsn = planes
+        lane_j: List[int] = []
+        lane_e: List[int] = []
+        lane_slot: List[int] = []
+        lane_f2: List[int] = []
+        lane_inl: List[int] = []
+        keys: List[str] = []
+        pays: List[Any] = []
+        values = self.values
+        for e, ops in taken:
+            j = -1
+            for op in ops:
+                if not isinstance(op, _PendingBatch):
+                    j += 1
+                    if op.kind != eng.OP_GET:
+                        # scalar write lanes interleave with batch
+                        # records on the same (ens, slot): only the
+                        # Python walk keeps that order
+                        return False
+                    continue
+                if op.kind in (eng.OP_PUT, eng.OP_CAS, eng.OP_RMW):
+                    ks = op.keys
+                    if ks is None or not all(type(kk) is str for kk in ks):
+                        return False
+                    if op.kind == eng.OP_RMW:
+                        pays.extend([None] * op.n)
+                        lane_f2.extend([0] * op.n)
+                        lane_inl.extend([1] * op.n)
+                    else:
+                        for h in op.handle:
+                            p = values.get(h) if h else None
+                            if p is not None and type(p) is not bytes:
+                                return False
+                            pays.append(p)
+                        lane_f2.extend(op.handle)
+                        lane_inl.extend([0] * op.n)
+                    keys.extend(ks)
+                    lane_j.extend(range(j + 1, j + 1 + op.n))
+                    lane_e.extend([e] * op.n)
+                    lane_slot.extend(op.slot)
+                j += op.n
+        if not lane_j:
+            return True  # a read-only flush: nothing to log
+        joined = "".join(keys)
+        key_arena = joined.encode("utf-8")
+        if len(key_arena) != len(joined):
+            return False  # non-ASCII keys: char lengths != byte lengths
+        n = len(lane_j)
+        key_len = np.fromiter(map(len, keys), np.int64, n)
+        key_off = np.zeros((n,), np.int64)
+        np.cumsum(key_len[:-1], out=key_off[1:])
+        pay_len = np.fromiter(
+            (-1 if p is None else len(p) for p in pays), np.int64, n)
+        if int((key_len + np.maximum(pay_len, 0)).max()) >= 65500:
+            # CPython's pickler splits frames once a record's body
+            # reaches its 64 KiB frame target; the pass writes one frame
+            # per record, so such records take the Python walk
+            return False
+        pay_arena = b"".join(p for p in pays if p is not None)
+        pay_off = np.zeros((n,), np.int64)
+        np.cumsum(np.maximum(pay_len, 0)[:-1], out=pay_off[1:])
+        out = self._native_resolve.wal_encode(
+            self.n_ens, np.asarray(lane_j, np.int32),
+            np.asarray(lane_e, np.int32), np.asarray(lane_slot, np.int32),
+            np.asarray(lane_f2, np.int32), np.asarray(lane_inl, np.uint8),
+            np.zeros((n,), np.uint8), key_off, key_len, key_arena,
+            pay_off, pay_len, pay_arena, committed, value, vsn)
+        if out is None:
+            return False
+        arena, idx = out
+        idx = idx[idx[:, 1] > 0]  # drop uncommitted lanes
+        if len(idx):
+            self._wal.log_arena(arena, idx)
+        return True
+
+    def _log_execute_wal(self, kind, slot, val, committed, vsn,
+                         value) -> None:
+        """WAL records of a host-array bulk call's committed writes
+        (batched_host.py:5070-5088): keyless inline records
+        ``("kv", e, slot) -> (None, value, epoch, seq, None, True)`` in
+        row-major round order; an RMW row logs the value it COMPUTED."""
+        wmask = (((kind == eng.OP_PUT) | (kind == eng.OP_CAS)
+                  | (kind == eng.OP_RMW)) & committed)
+        js, es = np.nonzero(wmask)
+        if not js.size:
+            return
+        wval = np.where(kind == eng.OP_RMW, value, val)
+        cols = (es.tolist(), slot[js, es].tolist(), wval[js, es].tolist(),
+                vsn[js, es, 0].tolist(), vsn[js, es, 1].tolist())
+        self._wal.log([(("kv", e, s), (None, v, ve, vs, None, True))
+                       for e, s, v, ve, vs in zip(*cols)])
+
+    def save(self, path: Optional[str] = None) -> None:
+        """Checkpoint the whole service (batched_host.py:2741-2833): the
+        engine state (:func:`..ops.checkpoint.save_state`, the port's own
+        format) and the host mirrors (key → slot maps, payload store,
+        leaders) as one 4-copy CRC blob, under a fresh ``ckpt.<n>``
+        directory; then the CRC-protected ``CURRENT`` pointer flips to
+        ``n``, older checkpoints are pruned and, for the service's own
+        ``data_dir``, the WAL rotates to generation ``n``.  A crash at
+        any point leaves the previous checkpoint restorable.
+
+        Queued ops are flushed and in-flight launches settled first, so
+        the saved mirrors carry no half-applied effects.  Leases are
+        never persisted.  On CUDA the state moves to the host plane by
+        plane."""
+        if path is None:
+            path = self.data_dir
+        if path is None:
+            raise ValueError("save() needs a path or a data_dir")
+        self._in_save = True
+        try:
+            while self._active:
+                self.flush()
+            self._drain_launches()
+        finally:
+            self._in_save = False
+        os.makedirs(path, exist_ok=True)
+        n = self._current_ckpt(path) + 1
+        d = os.path.join(path, f"ckpt.{n}")
+        checkpoint.save_state(d, self.state)
+        host = {
+            "shape": (self.n_ens, self.n_peers, self.n_slots),
+            "key_slot": self.key_slot,
+            "free_slots": self.free_slots,
+            "slot_gen": self.slot_gen,
+            "slot_handle": self.slot_handle,
+            "inline_slots": [sorted(s) for s in self._inline_slots],
+            "recycle_pending": self._recycle_pending,
+            "values": self.values,
+            "free_handles": self._free_handles,
+            "next_handle": self._next_handle,
+            "leader": self.leader_np,
+            "member": self.member_np,
+            "up": self.up,
+            "dynamic": False,
+        }
+        savelib.write(os.path.join(d, "host"),
+                      pickle.dumps(host, protocol=4), crash_class="ckpt")
+        # the new ckpt.<n> directory's entry must be durable before
+        # CURRENT names it
+        savelib.fsync_dir(path)
+        savelib.write(os.path.join(path, "CURRENT"), str(n).encode(),
+                      crash_class="ckpt")
+        for name in os.listdir(path):
+            if name.startswith("ckpt.") and name != f"ckpt.{n}":
+                shutil.rmtree(os.path.join(path, name), ignore_errors=True)
+        # checkpoint n subsumes every WAL record; a crash between the
+        # CURRENT flip and this rotation leaves stale wal.<n-1> dirs
+        # that restore ignores and the next rotation removes
+        if self._wal is not None and path == self.data_dir:
+            self._wal = ServiceWAL.rotate(self.data_dir, n, self._wal,
+                                          self.wal_sync)
+
+    @staticmethod
+    def _current_ckpt(path: str) -> int:
+        raw = savelib.read(os.path.join(path, "CURRENT"))
+        try:
+            return int(raw.decode()) if raw else 0
+        except ValueError:
+            return 0
+
+    @classmethod
+    def restore(cls, runtime: Any, path: str, **kw
+                ) -> "BatchedEnsembleService":
+        """Bring a service back from :meth:`save` (batched_host.py:
+        2845-2932); ``kw`` are constructor arguments (``device``: CUDA
+        unless ``"cpu"``, as for every entry point).  Every write acked
+        after the latest checkpoint replays from its WAL generation — or,
+        with no checkpoint at all, from ``META`` and WAL generation 0,
+        which is also how a data dir the JAX package wrote restores here
+        (checkpoints do not cross: the formats differ).  Pass
+        ``data_dir=path`` to keep logging.  Leases start expired."""
+        n = cls._current_ckpt(path)
+        d = os.path.join(path, f"ckpt.{n}")
+        raw = savelib.read(os.path.join(d, "host"))
+        if raw is None:
+            meta_raw = savelib.read(os.path.join(path, "META"))
+            if meta_raw is None:
+                raise FileNotFoundError(f"no service checkpoint at {path}")
+            meta = pickle.loads(meta_raw)
+            _refuse_dynamic(meta, path)
+            svc = cls(runtime, *meta["shape"], **kw)
+            svc._replay_wal_from(path, 0)
+            return svc
+        host = pickle.loads(raw)
+        _refuse_dynamic(host, path)
+        n_ens, n_peers, n_slots = host["shape"]
+        svc = cls(runtime, n_ens, n_peers, n_slots, **kw)
+        svc.state = checkpoint.load_state(d, svc.device)
+        svc.key_slot = host["key_slot"]
+        svc.free_slots = host["free_slots"]
+        svc.slot_gen = host["slot_gen"]
+        svc.slot_handle = host["slot_handle"]
+        svc._inline_slots = [set(s) for s in host["inline_slots"]]
+        for row, slots_ in enumerate(svc._inline_slots):
+            if slots_:
+                svc._inline_np[row, list(slots_)] = True
+        svc._recycle_pending = host["recycle_pending"]
+        # restored pending recycles re-enter the dirty set, or the
+        # sparse drain would never revisit them
+        svc._recycle_dirty = {e for e, p in
+                              enumerate(svc._recycle_pending) if p}
+        svc.values = host["values"]
+        svc._free_handles = host["free_handles"]
+        svc._next_handle = host["next_handle"]
+        svc.leader_np = np.asarray(host["leader"])
+        svc.member_np = np.asarray(host["member"])
+        svc.up = np.asarray(host["up"])
+        svc._up_dev = None
+        svc._replay_wal_from(path, n)
+        return svc
+
+    def _replay_wal_from(self, path: str, gen: int) -> None:
+        """Replay WAL generation ``gen`` under ``path`` if it exists,
+        through this service's own handle when it logs to the same
+        generation."""
+        gen_path = ServiceWAL.gen_path(path, gen)
+        if not os.path.isdir(gen_path):
+            return
+        own = self._wal is not None and self._wal.dir_path == gen_path
+        wal = self._wal if own else ServiceWAL.open_gen(
+            path, gen, native=self._wal_native)
+        try:
+            self._replay_wal(wal)
+        finally:
+            if not own:
+                wal.close()
+
+    def _replay_wal(self, wal: ServiceWAL) -> None:
+        """Install every WAL record into the state and host mirrors
+        (batched_host.py:2965-3100).  Objects land on every replica at
+        their committed (epoch, seq); ballot epochs rise to at least the
+        newest installed object epoch, so the restart's elections propose
+        higher; every replica's tree rebuilds over its store; the fast
+        read mirrors (``_slot_vsn``, the inline mirrors) are set from the
+        replayed records, and leaders and leases are cleared."""
+        recs = wal.records()
+        if not recs:
+            return
+        e_, m_, s_ = self.n_ens, self.n_peers, self.n_slots
+        obj_epoch = self.state.obj_epoch.cpu().numpy().copy()
+        obj_seq = self.state.obj_seq.cpu().numpy().copy()
+        obj_val = self.state.obj_val.cpu().numpy().copy()
+        epoch = self.state.epoch.cpu().numpy().copy()
+        #: ens -> slot -> replayed owner key (None: tombstoned or bulk);
+        #: checkpoint-era mappings that disagree are dropped below
+        owners: Dict[int, Dict[int, Any]] = {}
+        for key, value in recs:
+            if key[0] == "mem":
+                raise NotImplementedError(
+                    "the WAL holds membership records; membership is not "
+                    "ported yet (ROADMAP Queue 1 item 6)")
+            _, ens, slot = key
+            key_obj, handle, oe, os_, payload, inline = value
+            obj_epoch[ens, :, slot] = oe
+            obj_seq[ens, :, slot] = os_
+            obj_val[ens, :, slot] = handle
+            if inline:
+                # the int32 value IS the payload.  A key with a live
+                # value is a device-native slot (a committed RMW); a
+                # keyed inline tombstone replays like a delete; keyless
+                # records are bulk-array writes
+                if key_obj is not None and handle:
+                    self._inline_slots[ens].add(slot)
+                    self._inline_np[ens, slot] = True
+                    self._inline_value_np[ens, slot] = handle
+                    self._inline_value_ok[ens, slot] = True
+                    self._slot_vsn_np[ens, slot] = (oe, os_)
+                    self._slot_vsn_ok[ens, slot] = True
+                    self.slot_handle[ens][slot] = -1
+                    self.key_slot[ens][key_obj] = slot
+                    owners.setdefault(ens, {})[slot] = key_obj
+                else:
+                    if key_obj is not None:
+                        self._inline_slots[ens].discard(slot)
+                        self._inline_np[ens, slot] = False
+                        self._inline_value_ok[ens, slot] = False
+                        self.slot_handle[ens].pop(slot, None)
+                    owners.setdefault(ens, {})[slot] = None
+                continue
+            self._inline_slots[ens].discard(slot)
+            self._inline_np[ens, slot] = False
+            self._inline_value_ok[ens, slot] = False
+            self._slot_vsn_np[ens, slot] = (oe, os_)
+            self._slot_vsn_ok[ens, slot] = True
+            if handle:
+                self.values[handle] = payload
+                self._next_handle = max(self._next_handle, handle + 1)
+                self.slot_handle[ens][slot] = handle
+                if key_obj is not None:
+                    self.key_slot[ens][key_obj] = slot
+                owners.setdefault(ens, {})[slot] = key_obj
+            else:
+                self.slot_handle[ens].pop(slot, None)
+                owners.setdefault(ens, {})[slot] = None
+        for ens, owner in owners.items():
+            ks = self.key_slot[ens]
+            for k in [k for k, s in ks.items()
+                      if s in owner and owner[s] != k]:
+                del ks[k]
+        for ens in range(e_):
+            used = set(self.key_slot[ens].values())
+            self.free_slots[ens] = [s for s in range(s_) if s not in used]
+        epoch = np.maximum(epoch, obj_epoch.max(-1))
+        dev = self.device
+        state = self.state._replace(
+            epoch=torch.from_numpy(epoch).to(dev),
+            obj_epoch=torch.from_numpy(obj_epoch).to(dev),
+            obj_seq=torch.from_numpy(obj_seq).to(dev),
+            obj_val=torch.from_numpy(obj_val).to(dev))
+        self.state = self.engine.rebuild_trees(
+            state, torch.ones((e_, m_), dtype=torch.bool, device=dev))
+        self._up_dev = None
+        self.leader_np = np.full((e_,), -1, dtype=np.int32)
+        self.lease_until[:] = 0.0

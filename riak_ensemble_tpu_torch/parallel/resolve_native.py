@@ -1,17 +1,21 @@
-"""The resolve half's host passes: the packed-result unpack and the
-mirror-slab scatter.
+"""The resolve half's host passes: the packed-result unpack, the
+mirror-slab scatter and the WAL encode.
 
-Port of ``riak_ensemble_tpu/parallel/resolve_native.py`` (its unpack and
-mirror scatter; the WAL encode, the delta sections and the commutative
-fold of ``csrc/host/resolvekernel.cc`` belong to the WAL and replication
-slices and have no wrapper yet):
+Port of ``riak_ensemble_tpu/parallel/resolve_native.py`` (its unpack,
+mirror scatter and WAL encode; the delta sections and the commutative
+fold of ``csrc/host/resolvekernel.cc`` belong to the replication slice
+and have no wrapper yet):
 
 - :meth:`NativeResolve.unpack`: the packed device→host payload → full-
   width result planes in one C++ pass, the active-column scatter of a
   compacted or sliced launch included;
 - :meth:`NativeResolve.scatter_mirrors`: a flush's committed writes and
   served reads → the service's ``_slot_vsn`` / ``_inline_value`` mirror
-  slabs, in the per-op resolve loop's per-column round order.
+  slabs, in the per-op resolve loop's per-column round order;
+- :meth:`NativeResolve.wal_encode`: a flush's committed keyed writes →
+  one byte arena of protocol-4 pickled WAL records, byte-equal to
+  ``pickle.dumps`` of the same terms (its plain version is the WAL's
+  own :meth:`..wal.ServiceWAL.log`, which pickles each record).
 
 :func:`unpack_results` and :func:`scatter_mirrors_plain` are their plain
 versions: the unpack the service has always run, and the per-op loop's
@@ -68,6 +72,10 @@ class NativeResolve:
         lib.retpu_resolve_mirrors.argtypes = [
             i32, i32, p, p, p, p, p, p, p, p, p, i32, i32,
             i32, i32, i32, i32, p, p, p, p, p]
+        lib.retpu_wal_encode.restype = ctypes.c_int64
+        lib.retpu_wal_encode.argtypes = [
+            ctypes.c_int64, i32, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+            p, p, ctypes.c_int64, p]
         if lib.retpu_resolve_version() < ABI_VERSION:
             raise RuntimeError("host library predates the resolve ABI")
         self._lib = lib
@@ -163,6 +171,65 @@ class NativeResolve:
             _pt(inline_cls))
         if rc != 0:
             raise ValueError(f"mirror slabs of [{e_total}, {s_dim}] refused")
+
+    def wal_encode(self, e_total: int, lane_j: np.ndarray,
+                   lane_e: np.ndarray, lane_slot: np.ndarray,
+                   lane_f2: np.ndarray, lane_inline: np.ndarray,
+                   key_is_bytes: np.ndarray, key_off: np.ndarray,
+                   key_len: np.ndarray, key_arena: bytes,
+                   pay_off: np.ndarray, pay_len: np.ndarray,
+                   pay_arena: bytes, committed: np.ndarray,
+                   value: np.ndarray, vsn: np.ndarray
+                   ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Pickle the flush's committed keyed WAL records into one
+        preallocated byte arena (the reference's wrapper,
+        ``resolve_native.py:164-200``).  Lane i is the record
+        ``("kv", lane_e, lane_slot) -> (key, lane_f2, epoch, seq,
+        payload, inline)`` of round ``lane_j``, written only when that
+        round committed; an RMW lane (``lane_inline``) takes the
+        computed value from ``value`` in place of ``lane_f2``.  Returns
+        ``(arena_view, index)`` — ``index`` rows are (key_off, key_len,
+        val_off, val_len) per lane, zero-length for uncommitted lanes —
+        or None when the pass refuses (the caller pickles in Python)."""
+        n = len(lane_j)
+        k = committed.shape[0]
+        for name, a in (("lane_j", lane_j), ("lane_e", lane_e),
+                        ("lane_slot", lane_slot), ("lane_f2", lane_f2),
+                        ("lane_inline", lane_inline),
+                        ("key_is_bytes", key_is_bytes),
+                        ("key_off", key_off), ("key_len", key_len),
+                        ("pay_off", pay_off), ("pay_len", pay_len)):
+            if a.shape != (n,) or not a.flags.c_contiguous:
+                raise ValueError(f"{name}: want {n} contiguous lanes")
+        if n and (lane_j.min() < 0 or lane_j.max() >= k
+                  or lane_e.min() < 0 or lane_e.max() >= e_total
+                  or (key_off + key_len).max() > len(key_arena)
+                  or (pay_off + np.maximum(pay_len, 0)).max()
+                  > len(pay_arena)):
+            raise ValueError("a WAL lane lies outside its planes or "
+                             "arenas")
+        karr = np.frombuffer(key_arena, np.uint8)
+        parr = np.frombuffer(pay_arena, np.uint8)
+        # exact worst case per record pair: two PROTO+FRAME headers
+        # (22), key pickle ("kv" + two ints <= 18), value pickle
+        # (MARK/ints/bool/tuple overhead <= 30) + key and payload
+        # bytes with their own opcode headers (<= 6 each)
+        cap = int(76 * n + int(key_len.sum())
+                  + int(np.maximum(pay_len, 0).sum()))
+        arena = np.empty((max(cap, 1),), np.uint8)
+        idx = np.zeros((n, 4), np.int64)
+        used = self._lib.retpu_wal_encode(
+            n, e_total, _pt(lane_j), _pt(lane_e), _pt(lane_slot),
+            _pt(lane_f2), _pt(lane_inline), _pt(key_is_bytes),
+            _pt(key_off), _pt(key_len), _pt(karr),
+            _pt(pay_off), _pt(pay_len), _pt(parr),
+            _pt(np.ascontiguousarray(committed, np.uint8)),
+            _pt(np.ascontiguousarray(value, np.int32)),
+            _pt(np.ascontiguousarray(vsn, np.int32)),
+            _pt(arena), arena.nbytes, _pt(idx))
+        if used < 0:
+            return None
+        return arena[:used], idx
 
 
 # -- plain versions ----------------------------------------------------------

@@ -1,0 +1,454 @@
+"""Write-ahead durability for the service's acknowledged writes.
+
+Copied from ``riak_ensemble_tpu/parallel/wal.py``: :class:`PyLogStore`,
+``_open_store`` and :class:`ServiceWAL` (``log``, ``log_arena``,
+``delete``, ``records``, ``open_gen``, ``rotate``).  The service never
+acks a write that is not on disk: committed client writes are logged,
+and forced down per ``wal_sync``, BEFORE their futures resolve, and are
+replayed over the latest checkpoint at restore
+(``riak_ensemble_basic_backend.erl:120-125``).
+
+The store is *latest-record-per-(ensemble, slot)*: all recovery needs is
+the newest committed (epoch, seq, payload) per slot.  Two stores give it:
+
+- the C++ treestore (``csrc/host/treestore.cc``, through
+  :mod:`..synctree.native_store`): the service's default arm, where a
+  failed build of the host library raises;
+- :class:`PyLogStore`, a pure-Python CRC-framed append log: the store of
+  the service's ``plain_host_passes=True`` arm, the reference's arm with
+  no host library.
+
+The reference picks between them by whether its library builds; the port
+picks by the arm (``native``), with no silent fallback.  Record keys and
+values pickle with protocol 4 in both packages, so a WAL generation
+either package wrote replays in the other.
+
+WAL generations pair with checkpoint generations: checkpoint ``n``
+subsumes every record of ``wal.<n-...>``, so each :meth:`ServiceWAL.rotate`
+starts a fresh ``wal.<n>`` directory and deletes the older ones.
+"""
+
+from __future__ import annotations
+
+import errno as _errno
+import os
+import pickle
+import struct
+import zlib
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+from riak_ensemble_tpu_torch import faults
+from riak_ensemble_tpu_torch.save import fsync_dir
+
+#: sync modes: "fsync" forces records to stable storage before the ack
+#: (power-loss safe — the basic_backend put contract); "buffer" writes
+#: through the OS page cache without fsync (process-crash safe; an OS
+#: crash can lose the tail — the coalesced-facts RPO rationale,
+#: storage.erl:21-39).
+SYNC_MODES = ("fsync", "buffer")
+
+
+class PyLogStore:
+    """Pure-Python latest-per-key store over a CRC-framed append log.
+
+    Interface-compatible subset of
+    :class:`..synctree.native_store.NativeBackend`:
+    ``store/delete/fetch/keys/count/sync/close``.  Torn or corrupt
+    tail records are dropped at replay (the crash happened mid-append;
+    everything acked before it had already been synced).
+    """
+
+    _MAGIC = b"RWAL"
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self._map: Dict[bytes, bytes] = {}
+        #: corruption evidence counters (stats(): a detected-but-
+        #: handled bad disk must be observable, never silent)
+        self.quarantines = 0
+        self.truncations = 0
+        self.truncated_bytes = 0
+        #: CRC-failed frames that were re-read (a retry that passes
+        #: is a healed transient read error, not a torn tail)
+        self.read_retries = 0
+        #: failed appends whose partial frame was truncated back to
+        #: the frame boundary (a surviving writer must
+        #: repair the tail, or later fsync-acked appends land after
+        #: the tear and are destroyed at the next replay)
+        self.append_repairs = 0
+        #: a failed append whose REPAIR also failed leaves the tail
+        #: unknown — every further append must fail fast rather than
+        #: write records replay may never reach
+        self._tail_unknown = False
+        good = self._replay()
+        if good is not None:
+            # Truncate the torn/corrupt tail BEFORE appending: records
+            # appended after garbage would be unreachable at every
+            # future replay — acked writes silently lost on the second
+            # crash (the replay correctly stops at the tear, so the
+            # bytes past `good` were never acked data we could keep).
+            self.truncations += 1
+            self.truncated_bytes += max(
+                0, os.path.getsize(self.path) - good)
+            with open(self.path, "r+b") as f:
+                f.truncate(good)
+        # checked AFTER replay: a quarantine moved the old log aside,
+        # so the append handle below creates a genuinely new file
+        existed = os.path.exists(path)
+        self._f = open(path, "ab")
+        if not existed:
+            # a crash may keep the rename/creat un-durable without a
+            # directory fsync (ext4/xfs); a lost wal FILE would read
+            # as "no records" — silent loss of every fsync-acked write
+            fsync_dir(os.path.dirname(path) or ".")
+
+    def _quarantine(self) -> None:
+        """Move the unreplayable log aside for forensics WITHOUT
+        clobbering earlier evidence: monotonic ``.corrupt.<n>``
+        suffixes (a second corruption used to overwrite the first)."""
+        n = 0
+        while os.path.exists(f"{self.path}.corrupt.{n}"):
+            n += 1
+        os.replace(self.path, f"{self.path}.corrupt.{n}")
+        fsync_dir(os.path.dirname(self.path) or ".")
+        self.quarantines += 1
+
+    def _replay(self) -> Optional[int]:
+        """Rebuild the map from the log.  Returns the byte offset of
+        the first bad record (caller truncates there), or None when
+        the whole file parsed clean."""
+        try:
+            f = open(self.path, "rb")
+        except FileNotFoundError:
+            return None
+        with f:
+            head4 = f.read(4)
+            if head4 == b"":
+                return None
+            if head4 != self._MAGIC:
+                # Foreign/corrupt prefix: nothing here is replayable,
+                # and appending after it would hide every future
+                # record too.  Preserve the bytes for forensics and
+                # start a fresh log.
+                f.close()
+                self._quarantine()
+                return None
+            off = 4
+            while True:
+                head = f.read(8)
+                if len(head) < 8:
+                    return off if head else None
+                crc, ln = struct.unpack(">II", head)
+                body = faults.read_filter("wal", f.read(ln))
+                if len(body) == ln and zlib.crc32(body) != crc:
+                    # CRC mismatch on a FULL frame: re-read the frame
+                    # FROM DISK once before believing it — a
+                    # transient bad read (bus/memory, or the injected
+                    # bit flip) heals on a real re-read, true on-disk
+                    # damage does not.  Without this, a transient
+                    # flip would be "repaired" by truncating HEALTHY
+                    # fsync-acked frames behind it.
+                    self.read_retries += 1
+                    f.seek(off + 8)
+                    body = faults.read_filter("wal", f.read(ln))
+                if len(body) < ln or zlib.crc32(body) != crc or ln < 5:
+                    return off  # torn/corrupt tail
+                op = body[0]
+                klen = struct.unpack(">I", body[1:5])[0]
+                if 5 + klen > ln:
+                    return off
+                key = body[5:5 + klen]
+                if op == 1:
+                    self._map[key] = body[5 + klen:]
+                elif op == 2:
+                    self._map.pop(key, None)
+                else:
+                    return off
+                off += 8 + ln
+
+    def _append(self, op: int, key: bytes, val: bytes) -> None:
+        if self._tail_unknown:
+            raise OSError(
+                _errno.EIO,
+                "WAL tail unknown after an unrepaired failed append; "
+                "refusing to write records replay may never reach")
+        faults.storage_raise("wal", "write")
+        if self._f.tell() == 0:
+            self._f.write(self._MAGIC)
+        body = bytes([op]) + struct.pack(">I", len(key)) + key + val
+        frame = struct.pack(">II", zlib.crc32(body), len(body)) + body
+        start = self._f.tell()
+        cut = faults.torn_limit("wal")
+        if cut is not None:
+            # torn write: the prefix reaches the disk and the writer
+            # SEES the failure — so it must repair the frame
+            # boundary before any later append, or those later
+            # (fsync-acked!) records land after the tear and the
+            # next replay's truncate-at-tear destroys them.
+            # Crash-mid-write tears — where no repair can run
+            # — are the crash-point and replay-fuzz tests' domain.
+            self._f.write(frame[:min(cut, max(0, len(frame) - 1))])
+            self._f.flush()
+            self._repair_tail(start)
+            raise OSError(_errno.EIO,
+                          f"injected torn WAL write at byte {cut}")
+        try:
+            self._f.write(frame)
+        except OSError:
+            self._repair_tail(start)
+            raise
+
+    def _repair_tail(self, start: int) -> None:
+        """Truncate a partial frame back to its start; a repair that
+        itself fails poisons the store (fail-fast appends)."""
+        try:
+            self._f.truncate(start)
+            # truncate() does NOT move the buffered stream position,
+            # and O_APPEND writes ignore it — but tell() would keep
+            # reporting the pre-repair offset, so the NEXT failed
+            # append would repair at a stale `start`, zero-padding a
+            # hole that destroys later fsync-acked records at replay.
+            # Re-anchor at the real EOF.
+            self._f.seek(0, os.SEEK_END)
+            self.append_repairs += 1
+        except OSError:
+            self._tail_unknown = True
+
+    def store(self, key: Any, value: Any) -> None:
+        k, v = pickle.dumps(key, protocol=4), pickle.dumps(value,
+                                                           protocol=4)
+        self._map[k] = v
+        self._append(1, k, v)
+
+    def store_raw(self, k: bytes, v: bytes) -> None:
+        """Append a pre-pickled record verbatim (the native resolve
+        kernel's arena path) — byte-identical log framing to
+        :meth:`store` of the decoded terms."""
+        self._map[k] = v
+        self._append(1, k, v)
+
+    def delete(self, key: Any) -> None:
+        k = pickle.dumps(key, protocol=4)
+        self._map.pop(k, None)
+        self._append(2, k, b"")
+
+    def fetch(self, key: Any, default: Any = None) -> Any:
+        v = self._map.get(pickle.dumps(key, protocol=4))
+        return default if v is None else pickle.loads(v)
+
+    def keys(self) -> Iterable[Any]:
+        return [pickle.loads(k) for k in self._map]
+
+    def count(self) -> int:
+        return len(self._map)
+
+    def sync(self) -> None:
+        self._f.flush()
+        faults.storage_raise("wal", "fsync")
+        os.fsync(self._f.fileno())
+
+    def flush(self) -> None:
+        """Push buffered records to the OS page cache (no fsync) —
+        the process-crash durability floor of buffer mode."""
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.flush()
+            self._f.close()
+            self._f = None
+
+
+def _open_store(path: str, native: bool):
+    """The C++ treestore (``native``: the service's default arm; a
+    failed build raises) or the Python log (the plain arm).  Either way
+    the store consults the ``wal`` storage-fault class."""
+    if native:
+        from riak_ensemble_tpu_torch.synctree import native_store
+
+        st = native_store.NativeBackend(path)
+        st.fault_class = "wal"
+        return st
+    return PyLogStore(path)
+
+
+class ServiceWAL:
+    """One WAL generation: committed write records under ``dir_path``.
+
+    Record keys/values (pickled by the store layer):
+
+    - ``("kv", ens, slot)`` → ``(key_obj, handle, epoch, seq, payload,
+      inline)`` — a committed client write.  ``payload`` is the host
+      payload-store bytes behind ``handle`` (None for tombstones);
+      ``inline=True`` marks bulk-array writes whose int32 value IS the
+      payload (no handle indirection).
+    - ``("mem", ens)`` → ``list[bool]`` — a committed membership row.
+    """
+
+    def __init__(self, dir_path: str, sync_mode: str = "fsync",
+                 native: bool = True) -> None:
+        if sync_mode not in SYNC_MODES:
+            raise ValueError(f"wal_sync must be one of {SYNC_MODES}, "
+                             f"not {sync_mode!r}")
+        os.makedirs(dir_path, exist_ok=True)
+        # a freshly-created generation directory must itself survive a
+        # crash: fsync the parent so ``wal.<n>`` is reachable after
+        # power loss (rename/mkdir alone is not durable on ext4/xfs)
+        fsync_dir(os.path.dirname(dir_path) or ".")
+        self.dir_path = dir_path
+        self.sync_mode = sync_mode
+        self.native = native
+        self._store = _open_store(os.path.join(dir_path, "wal"), native)
+        #: fault-injection seam: called
+        #: immediately BEFORE every durability barrier this WAL
+        #: forces (the fsync the ack waits on), so an injected fsync
+        #: delay lands exactly where a slow disk would.  Defaults to
+        #: the process-global fault plane's sleep (a no-op without an
+        #: active ``RETPU_FAULT_FSYNC_MS``/programmatic plan);
+        #: assign a callable for a WAL-local override.
+        self.sync_hook: Callable[[], None] = faults.fsync_sleep
+        # The underlying stores are not thread-safe; a replica host's
+        # promise grants (connection threads) and its apply/campaign
+        # writes (other threads) share one WAL.
+        import threading
+        self._lock = threading.Lock()
+
+    def log(self, records: List[Tuple[Any, Any]]) -> None:
+        """Append a batch and make it durable per the sync mode.  MUST
+        complete before the writes it covers are acked."""
+        with self._lock:
+            faults.crashpoint("wal_append")
+            for key, value in records:
+                self._store.store(key, value)
+            if self.sync_mode == "fsync":
+                faults.crashpoint("wal_fsync_pre")
+                self.sync_hook()
+                self._store.sync()
+                faults.crashpoint("wal_fsync_post")
+            else:
+                # buffer mode promises PROCESS-crash safety: the
+                # records must at least reach the kernel before the
+                # ack — a userspace io buffer dies with the process.
+                self._flush_store()
+
+    def _flush_store(self) -> None:
+        flush = getattr(self._store, "flush", None)
+        if flush is not None:
+            flush()
+        else:  # pragma: no cover - older store without flush-only
+            self._store.sync()
+
+    def log_arena(self, arena, index, extra_records=()) -> None:
+        """Append pre-encoded (protocol-4 pickled) record pairs — the
+        native resolve kernel's byte arena — VERBATIM, plus ordinary
+        ``extra_records``, under the same single lock + sync barrier
+        as :meth:`log`.  ``index`` rows are (key_off, key_len,
+        val_off, val_len) into ``arena``; the resulting store contents
+        are byte-identical to ``log()`` of the decoded records (the
+        native/fallback equivalence contract)."""
+        with self._lock:
+            faults.crashpoint("wal_append")
+            st = self._store
+            put_many = getattr(st, "put_many_raw", None)
+            if put_many is not None:
+                put_many(arena, index)
+            else:
+                for koff, klen, voff, vlen in index.tolist():
+                    st.store_raw(bytes(arena[koff:koff + klen]),
+                                 bytes(arena[voff:voff + vlen]))
+            for key, value in extra_records:
+                st.store(key, value)
+            if self.sync_mode == "fsync":
+                faults.crashpoint("wal_fsync_pre")
+                self.sync_hook()
+                self._store.sync()
+                faults.crashpoint("wal_fsync_post")
+            else:
+                self._flush_store()
+
+    def delete(self, keys: List[Any]) -> None:
+        """Remove records (e.g. a destroyed ensemble's kv entries)
+        with the same durability barrier as :meth:`log`."""
+        with self._lock:
+            faults.crashpoint("wal_append")
+            for key in keys:
+                self._store.delete(key)
+            if self.sync_mode == "fsync":
+                faults.crashpoint("wal_fsync_pre")
+                self.sync_hook()
+                self._store.sync()
+                faults.crashpoint("wal_fsync_post")
+            else:
+                # Mirror log(): buffer mode still promises
+                # process-crash durability, and a destroy's kv
+                # deletions sitting in the userspace stdio buffer
+                # would die with the process — the destroyed tenant's
+                # records would replay into a recycled row.
+                self._flush_store()
+
+    def records(self) -> List[Tuple[Any, Any]]:
+        with self._lock:
+            return [(k, self._store.fetch(k))
+                    for k in self._store.keys()]
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._store.count()
+
+    def evidence(self) -> Dict[str, Any]:
+        """LOCK-FREE read of the store's corruption-handling
+        counters (monotonic plain ints, set at open time) — for the
+        health/metrics scrape paths, which must never block behind a
+        flush holding the lock across a slow fsync."""
+        st = self._store
+        return {
+            "quarantines": int(getattr(st, "quarantines", 0)),
+            "truncations": int(getattr(st, "truncations", 0)),
+            "truncated_bytes": int(getattr(st, "truncated_bytes", 0)),
+            "read_retries": int(getattr(st, "read_retries", 0)),
+            "append_repairs": int(getattr(st, "append_repairs", 0)),
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """Durability-evidence snapshot: record depth plus the
+        store's corruption-handling counters (quarantined logs, torn-
+        tail truncations) — what "the bad disk was detected, not
+        served" looks like from stats()/health()."""
+        with self._lock:
+            records = self._store.count()
+        return {
+            "records": records,
+            "sync_mode": self.sync_mode,
+            **self.evidence(),
+        }
+
+    def close(self) -> None:
+        self._store.close()
+
+    # -- generation management -------------------------------------------
+
+    @staticmethod
+    def gen_path(base_dir: str, gen: int) -> str:
+        return os.path.join(base_dir, f"wal.{gen}")
+
+    @classmethod
+    def open_gen(cls, base_dir: str, gen: int, sync_mode: str = "fsync",
+                 native: bool = True) -> "ServiceWAL":
+        return cls(cls.gen_path(base_dir, gen), sync_mode, native)
+
+    @classmethod
+    def rotate(cls, base_dir: str, new_gen: int, old: "ServiceWAL",
+               sync_mode: str = "fsync") -> "ServiceWAL":
+        """Start generation ``new_gen`` (its records begin empty) and
+        drop every older generation — call only AFTER checkpoint
+        ``new_gen`` is fully committed (CURRENT flipped)."""
+        import shutil
+
+        old.close()
+        nw = cls.open_gen(base_dir, new_gen, sync_mode, old.native)
+        for name in os.listdir(base_dir):
+            if name.startswith("wal.") and name != f"wal.{new_gen}":
+                shutil.rmtree(os.path.join(base_dir, name),
+                              ignore_errors=True)
+        return nw

@@ -1,6 +1,9 @@
 """The torch port stands alone: it imports neither ``jax`` nor any module
 of ``riak_ensemble_tpu``, its entry points never drift onto the CPU, and
-the host library its service loads is its own build.
+the host library its service loads is its own build.  The durability
+slice's modules (``faults``, ``save``, ``synctree.native_store``,
+``parallel.wal``, ``ops.checkpoint``) are named, so a rename cannot drop
+them from the blocked import.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
@@ -27,6 +30,8 @@ from riak_ensemble_tpu_torch.parallel.batched_host import (
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "riak_ensemble_tpu_torch")
+DURABILITY_MODULES = ("faults", "save", "synctree.native_store",
+                      "parallel.wal", "ops.checkpoint")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -72,6 +77,9 @@ def test_port_imports_with_jax_and_reference_blocked():
     mods = list(pkgutil.walk_packages(riak_ensemble_tpu_torch.__path__,
                                       "riak_ensemble_tpu_torch."))
     assert n == len(mods) + 1 and n >= 15
+    names = {m.name for m in mods}
+    for mod in DURABILITY_MODULES:
+        assert "riak_ensemble_tpu_torch." + mod in names, mod
 
 
 def test_port_sources_name_no_jax_or_reference_module():
@@ -90,9 +98,13 @@ import sys
 sys.path.insert(0, ROOT)
 from riak_ensemble_tpu_torch.parallel.batched_host import (
     BatchedEnsembleService, WallRuntime)
-svc = BatchedEnsembleService(WallRuntime(), 2, 3, 8, tick=None, device="cpu")
-f = svc.kput_many(0, ["k"], [1]); svc.flush()
+import tempfile
+svc = BatchedEnsembleService(WallRuntime(), 2, 3, 8, tick=None, device="cpu",
+                             data_dir=tempfile.mkdtemp())
+f = svc.kput_many(0, ["k"], [b"1"]); svc.flush()
 assert f.value == [("ok", (1, 1))] and svc.native_enqueue_flushes == 1
+assert type(svc._wal._store).__name__ == "NativeBackend"
+assert svc._wal.count == 1          # the treestore of the port's build
 with open("/proc/self/maps") as maps:
     print("\n".join(sorted({ln.split()[-1] for ln in maps
                             if ln.rstrip().endswith(".so")})))

@@ -16,8 +16,15 @@
   backoff, elections, fast reads, sliced launches at E = 256) through the
   port at depth 2 equals the JAX service at depth 2 — futures, packed
   buffers, states, mirrors — and the port's own depth-1 results;
-- a settle that fails fails its launch and every later in-flight launch,
-  as the JAX service does with ``RETPU_DONATE=1`` (no rollback).
+- a settle that fails fails its launch and every later in-flight launch:
+  the port's CUDA contract (donated, no rollback; pinned on the CPU
+  through ``_donate``) as the JAX service with ``RETPU_DONATE=1``, and
+  the port's CPU default (rollback to the launch's snapshot) as the JAX
+  service's CPU default (``RETPU_DONATE`` unset);
+- launch failures injected through ``engine=`` (a ``_LocalEngine``
+  subclass in each package, one seeded schedule): every future, state
+  plane and mirror equal the JAX service's, and every acknowledged write
+  reads back (``test_service_linearizability.py:213``).
 
 Tolerance: exact equality everywhere.
 """
@@ -199,12 +206,13 @@ def test_corruption_deferral_repairs_before_next_ack(monkeypatch):
     assert all(f.value[0] == "ok" for f in futs)
     svc.state.obj_val[0, 2, svc.key_slot[0]["k"]] = 424242
     svc.lease_until[:] = 0.0              # the reads take device rounds
-    orig = teng.exchange_step
+    orig = svc.engine.exchange_step
 
     def exchange(*a, **kw):
         svc.events.append(("exchange", None))
         return orig(*a, **kw)
-    monkeypatch.setattr(teng, "exchange_step", exchange)
+    # the service's exchanges run through its engine adapter
+    monkeypatch.setattr(svc.engine, "exchange_step", exchange)
     svc.events.clear()
     g1 = svc.kget(0, "k")
     g1.add_waiter(lambda _r: svc.events.append(("ack", 1)))
@@ -295,13 +303,15 @@ def test_depth2_matches_jax_depth2_on_queued_stream(jb):
 def test_failed_settle_fails_later_launches_like_jax(jb, monkeypatch):
     """A settle that raises fails its launch's ops and those of every
     later launch in flight, and the error reaches the flush caller.  The
-    port keeps no rollback snapshot, which is the JAX service's donated
-    arm (``RETPU_DONATE=1``): both keep the stepped state."""
+    port's donated contract (CUDA's; pinned here on the CPU through
+    ``_donate``) keeps no rollback snapshot, which is the JAX service's
+    donated arm (``RETPU_DONATE=1``): both keep the stepped state."""
     monkeypatch.setenv("RETPU_DONATE", "1")
     import warnings
     warnings.simplefilter("ignore")     # CPU jax may warn on donation
     p = Lockstep(jb, 4, 3, 8, 1, pipeline_depth=2)
-    assert p.js._donate
+    assert p.js._donate and not p.ts._donate
+    p.ts._donate = True
     p.both(lambda s: s.flush())                 # elect
     p.submit(lambda s: [s.kput(0, f"k{i}", i + 1) for i in range(3)])
     for svc in (p.js, p.ts):
@@ -325,6 +335,180 @@ def test_failed_settle_fails_later_launches_like_jax(jb, monkeypatch):
     p.check()
     assert p.futs[1][2].value[0] == "ok"
     assert int(p.ts.state.obj_seq_ctr[0]) == 3   # the failed steps stand
+
+
+def _fail_first_fetch(svc):
+    orig = svc._fetch_packed
+    calls = {"n": 0}
+
+    def bad(fl):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("device lost")
+        return orig(fl)
+    svc._fetch_packed = bad
+
+
+def test_failed_settle_rolls_back_like_jax_default(jb, monkeypatch):
+    """The default pair: the JAX service's CPU default (``RETPU_DONATE``
+    unset: no donation, a snapshot per launch) against the port on the
+    CPU.  The failed settle restores the state, the leader mirror and
+    the leases of ITS launch's snapshot, and every later in-flight launch
+    fails with it: the failed steps do not stand, and both services
+    then serve the retried writes the same."""
+    import jax
+    if jax.default_backend() != "cpu":
+        # JAX on an accelerator defaults to donation; its CPU default
+        # is RETPU_DONATE=0
+        monkeypatch.setenv("RETPU_DONATE", "0")
+    p = Lockstep(jb, 4, 3, 8, 1, pipeline_depth=2)
+    assert not p.js._donate and not p.ts._donate
+    p.both(lambda s: s.flush())                 # elect
+    p.submit(lambda s: [s.kput(0, f"k{i}", i + 1) for i in range(3)])
+    before = int(p.ts.state.obj_seq_ctr[0])
+    for svc in (p.js, p.ts):
+        _fail_first_fetch(svc)
+        with pytest.raises(RuntimeError, match="device lost"):
+            while any(svc.queues):
+                svc.flush()
+    assert [f.value for f in p.futs[1][:2]] == ["failed", "failed"]
+    assert int(p.ts.state.obj_seq_ctr[0]) == before   # rolled back
+    assert np.array_equal(p.js.leader_np, p.ts.leader_np)
+    p.drain()
+    p.submit(lambda s: [s.kput(0, f"k{i}", 10 + i) for i in range(2)])
+    p.drain()
+    p.check()
+    assert [f.value[0] for f in p.futs[1][2:]] == ["ok"] * 3
+
+
+def test_failed_enqueue_rolls_back_on_cpu_only(monkeypatch):
+    """A step that raises inside the enqueue half: on the CPU the
+    snapshot comes back (state planes, leader mirror, leases equal their
+    pre-launch values); with the donated contract nothing is
+    restored."""
+    for donate in (False, True):
+        svc = make(depth=1, max_k=2)
+        svc.flush()
+        f = svc.kput(1, "a", b"1")
+        drain(svc)
+        assert f.value[0] == "ok"
+        svc._donate = donate
+        before = [t.clone() for t in svc.state]
+        leader, lease = svc.leader_np.copy(), svc.lease_until.copy()
+        real = svc.engine.full_step
+
+        def broken(state, *a, **kw):
+            real(state, *a, **kw)        # steps the planes in place
+            raise RuntimeError("launch lost")
+        monkeypatch.setattr(svc.engine, "full_step", broken)
+        g = svc.kput(1, "a", b"2")
+        svc.set_peer_up(2, int(svc.leader_np[2]), False)   # an election
+        with pytest.raises(RuntimeError, match="launch lost"):
+            svc.flush()
+        assert g.value == "failed"
+        same = all(torch.equal(a, b) for a, b in zip(before, svc.state))
+        assert same == (not donate)
+        assert np.array_equal(svc.leader_np, leader)
+        assert np.array_equal(svc.lease_until, lease)
+
+
+@pytest.mark.parametrize("seed", [801, 802])
+def test_launch_failures_injected_through_engine_match_jax(jb, seed):
+    """``test_service_linearizability.py:213`` on the port: a seeded
+    ~15 % of launches (one forced early) raise in the engine's
+    ``full_step``, injected through ``engine=`` with the same schedule in
+    both packages.  Every future, the final state and mirrors equal the
+    JAX service's default (rollback) arm, the failures fired, and every
+    acknowledged write reads back at the end."""
+    from riak_ensemble_tpu.parallel.batched_host import \
+        _LocalEngine as JaxEngine
+
+    def failing(base):
+        rng = np.random.default_rng(seed + 50_000)
+        forced = 1 + int(rng.integers(6))
+        n = {"launch": 0}
+
+        class Failing(base):
+            def full_step(self, *a, **kw):
+                n["launch"] += 1
+                if n["launch"] == forced or rng.random() < 0.15:
+                    raise RuntimeError("injected-launch-failure")
+                return base.full_step(*a, **kw)
+        return Failing()
+    e, m, s, k = 6, 5, 8, 8
+    js = jb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                   max_ops_per_tick=k,
+                                   engine=failing(JaxEngine))
+    ts = tb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                   max_ops_per_tick=k, device="cpu",
+                                   engine=failing(tb._LocalEngine))
+    rng = np.random.default_rng(seed)
+    futs = ([], [])
+    acked = {}
+    fails = [0, 0]
+    down = {}
+
+    def flush_all():
+        for i, svc in enumerate((js, ts)):
+            for _ in range(25):
+                if not any(svc.queues) and not svc._retry_at:
+                    break
+                try:
+                    svc.flush()
+                except RuntimeError as exc:
+                    assert "injected-launch-failure" in str(exc)
+                    fails[i] += 1
+    for rnd in range(30):
+        r = rng.random()
+        if r < 0.3 and down:
+            x = sorted(down)[int(rng.integers(len(down)))]
+            p = down.pop(x)
+            js.set_peer_up(x, p, True)
+            ts.set_peer_up(x, p, True)
+        elif r < 0.6:
+            x = int(rng.integers(e))
+            if x not in down and ts.leader_np[x] >= 0:
+                down[x] = int(ts.leader_np[x])
+                js.set_peer_up(x, down[x], False)
+                ts.set_peer_up(x, down[x], False)
+        ops = []
+        for _ in range(6):
+            x, key = int(rng.integers(e)), f"key{int(rng.integers(3))}"
+            ops.append((x, key, int(rng.integers(0, 3)), rnd))
+        for i, svc in enumerate((js, ts)):
+            for x, key, op, v in ops:
+                if op == 0:
+                    futs[i].append((x, key, v, svc.kput(x, key, v + 1)))
+                elif op == 1:
+                    futs[i].append((x, key, None, svc.kget(x, key)))
+                else:
+                    futs[i].append((x, key, -1, svc.kdelete(x, key)))
+        if rng.random() < 0.3:
+            js.runtime.now += 2.5
+            ts.runtime.now += 2.5
+        flush_all()
+        assert js.leader_np.tolist() == ts.leader_np.tolist()
+    assert fails[0] == fails[1] > 0
+    assert [norm(f.value) for *_r, f in futs[1]] == \
+        [norm(f.value) for *_r, f in futs[0]]
+    for x, key, v, f in futs[1]:
+        if v is not None and isinstance(f.value, tuple) \
+                and f.value[0] == "ok":
+            acked[x, key] = v
+    for x, p in down.items():
+        js.set_peer_up(x, p, True)
+        ts.set_peer_up(x, p, True)
+    reads = [((x, key), ts.kget(x, key)) for (x, key) in acked]
+    for _ in range(10):
+        try:
+            drain(ts)
+            break
+        except RuntimeError as exc:
+            assert "injected-launch-failure" in str(exc)
+    got = {xk: f.value for xk, f in reads}
+    want = {xk: ("ok", v + 1) if v >= 0 else ("ok", "NOTFOUND")
+            for xk, v in acked.items()}
+    assert {xk: norm(v) for xk, v in got.items()} == want
 
 
 def test_set_pipeline_depth_settles_in_flight():

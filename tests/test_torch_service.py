@@ -14,6 +14,11 @@ enough for the pack-gather strength to engage.  Both run on the same
 fixed clock.  Every future must resolve to the same value,
 every flush's packed result buffer must be byte-identical, and the final
 engine states bit-equal.
+
+Device-resident ``execute`` / ``execute_async`` planes (int32 tensors on
+the service's device) give the same results and state as the host-array
+calls and as the JAX service's ``jax.Array`` planes, count ``k * E``
+served ops, and, under a ``data_dir``, skip the WAL once flagged.
 """
 
 import numpy as np
@@ -221,3 +226,108 @@ def test_pack_results_body_matches_jax(services):
             for a, b in zip(tb.unpack_results(got, e, m, k, want_vsn),
                             jb.unpack_results(want, e, m, k, want_vsn)):
                 assert (a is None and b is None) or np.array_equal(a, b)
+
+
+def _bulk(rng, k, e, s):
+    kind = rng.choice([1, 2, 2, 4, 0], (k, e)).astype(np.int32)  # RMW = 4
+    slot = rng.integers(0, s, (k, e)).astype(np.int32)
+    val = rng.integers(0, 1 << 20, (k, e)).astype(np.int32)
+    xe = np.where(kind == 4, rng.integers(1, 4, (k, e)), 0).astype(np.int32)
+    return kind, slot, val, xe
+
+
+@pytest.mark.parametrize("asynchronous", [False, True])
+def test_device_resident_execute_matches_host_arrays(services,
+                                                     asynchronous):
+    """Three services on one stream: the port with host arrays, the port
+    with int32 tensors on its device, the JAX service with ``jax.Array``
+    planes.  Results, state planes and leases equal; the device-resident
+    calls count every lane as served, as the reference does."""
+    import jax.numpy as jnp
+    import torch
+
+    make, _norm = services
+    e, m, s, k = 8, 3, 8, 4
+    js, ts, _clocks, _bufs = make(e, m, s, k)
+    th = tb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                   max_ops_per_tick=k, device="cpu",
+                                   compact=False, pipeline_depth=2)
+    th.set_fast_reads(False)
+    ts.set_pipeline_depth(2)
+    rng = np.random.default_rng(9)
+    batches = [_bulk(rng, k, e, s) for _ in range(5)]
+    served = (th.ops_served, ts.ops_served)
+    out_h, out_t, out_j = [], [], []
+    for b in batches:
+        tb_planes = [torch.from_numpy(x.copy()) for x in b]
+        if asynchronous:
+            out_h.append(th.execute_async(*b))
+            out_t.append(ts.execute_async(*tb_planes))
+        else:
+            out_h.append(th.execute(*b))
+            out_t.append(ts.execute(*tb_planes))
+        out_j.append(js.execute(*(jnp.asarray(x) for x in b)))
+    if asynchronous:
+        th.flush()
+        ts.flush()
+        out_h = [f.value for f in out_h]
+        out_t = [f.value for f in out_t]
+    for h, t, j in zip(out_h, out_t, out_j):
+        for a, b, c in zip(h, t, j):
+            assert np.array_equal(a, b) and np.array_equal(b, np.asarray(c))
+    assert th.ops_served - served[0] == sum(
+        int((b[0] != 0).sum()) for b in batches)
+    assert ts.ops_served - served[1] == len(batches) * k * e \
+        == js.ops_served
+    for f in ts.state._fields:
+        assert torch.equal(getattr(ts.state, f), getattr(th.state, f)), f
+    tn = interop.state_to_numpy(ts.state)
+    for f in tn._fields:
+        assert np.array_equal(np.asarray(getattr(js.state, f)),
+                              getattr(tn, f)), f
+    assert np.array_equal(ts.lease_until, js.lease_until)
+    with pytest.raises(TypeError):
+        ts.execute(torch.zeros((k, e), dtype=torch.int64),
+                   torch.zeros((k, e), dtype=torch.int32),
+                   torch.zeros((k, e), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        ts.execute(torch.zeros((k, e), dtype=torch.int32),
+                   torch.zeros((k, e + 1), dtype=torch.int32),
+                   torch.zeros((k, e), dtype=torch.int32))
+
+
+def test_device_resident_execute_is_unlogged_under_data_dir(tmp_path,
+                                                            monkeypatch):
+    """With a ``data_dir`` a host-array call logs its committed writes
+    (RMW rows their computed values) before it returns; a device-resident
+    call logs nothing and sets ``_dev_exec_unlogged``, as the JAX
+    service's ``jax.Array`` call does."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    import torch
+
+    from riak_ensemble_tpu.parallel import batched_host as jb
+    from riak_ensemble_tpu_torch.ops import engine as teng
+    monkeypatch.setenv("RETPU_OBS", "0")
+    e, m, s, k = 4, 3, 8, 2
+    js = jb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                   max_ops_per_tick=k,
+                                   data_dir=str(tmp_path / "j"))
+    ts = tb.BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                   max_ops_per_tick=k, device="cpu",
+                                   data_dir=str(tmp_path / "t"))
+    kind = np.full((k, e), 2, np.int32)
+    kind[1] = 4
+    slot = np.tile(np.arange(e, dtype=np.int32), (k, 1))
+    val = np.full((k, e), 5, np.int32)
+    xe = np.where(kind == 4, teng.RMW_ADD, 0).astype(np.int32)
+    for svc in (js, ts):
+        svc.execute(kind, slot, val, xe)
+    assert ts._wal.count == js._wal.count == e
+    assert ts._wal.records() == js._wal.records()
+    assert {v[1] for _k, v in ts._wal.records()} == {10}   # 5, then +5
+    assert not ts._dev_exec_unlogged and not js._dev_exec_unlogged
+    ts.execute(*(torch.from_numpy(x) for x in (kind, slot + 4, val, xe)))
+    js.execute(*(jnp.asarray(x) for x in (kind, slot + 4, val, xe)))
+    assert ts._wal.count == js._wal.count == e
+    assert ts._dev_exec_unlogged and js._dev_exec_unlogged
