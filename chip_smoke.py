@@ -80,9 +80,28 @@ Phases (each raises on failure, so any failure exits non-zero):
    its ops fail, the stepped state stands (the donated contract), the
    next flush serves.  6(c) also runs its stream as CUDA int32 planes
    (device-resident ``execute``): bit-equal results, no op-plane byte
-   staged for the device.
+   staged for the device;
+9. the control plane at the headline shape: (a) after an election of
+   every row, a one-member shrink proposed on a seeded 1,000 rows, then
+   the collapse step, each ``reconfig_step`` (K1 for both gates, twice
+   per step) bit-equal to ``reconfig_step_plain`` on every state plane
+   and on ``installed`` / ``collapsed``, K1's device time per launch on
+   this path, and the service's ``update_members`` (a shrink, a change
+   left joint whose flush runs F1 with two views and fails its writes,
+   the retry that collapses it) with its wall ms per call; (b) the timer
+   (``tick=0.005``, K = 64) on the port's simulator ``Runtime``: bursts
+   of ``kput_many`` / ``kupdate_many`` / ``kdelete_many`` on 256 rows
+   flush on the next runtime turn, a trickle waits for the tick, leader
+   kills and ``update_members`` churn between flushes, watchers see every
+   leader change, every acknowledged write reads back; (c) dynamic rows
+   with a data dir and ``wal_sync="fsync"``: create every row, destroy
+   half, recreate a quarter, keyed writes between, ops on destroyed rows
+   fail, a restore without a save brings back the names, membership
+   rows and acknowledged writes, and one with the wrong ``dynamic``
+   flag raises (mem records and fsyncs per call, ms per create, destroy
+   and restore).
 
-Phases 4-8 run the service's default (native) host arm.
+Phases 4-9 run the service's default (native) host arm.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -242,10 +261,12 @@ def k2_inputs(g: torch.Generator, e: int, v: int, m: int,
     return valid, nack, mask, self_idx
 
 
-def device_us_per_launch(fn, name: str, n: int = 50) -> float:
+def device_us_per_launch(fn, name: str, n: int = 50,
+                         per_call: int = 1) -> float:
     """Device time per launch of the kernel whose name contains
-    ``name``, from torch.profiler over ``n`` back-to-back calls (averaged
-    over the launches the trace holds: it may drop one of a window)."""
+    ``name``, from torch.profiler over ``n`` back-to-back calls that
+    each launch it ``per_call`` times (averaged over the launches the
+    trace holds: it may drop one of a window)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -255,9 +276,9 @@ def device_us_per_launch(fn, name: str, n: int = 50) -> float:
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages() if name in ev.key]
     count = sum(ev.count for ev in evs)
-    if not n - 2 <= count <= n:
-        raise AssertionError(f"profiler saw {count} of {n} launches of "
-                             f"{name}")
+    if not n * per_call - 2 <= count <= n * per_call:
+        raise AssertionError(f"profiler saw {count} of {n * per_call} "
+                             f"launches of {name}")
     return sum(ev.self_device_time_total for ev in evs) / count
 
 
@@ -2193,6 +2214,443 @@ def phase_launch_failure(dev: torch.device, card: str) -> None:
           f"next flush served")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the control plane (reconfig launches, the timer, dynamic rows)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reconfig_case(dev, label: str, st, prop, nv, up):
+    """One ``reconfig_step`` (K1 for both gates, the state stepped in
+    place on the card) against ``reconfig_step_plain`` on a copy: every
+    state plane and ``installed`` / ``collapsed`` bit-equal.  Returns
+    the stepped state, the two vectors and K1's launches in the step."""
+    want = eng.reconfig_step_plain(copy_state(st), prop, nv, up)
+    before = cuda_quorum.quorum_launches
+    st, inst, coll = eng.reconfig_step(st, prop, nv, up)
+    sync(dev)
+    k1 = cuda_quorum.quorum_launches - before
+    bad = diff_fields(want[0], st, eng.EngineState._fields)
+    if bad or not torch.equal(want[1].cpu(), inst.cpu()) \
+            or not torch.equal(want[2].cpu(), coll.cpu()):
+        raise AssertionError(f"9(a) {label}: reconfig_step differs from "
+                             f"reconfig_step_plain on {bad} / installed / "
+                             f"collapsed")
+    return st, inst, coll, k1
+
+
+def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
+                   m: int = M_FULL, s: int = S_FULL, k: int = K_FULL,
+                   n_prop: int = 1000) -> tuple:
+    """9(a): after an election of every row, a one-member shrink proposed
+    on a seeded ``n_prop`` rows (a seeded 5 % of rows with a majority of
+    peers down, whose gate must refuse), then the collapse step, each
+    ``reconfig_step`` bit-equal to ``reconfig_step_plain``; K1 launches
+    per step, its device time per launch on this path, and the step's
+    time.  Then the service: ``update_members`` on ``n_prop`` rows, a
+    change left joint (its new view lacks a quorum) whose flush runs F1
+    with two views and fails its writes, and the retry that collapses
+    it; wall ms per call."""
+    rng = np.random.default_rng(29)
+    st = eng.init_state(e, m, s, device=dev)
+    ones = torch.ones((e,), dtype=torch.bool, device=dev)
+    zeros = torch.zeros((e,), dtype=torch.bool, device=dev)
+    st, won = eng.elect_step(st, ones, torch.zeros((e,), dtype=torch.int32,
+                                                   device=dev),
+                             torch.ones((e, m), dtype=torch.bool,
+                                        device=dev))
+    up_np = np.ones((e, m), bool)
+    lost = rng.choice(e, e // 20, replace=False)
+    up_np[lost, 1:m // 2 + 2] = False          # a majority of peers down
+    prop_np = np.zeros((e,), bool)
+    prop_np[rng.choice(e, n_prop, replace=False)] = True
+    nv_np = np.ones((e, m), bool)
+    nv_np[np.arange(e), rng.integers(0, m, e)] = False
+    up, prop, nv = (torch.from_numpy(x).to(dev)
+                    for x in (up_np, prop_np, nv_np))
+    st, inst, coll, k1_a = reconfig_case(dev, "propose", st, prop, nv, up)
+    st, inst2, coll2, k1_b = reconfig_case(dev, "collapse", st, zeros, nv,
+                                           up)
+    n_inst, n_coll = int(inst.sum()), int(coll2.sum())
+    want_inst = int((prop_np & np.isin(np.arange(e), lost,
+                                       invert=True)).sum())
+    if n_inst != want_inst or n_coll != n_inst or coll.any() \
+            or inst2.any():
+        raise AssertionError(f"9(a): installed {n_inst} (want "
+                             f"{want_inst}), collapsed {n_coll}")
+    if dev.type == "cuda" and (k1_a, k1_b) != (2, 2):
+        raise AssertionError(f"9(a): K1 launched {k1_a} / {k1_b} times "
+                             f"per reconfig_step, want 2")
+    step_ms = plain_ms = k1_us = None
+    if dev.type == "cuda":
+        step_ms = cuda_ms(lambda: eng.reconfig_step(st, zeros, nv, up),
+                          iters=50)
+        plain_ms = cuda_ms(
+            lambda: eng.reconfig_step_plain(st, zeros, nv, up), iters=20)
+        k1_us = device_us_per_launch(
+            lambda: eng.reconfig_step(st, zeros, nv, up),
+            "quorum_met_kernel", n=25, per_call=2)
+    print(f"9(a) reconfig_step at [{e}, {m}] x {s}, V=2 [{card}]: "
+          f"{n_inst} of {n_prop} proposals installed ({len(lost)} rows "
+          f"without a majority up), {n_coll} collapsed; bit-equal to "
+          f"reconfig_step_plain on every plane; K1 {k1_a} + {k1_b} "
+          f"launches (one per gate); step {step_ms} ms, plain "
+          f"{plain_ms} ms; K1 {k1_us} us device time per launch")
+    del st, want_inst
+    # the service: update_members on the card
+    svc = BatchedEnsembleService(WallRuntime(), e, m, s, tick=None,
+                                 max_ops_per_tick=k, device=dev)
+    sync(dev)
+    reset_counts()                             # this path's run
+    svc.flush()                                # elect every row
+    sel = prop_np
+    view = svc.member_np.copy()
+    view[np.arange(e), rng.integers(0, m, e)] = False
+    calls = []
+
+    def members(label, sel_, view_, want_changed, want_k1):
+        k1 = cuda_quorum.quorum_launches
+        t0 = time.perf_counter()
+        changed = svc.update_members(sel_, view_)
+        sync(dev)
+        calls.append((label, (time.perf_counter() - t0) * 1e3))
+        k1 = cuda_quorum.quorum_launches - k1
+        if int(changed.sum()) != want_changed or (
+                dev.type == "cuda" and k1 != want_k1):
+            raise AssertionError(f"9(a) {label}: {int(changed.sum())} "
+                                 f"rows changed (want {want_changed}), K1 "
+                                 f"{k1} (want {want_k1})")
+    members("shrink", sel, view, n_prop, 4)
+    # a change left joint: on rows outside the shrink, peers 1 and 2 go
+    # down and the new view {0, 1, 2} lacks a quorum, so the install
+    # lands and the collapse cannot
+    joint = np.sort(rng.choice(np.flatnonzero(~sel), 100, replace=False))
+    for r in joint:
+        for p in (1, 2):
+            svc.set_peer_up(int(r), p, False)
+    jsel = np.zeros((e,), bool)
+    jsel[joint] = True
+    jview = np.zeros((e, m), bool)
+    jview[:, :3] = True
+    members("joint install", jsel, jview, 0, 4)
+    if not svc._pending_mask[joint].all():
+        raise AssertionError("9(a): the joint installs did not land")
+    futs = [svc.kput_many(int(r), ["j"], [b"joint"]) for r in joint]
+    shrunk = np.flatnonzero(sel)[:100]
+    futs_ok = [svc.kput_many(int(r), ["s"], [b"shrunk"]) for r in shrunk]
+    drive(svc, futs + futs_ok, 8)
+    if any(f.value != ["failed"] for f in futs) or \
+            any(f.value[0][0] != "ok" for f in futs_ok):
+        raise AssertionError("9(a): writes under the joint views / the "
+                             "shrunk views did not fail / commit")
+    for r in joint:
+        for p in (1, 2):
+            svc.set_peer_up(int(r), p, True)
+    members("retry (collapse)", np.zeros((e,), bool), jview, 100, 2)
+    futs = [svc.kput_many(int(r), ["j"], [b"joint"]) for r in joint]
+    drive(svc, futs, 8)
+    if any(f.value[0][0] != "ok" for f in futs) or \
+            not (svc.member_np[joint] == jview[joint]).all():
+        raise AssertionError("9(a): the collapsed rows do not serve")
+    counts = read_counts()
+    print(f"9(a) update_members at {e} x {m} x {s} [{card}]: wall ms per "
+          f"call {[(lab, round(ms, 3)) for lab, ms in calls]}; 100 writes "
+          f"under joint views failed, then committed after the collapse; "
+          f"launches {counts}")
+    return counts, {"step_ms": step_ms, "plain_ms": plain_ms,
+                    "device_us": k1_us, "per_step": k1_a,
+                    "update_members_ms": {lab: ms for lab, ms in calls}}
+
+
+class TimedService(BatchedEnsembleService):
+    """The service with each top-level flush labelled by its cause:
+    "tick" (the timer) or "burst" (the burst trigger's kick); the wall
+    time of each flush that settled a launch is kept by cause, the rest
+    (idle ticks) are counted."""
+
+    def __init__(self, *a, **kw) -> None:
+        self.cause = None
+        self.ms = {"tick": [], "burst": []}
+        self.idle = 0
+        self._depth = 0
+        super().__init__(*a, **kw)
+
+    def _on_tick(self) -> None:
+        self.cause = "tick"
+        try:
+            super()._on_tick()
+        finally:
+            self.cause = None
+
+    def flush(self) -> int:
+        if self._depth:
+            return super().flush()
+        cause = self.cause or "burst"
+        self.cause = cause
+        self._depth += 1
+        settled = self.flushes
+        t0 = time.perf_counter()
+        try:
+            return super().flush()
+        finally:
+            sync(self.device)
+            if self.flushes > settled:
+                self.ms[cause].append((time.perf_counter() - t0) * 1e3)
+            else:
+                self.idle += 1
+            self._depth -= 1
+            if cause == "burst":
+                self.cause = None
+
+
+def phase_timer(dev: torch.device, card: str, e: int = E_FULL,
+                m: int = M_FULL, s: int = S_FULL, k: int = K_FULL,
+                n_rows: int = 256, rounds: int = 8) -> dict:
+    """9(b): the timer on the simulator runtime (``tick=0.005``,
+    ``max_ops_per_tick=k``).  Each round: bursts of ``kput_many`` /
+    ``kupdate_many`` / ``kdelete_many`` of ``k`` keys on 32 of the
+    ``n_rows`` rows (each reaches ``k`` rounds: it must flush on the
+    next runtime turn, by the burst trigger), single puts on 16 rows (a
+    trickle: it must wait for the tick), leader kills through
+    ``set_peer_up`` and ``update_members`` churn between flushes.
+    Watchers on every row must see every leader change, and every
+    acknowledged write reads back once the service is quiesced."""
+    from riak_ensemble_tpu_torch.runtime import Runtime
+    from riak_ensemble_tpu_torch.types import NOTFOUND
+    rng = np.random.default_rng(31)
+    rt = Runtime(seed=31)
+    svc = TimedService(rt, e, m, s, tick=0.005, max_ops_per_tick=k,
+                       device=dev)
+    rows = np.sort(rng.choice(e, n_rows, replace=False)).tolist()
+    events = {r: [] for r in rows}
+    for r in rows:
+        svc.watch_leader(r, lambda en, o, n: events[en].append((o, n)))
+    want = {}                       # (row, key) -> acked value
+    late = []                       # futures whose cause is wrong
+    sync(dev)
+    reset_counts()                             # this path's run
+    rt.run_for(0.006)                          # a tick elects every row
+    keys = [f"b{i}" for i in range(k)]
+    down = {}
+    for rnd in range(rounds):
+        t_sub = rt.now
+        burst_rows = rng.choice(rows, 32, replace=False).tolist()
+        for i, r in enumerate(burst_rows):
+            kind = (rnd + i) % 3
+            vals = [b"r%d:%d" % (rnd, j) for j in range(k)]
+            if kind == 0:
+                f = svc.kput_many(r, keys, vals)
+            elif kind == 1:
+                f = svc.kupdate_many(r, keys, [(0, 0)] * k, vals)
+            else:
+                f = svc.kdelete_many(r, keys)
+            # a delete of keys the row no longer holds resolves at once,
+            # with no device round
+            served = not f.done
+
+            def on_burst(res, r=r, kind=kind, vals=vals, served=served):
+                if served and (svc.cause != "burst" or rt.now != t_sub):
+                    late.append(("burst", r, svc.cause, rt.now))
+                for key, v, x in zip(keys, vals, res):
+                    if isinstance(x, tuple) and x[0] == "ok":
+                        want[r, key] = NOTFOUND if kind == 2 else v
+            f.add_waiter(on_burst)
+        rt.run_for(0.0005)                    # the next turns: the kick
+        trickle = [r for r in rng.choice(rows, 16, replace=False).tolist()
+                   if r not in burst_rows]
+        for r in trickle:
+            v = b"t%d" % rnd
+
+            def on_trickle(res, r=r, v=v):
+                if svc.cause != "tick":
+                    late.append(("trickle", r, svc.cause, rt.now))
+                if isinstance(res, tuple) and res[0] == "ok":
+                    want[r, "t"] = v
+            svc.kput(r, "t", v).add_waiter(on_trickle)
+        # the nemesis, between flushes
+        for r in rng.choice(rows, 4, replace=False).tolist():
+            if r in down:
+                svc.set_peer_up(r, down.pop(r), True)
+            elif svc.leader_np[r] >= 0:
+                down[r] = int(svc.leader_np[r])
+                svc.set_peer_up(r, down[r], False)
+        csel = np.zeros((e,), bool)
+        csel[rng.choice(rows, 8, replace=False)] = True
+        view = svc.member_np.copy()
+        for r in np.flatnonzero(csel):
+            if view[r].all():
+                view[r, int(rng.integers(m))] = False
+            else:
+                view[r] = True
+        svc.update_members(csel, view)
+        rt.run_for(0.012)                     # ticks
+    for r, p in list(down.items()):
+        svc.set_peer_up(r, p, True)
+    rt.run_for(0.05)                          # quiesce
+    if svc._active or svc._inflight:
+        raise AssertionError("9(b): the timer left work queued")
+    reads = {r: svc.kget_many(r, keys + ["t"]) for r in rows}
+    rt.run_for(0.02)
+    bad = 0
+    for r, f in reads.items():
+        if not f.done:
+            raise AssertionError("9(b): a read-back never resolved")
+        for key, x in zip(keys + ["t"], f.value):
+            exp = want.get((r, key), NOTFOUND)
+            if x != ("ok", exp):
+                bad += 1
+    counts = read_counts()
+    n_events = sum(len(v) for v in events.values())
+    for r, ev in events.items():
+        chain = all(ev[i][0] == ev[i - 1][1] for i in range(1, len(ev)))
+        if not chain or ev[-1][1] != int(svc.leader_np[r]):
+            raise AssertionError(f"9(b): watcher of row {r} missed a "
+                                 f"leader change: {ev}")
+    if bad or late:
+        raise AssertionError(f"9(b): {bad} acknowledged writes did not "
+                             f"read back; wrong flush cause {late[:4]}")
+    svc.stop()
+    nb, nt = len(svc.ms["burst"]), len(svc.ms["tick"])
+    med = {c: statistics.median(v) if v else None
+           for c, v in svc.ms.items()}
+    print(f"9(b) timer at {e} x {m} x {s}, tick 0.005, K {k} [{card}]: "
+          f"{nb} burst flushes (median {med['burst']} ms wall), {nt} tick "
+          f"flushes with a launch (median {med['tick']} ms wall), "
+          f"{svc.idle} idle flushes; {len(want)} acked "
+          f"writes read back; {n_events} watcher events on {n_rows} rows, "
+          f"every leader change seen; launches {counts}")
+    return counts, {"burst_flushes": nb, "tick_flushes": nt,
+                    "idle_flushes": svc.idle,
+                    "burst_ms": med["burst"], "tick_ms": med["tick"],
+                    "watcher_events": n_events}
+
+
+def phase_dynamic(dev: torch.device, card: str, e: int = E_FULL,
+                  m: int = M_FULL, s: int = S_FULL,
+                  k: int = K_FULL) -> tuple:
+    """9(c): ``dynamic=True`` at ``e`` rows with a fresh data dir and
+    ``wal_sync="fsync"``: create every row, keyed writes, destroy half,
+    ops on destroyed rows fail, recreate a quarter, keyed writes; drop
+    the service without a save, restore on the card (names, membership
+    rows and every acknowledged write come back); a restore with the
+    wrong ``dynamic`` flag raises.  mem records and fsyncs per call, ms
+    per create, destroy and restore."""
+    import shutil
+    rng = np.random.default_rng(37)
+    data = tempfile.mkdtemp(prefix="retpu_dynamic_")
+    svc = BatchedEnsembleService(WallRuntime(), e, m, s, tick=None,
+                                 max_ops_per_tick=k, device=dev,
+                                 dynamic=True, data_dir=data,
+                                 wal_sync="fsync")
+    meter = WalMeter(svc)
+    sync(dev)
+    reset_counts()                             # this path's run
+    per = {}
+
+    def timed(label, fn, items):
+        meter.take()
+        t0 = time.perf_counter()
+        out = [fn(x) for x in items]
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        recs, _b, fsyncs, _a = meter.take()
+        per[label] = (len(items), ms / len(items), recs / len(items),
+                      fsyncs / len(items))
+        return out
+    rows = timed("create", svc.create_ensemble, [f"t{i}" for i in range(e)])
+    if sorted(rows) != list(range(e)):
+        raise AssertionError("9(c): creates did not take every row")
+    keys = [f"k{i}" for i in range(16)]
+    want = {}
+
+    def write(sub, tag):
+        futs = {r: svc.kput_many(r, keys, [b"%s:%d:%d" % (tag, r, i)
+                                           for i in range(len(keys))])
+                for r in sub}
+        drive(svc, list(futs.values()), 8)
+        for r, f in futs.items():
+            if any(x[0] != "ok" for x in f.value):
+                raise AssertionError(f"9(c): a write on row {r} failed")
+            want[r] = [b"%s:%d:%d" % (tag, r, i) for i in range(len(keys))]
+    write(sorted(rng.choice(e, 256, replace=False).tolist()), b"a")
+    gone = [f"t{i}" for i in range(0, e, 2)]
+    dead_rows = [svc.resolve_ensemble(n) for n in gone]
+    timed("destroy", svc.destroy_ensemble, gone)
+    for r in dead_rows:
+        want.pop(r, None)
+    probes = [svc.kget(r, "k0") for r in dead_rows[:64]] + \
+        [svc.kput_many(r, ["x"], [b"x"]) for r in dead_rows[:64]]
+    if any(not f.done or f.value not in ("failed", ["failed"])
+           for f in probes):
+        raise AssertionError("9(c): an op on a destroyed row did not fail")
+    new = timed("recreate", svc.create_ensemble,
+                [f"u{i}" for i in range(e // 4)])
+    if None in new or not set(new) <= set(dead_rows):
+        raise AssertionError("9(c): recreates did not recycle free rows")
+    live = np.flatnonzero(svc._live)
+    write(sorted(rng.choice(live, min(256, live.size),
+                            replace=False).tolist()), b"b")
+    counts = read_counts()
+    names = dict(svc._ens_names)
+    member = svc.member_np.copy()
+    svc._wal.close()                           # dropped without a save
+    del svc, meter
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        BatchedEnsembleService.restore(WallRuntime(), data, tick=None,
+                                       device=dev, dynamic=False)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("9(c): a restore with dynamic=False did not "
+                             "raise")
+    sync(dev)
+    t0 = time.perf_counter()
+    back = BatchedEnsembleService.restore(
+        WallRuntime(), data, tick=None, max_ops_per_tick=k, device=dev,
+        data_dir=data, wal_sync="fsync")
+    sync(dev)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if back._ens_names != names or not (back.member_np == member).all() \
+            or not back.dynamic:
+        raise AssertionError("9(c): the restore lost names or membership")
+    futs = {r: back.kget_many(r, keys) for r in want}
+    drive(back, list(futs.values()), 8)
+    bad = [r for r, f in futs.items()
+           if f.value != [("ok", v) for v in want[r]]]
+    if bad:
+        raise AssertionError(f"9(c): acknowledged writes of {len(bad)} rows "
+                             f"did not come back (first {bad[0]})")
+    back._wal.close()
+    shutil.rmtree(data, ignore_errors=True)
+    print(f"9(c) dynamic rows at {e} x {m} x {s}, fsync [{card}]: "
+          + "; ".join(f"{lab} x{n}: {ms:.3f} ms, {r:.2f} WAL records, "
+                      f"{f:.2f} fsyncs per call"
+                      for lab, (n, ms, r, f) in per.items())
+          + f"; restore {restore_ms:.3f} ms ({len(names)} names, "
+          f"{sum(len(v) for v in want.values())} acked writes back; "
+          f"dynamic=False refused); launches {counts}")
+    return counts, {lab: ms for lab, (n, ms, r, f) in per.items()} | {
+        "restore_ms": restore_ms}
+
+
+def phase_control_plane(dev: torch.device, card: str) -> tuple:
+    """Phase 9: (a) reconfig, (b) the timer, (c) dynamic rows, each path
+    read with its counts set to 0 just before it."""
+    counts = {}
+    c, rec = phase_reconfig(dev, card)
+    counts["phase9a reconfig"] = c
+    c, tim = phase_timer(dev, card)
+    counts["phase9b timer"] = c
+    c, dyn = phase_dynamic(dev, card)
+    counts["phase9c dynamic rows"] = c
+    return counts, {"reconfig": rec, "timer": tim, "dynamic": dyn}
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -2282,10 +2740,13 @@ def main(argv) -> int:
     host_calls = phase_host_arms(dev, card)
     durable = phase_durable(dev, card)
     by_path.update(durable["counts"])
+    control_counts, control = phase_control_plane(dev, card)
+    by_path.update(control_counts)
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     if not (all(f1_by_path.values()) and k1_exchange and k2_launches
-            and sliced_by_path["phase6b compacted keyed service"]):
+            and sliced_by_path["phase6b compacted keyed service"]
+            and by_path["phase9a reconfig"]["K1"]):
         raise AssertionError(f"a kernel did not launch on its path: F1 "
                              f"{f1_by_path} (sliced {sliced_by_path}), K1 "
                              f"{k1_exchange}, K2 {k2_launches}")
@@ -2310,6 +2771,9 @@ def main(argv) -> int:
                              **{p: c["K1"] for p, c in by_path.items()}},
         "compacted_exchange_launches":
             by_path["phase6b compacted keyed service"]["K1"],
+        "reconfig_launches": sum(c["K1"] for p, c in by_path.items()
+                                 if p.startswith("phase9")),
+        "reconfig": control["reconfig"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
@@ -2327,7 +2791,9 @@ def main(argv) -> int:
                   "max_abs_err": 0, **host[name]}
                  for name, src, ref in HOST_PASSES]
     print(card)
-    print(json.dumps({"kernels": kernels, "host": host_line}))
+    print(json.dumps({"kernels": kernels, "host": host_line,
+                      "control_plane": {k: v for k, v in control.items()
+                                        if k != "reconfig"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,11 @@ state layout (:class:`EngineState`, :class:`KvResult`, identical field
 names, dtypes and shapes), the Merkle path kernels, the election step,
 the K/V round with its whole RMW table, the K-round scan, the fused
 :func:`full_step` the service launches once per flush, its sliced form
-on the active rows only (:func:`full_step_sliced`), and the anti-entropy
-exchange (:func:`verify_trees`, :func:`exchange_step`).
+on the active rows only (:func:`full_step_sliced`), the anti-entropy
+exchange (:func:`verify_trees`, :func:`exchange_step`), row recycling
+(:func:`reset_rows`) and joint-consensus reconfiguration
+(:func:`reconfig_propose`, :func:`reconfig_transition`,
+:func:`reconfig_step`).
 Semantics are the reference's, bit for bit; the docstrings there carry
 the protocol citations (riak_ensemble_peer.erl / msg.erl /
 synctree.erl) and are not repeated at length here.
@@ -32,8 +35,10 @@ What differs from the reference, and why:
   rounds update the object and tree planes IN PLACE.  Either way a
   caller that needs its input state afterwards passes a copy.
 - The quorum predicate (:func:`_quorum_met`, used by the plain step,
-  :func:`elect_step` and :func:`exchange_step`) is kernel K1 on CUDA
-  tensors and K1's plain version on CPU tensors.
+  :func:`elect_step`, :func:`exchange_step` and the reconfig gate) is
+  kernel K1 on CUDA tensors and K1's plain version on CPU tensors.  The
+  reconfig ops are launches of their own, as in the reference, not part
+  of F1; on CUDA they step the state's membership planes in place.
 - ``.at[].set(mode="drop")`` scatters become gather → ``where`` →
   ``scatter_``: a lane that must not write writes back the value it
   read.  That is exact because each (ensemble, replica) row has ONE
@@ -57,7 +62,8 @@ from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
 from riak_ensemble_tpu_torch.ops import cuda_engine
 from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.ops import quorum as quorum_lib
-from riak_ensemble_tpu_torch.ops.cuda_quorum import quorum_met_e
+from riak_ensemble_tpu_torch.ops.cuda_quorum import (
+    quorum_met_e, quorum_met_eplain)
 from riak_ensemble_tpu_torch.ops.quorum import views_to_mask
 
 I32 = torch.int32
@@ -918,7 +924,16 @@ def reset_rows(state: EngineState, mask: torch.Tensor,
     """Recycle ensemble rows for fresh ensembles (engine.py:1220-1259):
     clear the object store, trees, leader, seq counters and the views
     list of the rows in ``mask [E]``, install ``new_view [E, M]`` as
-    their single view; the ballot ``epoch`` stays monotone per row."""
+    their single view; the ballot ``epoch`` stays monotone per row.
+    The reference rebuilds the masked replicas' trees over their cleared
+    stores; every such tree is the empty store's, so its leaves and
+    upper levels are written as those constants (the same bits), without
+    hashing the whole store on every create and destroy."""
+    s = state.obj_epoch.shape[-1]
+    zero = torch.zeros((), dtype=I32, device=mask.device)
+    empty_leaf = hashk.obj_leaf_hash(zero, zero, zero)       # [LANES]
+    empty_uppers = build_uppers(empty_leaf.expand(s, hashk.LANES))
+    m4 = mask[:, None, None, None]
     head_view = torch.cat(
         [new_view[:, None, :],
          torch.zeros_like(state.view_mask[:, 1:, :])], dim=1)
@@ -935,5 +950,151 @@ def reset_rows(state: EngineState, mask: torch.Tensor,
         obj_epoch=torch.where(m3, 0, state.obj_epoch),
         obj_seq=torch.where(m3, 0, state.obj_seq),
         obj_val=torch.where(m3, 0, state.obj_val),
+        tree_leaf=torch.where(m4, empty_leaf, state.tree_leaf),
+        tree_node=torch.where(m4, empty_uppers, state.tree_node),
     )
-    return rebuild_trees(st, m1.expand(state.epoch.shape))
+    return st
+
+
+# ---------------------------------------------------------------------------
+# Membership reconfiguration (joint consensus)
+
+
+def _quorum_met_plain(ack: torch.Tensor, heard: torch.Tensor,
+                      view_mask: torch.Tensor) -> torch.Tensor:
+    """:func:`_quorum_met` through K1's plain version on any device —
+    the quorum of the plain reconfig twins."""
+    return quorum_met_eplain(ack, heard & ~ack,
+                             view_mask) == quorum_lib.MET
+
+
+def _reconfig_gate(state: EngineState, up: torch.Tensor, quorum
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(heard [E, Ml], commit quorum in every CURRENT view [E]) — the
+    try_commit gate on epoch-matching acks (engine.py:1262-1278).  The
+    reduce is ``quorum``: :func:`_quorum_met` (K1 on CUDA) or its plain
+    twin."""
+    ml = state.epoch.shape[1]
+    heard = up & state.view_mask.any(1)
+    gidx = torch.arange(ml, dtype=I32, device=up.device)
+    is_leader = gidx[None, :] == state.leader[:, None]
+    lead_epoch = torch.where(is_leader, state.epoch, 0).sum(-1, dtype=I32)
+    ack = heard & (state.epoch == lead_epoch[:, None])
+    commit_ok = quorum(ack, heard, state.view_mask) & (state.leader >= 0)
+    return heard, commit_ok
+
+
+def _propose_body(state: EngineState, propose: torch.Tensor,
+                  new_view: torch.Tensor, vsn: torch.Tensor,
+                  up: torch.Tensor, quorum
+                  ) -> Tuple[EngineState, torch.Tensor]:
+    """The install as new tensors (engine.py:1281-1328): cons
+    ``new_view`` onto the views list where the commit gate holds in
+    every current view, ``vsn > pend_vsn``, the view is non-empty and
+    the list's last slot is free."""
+    heard, commit_ok = _reconfig_gate(state, up, quorum)
+    tail_used = state.view_mask[:, -1, :].any(-1)
+    install = (propose & commit_ok & new_view.any(-1) & ~tail_used
+               & (vsn > state.pend_vsn))
+    shifted = torch.cat([new_view[:, None, :], state.view_mask[:, :-1, :]],
+                        dim=1)
+    bump = install[:, None] & heard
+    return state._replace(
+        view_mask=torch.where(install[:, None, None], shifted,
+                              state.view_mask),
+        view_vsn=torch.where(install, state.view_vsn + 1, state.view_vsn),
+        pend_vsn=torch.where(install, vsn, state.pend_vsn),
+        fact_seq=torch.where(bump, state.fact_seq + 1, state.fact_seq),
+    ), install
+
+
+def _transition_body(state: EngineState, run: torch.Tensor,
+                     up: torch.Tensor, quorum
+                     ) -> Tuple[EngineState, torch.Tensor]:
+    """The collapse as new tensors (engine.py:1331-1357): a joint
+    ensemble in ``run`` whose commit gate holds in every view keeps only
+    its head view and records ``commit_vsn = pend_vsn``."""
+    heard, commit_ok = _reconfig_gate(state, up, quorum)
+    collapse = run & state.view_mask[:, 1:, :].any(-1).any(-1) & commit_ok
+    head_only = torch.cat([state.view_mask[:, :1, :],
+                           torch.zeros_like(state.view_mask[:, 1:, :])],
+                          dim=1)
+    bump = collapse[:, None] & heard
+    return state._replace(
+        view_mask=torch.where(collapse[:, None, None], head_only,
+                              state.view_mask),
+        view_vsn=torch.where(collapse, state.view_vsn + 1, state.view_vsn),
+        commit_vsn=torch.where(collapse, state.pend_vsn, state.commit_vsn),
+        fact_seq=torch.where(bump, state.fact_seq + 1, state.fact_seq),
+    ), collapse
+
+
+_RECONFIG_PLANES = ("view_mask", "view_vsn", "pend_vsn", "commit_vsn",
+                    "fact_seq")
+
+
+def _stepped(state: EngineState, new: EngineState) -> EngineState:
+    """A CUDA state takes the reconfig's planes IN PLACE, as F1 steps
+    its planes (the donated contract); a CPU state gets the new
+    tensors, so the caller's snapshot of the old ones stays valid."""
+    if state.epoch.device.type == "cpu":
+        return new
+    for name in _RECONFIG_PLANES:
+        getattr(state, name).copy_(getattr(new, name))
+    return state
+
+
+def reconfig_propose(state: EngineState, propose: torch.Tensor,
+                     new_view: torch.Tensor, vsn: torch.Tensor,
+                     up: torch.Tensor) -> Tuple[EngineState, torch.Tensor]:
+    """Batched ``update_members`` + ``maybe_change_views``
+    (engine.py:1281-1328, peer.erl:655-672, 1115-1135): propose [E]
+    bool, new_view [E, Ml] bool, vsn [E] int32 (the pending change's
+    version), up [E, Ml] bool.  Installs where a commit quorum holds in
+    every current view (K1 on CUDA), ``vsn > pend_vsn``, the view is
+    non-empty and the list has a free slot: views = [new | views],
+    ``view_vsn`` bumps, ``pend_vsn`` adopts ``vsn``, ``fact_seq`` bumps
+    on the replicas that heard it.  Returns (state', installed [E])."""
+    new, install = _propose_body(state, propose, new_view, vsn, up,
+                                 _quorum_met)
+    return _stepped(state, new), install
+
+
+def reconfig_transition(state: EngineState, run: torch.Tensor,
+                        up: torch.Tensor
+                        ) -> Tuple[EngineState, torch.Tensor]:
+    """Batched ``maybe_transition`` / ``transition`` (engine.py:
+    1331-1357, peer.erl:751-774): a joint ensemble in ``run`` with a
+    commit quorum in EVERY view (K1 on CUDA) collapses to its head view
+    and records ``commit_vsn = pend_vsn``.  Returns (state',
+    collapsed [E])."""
+    new, collapse = _transition_body(state, run, up, _quorum_met)
+    return _stepped(state, new), collapse
+
+
+def reconfig_step(state: EngineState, propose: torch.Tensor,
+                  new_view: torch.Tensor, up: torch.Tensor
+                  ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
+    """One reconfig phase per ensemble (engine.py:1360-1384):
+    ensembles in ``propose`` cons ``new_view`` at version
+    ``pend_vsn + 1``, the rest transition if joint and able.  Two
+    launches of the gate's reduce, so K1 runs twice on CUDA; a CUDA
+    state is stepped in place.  Returns (state', installed [E],
+    collapsed [E])."""
+    state, installed = reconfig_propose(state, propose, new_view,
+                                        state.pend_vsn + 1, up)
+    state, collapsed = reconfig_transition(state, ~propose, up)
+    return state, installed, collapsed
+
+
+def reconfig_step_plain(state: EngineState, propose: torch.Tensor,
+                        new_view: torch.Tensor, up: torch.Tensor
+                        ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
+    """:func:`reconfig_step` through K1's plain version, as new tensors
+    on any device: the oracle :func:`reconfig_step` is held against."""
+    state, installed = _propose_body(state, propose, new_view,
+                                     state.pend_vsn + 1, up,
+                                     _quorum_met_plain)
+    state, collapsed = _transition_body(state, ~propose, up,
+                                        _quorum_met_plain)
+    return state, installed, collapsed

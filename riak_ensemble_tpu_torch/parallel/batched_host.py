@@ -71,14 +71,28 @@ leaves it as the failure left it.  Every launch and exchange runs through
 ``engine`` (:class:`_LocalEngine` by default), the seam the tests inject
 launch failures through.
 
+The timer: with ``tick`` (the reference's default 0.005 s) the service
+flushes itself on its runtime's clock — every ``tick`` seconds, and on
+the next runtime turn once a queue reaches a full launch's depth (the
+burst trigger); ``tick=None`` leaves every flush to the caller, the only
+mode :class:`WallRuntime` supports.  Leader watchers
+(:meth:`BatchedEnsembleService.watch_leader`) hear every leader change a
+launch or a membership change makes.
+
+Membership: :meth:`BatchedEnsembleService.update_members` changes views
+by joint consensus in two reconfig launches of their own
+(:func:`engine.reconfig_step`, whose gate is K1 on CUDA), and with
+``dynamic=True`` rows are created, destroyed and recycled under names
+(:meth:`BatchedEnsembleService.create_ensemble`).  Both reach the WAL as
+``("mem", row)`` records.
+
 It implements the reference service with ``RETPU_OBS=0``,
-``RETPU_RESOLVE_SHARDS=1`` and no ``RETPU_WIDE``, a static row set
-(``dynamic=False``) and a caller-driven flush (``tick=None``).  It reads
-no environment variables except the storage-fault knobs of
+``RETPU_RESOLVE_SHARDS=1`` and no ``RETPU_WIDE``.  It reads no
+environment variables except the storage-fault knobs of
 :mod:`..faults`: the reference's ``RETPU_FAST_READS`` is
 :meth:`BatchedEnsembleService.set_fast_reads`, its ``RETPU_COMM_REPL`` the
 ``comm_repl`` argument and its ``RETPU_COMPACT`` the ``compact`` argument.
-Wide rounds, membership and the timer are later slices.
+Wide rounds, obs and ``install_objs`` are later slices.
 """
 
 from __future__ import annotations
@@ -222,6 +236,7 @@ class _LocalEngine:
     verify_trees = staticmethod(eng.verify_trees)
     rebuild_trees = staticmethod(eng.rebuild_trees)
     reset_rows = staticmethod(eng.reset_rows)
+    reconfig_step = staticmethod(eng.reconfig_step)
 
 
 def _device_planes(device: torch.device, kind, slot, val, exp_epoch,
@@ -284,6 +299,9 @@ class _InFlightLaunch:
     #: the rollback snapshot (CPU launches only; None = donated): the
     #: pre-launch state, leader mirror and leases
     snapshot: Any = None
+    #: the leader mirror at enqueue: watchers hear the settle's changes
+    #: against it
+    leader_snapshot: Any = None
 
 
 class _Uploads:
@@ -341,20 +359,11 @@ class _Uploads:
         self._events[self._cur_i] = event
 
 
-def _refuse_dynamic(meta: Dict[str, Any], path: str) -> None:
-    """The port has no dynamic rows: a data dir the reference wrote with
-    ``dynamic=True`` needs ROADMAP Queue 1 item 6 (dynamic rows and
-    membership)."""
-    if meta.get("dynamic"):
-        raise NotImplementedError(
-            f"{path} holds a dynamic-row service; dynamic rows and "
-            f"membership are not ported yet (ROADMAP Queue 1 item 6)")
-
-
 class WallRuntime:
     """Minimal real-time runtime for driving the service outside a
     simulator: ``now`` is the monotonic clock.  It has no event loop,
-    so the caller drives ``flush()``."""
+    so it only serves caller-driven services: construct the service with
+    ``tick=None`` and call ``flush()``."""
 
     @property
     def now(self) -> float:
@@ -455,9 +464,14 @@ class BatchedEnsembleService:
     """N engine-backed ensembles behind a put/get API.
 
     ``n_slots`` bounds live keys per ensemble (slots are recycled when
-    keys are deleted).  The caller drives :meth:`flush` (``tick`` must
-    be None: the timer-driven mode needs an event-loop runtime, which
-    this package does not have yet).  The engine state lives on
+    keys are deleted).  ``tick`` is the flush cadence on the runtime's
+    clock (lower = lower latency, higher = bigger batches), and a queue
+    that reaches ``max_ops_per_tick`` rounds flushes on the next runtime
+    turn; ``tick=None`` disables the timer and the caller drives
+    :meth:`flush` (the only mode :class:`WallRuntime` serves).
+    ``dynamic=True`` starts with every row free: :meth:`create_ensemble`
+    and :meth:`destroy_ensemble` manage named rows, and ops on a free
+    row fail.  The engine state lives on
     ``device`` — CUDA unless ``device="cpu"``.  Lease-protected fast
     reads are on when ``config.trust_lease`` (:meth:`set_fast_reads`
     turns them off).  ``comm_repl`` gates :meth:`kmodify_many`'s
@@ -495,7 +509,7 @@ class BatchedEnsembleService:
     """
 
     def __init__(self, runtime: Any, n_ens: int, n_peers: int,
-                 n_slots: int = 128, tick: Optional[float] = None,
+                 n_slots: int = 128, tick: Optional[float] = 0.005,
                  max_ops_per_tick: int = 64,
                  config: Optional[Config] = None,
                  device: DeviceLike = None,
@@ -509,14 +523,12 @@ class BatchedEnsembleService:
                  engine: Optional[Any] = None,
                  data_dir: Optional[str] = None,
                  wal_sync: str = "fsync",
-                 wal_compact_records: int = 1 << 18) -> None:
-        if tick is not None:
-            raise NotImplementedError(
-                "timer-driven flushing is not ported; pass tick=None "
-                "and call flush()")
+                 wal_compact_records: int = 1 << 18,
+                 dynamic: bool = False) -> None:
         self.runtime = runtime
         self.config = config if config is not None else Config()
         self.n_ens, self.n_peers, self.n_slots = n_ens, n_peers, n_slots
+        self.tick = tick
         self.max_k = max_ops_per_tick
         self.device = resolve_device(device)
         self.engine = engine if engine is not None else _LocalEngine()
@@ -530,10 +542,47 @@ class BatchedEnsembleService:
         self.up = np.ones((n_ens, n_peers), dtype=bool)
         self._up_dev: Optional[torch.Tensor] = None  # see _up_device
         #: host mirrors of device ballot state (leader changes only via
-        #: elections THIS host requested) — election planning costs
-        #: zero device round trips
+        #: elections THIS host requested, membership only via reconfigs
+        #: it issued) — election planning costs zero device round trips
         self.leader_np = np.full((n_ens,), -1, dtype=np.int32)
         self.member_np = np.ones((n_ens, n_peers), dtype=bool)
+        #: the membership-change pipeline (batched_host.py:775-786): a
+        #: requested change is QUEUED while an earlier one is still
+        #: joint on the device, DESIRED until its joint view installs,
+        #: PENDING until the joint view collapses, then live in
+        #: ``member_np``
+        self._queued_view_np = np.ones((n_ens, n_peers), dtype=bool)
+        self._queued_mask = np.zeros((n_ens,), dtype=bool)
+        self._desired_view_np = np.ones((n_ens, n_peers), dtype=bool)
+        self._desired_mask = np.zeros((n_ens,), dtype=bool)
+        self._pending_view_np = np.ones((n_ens, n_peers), dtype=bool)
+        self._pending_mask = np.zeros((n_ens,), dtype=bool)
+        #: won elections per row (reset when the row is recycled)
+        self.elections_np = np.zeros((n_ens,), dtype=np.int64)
+        #: dynamic rows (batched_host.py:929-945): a named ensemble maps
+        #: to a physical row; ``dynamic=True`` starts with every row
+        #: free (no members, no elections), rows popped from the end of
+        #: ``_free_rows``
+        self.dynamic = dynamic
+        self._live = np.full((n_ens,), not dynamic, dtype=bool)
+        self._free_rows: List[int] = (
+            list(range(n_ens - 1, -1, -1)) if dynamic else [])
+        self._ens_names: Dict[Any, int] = {}
+        self._row_name: Dict[int, Any] = {}
+        if dynamic:
+            self.member_np[:] = False
+            self.state = self.engine.reset_rows(
+                self.state,
+                torch.ones((n_ens,), dtype=torch.bool, device=self.device),
+                torch.zeros((n_ens, n_peers), dtype=torch.bool,
+                            device=self.device))
+        #: leader-status watchers per ensemble (watch_leader), and the
+        #: watcher exceptions contained by _safe_notify
+        self._leader_watchers: Dict[int, List[Any]] = {}
+        self.watcher_errors = 0
+        #: the timer and the burst trigger's queued flush (_maybe_kick)
+        self._timer: Optional[Timer] = None
+        self._kick_pending = False
         #: per-ensemble key→slot and free slots
         self.key_slot: List[Dict[Any, int]] = [dict() for _ in range(n_ens)]
         self.free_slots: List[List[int]] = [
@@ -706,16 +755,14 @@ class BatchedEnsembleService:
         if data_dir is not None:
             os.makedirs(data_dir, exist_ok=True)
             meta_path = os.path.join(data_dir, "META")
-            raw = savelib.read(meta_path)
-            if raw is None:
+            if savelib.read(meta_path) is None:
                 savelib.write(meta_path, pickle.dumps(
-                    {"shape": (n_ens, n_peers, n_slots), "dynamic": False,
+                    {"shape": (n_ens, n_peers, n_slots), "dynamic": dynamic,
                      "hash_format": hashk.HASH_FORMAT}, protocol=4))
-            else:
-                _refuse_dynamic(pickle.loads(raw), data_dir)
             self._wal = ServiceWAL.open_gen(
                 data_dir, self._current_ckpt(data_dir), wal_sync,
                 native=self._wal_native)
+        self._schedule()
 
     @property
     def grid_occupancy(self) -> float:
@@ -735,12 +782,127 @@ class BatchedEnsembleService:
             self._uploads = _Uploads(self.device, depth + 1)
         return old
 
+    # -- dynamic ensemble lifecycle ----------------------------------------
+
+    def create_ensemble(self, name: Any,
+                        view: Optional[np.ndarray] = None
+                        ) -> Optional[int]:
+        """Create a named ensemble on a free row (batched_host.py:
+        1226-1264, manager.erl:157-166): reset the row on the device
+        (objects, trees, leader cleared; the ballot epoch stays
+        monotone), install ``view`` (default all peers) and register the
+        name.  Returns the row, or None when the name is taken or no row
+        is free.  In-flight launches settle first."""
+        assert self.dynamic, "construct with dynamic=True"
+        self._drain_launches()
+        if name in self._ens_names or not self._free_rows:
+            return None
+        row = self._free_rows.pop()
+        view = (np.ones((self.n_peers,), bool) if view is None
+                else np.asarray(view, bool))
+        assert view.any(), "an ensemble needs at least one member"
+        mask = np.zeros((self.n_ens,), bool)
+        mask[row] = True
+        view_e = np.zeros((self.n_ens, self.n_peers), bool)
+        view_e[row] = view
+        self.state = self.engine.reset_rows(
+            self.state, torch.from_numpy(mask).to(self.device),
+            torch.from_numpy(view_e).to(self.device))
+        self.member_np[row] = view
+        self._live[row] = True
+        self.leader_np[row] = -1
+        self.lease_until[row] = 0.0
+        self._ens_names[name] = row
+        self._row_name[row] = name
+        self._reset_row_host(row)
+        if self._wal is not None:
+            self._wal.log([(("mem", row), (name, view.tolist()))])
+        return row
+
+    def destroy_ensemble(self, name: Any) -> bool:
+        """Tear down a named ensemble and recycle its row
+        (batched_host.py:1266-1311): queued ops and parked retries fail,
+        payloads release, the device row is wiped and the row returns to
+        the free pool; with a WAL the row's membership record empties
+        and its ``kv`` records are deleted.  False for an unknown name.
+        In-flight launches settle first."""
+        assert self.dynamic, "construct with dynamic=True"
+        self._drain_launches()
+        row = self._ens_names.pop(name, None)
+        if row is None:
+            return False
+        del self._row_name[row]
+        for op in self.queues[row]:
+            self._fail_entry(row, op)
+        self.queues[row] = []
+        self._queue_rounds[row] = 0
+        self._active.discard(row)
+        self._purge_retries(row)
+        mask = np.zeros((self.n_ens,), bool)
+        mask[row] = True
+        self.state = self.engine.reset_rows(
+            self.state, torch.from_numpy(mask).to(self.device),
+            torch.zeros((self.n_ens, self.n_peers), dtype=torch.bool,
+                        device=self.device))
+        self.member_np[row] = False
+        self._live[row] = False
+        self.leader_np[row] = -1
+        self.lease_until[row] = 0.0
+        self._reset_row_host(row)
+        self._free_rows.append(row)
+        if self._wal is not None:
+            # the dead tenant's kv records must not replay into the
+            # recycled row
+            self._wal.log([(("mem", row), (None, [False] * self.n_peers))])
+            self._wal.delete([("kv", row, s) for s in range(self.n_slots)])
+        return True
+
+    def resolve_ensemble(self, name: Any) -> Optional[int]:
+        """Name → row (the manager's directory read)."""
+        return self._ens_names.get(name)
+
+    def _reset_row_host(self, row: int) -> None:
+        """Clear a row's keyed-store mirrors, releasing its payloads, and
+        the per-row control state a recycled tenant must not inherit
+        (batched_host.py:1318-1363): the fast-read and inline slabs, the
+        queued-write counts, the membership pipeline, the watchers and
+        the failure-detector marks.  The reference's tenant ledgers and
+        labelled obs series are cleared here too; they come with obs."""
+        for h in self.slot_handle[row].values():
+            self._release_handle(h)
+        self.key_slot[row] = {}
+        self.free_slots[row] = list(range(self.n_slots))
+        self.slot_gen[row] = {}
+        self.slot_handle[row] = {}
+        self._inline_slots[row] = set()
+        self._inline_np[row] = False
+        self._queued_handle_writes[row] = [0] * self.n_slots
+        self._recycle_pending[row] = []
+        self._slot_vsn_ok[row] = False
+        self._inline_value_ok[row] = False
+        self._pending_writes[row] = [0] * self.n_slots
+        self._corrupt_rows[row] = False
+        self.elections_np[row] = 0
+        self._leader_watchers.pop(row, None)
+        self._desired_mask[row] = False
+        self._queued_mask[row] = False
+        self._pending_mask[row] = False
+        self.up[row] = True
+        self._up_dev = None
+
+    def _dead(self, ens: int) -> bool:
+        """Ops addressed to a free or destroyed row fail fast."""
+        return self.dynamic and not self._live[ens]
+
     # -- client API --------------------------------------------------------
 
     def kput(self, ens: int, key: Any, value: Any) -> Future:
         """Quorum-replicated write; resolves ('ok', vsn) or 'failed'
         (no slot / no quorum this flush)."""
         fut = Future()
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         slot = self._slot_for(ens, key, allocate=True)
         if slot is None:
             fut.resolve("failed")
@@ -766,8 +928,8 @@ class BatchedEnsembleService:
         if n != len(values):
             raise ValueError(
                 f"kput_many: {n} keys vs {len(values)} values")
-        if n == 0:
-            fut.resolve([])
+        if self._dead(ens) or n == 0:
+            fut.resolve(["failed"] * n)
             return fut
         accum = _BatchAccum(n)
         slot_l: List[int] = []
@@ -808,6 +970,115 @@ class BatchedEnsembleService:
                 gen_l, accum=accum, n=m))
         return fut
 
+    def kupdate_many(self, ens: int, keys: List[Any],
+                     expected_vsns: List[Tuple[int, int]],
+                     values: List[Any]) -> Future:
+        """Vectorized CAS batch (the kupdate / kput_once semantics per
+        key, batched_host.py:1467-1530): commit ``values[i]`` iff
+        ``keys[i]``'s current version equals ``expected_vsns[i]``
+        ((0, 0) = create-if-missing).  One future, per-key
+        ('ok', new_vsn) | 'failed' in key order."""
+        fut = Future()
+        n = len(keys)
+        if n != len(values) or n != len(expected_vsns):
+            raise ValueError(
+                f"kupdate_many: {n} keys vs {len(expected_vsns)} vsns "
+                f"vs {len(values)} values")
+        if self._dead(ens) or n == 0:
+            fut.resolve(["failed"] * n)
+            return fut
+        accum = _BatchAccum(n)
+        slot: List[int] = []
+        pos: List[int] = []
+        exp_e: List[int] = []
+        exp_s: List[int] = []
+        live_keys: List[Any] = []
+        miss_pos: List[int] = []
+        ks = self.key_slot[ens]
+        fs = self.free_slots[ens]
+        for i, (key, vsn) in enumerate(zip(keys, expected_vsns)):
+            s = ks.get(key)
+            if s is None:
+                if not fs:
+                    miss_pos.append(i)
+                    continue
+                s = fs.pop()
+                ks[key] = s
+            slot.append(s)
+            pos.append(i)
+            exp_e.append(int(vsn[0]))
+            exp_s.append(int(vsn[1]))
+            live_keys.append(key)
+        m = len(slot)
+        handle = self._alloc_handles(m)
+        self.values.update(zip(handle, (values[i] for i in pos)))
+        sg = self.slot_gen[ens]
+        gen: List[int] = []
+        for s in slot:
+            g = sg.get(s, 0) + 1
+            sg[s] = g
+            gen.append(g)
+        qh = self._queued_handle_writes[ens]
+        for s in slot:
+            qh[s] += 1
+        if miss_pos:
+            accum.fill(fut, miss_pos, ["failed"] * len(miss_pos),
+                       self._safe_resolve)
+        if live_keys:
+            self._push(ens, _PendingBatch(
+                eng.OP_CAS, slot, handle, fut, pos, live_keys, gen,
+                exp_e, exp_s, accum, n=m))
+        return fut
+
+    def kdelete_many(self, ens: int, keys: List[Any]) -> Future:
+        """Vectorized tombstone writes (batched_host.py:1532-1582): one
+        future, per-key ('ok', vsn) | ('ok', NOTFOUND) (no such key) |
+        'failed' in key order.  Committed slots recycle like a scalar
+        :meth:`kdelete`."""
+        fut = Future()
+        n = len(keys)
+        if self._dead(ens) or n == 0:
+            fut.resolve(["failed"] * n)
+            return fut
+        accum = _BatchAccum(n)
+        slot: List[int] = []
+        gen: List[int] = []
+        pos: List[int] = []
+        live_keys: List[Any] = []
+        miss_pos: List[int] = []
+        sg = self.slot_gen[ens]
+        ks = self.key_slot[ens]
+        for i, key in enumerate(keys):
+            s = ks.get(key)
+            if s is None:
+                miss_pos.append(i)
+                continue
+            slot.append(s)
+            pos.append(i)
+            gen.append(sg.get(s, 0))
+            live_keys.append(key)
+        if miss_pos:
+            accum.fill(fut, miss_pos, [("ok", NOTFOUND)] * len(miss_pos),
+                       self._safe_resolve)
+        if live_keys:
+            m = len(live_keys)
+            self._push(ens, _PendingBatch(
+                eng.OP_PUT, slot, [0] * m, fut, pos, live_keys, gen,
+                accum=accum, n=m))
+            # a deferred recycle per committed tombstone, keyed off the
+            # batch's result list (the _recycle_on_ok discipline)
+            keyslots = list(zip(live_keys, slot, gen, pos))
+
+            def recycle(results):
+                if not isinstance(results, list):
+                    return
+                for key, s, g, p in keyslots:
+                    r = results[p]
+                    if isinstance(r, tuple) and r[0] == "ok":
+                        self._queue_recycle(ens, (key, s, g))
+            fut.add_waiter(recycle)
+        return fut
+
     def kget_many(self, ens: int, keys: List[Any],
                   want_vsn: bool = False) -> Future:
         """Vectorized keyed reads: one future resolving to a list of
@@ -818,8 +1089,8 @@ class BatchedEnsembleService:
         serves."""
         fut = Future()
         n = len(keys)
-        if n == 0:
-            fut.resolve([])
+        if self._dead(ens) or n == 0:
+            fut.resolve(["failed"] * n)
             return fut
         accum = _BatchAccum(n)
         slot_l: List[int] = []
@@ -866,6 +1137,9 @@ class BatchedEnsembleService:
         device round — while the fast path's conditions hold;
         otherwise the read rides an ``OP_GET`` round."""
         fut = Future()
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         slot = self._slot_for(ens, key, allocate=False)
         if slot is None:
             fut.resolve(("ok", NOTFOUND))
@@ -883,6 +1157,9 @@ class BatchedEnsembleService:
         :meth:`ksafe_delete` CAS needs.  An absent key reads as
         ('ok', NOTFOUND, (0, 0)).  Fast-path served like :meth:`kget`."""
         fut = Future()
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         slot = self._slot_for(ens, key, allocate=False)
         if slot is None:
             fut.resolve(("ok", NOTFOUND, (0, 0)))
@@ -902,6 +1179,9 @@ class BatchedEnsembleService:
         (0, 0) on an absent key is create-if-missing.  Resolves
         ('ok', new_vsn) or 'failed'."""
         fut = Future()
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         slot = self._slot_for(ens, key, allocate=True)
         if slot is None:
             fut.resolve("failed")
@@ -928,6 +1208,9 @@ class BatchedEnsembleService:
         or no such key); the slot recycles once the tombstone
         commits."""
         fut = Future()
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         slot = self._slot_for(ens, key, allocate=False)
         if slot is None:
             fut.resolve("failed")  # nothing at this key to guard
@@ -942,6 +1225,9 @@ class BatchedEnsembleService:
     def kdelete(self, ens: int, key: Any) -> Future:
         """Tombstone write (slot recycled once committed)."""
         fut = Future()
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         slot = self._slot_for(ens, key, allocate=False)
         if slot is None:
             fut.resolve(("ok", NOTFOUND))
@@ -986,6 +1272,9 @@ class BatchedEnsembleService:
         except ValueError:
             fut.resolve("failed")
             return fut
+        if self._dead(ens):
+            fut.resolve("failed")
+            return fut
         dev = funref.device_entry(mod_fun)
         if dev is not None and funref.is_int32(default) \
                 and int(default) == 0:
@@ -1011,7 +1300,8 @@ class BatchedEnsembleService:
                         if fut.done:
                             return
                         if (isinstance(r, tuple) and r[0] == "ok") \
-                                or tries_left <= 1:
+                                or tries_left <= 1 \
+                                or self._dead(ens):
                             self._safe_resolve(fut, r)
                             return
                         if (dev[0] == funref.RMW_PIA
@@ -1079,10 +1369,10 @@ class BatchedEnsembleService:
                         return
                     if isinstance(r, tuple) and r[0] == "ok":
                         self._safe_resolve(fut, r)
-                    elif tries_left > 1:
+                    elif tries_left > 1 and not self._dead(ens):
                         # retried CAS losses: write races plus
                         # transient quorum failures (indistinguishable
-                        # from 'failed')
+                        # from 'failed'); a destroyed row stops retrying
                         self.rmw_conflicts += 1
                         self._retry_later(
                             ens, fut, conflicts,
@@ -1115,8 +1405,8 @@ class BatchedEnsembleService:
         fold."""
         fut = Future()
         n = len(keys)
-        if n == 0:
-            fut.resolve([])
+        if self._dead(ens) or n == 0:
+            fut.resolve(["failed"] * n)
             return fut
         accum = _BatchAccum(n)
         dev = funref.device_entry(mod_fun)
@@ -1205,7 +1495,7 @@ class BatchedEnsembleService:
                     return
                 for mb, key, r in zip(members, live_keys, results):
                     if (isinstance(r, tuple) and r[0] == "ok") \
-                            or retries <= 1:
+                            or retries <= 1 or self._dead(ens):
                         accum.fill(fut, mb, [r] * len(mb),
                                    self._safe_resolve)
                     else:
@@ -1380,6 +1670,19 @@ class BatchedEnsembleService:
         for thunk in due:
             thunk()
 
+    def _purge_retries(self, ens: int) -> None:
+        """Fail and drop parked retries addressed to a destroyed row
+        (batched_host.py:2476-2487): a thunk firing after the row is
+        recycled would run the dead tenant's mod-fun against the new
+        tenant."""
+        keep: List[Tuple[int, int, Future, Any]] = []
+        for at, e, fut, thunk in self._retry_at:
+            if e == ens:
+                self._safe_resolve(fut, "failed")
+            else:
+                keep.append((at, e, fut, thunk))
+        self._retry_at = keep
+
     def _fire_idle_retries(self) -> None:
         """At the end of a flush that left nothing queued, fire every
         parked retry now: with no concurrent writer left the backoff is
@@ -1409,6 +1712,195 @@ class BatchedEnsembleService:
         """Failure-detector input (the host's nodedown/suspend signal)."""
         self.up[ens, peer] = up
         self._up_dev = None
+
+    # -- leader watchers ----------------------------------------------------
+
+    def watch_leader(self, ens: int, fn) -> None:
+        """Leader-status watcher for one ensemble (batched_host.py:
+        2515-2525, peer.erl:212-218): ``fn(ens, old_leader, new_leader)``
+        fires at once with the current status (old == new) and then after
+        any launch or membership change that moved the leader (-1 =
+        none).  A raising watcher is contained; remove it with
+        :meth:`unwatch_leader`."""
+        self._leader_watchers.setdefault(ens, []).append(fn)
+        cur = int(self.leader_np[ens])
+        self._safe_notify(fn, ens, cur, cur)
+
+    def unwatch_leader(self, ens: int, fn) -> bool:
+        """Deregister a leader watcher (stop_watching); True iff it was
+        registered."""
+        fns = self._leader_watchers.get(ens)
+        if fns is None or fn not in fns:
+            return False
+        fns.remove(fn)
+        if not fns:
+            del self._leader_watchers[ens]
+        return True
+
+    def _safe_notify(self, fn, *args) -> None:
+        """Run a watcher, containing its exception: counted in
+        ``watcher_errors`` and logged (the reference's trace event waits
+        for obs)."""
+        try:
+            fn(*args)
+        except Exception:
+            self.watcher_errors += 1
+            log.exception("leader watcher raised")
+
+    def _notify_leader_changes(self, old: np.ndarray) -> None:
+        """Tell the watchers of every row whose leader moved from
+        ``old`` (batched_host.py:2549-2557)."""
+        if not self._leader_watchers:
+            return
+        changed = np.nonzero(old != self.leader_np)[0]
+        for e in changed.tolist():
+            # a snapshot: a watcher may watch or unwatch from its callback
+            for fn in list(self._leader_watchers.get(e, ())):
+                self._safe_notify(fn, e, int(old[e]),
+                                  int(self.leader_np[e]))
+
+    # -- membership ---------------------------------------------------------
+
+    def update_members(self, sel: np.ndarray,
+                       new_view: np.ndarray) -> np.ndarray:
+        """Batched joint-consensus membership change for the ensembles in
+        ``sel [E]`` to ``new_view [E, M]`` (batched_host.py:2571-2698,
+        peer.erl:655-672, 751-774): one reconfig launch installs the
+        joint view where a live leader's commit quorum holds (and
+        collapses views left joint by earlier calls), and, only when
+        something was proposed, a second launch collapses the fresh
+        installs.  Each launch runs the gate's quorum twice (K1 on CUDA)
+        and its results come back to the host at once.
+
+        Returns ``changed [E]``: ensembles whose membership reached its
+        in-flight view during this call.  A change that cannot commit
+        yet stays in flight and every later call advances it (an
+        all-False ``sel`` is a pure retry); a request for an ensemble
+        still joint on the device is queued behind that change.  A
+        leader that left its membership (or is down) is deposed, and the
+        next flush elects; watchers hear it.  With a WAL the changed rows
+        are logged before the call returns.  In-flight launches settle
+        first.  On the CPU a failed launch restores the state; on CUDA
+        the reconfig steps the state in place (the donated contract)."""
+        self._drain_launches()
+        sel = np.asarray(sel, bool)
+        if self.dynamic:
+            sel = sel & self._live  # free rows have no membership
+        new_view = np.asarray(new_view, bool)
+        # an ensemble already joint on the device keeps its in-flight
+        # view until that collapses; the new request waits, queued
+        accept = sel & ~self._pending_mask
+        defer = sel & self._pending_mask
+        self._desired_view_np = np.where(accept[:, None], new_view,
+                                         self._desired_view_np)
+        self._desired_mask = self._desired_mask | accept
+        self._queued_view_np = np.where(defer[:, None], new_view,
+                                        self._queued_view_np)
+        self._queued_mask = self._queued_mask | defer
+        dev = self.device
+        up_j = self._up_device()
+        # proposing is leader work: only ensembles with a live leader
+        # install; leaderless ones keep the change desired
+        idx = np.arange(self.n_ens)
+        leader = self.leader_np
+        leader_ok = np.zeros((self.n_ens,), bool)
+        has = leader >= 0
+        leader_ok[has] = self.up[idx[has], leader[has]]
+        propose = self._desired_mask & ~self._pending_mask & leader_ok
+        dv_j = torch.from_numpy(self._desired_view_np).to(dev)
+        snapshot = self.state
+        try:
+            state, installed, collapsed1 = self.engine.reconfig_step(
+                self.state, torch.from_numpy(propose).to(dev), dv_j, up_j)
+            if propose.any():
+                state, _, collapsed2 = self.engine.reconfig_step(
+                    state, torch.zeros((self.n_ens,), dtype=torch.bool,
+                                       device=dev), dv_j, up_j)
+                collapsed2 = collapsed2.cpu().numpy()
+            else:
+                collapsed2 = np.zeros((self.n_ens,), bool)
+            self.state = state
+            installed_now = propose & installed.cpu().numpy()
+            collapsed1 = collapsed1.cpu().numpy()
+        except BaseException:
+            # a CPU reconfig makes new planes, so the request stays
+            # desired and a later call retries cleanly; a CUDA one steps
+            # the planes in place and the snapshot is that same state
+            self.state = snapshot
+            raise
+        # collapses land in either launch: views left joint by earlier
+        # calls in the first, fresh installs in the second
+        collapsed = collapsed1 | collapsed2
+        self._pending_view_np = np.where(installed_now[:, None],
+                                         self._desired_view_np,
+                                         self._pending_view_np)
+        self._pending_mask = self._pending_mask | installed_now
+        self._desired_mask = self._desired_mask & ~installed_now
+        changed = self._pending_mask & collapsed
+        self.member_np = np.where(changed[:, None],
+                                  self._pending_view_np, self.member_np)
+        self._pending_mask = self._pending_mask & ~changed
+        promote = self._queued_mask & changed
+        self._desired_view_np = np.where(promote[:, None],
+                                         self._queued_view_np,
+                                         self._desired_view_np)
+        self._desired_mask = self._desired_mask | promote
+        self._queued_mask = self._queued_mask & ~promote
+        # a leader no longer in (or not up in) its membership forces an
+        # election on the next flush
+        still_ok = np.zeros((self.n_ens,), bool)
+        still_ok[has] = self.member_np[idx[has], leader[has]] & \
+            self.up[idx[has], leader[has]]
+        dropped = changed & has & ~still_ok
+        self.leader_np = np.where(dropped, -1, leader)
+        self.lease_until[dropped] = 0.0
+        self._notify_leader_changes(leader)
+        # committed membership rows persist before the caller sees them
+        if self._wal is not None and changed.any():
+            self._wal.log([(("mem", int(e)),
+                            (self._row_name.get(int(e)),
+                             self.member_np[e].tolist()))
+                           for e in np.nonzero(changed)[0]])
+        return changed
+
+    # -- the timer ----------------------------------------------------------
+
+    def stop(self) -> None:
+        """Cancel the timer (batched_host.py:2700-2707)."""
+        if self._timer is not None:
+            self._timer.cancel()
+            self._timer = None
+
+    def _maybe_kick(self, ens: int) -> None:
+        """The burst trigger (batched_host.py:3237-3261): a queue that
+        just reached a full launch's depth flushes on the next runtime
+        turn (deferred, never inside the enqueue) instead of waiting for
+        the tick; the kick re-arms while queues stay non-empty, so a
+        deeper burst drains whole.  Timer-driven services only."""
+        if self.tick is None or self._kick_pending:
+            return
+        if self._queue_rounds[ens] < self.max_k:
+            return
+        self._kick_pending = True
+
+        def kick() -> None:
+            self._kick_pending = False
+            self.flush()
+            if self._active:
+                self._kick_pending = True
+                self.runtime.defer(kick)
+        self.runtime.defer(kick)
+
+    def _schedule(self) -> None:
+        if self.tick is None:
+            return
+        self._timer = self.runtime.schedule(self.tick, self._on_tick)
+
+    def _on_tick(self) -> None:
+        try:
+            self.flush()
+        finally:
+            self._schedule()
 
     def execute(self, kind: np.ndarray, slot: np.ndarray,
                 val: np.ndarray,
@@ -1806,9 +2298,10 @@ class BatchedEnsembleService:
                 self._recycle_dirty.add(e)
 
     def _push(self, ens: int, op) -> None:
-        """Enqueue one entry.  Writes register in the per-slot
-        pending-write index here — the one choke point every keyed
-        write passes — and deregister when they resolve or fail."""
+        """Enqueue one entry and arm the burst trigger.  Writes register
+        in the per-slot pending-write index here — the one choke point
+        every keyed write passes — and deregister when they resolve or
+        fail."""
         if op.kind != eng.OP_GET:
             if isinstance(op, _PendingBatch):
                 pw = self._pending_writes[ens]
@@ -1825,6 +2318,7 @@ class BatchedEnsembleService:
         self.queues[ens].append(op)
         self._queue_rounds[ens] += op.n
         self._active.add(ens)
+        self._maybe_kick(ens)
 
     def _queue_recycle(self, ens: int, item: Tuple[Any, int, int]) -> None:
         self._recycle_pending[ens].append(item)
@@ -2009,7 +2503,7 @@ class BatchedEnsembleService:
             kind_np=kind if host_planes else None,
             op_slot_np=slot if host_planes else None,
             active=active, a_width=a_width, sliced=sliced,
-            snapshot=snapshot)
+            snapshot=snapshot, leader_snapshot=self.leader_np)
 
     def _step_fns(self) -> Tuple[Any, Any]:
         """The engine's (full_step, full_step_sliced) programs
@@ -2115,6 +2609,10 @@ class BatchedEnsembleService:
         # is stale — drop it (plain value reads stay fast).
         if won_np.any():
             self._slot_vsn_ok[won_np] = False
+            self.elections_np[won_np] += 1
+        # watchers hear a successful launch's leader changes only (a
+        # failed one rolled the mirror back above)
+        self._notify_leader_changes(fl.leader_snapshot)
         return committed, get_ok, found, value, vsn
 
     def _launch(self, kind: np.ndarray, slot: np.ndarray, val: np.ndarray,
@@ -3132,8 +3630,17 @@ class BatchedEnsembleService:
             "next_handle": self._next_handle,
             "leader": self.leader_np,
             "member": self.member_np,
+            "desired_view": self._desired_view_np,
+            "desired_mask": self._desired_mask,
+            "queued_view": self._queued_view_np,
+            "queued_mask": self._queued_mask,
+            "pending_view": self._pending_view_np,
+            "pending_mask": self._pending_mask,
             "up": self.up,
-            "dynamic": False,
+            "dynamic": self.dynamic,
+            "live": self._live,
+            "free_rows": self._free_rows,
+            "ens_names": self._ens_names,
         }
         savelib.write(os.path.join(d, "host"),
                       pickle.dumps(host, protocol=4), crash_class="ckpt")
@@ -3170,7 +3677,9 @@ class BatchedEnsembleService:
         with no checkpoint at all, from ``META`` and WAL generation 0,
         which is also how a data dir the JAX package wrote restores here
         (checkpoints do not cross: the formats differ).  Pass
-        ``data_dir=path`` to keep logging.  Leases start expired."""
+        ``data_dir=path`` to keep logging.  Leases start expired.  The
+        persisted ``dynamic`` mode wins; a ``dynamic`` argument that
+        contradicts it raises."""
         n = cls._current_ckpt(path)
         d = os.path.join(path, f"ckpt.{n}")
         raw = savelib.read(os.path.join(d, "host"))
@@ -3179,12 +3688,12 @@ class BatchedEnsembleService:
             if meta_raw is None:
                 raise FileNotFoundError(f"no service checkpoint at {path}")
             meta = pickle.loads(meta_raw)
-            _refuse_dynamic(meta, path)
+            kw = cls._merge_dynamic(kw, bool(meta.get("dynamic", False)))
             svc = cls(runtime, *meta["shape"], **kw)
             svc._replay_wal_from(path, 0)
             return svc
         host = pickle.loads(raw)
-        _refuse_dynamic(host, path)
+        kw = cls._merge_dynamic(kw, bool(host["dynamic"]))
         n_ens, n_peers, n_slots = host["shape"]
         svc = cls(runtime, n_ens, n_peers, n_slots, **kw)
         svc.state = checkpoint.load_state(d, svc.device)
@@ -3206,10 +3715,37 @@ class BatchedEnsembleService:
         svc._next_handle = host["next_handle"]
         svc.leader_np = np.asarray(host["leader"])
         svc.member_np = np.asarray(host["member"])
+        svc._desired_view_np = np.asarray(host["desired_view"])
+        svc._desired_mask = np.asarray(host["desired_mask"])
+        svc._queued_view_np = np.asarray(host["queued_view"])
+        svc._queued_mask = np.asarray(host["queued_mask"])
+        svc._pending_view_np = np.asarray(host["pending_view"])
+        svc._pending_mask = np.asarray(host["pending_mask"])
         svc.up = np.asarray(host["up"])
         svc._up_dev = None
+        if host["dynamic"]:
+            svc._live = np.asarray(host["live"])
+            svc._free_rows = list(host["free_rows"])
+            svc._ens_names = dict(host["ens_names"])
+            svc._row_name = {r: n_ for n_, r in svc._ens_names.items()}
         svc._replay_wal_from(path, n)
         return svc
+
+    @staticmethod
+    def _merge_dynamic(kw: Dict[str, Any], persisted: bool
+                       ) -> Dict[str, Any]:
+        """The persisted lifecycle mode wins at restore
+        (batched_host.py:2934-2948): a static image restored as dynamic
+        would free every row, a dynamic one restored as static would drop
+        the name directory, so a contradicting ``dynamic`` raises."""
+        if "dynamic" in kw and bool(kw["dynamic"]) != persisted:
+            raise ValueError(
+                f"restore: service was persisted with "
+                f"dynamic={persisted}; cannot restore with "
+                f"dynamic={kw['dynamic']}")
+        kw = dict(kw)
+        kw["dynamic"] = persisted
+        return kw
 
     def _replay_wal_from(self, path: str, gen: int) -> None:
         """Replay WAL generation ``gen`` under ``path`` if it exists,
@@ -3229,12 +3765,17 @@ class BatchedEnsembleService:
 
     def _replay_wal(self, wal: ServiceWAL) -> None:
         """Install every WAL record into the state and host mirrors
-        (batched_host.py:2965-3100).  Objects land on every replica at
-        their committed (epoch, seq); ballot epochs rise to at least the
-        newest installed object epoch, so the restart's elections propose
-        higher; every replica's tree rebuilds over its store; the fast
-        read mirrors (``_slot_vsn``, the inline mirrors) are set from the
-        replayed records, and leaders and leases are cleared."""
+        (batched_host.py:2965-3100).  A ``("mem", row)`` record is the
+        row's newest committed membership: it becomes the row's single
+        view and clears its in-flight membership pipeline; with dynamic
+        rows a non-empty record names a live tenant and an empty one a
+        destroyed row, and the free pool is rebuilt after the walk.
+        Objects land on every replica at their committed (epoch, seq);
+        ballot epochs rise to at least the newest installed object
+        epoch, so the restart's elections propose higher; every replica's
+        tree rebuilds over its store; the fast read mirrors
+        (``_slot_vsn``, the inline mirrors) are set from the replayed
+        records, and leaders and leases are cleared."""
         recs = wal.records()
         if not recs:
             return
@@ -3243,14 +3784,32 @@ class BatchedEnsembleService:
         obj_seq = self.state.obj_seq.cpu().numpy().copy()
         obj_val = self.state.obj_val.cpu().numpy().copy()
         epoch = self.state.epoch.cpu().numpy().copy()
+        view_mask = self.state.view_mask.cpu().numpy().copy()
         #: ens -> slot -> replayed owner key (None: tombstoned or bulk);
         #: checkpoint-era mappings that disagree are dropped below
         owners: Dict[int, Dict[int, Any]] = {}
         for key, value in recs:
             if key[0] == "mem":
-                raise NotImplementedError(
-                    "the WAL holds membership records; membership is not "
-                    "ported yet (ROADMAP Queue 1 item 6)")
+                ens = key[1]
+                name, row_l = value
+                row = np.asarray(row_l, bool)
+                self.member_np[ens] = row
+                view_mask[ens] = False
+                view_mask[ens, 0] = row
+                self._pending_mask[ens] = False
+                self._desired_mask[ens] = False
+                self._queued_mask[ens] = False
+                if self.dynamic:
+                    old_name = self._row_name.pop(ens, None)
+                    if old_name is not None:
+                        self._ens_names.pop(old_name, None)
+                    if row.any() and name is not None:
+                        self._ens_names[name] = ens
+                        self._row_name[ens] = name
+                    self._live[ens] = bool(row.any())
+                    if not row.any():
+                        self._reset_row_host(ens)
+                continue
             _, ens, slot = key
             key_obj, handle, oe, os_, payload, inline = value
             obj_epoch[ens, :, slot] = oe
@@ -3306,6 +3865,7 @@ class BatchedEnsembleService:
         dev = self.device
         state = self.state._replace(
             epoch=torch.from_numpy(epoch).to(dev),
+            view_mask=torch.from_numpy(view_mask).to(dev),
             obj_epoch=torch.from_numpy(obj_epoch).to(dev),
             obj_seq=torch.from_numpy(obj_seq).to(dev),
             obj_val=torch.from_numpy(obj_val).to(dev))
@@ -3314,3 +3874,6 @@ class BatchedEnsembleService:
         self._up_dev = None
         self.leader_np = np.full((e_,), -1, dtype=np.int32)
         self.lease_until[:] = 0.0
+        if self.dynamic:
+            self._free_rows = [r for r in range(e_ - 1, -1, -1)
+                               if not self._live[r]]

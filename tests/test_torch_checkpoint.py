@@ -18,8 +18,9 @@ uses orbax; so a checkpoint never crosses packages.  What is held:
   record bound, and never runs on a degraded service; the counts equal
   the JAX service's;
 - a damaged engine file (a flipped byte, or the ``ckpt`` read-corruption
-  rule) is refused, never served; a foreign (JAX) checkpoint and a
-  dynamic-row data dir raise; ``restore`` defaults to CUDA;
+  rule) is refused, never served; a foreign (JAX) checkpoint, and a
+  dynamic-row data dir restored with ``dynamic=False``, raise;
+  ``restore`` defaults to CUDA;
 - a process killed inside ``save`` (a CPU-only subprocess that imports no
   JAX) at the engine file, at the host blob and after the ``CURRENT``
   flip leaves a restorable data dir holding every acknowledged write.
@@ -167,14 +168,18 @@ def test_damaged_or_foreign_checkpoints_are_refused(jb, monkeypatch,
     tsave.write(os.path.join(dyn, "META"), pickle.dumps(
         {"shape": (2, 3, 4), "dynamic": True, "hash_format": 3},
         protocol=4))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tb.BatchedEnsembleService.restore(FixedClock(), dyn, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tb.BatchedEnsembleService(FixedClock(), 2, 3, 4, device="cpu",
-                                  data_dir=dyn)
+    # a dynamic-row data dir restores dynamic (the persisted mode wins);
+    # a contradicting flag is refused
+    with pytest.raises(ValueError, match="dynamic"):
+        tb.BatchedEnsembleService.restore(FixedClock(), dyn, tick=None,
+                                          device="cpu", dynamic=False)
+    svc = tb.BatchedEnsembleService.restore(FixedClock(), dyn, tick=None,
+                                            device="cpu")
+    assert svc.dynamic and not svc._live.any() and svc._free_rows == [1, 0]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            tb.BatchedEnsembleService.restore(FixedClock(), p.dirs[1])
+            tb.BatchedEnsembleService.restore(FixedClock(), p.dirs[1],
+                                              tick=None)
 
 
 #: a CPU-only child (no JAX): an acked working set, a checkpoint, more
@@ -185,8 +190,8 @@ _CKPT_CHILD = """
     sys.modules["jax"] = sys.modules["riak_ensemble_tpu"] = None
     from riak_ensemble_tpu_torch.parallel.batched_host import (
         BatchedEnsembleService, WallRuntime)
-    svc = BatchedEnsembleService(WallRuntime(), 2, 3, 8, device="cpu",
-                                 data_dir={data!r})
+    svc = BatchedEnsembleService(WallRuntime(), 2, 3, 8, tick=None,
+                                 device="cpu", data_dir={data!r})
     def put(i):
         f = svc.kput(i % 2, "k%d" % i, b"v%d" % i)
         while not f.done:
@@ -219,7 +224,7 @@ def test_kill_inside_checkpoint_recovers(tmp_path, barrier):
     assert "SAVING" in proc.stdout and "SURVIVED" not in proc.stdout
     want_gen = 2 if barrier == "ckpt_rename:9" else 1
     assert tb.BatchedEnsembleService._current_ckpt(data) == want_gen
-    svc = tb.BatchedEnsembleService.restore(FixedClock(), data,
+    svc = tb.BatchedEnsembleService.restore(FixedClock(), data, tick=None,
                                             device="cpu", data_dir=data)
     keys = {e: [f"k{i}" for i in range(6) if i % 2 == e] for e in (0, 1)}
     got = _read_all(svc, keys)

@@ -3,7 +3,9 @@ of ``riak_ensemble_tpu``, its entry points never drift onto the CPU, and
 the host library its service loads is its own build.  The durability
 slice's modules (``faults``, ``save``, ``synctree.native_store``,
 ``parallel.wal``, ``ops.checkpoint``) are named, so a rename cannot drop
-them from the blocked import.
+them from the blocked import; a third subprocess drives the simulator
+runtime and the lifecycle path (dynamic rows, ``update_members``, a
+restore) with both names blocked.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
@@ -144,6 +146,65 @@ def test_entry_points_default_to_cuda():
 
 
 def test_service_takes_no_timer_mode():
-    with pytest.raises(NotImplementedError):
+    """:class:`WallRuntime` has no event loop, so it takes no timer mode:
+    a timer-driven service on it raises (``tick=None`` is its mode)."""
+    with pytest.raises(RuntimeError, match="event loop"):
         BatchedEnsembleService(WallRuntime(), 2, 3, 16, tick=0.005,
                                device="cpu")
+
+
+_LIFECYCLE = r"""
+import sys, tempfile
+sys.path.insert(0, ROOT)
+import numpy as np
+from riak_ensemble_tpu_torch.config import fast_test_config
+from riak_ensemble_tpu_torch.parallel.batched_host import (
+    BatchedEnsembleService)
+from riak_ensemble_tpu_torch.runtime import Actor, Network, Runtime, Task
+rt = Runtime(seed=5)
+assert isinstance(rt.net, Network)
+seen = []
+
+class Echo(Actor):
+    def handle(self, msg):
+        seen.append((round(self.runtime.now, 6), msg))
+
+Echo(rt, "echo", "n1")
+rt.net_send("n2", "echo", "hi")
+
+def sleeper():
+    yield rt.sleep(0.5)
+    seen.append(("woke", rt.now))
+
+assert isinstance(rt.spawn_task(sleeper()), Task)
+d = tempfile.mkdtemp()
+svc = BatchedEnsembleService(rt, 4, 3, 4, tick=0.005,
+                             config=fast_test_config(), dynamic=True,
+                             device="cpu", data_dir=d)
+row = svc.create_ensemble("orders")
+assert rt.await_future(svc.kput(row, "k", b"v"), 5)[0] == "ok"
+view = np.ones((4, 3), bool)
+view[:, 2] = False
+assert svc.update_members(np.ones(4, bool), view)[row]
+assert svc.destroy_ensemble("orders") and svc.create_ensemble("b") == row
+rt.run_for(1.0)
+svc.stop()
+svc._wal.close()
+back = BatchedEnsembleService.restore(rt, d, tick=None, device="cpu")
+assert back.dynamic and back.resolve_ensemble("b") == row
+assert len(seen) == 2 and seen[1][0] == "woke", seen
+print("LIFECYCLE OK")
+"""
+
+
+def test_runtime_and_lifecycle_run_with_jax_blocked():
+    """The simulator runtime (an actor, a network send, a task) and the
+    lifecycle path (a timer-driven dynamic service: create, a keyed
+    write, ``update_members``, destroy, a durable restore) run with
+    ``jax`` and the JAX package blocked."""
+    code = f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + _LIFECYCLE
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LIFECYCLE OK" in proc.stdout

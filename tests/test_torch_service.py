@@ -19,6 +19,14 @@ Device-resident ``execute`` / ``execute_async`` planes (int32 tensors on
 the service's device) give the same results and state as the host-array
 calls and as the JAX service's ``jax.Array`` planes, count ``k * E``
 served ops, and, under a ``data_dir``, skip the WAL once flagged.
+
+``kupdate_many`` and ``kdelete_many`` (batch CAS and batch delete) run
+against the JAX service on the default, oracle and plain host arms, at
+depth 1 and 2 (the pending slab's CAS-batch and delete-batch runs, the
+completion slab, the per-op resolve): equal futures, packed buffers,
+mirror slabs, state and counters; their WAL records (the C++ encode on
+the default arm) are byte-identical to the JAX service's and restore
+across packages.
 """
 
 import numpy as np
@@ -331,3 +339,122 @@ def test_device_resident_execute_is_unlogged_under_data_dir(tmp_path,
     js.execute(*(jnp.asarray(x) for x in (kind, slot + 4, val, xe)))
     assert ts._wal.count == js._wal.count == e
     assert ts._dev_exec_unlogged and js._dev_exec_unlogged
+
+
+def _batch_cas_delete_stream(rng, svc, ens, r, vsns):
+    """One round of batch CAS / batch delete traffic (with puts and reads
+    around it) on ``ens``: versions from earlier acks and reads, stale
+    ones, create-if-missing, and deletes of live, deleted and unknown
+    keys.  Returns (future, ensemble, keys) per call."""
+    out = []
+    for e in ens:
+        keys = [f"k{(r + i) % 5}" for i in range(3)]
+        pick = int(rng.integers(0, 4))
+        if pick == 0:
+            f = svc.kput_many(e, keys, [b"p%d.%d" % (r, i) for i in
+                                        range(3)])
+        elif pick == 1:
+            keys = keys + keys[:1]
+            exp = [vsns.get((e, k), (0, 0)) if rng.random() < 0.7
+                   else (int(rng.integers(0, 4)), int(rng.integers(0, 4)))
+                   for k in keys]
+            f = svc.kupdate_many(e, keys, exp, [b"c%d.%d" % (r, i)
+                                                for i in range(4)])
+        elif pick == 2:
+            keys = keys[:2] + ["never"]
+            f = svc.kdelete_many(e, keys)
+        else:
+            f = svc.kget_many(e, keys, want_vsn=True)
+        out.append((f, e, keys))
+    return out
+
+
+def _note_vsns(calls, vsns):
+    """Remember each key's newest acknowledged or read version."""
+    for f, e, keys in calls:
+        for key, res in zip(keys, f.value):
+            if isinstance(res, tuple) and res[0] == "ok":
+                vsns[e, key] = tuple(res[-1]) if len(res) == 3 \
+                    else tuple(res[1]) if isinstance(res[1], tuple) \
+                    else vsns.get((e, key), (0, 0))
+
+
+@pytest.mark.parametrize("arm,depth", [("default", 1), ("default", 2),
+                                       ("oracle", 1), ("plain", 1),
+                                       ("plain", 2)])
+def test_batch_cas_and_delete_match_jax_on_every_arm(monkeypatch, arm,
+                                                     depth):
+    """``kupdate_many`` and ``kdelete_many`` through the pending slab and
+    the completion slab (native and plain passes) and through the
+    per-op resolve (oracle arm), against the JAX service on the same arm
+    and depth, compaction on (sliced launches at E = 256): every future,
+    packed buffer, mirror slab, the engine state and the counters
+    equal."""
+    pytest.importorskip("jax")
+    from riak_ensemble_tpu.parallel import batched_host as jb
+    from test_torch_native_enqueue import Pair
+    p = Pair(jb, monkeypatch, arm, depth=depth, k=4)
+    rng = np.random.default_rng(5)
+    ens = rng.choice(p.js.n_ens, 12, replace=False).tolist()
+    vsns = ({}, {})
+    for r in range(8):
+        state = rng.bit_generator.state
+        calls = []
+        for i, svc in enumerate((p.js, p.ts)):
+            rng.bit_generator.state = state
+            calls.append(_batch_cas_delete_stream(rng, svc, ens, r,
+                                                  vsns[i]))
+            p.futs[i].extend(f for f, _e, _k in calls[i])
+        while any(p.js.queues) or any(p.ts.queues):
+            assert p.js.flush() == p.ts.flush()
+        assert p.js.flush() == p.ts.flush()
+        for i, svc in enumerate((p.js, p.ts)):
+            _note_vsns(calls[i], vsns[i])
+            svc.runtime.now += 0.25
+    assert vsns[1] == vsns[0] and len(vsns[1]) > 20
+    p.check()
+    assert p.ts.completion_wakes == p.js.completion_wakes
+
+
+@pytest.mark.parametrize("arm", ["default", "plain"])
+def test_batch_cas_and_delete_wal_bytes_match_jax(monkeypatch, tmp_path,
+                                                  arm):
+    """The WAL records of batch CAS and batch delete flushes (str keys,
+    bytes payloads: the C++ encode's subset on the default arm) are
+    written byte for byte as the JAX service writes them, and both
+    packages restore them alike."""
+    pytest.importorskip("jax")
+    from riak_ensemble_tpu.parallel import batched_host as jb
+    from test_torch_wal import Durable, assert_same_service
+    p = Durable(jb, monkeypatch, str(tmp_path), arm, e=6, s=8)
+    native = []
+    if arm == "default":
+        enc = p.ts._log_wal_native
+
+        def spy(taken, planes):
+            ok = enc(taken, planes)
+            native.append(ok)
+            return ok
+        p.ts._log_wal_native = spy
+    for r in range(4):
+        for e in range(6):
+            keys = [f"k{(r + i + e) % 4}" for i in range(3)]
+            p.both(lambda s: s.kput_many(e, keys, [b"a%d" % r] * 3))
+        p.settle()
+        for e in range(6):
+            keys = [f"k{(r + i + e) % 4}" for i in range(3)]
+            p.both(lambda s: [
+                s.kupdate_many(e, keys, [(0, 0), (1, 1), (9, 9)],
+                               [b"u%d" % r] * 3),
+                s.kdelete_many(e, keys[1:] + ["never"])])
+        p.settle()
+    p.check_futures()
+    assert any(not isinstance(v, str) and any(
+        isinstance(x, tuple) and x[0] == "ok" for x in v)
+        for v in (f.value for f in p.futs[1]))
+    if arm == "default":
+        assert native and all(native)
+    p.crash()
+    p.check_files()
+    js, ts = p.restore("jax", p.dirs[1]), p.restore("port", p.dirs[0])
+    assert_same_service(js, ts)

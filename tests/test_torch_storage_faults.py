@@ -281,7 +281,8 @@ def test_fsync_delay_lands_under_the_barrier(tmp_path):
     """``RETPU_FAULT_FSYNC_MS``'s rule sleeps inside the WAL barrier of
     every write-carrying flush (``tests/test_faults.py``'s WAL case): one
     delay per durable flush, none for a read-only one."""
-    svc = tb.BatchedEnsembleService(FixedClock(), 2, 3, 8, device="cpu",
+    svc = tb.BatchedEnsembleService(FixedClock(), 2, 3, 8, tick=None,
+                                    device="cpu",
                                     data_dir=str(tmp_path / "d"))
     svc.flush()
     plan = tfaults.install(tfaults.from_env({"RETPU_FAULT_FSYNC_MS": "2"}))
@@ -326,7 +327,8 @@ _PUT_CHILD = """
     sys.modules["jax"] = sys.modules["riak_ensemble_tpu"] = None
     from riak_ensemble_tpu_torch.parallel.batched_host import (
         BatchedEnsembleService, WallRuntime)
-    svc = BatchedEnsembleService(WallRuntime(), 2, 3, 4, device="cpu",
+    svc = BatchedEnsembleService(WallRuntime(), 2, 3, 4, tick=None,
+                                 device="cpu",
                                  data_dir={data!r})
     for i in range(6):
         print("TRY", i, flush=True)
@@ -355,7 +357,7 @@ def test_kill_at_wal_barrier_recovers(tmp_path, barrier):
              if ln.startswith("TRY")]
     inflight = [i for i in tried if i not in acked]
     assert acked and len(inflight) == 1
-    svc = tb.BatchedEnsembleService.restore(FixedClock(), data,
+    svc = tb.BatchedEnsembleService.restore(FixedClock(), data, tick=None,
                                             device="cpu", data_dir=data)
     got = _read_all(svc, {e: [f"k{i}" for i in tried if i % 2 == e]
                           for e in (0, 1)})
