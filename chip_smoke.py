@@ -8,8 +8,8 @@ toolkit (``nvcc``)::
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. build every CUDA kernel of the package from ``csrc/`` with nvcc and,
-   at the same time, the service's host passes (``csrc/host/*.cc``) with
-   g++;
+   at the same time, the service's host passes and the wire codec (a
+   CPython extension; ``csrc/host/*.cc``) with g++;
 2. hold kernel K1 (``ops/cuda_quorum.py``) against its plain torch
    version on the card — exact equality — at the main-path shape and
    the edge cases, and time both;
@@ -99,9 +99,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    fail, a restore without a save brings back the names, membership
    rows and acknowledged writes, and one with the wrong ``dynamic``
    flag raises (mem records and fsyncs per call, ms per create, destroy
-   and restore).
+   and restore);
+10. the front end at the headline shape, obs on: (a) the C++ wire codec
+   (``csrc/host/wirecodec.cc``) against ``encode_py`` / ``decode_py`` byte
+   for byte on a seeded corpus (every record type, nesting one under the
+   depth limit, a raw frame), and encode / decode of 12,288-key frames
+   timed C++ against Python; (b) ``svcnode.serve()`` in process on
+   loopback (``tick=0.005``, a fresh data dir, ``wal_sync="fsync"``,
+   warmed) with one ``ServiceClient``: 2,000 serial ``kput`` each followed
+   by its ``kget``, 6(b)'s keyed pattern through the slab verbs with 256
+   batches in flight, every acknowledged write read back over the wire
+   with one request per ensemble all in flight at once (~2,000), F1
+   counted on this path, and ``stats()``, ``health()``,
+   ``health(ens)``, ``latency_breakdown()`` and the parsed Prometheus
+   scrape printed; (c) 6(b)'s keyed pattern on a service with obs on
+   and one under ``RETPU_OBS=0``, passes interleaved on, off, off, on
+   three times with the collector off in the timed window: the median
+   flush and the host split per flush of each, and the collection after
+   each pass; (d)
+   ``python -m riak_ensemble_tpu_torch.svcnode --dynamic --data-dir D``
+   as a process on the card: 64 names and 4,096 keys written, SIGKILL,
+   a restart on ``D``, every name and acknowledged write read back.
 
-Phases 4-9 run the service's default (native) host arm.
+Phases 4-10 run the service's default (native) host arm.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -117,6 +137,7 @@ import gc
 import json
 import os
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -551,15 +572,9 @@ def f1_work(st, up: np.ndarray, committed: np.ndarray,
             rows: Optional[np.ndarray] = None) -> tuple:
     """(bytes, int32 ops) F1 needs for one full_step on these inputs —
     for a sliced step, of the ``rows`` it steps (``committed`` is then
-    A-wide, its pad columns never commit).  Bytes: every state plane of
-    the stepped rows read once and the ballot, object and tree planes
-    written once, every input and result plane once.  Ops: per ensemble
-    and round, the integrity gate of every replica (its leaf hash and one
-    16-child fold per upper level) and, for every replica that commits
-    (this run's commits x the ensemble's up members), the new leaf hash
-    and its path's folds; read repairs are not counted."""
+    A-wide, its pad columns never commit): ``cuda_engine.step_work`` with
+    this run's writers (its commits x the ensemble's up members)."""
     e, m, s = st.obj_val.shape
-    u = st.tree_node.shape[2]
     v = st.view_mask.shape[1]
     k, a = committed.shape
     heard = up & st.view_mask.any(1).cpu().numpy()
@@ -567,19 +582,8 @@ def f1_work(st, up: np.ndarray, committed: np.ndarray,
         e = len(rows)
         heard = heard[rows]
         committed = committed[:, :e]
-    nlev = len(eng.tree_sizes(s))
-    rw = 3 * e * m * s * 4 + e * m * s * 16 + e * m * u * 16 + 2 * e * m * 4 \
-        + 2 * e * 4
-    nbytes = (2 * rw + e * v * m + e * m + 5 * a
-              + k * a * (5 * 4 + 1)                  # op planes
-              + k * a * (4 + 4 + 8 + m) + a)         # results, won
-    # a fold: 16 children x 4 lanes x (xor, mul, add, 8 for fmix, sum)
-    # plus 4 lanes x 19 for the stir and seal; a leaf hash 4 x 13
-    fold, leaf = 16 * 4 * 12 + 4 * 19, 4 * 13
     writers = int((committed * heard.sum(1)[None, :]).sum())
-    ops = k * e * m * (leaf + 4 + nlev * (fold + 4)) \
-        + writers * (leaf + nlev * fold)
-    return nbytes, ops
+    return cuda_engine.step_work(e, m, s, v, k, a, writers)
 
 
 def bound(nbytes: int, ops: int) -> tuple:
@@ -1958,7 +1962,7 @@ def wal_flush_capture(svc: BatchedEnsembleService, sub: list,
         def log_arena(self, arena, idx, extra=()):
             got["arena"] = (np.array(arena, copy=True), idx.copy())
 
-    def capture(taken, planes):
+    def capture(taken, planes, rec=None):
         if "arena" not in got and planes[0] is not None:
             svc._wal = Recorder()
             nat = svc._native_resolve
@@ -1970,7 +1974,7 @@ def wal_flush_capture(svc: BatchedEnsembleService, sub: list,
             finally:
                 svc._native_resolve = nat
                 svc._wal = real_wal
-        return real_log_wal(taken, planes)
+        return real_log_wal(taken, planes, rec=rec)
     svc._log_wal = capture
     futs = [svc.kput_many(x, keys, [f"{tag}:{x}:{i}".encode()
                                     for i in range(len(keys))])
@@ -2651,6 +2655,494 @@ def phase_control_plane(dev: torch.device, card: str) -> tuple:
     return counts, {"reconfig": rec, "timer": tim, "dynamic": dyn}
 
 
+# -- phase 10: the front end ---------------------------------------------------
+
+WIRE_SRC = "riak_ensemble_tpu_torch/csrc/host/wirecodec.cc"
+#: 10(b)'s serial client: this many kput, each followed by its kget
+SERIAL_OPS = 2000
+
+
+class CodecCount:
+    """Counts the C++ codec's encode / decode calls (the service path's
+    frames) while ``armed``; forwards everything else."""
+
+    def __init__(self, mod) -> None:
+        self.mod = mod
+        self.armed = False
+        self.calls = 0
+
+    def encode(self, v):
+        self.calls += self.armed
+        return self.mod.encode(v)
+
+    def decode(self, b):
+        self.calls += self.armed
+        return self.mod.decode(b)
+
+
+def wire_corpus(rng: np.random.Generator) -> list:
+    """Every record type, big ints, nesting one under the depth limit and
+    seeded random structures."""
+    from riak_ensemble_tpu_torch.state import ClusterState
+    from riak_ensemble_tpu_torch.types import (NOTFOUND, EnsembleInfo, Fact,
+                                               Obj, PeerId)
+    deep = None
+    for _ in range(31):
+        deep = [deep]
+    p = PeerId(1, "n1")
+    out = [None, True, -(2 ** 90), 2 ** 63, -1, 0.25, "ünï", b"\x00\xff",
+           NOTFOUND, deep, p, Obj(3, 7, ("k", 2), NOTFOUND),
+           Fact(2, 5, p, ((p, PeerId(2, "n2")),), (1, 0), None, (0, 0),
+                ((2, 1), ((p,),))),
+           EnsembleInfo((1, 2), None, ((p,),), None),
+           ClusterState(("c", 1.5), True, (1, 0), frozenset({"n1"}),
+                        {"root": EnsembleInfo((0, 1), p, ((p,),), (1, 1))},
+                        {"root": ((1, 1), ((p,),))})]
+
+    def gen(depth=0):
+        c = int(rng.integers(10 if depth < 5 else 6))
+        if c < 2:
+            return int(rng.integers(-2 ** 40, 2 ** 40)) << int(
+                rng.integers(40))
+        if c == 2:
+            return float(rng.normal())
+        if c == 3:
+            return bytes(rng.integers(0, 256, int(rng.integers(0, 16)),
+                                      dtype=np.uint8))
+        if c == 4:
+            return "".join(chr(int(rng.integers(32, 900)))
+                           for _ in range(int(rng.integers(0, 8))))
+        if c == 5:
+            return Obj(int(rng.integers(9)), int(rng.integers(9)), "k",
+                       NOTFOUND)
+        n = int(rng.integers(0, 4))
+        if c == 6:
+            return tuple(gen(depth + 1) for _ in range(n))
+        if c == 7:
+            return [gen(depth + 1) for _ in range(n)]
+        if c == 8:
+            return {int(rng.integers(100)): gen(depth + 1)
+                    for _ in range(n)}
+        return frozenset(int(rng.integers(1000)) for _ in range(n))
+    return out + [gen() for _ in range(2000)]
+
+
+def phase_wire(card: str) -> dict:
+    """10(a): the C++ codec against ``encode_py`` / ``decode_py`` byte for
+    byte on the seeded corpus and on raw frames, then encode and decode
+    of one 12,288-key frame each way, C++ against Python."""
+    from riak_ensemble_tpu_torch import wire
+    mod = wire._native_codec()
+    if mod is None or not mod.__file__.startswith(build.BUILD_DIR):
+        raise AssertionError(f"10(a): the codec is not the port's build: "
+                             f"{mod}")
+    corpus = wire_corpus(np.random.default_rng(10))
+    for v in corpus:
+        b = wire.encode_py(v)
+        if mod.encode(v) != b:
+            raise AssertionError(f"10(a): C++ encode differs for {v!r:.80}")
+        if wire.encode_py(mod.decode(b)) != wire.encode_py(
+                wire.decode_py(b)):
+            raise AssertionError(f"10(a): C++ decode differs for {v!r:.80}")
+    n = K_FULL * 192                     # 12,288 keys
+    keys = [f"user:{i}" for i in range(n)]
+    vals = [b"v%08d" % i for i in range(n)]
+    lens = np.fromiter(map(len, keys), np.int32, n)
+    vlens = np.fromiter(map(len, vals), np.int32, n)
+    slab = b"".join(bytes(x) for x in wire.encode_parts(
+        (1, "kput_slab", 7, wire.Raw(lens),
+         wire.Raw("".join(keys).encode()), wire.Raw(vlens),
+         wire.Raw(b"".join(vals)))))
+    for dec in (mod.decode, wire.decode_py):
+        got = dec(slab)
+        if got[:3] != (1, "kput_slab", 7) or bytes(got[6]) != \
+                b"".join(vals):
+            raise AssertionError("10(a): the raw frame does not decode")
+    frames = {"kput_many list frame": (1, "kput_many", 7, keys, vals),
+              "kget_many result list": (1, [("ok", v, (3, i))
+                                            for i, v in enumerate(vals)])}
+    ms, plain_ms = {}, {}
+    for label, v in frames.items():
+        b = wire.encode_py(v)
+        if mod.encode(v) != b or mod.decode(b) != wire.decode_py(b):
+            raise AssertionError(f"10(a): {label} differs")
+        ms[f"encode {label}"] = host_ms(lambda v=v: mod.encode(v))
+        plain_ms[f"encode {label}"] = host_ms(lambda v=v: wire.encode_py(v))
+        ms[f"decode {label}"] = host_ms(lambda b=b: mod.decode(b))
+        plain_ms[f"decode {label}"] = host_ms(lambda b=b: wire.decode_py(b))
+    ms["decode kput_slab raw frame"] = host_ms(lambda: mod.decode(slab))
+    plain_ms["decode kput_slab raw frame"] = host_ms(
+        lambda: wire.decode_py(slab))
+    for label in ms:
+        print(f"10(a) wire codec == encode_py / decode_py, {label} "
+              f"({n} keys) [{card}]: C++ {ms[label]:.6f} ms, Python "
+              f"{plain_ms[label]:.6f} ms")
+    print(f"10(a) wire codec: {len(corpus)} corpus values and 1 raw frame "
+          f"byte-equal through C++ and Python")
+    return {"ms": ms, "plain_ms": plain_ms}
+
+
+def pctl(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def parse_prometheus(text: str) -> dict:
+    """name{labels} -> value of every sample line; raises on a malformed
+    line (the scrape must parse)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        if not name:
+            raise AssertionError(f"10(b): unparsable scrape line {line!r}")
+        out[name] = float(value)
+    return out
+
+
+async def front_end_session(dev, card: str, data: str) -> dict:
+    """10(b): ``serve()`` in process on loopback, one ServiceClient: the
+    serial ops, the batched keyed pattern with up to 256 batches in
+    flight, the read-back, the read-outs; returns the numbers and the
+    kernels' counts of this path."""
+    import asyncio
+
+    from riak_ensemble_tpu_torch import svcnode, wire
+    server = await svcnode.serve(E_FULL, M_FULL, S_FULL, tick=0.005,
+                                 data_dir=data, device=dev, warm=True,
+                                 max_ops_per_tick=K_FULL,
+                                 wal_sync="fsync")
+    svc = server.svc
+    codec = CodecCount(wire._native_codec())
+    wire._NATIVE = codec
+    c = svcnode.ServiceClient(server.host, server.port)
+    await c.connect()
+    rng = np.random.default_rng(20)
+    torch.cuda.synchronize()
+    reset_counts()                                 # the main path's run
+    codec.armed = True
+    acked = {}
+    serial = {"kput": [], "kget": []}
+    ens = rng.integers(0, E_FULL, SERIAL_OPS).tolist()
+    for i, x in enumerate(ens):
+        t0 = time.perf_counter()
+        r = await c.kput(x, f"s{i}", b"serial:%d" % i, timeout=60.0)
+        serial["kput"].append((time.perf_counter() - t0) * 1e3)
+        if r[0] != "ok":
+            raise AssertionError(f"10(b): serial kput {i} answered {r}")
+        acked[(x, f"s{i}")] = b"serial:%d" % i
+        t0 = time.perf_counter()
+        r = await c.kget(x, f"s{i}", timeout=60.0)
+        serial["kget"].append((time.perf_counter() - t0) * 1e3)
+        if r != ("ok", b"serial:%d" % i):
+            raise AssertionError(f"10(b): serial kget {i} answered {r}")
+    sub = np.sort(rng.choice(E_FULL, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    batch_ms, acked_ops, t_batched = [], 0, 0.0
+
+    async def timed(coro):
+        t0 = time.perf_counter()
+        out = await coro
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    for rnd in range(3):
+        vals = {x: [b"b%d:%d:%d" % (rnd, x, i) for i in range(len(keys))]
+                for x in sub}
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*[timed(c.kput_many(x, keys, vals[x],
+                                                       timeout=120.0))
+                                     for x in sub])
+        t_batched += time.perf_counter() - t0
+        for x, rr in zip(sub, res):
+            for key, v, r in zip(keys, vals[x], rr):
+                if r[0] == "ok":
+                    acked[(x, key)] = v
+                    acked_ops += 1
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[timed(c.kget_many(x, keys,
+                                                       timeout=120.0))
+                                     for x in sub])
+        t_batched += time.perf_counter() - t0
+        acked_ops += sum(len(g) for g in got)
+        for x, g in zip(sub, got):
+            if g != [("ok", v) for v in vals[x]]:
+                raise AssertionError(f"10(b) round {rnd}: acknowledged "
+                                     f"puts of ensemble {x} did not read "
+                                     f"back")
+    # every acknowledged write, serial ones included, over the wire: one
+    # request per ensemble, all in flight at once on the one connection
+    # (~2,000, past the server's per-connection budget of 1,024)
+    by_ens = {}
+    for (x, key), v in acked.items():
+        by_ens.setdefault(x, []).append((key, v))
+    items = list(by_ens.items())
+    t0 = time.perf_counter()
+    got = await asyncio.gather(*[c.kget_many(x, [k for k, _ in kv],
+                                             timeout=120.0)
+                                 for x, kv in items])
+    readback_s = time.perf_counter() - t0
+    for (x, kv), g in zip(items, got):
+        if g != [("ok", v) for _, v in kv]:
+            raise AssertionError(f"10(b): acknowledged writes of "
+                                 f"ensemble {x} did not read back")
+    torch.cuda.synchronize()
+    codec.armed = False
+    counts = read_counts()
+    stats = await c.stats()
+    health = await c.health()
+    health0 = await c.health(int(sub[0]))
+    scrape = await c.metrics("prometheus")
+    samples = parse_prometheus(scrape)
+    lb = svc.latency_breakdown()
+    await c.close()
+    await server.stop()
+    wire._NATIVE = codec.mod
+    for label, v in (("stats()", stats), ("health()", health),
+                     (f"health({sub[0]})", health0),
+                     ("latency_breakdown()", lb)):
+        print(f"10(b) {label} [{card}]: {json.dumps(v, default=str)}")
+    print(f"10(b) ('metrics', 'prometheus') [{card}]: {len(samples)} "
+          f"samples parsed")
+    print(scrape)
+    if not (samples.get("retpu_flushes_total", 0) >= 1
+            and stats["obs_enabled"] and health["storage"]["degraded"]
+            is False and samples.get(
+                'retpu_op_latency_ms_count{kind="put"}', 0) > 0):
+        raise AssertionError("10(b): the read-outs miss the session")
+    out = {
+        "serial_ops": len(serial["kput"]) * 2,
+        "serial_kput_ms_p50": pctl(serial["kput"], 50),
+        "serial_kput_ms_p99": pctl(serial["kput"], 99),
+        "serial_kget_ms_p50": pctl(serial["kget"], 50),
+        "serial_kget_ms_p99": pctl(serial["kget"], 99),
+        "batched_acked_ops": acked_ops,
+        "batched_ops_per_s": acked_ops / t_batched,
+        "batch_ms_p50": pctl(batch_ms, 50),
+        "batch_ms_p99": pctl(batch_ms, 99),
+        "acked_writes_read_back": len(acked),
+        "readback_requests_in_flight": len(items),
+        "readback_s": readback_s,
+        "codec_calls": codec.calls,
+        "flushes": stats["flushes"],
+        "compile_events": {k: v for k, v in samples.items()
+                           if k.startswith("retpu_compile_events_total")},
+        "flush_total_ms_p50": lb.get("total", {}).get("p50_ms"),
+        "flush_total_ms_p99": lb.get("total", {}).get("p99_ms"),
+    }
+    print(f"10(b) svcnode on loopback {E_FULL}x{M_FULL}x{S_FULL} K={K_FULL} "
+          f"[{card}]: serial kput p50 {out['serial_kput_ms_p50']:.3f} / p99 "
+          f"{out['serial_kput_ms_p99']:.3f} ms, kget p50 "
+          f"{out['serial_kget_ms_p50']:.3f} / p99 "
+          f"{out['serial_kget_ms_p99']:.3f} ms ({out['serial_ops']} ops); "
+          f"batched {acked_ops} acked ops at "
+          f"{out['batched_ops_per_s']:.1f} ops/s, per batch p50 "
+          f"{out['batch_ms_p50']:.3f} / p99 {out['batch_ms_p99']:.3f} ms; "
+          f"{len(acked)} acknowledged writes read back ({len(items)} "
+          f"requests in flight at once, {readback_s:.3f} s); launches "
+          f"{counts}; "
+          f"codec calls {codec.calls}")
+    return {"counts": counts, **out}
+
+
+def obs_cost(dev, card: str) -> dict:
+    """10(c): 6(b)'s keyed pattern in process on two services at the
+    headline size, one built with obs on and one under ``RETPU_OBS=0``,
+    their passes interleaved on, off, off, on (three times).  Each
+    pass starts after a full collection and runs with the collector off,
+    so no collection lands in the timed window; the collection after the
+    pass is timed on its own, with the objects the pass left behind.
+    Both arms must give equal results.  Returns per arm the median and
+    mean flush ms, the host split per flush (6(b)'s stages and the rest)
+    and the collection's ms and objects per pass."""
+    rng = np.random.default_rng(14)
+    sub = np.sort(rng.choice(E_FULL, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    arms, passes = ("on", "off"), 3
+    svcs, splits = {}, {}
+    saved = os.environ.get("RETPU_OBS")
+    try:
+        for arm in arms:
+            if arm == "off":
+                os.environ["RETPU_OBS"] = "0"
+            else:
+                os.environ.pop("RETPU_OBS", None)
+            svc = BatchedEnsembleService(FixedClock(), E_FULL, M_FULL,
+                                         S_FULL, tick=None,
+                                         max_ops_per_tick=K_FULL, device=dev)
+            if svc._obs != (arm == "on"):
+                raise AssertionError("10(c): RETPU_OBS did not take")
+            svc.flush()
+            torch.cuda.synchronize()
+            svcs[arm], splits[arm] = svc, HostSplit(svc)
+    finally:
+        if saved is None:
+            os.environ.pop("RETPU_OBS", None)
+        else:
+            os.environ["RETPU_OBS"] = saved
+    ms = {a: [] for a in arms}
+    results = {a: [] for a in arms}
+    stage = {a: dict.fromkeys(HostSplit.STAGES, 0.0) for a in arms}
+    gc_ms = {a: [] for a in arms}
+    gc_objects = {a: [] for a in arms}
+    for arm in ("on", "off", "off", "on") * passes:
+        svc = svcs[arm]
+        gc.collect()
+        n0 = len(gc.get_objects())
+        splits[arm].take()
+        gc.disable()
+        try:
+            results[arm].append(keyed_rounds(svc, dev, sub, keys, ms[arm]))
+            for key, v in splits[arm].take().items():
+                stage[arm][key] += v
+            gc_objects[arm].append(len(gc.get_objects()) - n0)
+        finally:
+            gc.enable()
+        t0 = time.perf_counter()
+        gc.collect()
+        gc_ms[arm].append((time.perf_counter() - t0) * 1e3)
+        for x in sub:               # every peer up again for the next pass
+            for p in range(M_FULL):
+                svc.set_peer_up(x, p, True)
+    if results["on"] != results["off"]:
+        raise AssertionError("10(c): obs on and off gave different results")
+    del svcs, splits
+    torch.cuda.empty_cache()
+    out = {}
+    for arm in arms:
+        n = len(ms[arm])
+        split = {k: v / n for k, v in stage[arm].items()}
+        split["rest"] = max(sum(ms[arm]) / n - sum(split.values()), 0.0)
+        out[arm] = {"flushes": n, "median_ms": statistics.median(ms[arm]),
+                    "mean_ms": statistics.fmean(ms[arm]),
+                    "split_ms_per_flush": split,
+                    "gc_ms_per_pass": statistics.median(gc_ms[arm]),
+                    "gc_objects_per_pass":
+                        statistics.median(gc_objects[arm])}
+        print(f"10(c) obs {arm} [{card}]: flush ms "
+              f"{[round(x, 3) for x in ms[arm]]}")
+    on, off = out["on"], out["off"]
+    print(f"10(c) cost of obs, 6(b)'s keyed pattern, {passes * 2} passes "
+          f"an arm interleaved, collector off in the timed window "
+          f"[{card}]: median flush {on['median_ms']:.3f} ms obs on, "
+          f"{off['median_ms']:.3f} ms RETPU_OBS=0; mean "
+          f"{on['mean_ms']:.3f} / {off['mean_ms']:.3f} ms "
+          f"({on['flushes']} / {off['flushes']} flushes); host ms per "
+          f"flush on / off / on - off: " + ", ".join(
+              f"{k} {on['split_ms_per_flush'][k]:.3f} / "
+              f"{off['split_ms_per_flush'][k]:.3f} / "
+              f"{on['split_ms_per_flush'][k] - off['split_ms_per_flush'][k]:+.3f}"
+              for k in on["split_ms_per_flush"])
+          + f"; collection after a pass {on['gc_ms_per_pass']:.3f} / "
+          f"{off['gc_ms_per_pass']:.3f} ms for {on['gc_objects_per_pass']} "
+          f"/ {off['gc_objects_per_pass']} objects left")
+    return out
+
+
+def svcnode_process(data: str, dynamic: bool = True):
+    """``python -m riak_ensemble_tpu_torch.svcnode`` on the card, at the
+    headline shape, on ``data``; returns (process, host, port)."""
+    cmd = [sys.executable, "-m", "riak_ensemble_tpu_torch.svcnode",
+           "--port", "0", "--n-ens", str(E_FULL), "--n-peers", str(M_FULL),
+           "--n-slots", str(S_FULL), "--data-dir", data]
+    if dynamic:
+        cmd.append("--dynamic")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+    line = p.stdout.readline()
+    if "svcnode serving" not in line:
+        p.kill()
+        raise AssertionError(f"10(d): svcnode did not start: {line!r} "
+                             f"{p.stderr.read()[-3000:]}")
+    host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
+    return p, host, int(port)
+
+
+def crash_restart(card: str, data: str) -> dict:
+    """10(d): a svcnode process with a fresh data dir, 64 named
+    ensembles and 4,096 keys written, SIGKILL, a restart on the same dir:
+    every acknowledged write and the name directory read back."""
+    import asyncio
+    import signal
+
+    from riak_ensemble_tpu_torch import svcnode
+    t0 = time.perf_counter()
+    p, host, port = svcnode_process(data)
+    boot_s = time.perf_counter() - t0
+    acked, rows = {}, {}
+    try:
+        async def write():
+            c = svcnode.ServiceClient(host, port)
+            await c.connect()
+            for i in range(64):
+                r = await c.create_ensemble(f"tenant{i}")
+                if r[0] != "ok":
+                    raise AssertionError(f"10(d): create answered {r}")
+                rows[f"tenant{i}"] = r[1]
+            res = await asyncio.gather(*[
+                c.kput_many(row, [f"k{j}" for j in range(64)],
+                            [b"%s:%d" % (name.encode(), j)
+                             for j in range(64)], timeout=120.0)
+                for name, row in rows.items()])
+            for (name, row), rr in zip(rows.items(), res):
+                for j, r in enumerate(rr):
+                    if r[0] == "ok":
+                        acked[(row, f"k{j}")] = b"%s:%d" % (name.encode(),
+                                                            j)
+            await c.close()
+        asyncio.run(write())
+    finally:
+        p.send_signal(signal.SIGKILL)
+        p.wait(60)
+    if len(acked) != 4096:
+        raise AssertionError(f"10(d): {len(acked)} of 4096 writes acked")
+    t0 = time.perf_counter()
+    p, host, port = svcnode_process(data, dynamic=False)
+    restart_s = time.perf_counter() - t0
+    try:
+        async def read():
+            c = svcnode.ServiceClient(host, port)
+            await c.connect()
+            for name, row in rows.items():
+                if await c.resolve_ensemble(name) != ("ok", row):
+                    raise AssertionError(f"10(d): {name} lost its row")
+            got = await asyncio.gather(*[
+                c.kget_many(row, [f"k{j}" for j in range(64)],
+                            timeout=120.0) for row in rows.values()])
+            for row, g in zip(rows.values(), got):
+                if g != [("ok", acked[(row, f"k{j}")]) for j in range(64)]:
+                    raise AssertionError(f"10(d): acknowledged writes of "
+                                         f"row {row} did not read back")
+            await c.close()
+        asyncio.run(read())
+    finally:
+        p.send_signal(signal.SIGKILL)
+        p.wait(60)
+    print(f"10(d) svcnode process SIGKILL + restart [{card}]: boot "
+          f"{boot_s:.3f} s, restart (restore from the data dir) "
+          f"{restart_s:.3f} s; 64 names and 4096 acknowledged writes read "
+          f"back")
+    return {"boot_s": boot_s, "restart_s": restart_s, "acked": len(acked)}
+
+
+def phase_front_end(dev: torch.device, card: str) -> tuple:
+    """Phase 10: (a) the wire codec, (b) svcnode on loopback (the counted
+    path), (c) the cost of obs, (d) a svcnode process killed and
+    restarted."""
+    import asyncio
+    codec = phase_wire(card)
+    data = tempfile.mkdtemp(prefix="retpu_p10_")
+    sess = asyncio.run(front_end_session(dev, card, data))
+    shutil.rmtree(data, ignore_errors=True)
+    cost = obs_cost(dev, card)
+    data = tempfile.mkdtemp(prefix="retpu_p10d_")
+    crash = crash_restart(card, data)
+    shutil.rmtree(data, ignore_errors=True)
+    return sess.pop("counts"), codec, {"svcnode": sess, "obs_cost": cost,
+                                       "crash_restart": crash}
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -2742,6 +3234,8 @@ def main(argv) -> int:
     by_path.update(durable["counts"])
     control_counts, control = phase_control_plane(dev, card)
     by_path.update(control_counts)
+    front_counts, codec, front = phase_front_end(dev, card)
+    by_path["phase10 svcnode"] = front_counts
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     if not (all(f1_by_path.values()) and k1_exchange and k2_launches
@@ -2790,10 +3284,17 @@ def main(argv) -> int:
                   "replaces": ref, "calls": host_calls[name],
                   "max_abs_err": 0, **host[name]}
                  for name, src, ref in HOST_PASSES]
+    host_line.append({"name": "wire codec", "route": "host c++",
+                      "source": WIRE_SRC,
+                      "replaces": "native/wirecodec.cc "
+                                  "(riak_ensemble_tpu/wire.py:353)",
+                      "calls": front["svcnode"]["codec_calls"],
+                      "max_abs_err": 0, **codec})
     print(card)
     print(json.dumps({"kernels": kernels, "host": host_line,
                       "control_plane": {k: v for k, v in control.items()
-                                        if k != "reconfig"}}))
+                                        if k != "reconfig"},
+                      "front_end": front}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,12 @@ Layout mirrors the reference so each counterpart is easy to find:
   CUDA C++ in ``csrc/quorum.cu``) and its plain PyTorch version;
 - :mod:`.ops.hash` — the Merkle lane hash (format 3);
 - :mod:`.ops.engine` — the engine state and the fused step;
-- :mod:`.parallel.batched_host` — the keyed service;
+- :mod:`.parallel.batched_host` — the keyed service, with its
+  observability plane (:mod:`.obs`) on by default;
+- :mod:`.svcnode` — its network front end (``ServiceServer``,
+  ``ServiceClient``, ``serve``) over the restricted wire codec
+  (:mod:`.wire`, its C++ half in ``csrc/host/wirecodec.cc``) on the
+  real-time runtime (:mod:`.netruntime`);
 - :mod:`.interop` — bit-exact state conversion to and from numpy.
 
 The package imports torch, numpy and the standard library only: never

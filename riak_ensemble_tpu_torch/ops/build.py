@@ -20,9 +20,18 @@ the host compiler::
         csrc/host/enqueuekernel.cc csrc/host/resolvekernel.cc \\
         csrc/host/treestore.cc
 
-its hash covering every source, the compiler and the flags.  A failed
-build raises; nothing falls back.  Nothing here runs at import time;
-:func:`build_all` starts one compiler per library, all at once.
+its hash covering every source, the compiler and the flags.  The
+restricted wire codec (``csrc/host/wirecodec.cc``) is a CPython
+extension and builds beside it, one more job of the host build, with the
+include directory of the running interpreter (``sysconfig``)::
+
+    g++ -O2 -fPIC -std=c++17 -shared -I<python include> \
+        -o build/_retpu_wire-<hash>.so csrc/host/wirecodec.cc
+
+A failed build raises; nothing falls back.  Nothing here runs at import
+time; :func:`build_all` starts one compiler per library, all at once.
+Every finished compile is reported to the callbacks registered with
+:func:`add_listener` (the service's compile counters).
 """
 
 from __future__ import annotations
@@ -32,9 +41,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -48,11 +60,16 @@ HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 #: the name :func:`build_all` reports the host library's build under
 HOST = "host"
 
+#: the wire codec's source (a CPython extension) and the name its build
+#: is reported under
+WIRE_SOURCE = "wirecodec.cc"
+WIRE = "wire"
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, Any] = {}
 #: ptxas report (registers, spills) per built source, for the record
 build_log: Dict[str, str] = {}
 
@@ -105,19 +122,59 @@ def _host_cmd(out: str) -> List[str]:
             *(os.path.join(HOST_DIR, f) for f in HOST_SOURCES)]
 
 
+def _wire_flags() -> Tuple[str, ...]:
+    return (*HOST_FLAGS, "-I" + sysconfig.get_paths()["include"])
+
+
+def _wire_lib_path() -> str:
+    """The wire codec's path: its name carries a digest of the compiler,
+    the flags (the interpreter's include directory among them), the
+    interpreter's version and the source."""
+    digest = hashlib.sha256(" ".join((HOST_CXX, *_wire_flags(),
+                                      sys.version)).encode())
+    with open(os.path.join(HOST_DIR, WIRE_SOURCE), "rb") as src:
+        digest.update(src.read())
+    return os.path.join(BUILD_DIR,
+                        f"_retpu_wire-{digest.hexdigest()[:12]}.so")
+
+
+def _wire_cmd(out: str) -> List[str]:
+    return [HOST_CXX, *_wire_flags(), "-o", out,
+            os.path.join(HOST_DIR, WIRE_SOURCE)]
+
+
+_listeners: List[Any] = []
+
+
+def add_listener(method: Callable[[Dict[str, Any]], None]) -> None:
+    """Call the bound ``method({"name", "compile_ms"})`` after every
+    finished compile.  It is held weakly, so a listening service can be
+    collected."""
+    _listeners.append(weakref.WeakMethod(method))
+
+
+def _notify(name: str, secs: float) -> None:
+    _listeners[:] = [ref for ref in _listeners if ref() is not None]
+    for ref in list(_listeners):
+        fn = ref()
+        if fn is not None:
+            fn({"name": name, "compile_ms": secs * 1e3})
+
+
 def build_all(names: Optional[List[str]] = None,
               host: bool = True) -> Dict[str, float]:
-    """Compile every (or the named) CUDA source, and with ``host`` the
-    host library, that has no current library yet: one compiler process
-    per library, all started together.  Returns the wall seconds of the
-    whole build per name (``HOST`` for the host library; 0.0 where the
-    library was already current).  Raises on the first failed build,
-    with the compiler's output."""
+    """Compile every (or the named) CUDA source, with ``host`` the host
+    library and the wire codec, that has no current library yet: one
+    compiler process per library, all started together.  Returns the wall seconds of the whole build per name
+    (``HOST`` for the host library, ``WIRE`` for the codec; 0.0 where
+    the library was already current).  Raises on the first failed
+    build, with the compiler's output."""
     names = sources() if names is None else names
     jobs = [(name, _lib_path(name), lambda out, n=name: _nvcc_cmd(n, out))
             for name in names]
     if host:
         jobs.append((HOST, _host_lib_path(), _host_cmd))
+        jobs.append((WIRE, _wire_lib_path(), _wire_cmd))
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs: List[Tuple[str, str, str, subprocess.Popen]] = []
     secs: Dict[str, float] = {}
@@ -142,6 +199,7 @@ def build_all(names: Optional[List[str]] = None,
             failed.append(f"building {name} failed ({p.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        _notify(name, secs[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return secs
@@ -176,3 +234,26 @@ def load_host() -> ctypes.CDLL:
                 build_all([])
             lib = _libs[path] = ctypes.CDLL(path)
     return lib
+
+
+def load_wire() -> Any:
+    """The loaded wire codec extension (``csrc/host/wirecodec.cc``,
+    module ``_retpu_wire``), built first if needed with ``HOST_CXX``;
+    raises when it cannot be built or loaded."""
+    import importlib.util
+
+    path = _wire_lib_path()
+    mod = _libs.get(path)
+    if mod is not None:
+        return mod
+    with _lock:
+        mod = _libs.get(path)
+        if mod is None:
+            if not os.path.exists(path):
+                build_all([])
+            spec = importlib.util.spec_from_file_location("_retpu_wire",
+                                                          path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _libs[path] = mod
+    return mod

@@ -80,6 +80,37 @@ def shared_bytes(m: int, s: int, u: int) -> int:
     return 4 * 3 * ((m * s + 3) & ~3) + 16 * m * s + 16 * m * u
 
 
+def step_work(e: int, m: int, s: int, v: int, k: int, a: int,
+              writers: int = 0) -> Tuple[int, int]:
+    """(bytes, int32 ops) one F1 step needs: ``e`` rows stepped (A for a
+    sliced step) of ``m`` peers, ``s`` slots and ``v`` views, ``k``
+    rounds over ``a`` op columns, ``writers`` replica commits (commits x
+    the ensemble's heard members).  Bytes: every state plane of the
+    stepped rows read once and the ballot, object and tree planes
+    written once, every input and result plane once.  Ops: per ensemble
+    and round, the integrity gate of every replica (its leaf hash and one
+    16-child fold per upper level) and, per committing replica, the new
+    leaf hash and its path's folds; read repairs are not counted."""
+    u = n_uppers(s)
+    nlev = 0
+    n = s
+    while n > 1:
+        n = -(-n // 16)
+        nlev += 1
+    nlev = max(nlev, 1)
+    rw = 3 * e * m * s * 4 + e * m * s * 16 + e * m * u * 16 + 2 * e * m * 4 \
+        + 2 * e * 4
+    nbytes = (2 * rw + e * v * m + e * m + 5 * a
+              + k * a * (5 * 4 + 1)                  # op planes
+              + k * a * (4 + 4 + 8 + m) + a)         # results, won
+    # a fold: 16 children x 4 lanes x (xor, mul, add, 8 for fmix, sum)
+    # plus 4 lanes x 19 for the stir and seal; a leaf hash 4 x 13
+    fold, leaf = 16 * 4 * 12 + 4 * 19, 4 * 13
+    ops = k * e * m * (leaf + 4 + nlev * (fold + 4)) \
+        + writers * (leaf + nlev * fold)
+    return nbytes, ops
+
+
 def fold_consts() -> torch.Tensor:
     """The fold's 16 position salts then 16 odd multipliers, as the int32
     bit patterns the kernel reads as uint32 (``hash._fold_consts_np``)."""

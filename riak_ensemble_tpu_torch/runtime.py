@@ -6,12 +6,9 @@ Copied from ``riak_ensemble_tpu/runtime.py`` (``Future``, ``Timer``,
 nothing of the JAX package.  The event order is the reference's: one
 heap ordered by (time, insertion seq) and one seeded ``random.Random``
 drawn in the same places, so the same calls under the same seed run the
-same events in the same order.  One difference: ``Network`` has no
-link-fault plane.  The port's :mod:`.faults` holds the storage and crash
-rules only, so :meth:`Network.fault_plan` returns such a plan,
-``partition_oneway`` is absent and :meth:`Runtime.net_send` applies no
-per-link drop or delay; the link rules come with the real-time runtime
-(``netruntime``).
+same events in the same order, link faults included (the network's
+:class:`..faults.FaultPlan`: directional drops and per-link delay on
+virtual time).  :mod:`.netruntime` is the real-time counterpart.
 """
 
 from __future__ import annotations
@@ -173,8 +170,11 @@ class Network:
         #: adversarial reorder window (chaos mode); 0 = off
         self.chaos_window = 0.0
         self.chaos_local = 0.0
-        #: fault-injection plan (:class:`..faults.FaultPlan`), lazily
-        #: created by :meth:`fault_plan`; healed with everything else
+        #: fault-injection plan (:class:`..faults.FaultPlan`):
+        #: DIRECTIONAL drop (the one-way partition ``partition()``
+        #: cannot express) + per-link injected delay, applied in
+        #: net_send on top of the base latency.  Lazily created by
+        #: :meth:`fault_plan`; healed with everything else
         self.plan = None
 
     def chaos(self, window: float = 0.05, local: float = 0.0) -> None:
@@ -199,16 +199,23 @@ class Network:
 
     def fault_plan(self):
         """The network's fault-injection plan, created on first use
-        (seeded from the runtime's RNG for reproducible schedules).
-        The port's plan carries the storage rules only; its link rules
-        (directional drops, per-link delay) come with the real-time
-        runtime, so no link rule applies in :meth:`Runtime.net_send`."""
+        (seeded from the runtime's RNG for reproducible schedules)."""
         if self.plan is None:
             from riak_ensemble_tpu_torch import faults
 
             self.plan = faults.FaultPlan(
                 seed=self.runtime.rng.randrange(1 << 30))
         return self.plan
+
+    def partition_oneway(self, srcs: List[str],
+                         dsts: List[str]) -> None:
+        """Cut links in ONE direction only: frames ``src→dst`` drop,
+        ``dst→src`` still deliver — the classic failover killer the
+        symmetric :meth:`partition` cannot express."""
+        plan = self.fault_plan()
+        for a in srcs:
+            for b in dsts:
+                plan.drop(a, b)
 
     def heal(self) -> None:
         self.cut_links.clear()
@@ -353,6 +360,15 @@ class Runtime:
             return
         delay = self.net.local_latency() if dst_node == src_node \
             else self.net.latency()
+        plan = self.net.plan
+        if plan is not None and dst_node is not None \
+                and dst_node != src_node and plan.active():
+            # fault plane: directional drop, then injected per-link
+            # delay stacked on the base latency (virtual time — the
+            # schedule stays deterministic under the seeded plan RNG)
+            if plan.should_drop(src_node, dst_node):
+                return
+            delay += plan.delay_s(src_node, dst_node)
         self.send_after(delay, dst, msg)
 
     def spawn_task(self, gen: Generator, name: str = "task") -> Task:

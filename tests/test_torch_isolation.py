@@ -5,7 +5,12 @@ slice's modules (``faults``, ``save``, ``synctree.native_store``,
 ``parallel.wal``, ``ops.checkpoint``) are named, so a rename cannot drop
 them from the blocked import; a third subprocess drives the simulator
 runtime and the lifecycle path (dynamic rows, ``update_members``, a
-restore) with both names blocked.
+restore) with both names blocked.  The front end's modules (``wire``,
+``state``, ``netruntime``, ``svcnode``, every ``obs`` module,
+``utils.trace``) are named too; a fourth subprocess serves a
+``ServiceClient`` session with obs on and both names blocked, and maps
+only the port's own wire codec; a fifth runs
+``python -m riak_ensemble_tpu_torch.svcnode --help``.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
@@ -34,6 +39,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "riak_ensemble_tpu_torch")
 DURABILITY_MODULES = ("faults", "save", "synctree.native_store",
                       "parallel.wal", "ops.checkpoint")
+FRONT_END_MODULES = ("wire", "state", "netruntime", "svcnode", "obs",
+                     "obs.registry", "obs.spans", "obs.fingerprint",
+                     "obs.flightrec", "obs.opslo", "obs.controller",
+                     "obs.fleet", "utils.trace")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -78,9 +87,9 @@ def test_port_imports_with_jax_and_reference_blocked():
     n = int(proc.stdout.split("IMPORTED")[1])
     mods = list(pkgutil.walk_packages(riak_ensemble_tpu_torch.__path__,
                                       "riak_ensemble_tpu_torch."))
-    assert n == len(mods) + 1 and n >= 15
+    assert n == len(mods) + 1 and n >= 28
     names = {m.name for m in mods}
-    for mod in DURABILITY_MODULES:
+    for mod in DURABILITY_MODULES + FRONT_END_MODULES:
         assert "riak_ensemble_tpu_torch." + mod in names, mod
 
 
@@ -208,3 +217,67 @@ def test_runtime_and_lifecycle_run_with_jax_blocked():
                           text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LIFECYCLE OK" in proc.stdout
+
+
+_FRONT_END = r"""
+import asyncio, sys
+sys.path.insert(0, ROOT)
+from riak_ensemble_tpu_torch import svcnode
+from riak_ensemble_tpu_torch.config import fast_test_config
+from riak_ensemble_tpu_torch.utils.trace import Tracer
+
+async def main():
+    srv = await svcnode.serve(4, 3, 8, config=fast_test_config(),
+                              device="cpu", dynamic=True)
+    tr = Tracer(srv.svc.runtime, registry=srv.svc.obs_registry).install()
+    c = svcnode.ServiceClient(srv.host, srv.port)
+    await c.connect()
+    row = (await c.create_ensemble("orders"))[1]
+    assert (await c.kput_many(row, ["a", "b"], [b"1", b"2"]))[0][0] == "ok"
+    assert await c.kget(row, "a") == ("ok", b"1")
+    assert (await c.stats())["obs_enabled"] is True
+    assert "retpu_trace_events_total" in await c.metrics("prometheus")
+    assert tr.counters.get("svc_launch", 0) >= 1
+    await c.close()
+    await srv.stop()
+asyncio.run(main())
+from riak_ensemble_tpu_torch import wire
+assert wire._NATIVE is not None
+with open("/proc/self/maps") as maps:
+    print("\n".join(sorted({ln.split()[-1] for ln in maps
+                            if ln.rstrip().endswith(".so")})))
+print("FRONT END OK")
+"""
+
+
+def test_front_end_serves_with_jax_blocked():
+    """A ServiceClient session against ``serve(..., device="cpu")`` (obs
+    on, a tracer folded into the registry) runs with ``jax`` and the JAX
+    package blocked, on the port's own wire codec build."""
+    code = f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + _FRONT_END
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "FRONT END OK" in proc.stdout
+    mapped = proc.stdout.split()
+    build_dir = os.path.join(PKG, "build") + os.sep
+    codec = [p for p in mapped if "_retpu_wire" in p]
+    assert len(codec) == 1 and codec[0].startswith(build_dir), mapped
+    native = os.path.join(ROOT, "native") + os.sep
+    assert not [p for p in mapped if p.startswith(native)], mapped
+
+
+def test_svcnode_help_runs_with_jax_blocked():
+    code = (f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + "sys.path.insert(0, ROOT)\n"
+        "import runpy\n"
+        "sys.argv = ['svcnode', '--help']\n"
+        "runpy.run_module('riak_ensemble_tpu_torch.svcnode',"
+        " run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--device" in proc.stdout and "--data-dir" in proc.stdout
+    assert "--mesh-devices N" not in proc.stdout
+    assert "--mesh-devices MESH_DEVICES" not in proc.stdout

@@ -431,8 +431,8 @@ def test_batch_cas_and_delete_wal_bytes_match_jax(monkeypatch, tmp_path,
     if arm == "default":
         enc = p.ts._log_wal_native
 
-        def spy(taken, planes):
-            ok = enc(taken, planes)
+        def spy(taken, planes, *rec):
+            ok = enc(taken, planes, *rec)
             native.append(ok)
             return ok
         p.ts._log_wal_native = spy
