@@ -25,7 +25,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    K = 0 and 1, S = 16 / 33 / 1,024, no election), over seeded streams
    with down leaders and peers, every RMW code at the int32 edges,
    invalid slots, tombstones and out-of-band damage to objects, leaves
-   and upper nodes; time F1 and its plain version;
+   and upper nodes, damage aimed at a bucket then repeated writes into
+   it, a corrupt node that no op writes under, M = 32 and M = 7 x S =
+   1,024 (208 KB staged); time F1 (device time from CUDA events behind a
+   stream sleep) and its plain version, with its occupancy (registers,
+   shared memory, resident blocks per SM), its host time per call, and
+   its bounds (bytes, the reference arithmetic's operations, the
+   design's);
 3c. the anti-entropy exchange at full size: damage replicas in a
    service, check that the corruption-triggered exchange and
    ``scrub()`` heal them, that K1 launches on this path, and that
@@ -45,8 +51,10 @@ Phases (each raises on failure, so any failure exits non-zero):
 6. active-column compaction and the launch pipeline: (a) F1 in sliced
    mode against ``full_step_sliced_plain`` on the card, bit for bit, at
    the headline shape with a lone active column, 256 and 2,048 (each with
-   electing rows and row E - 1 active before the pads) and at the edge
-   shapes of 3b, timed at A = 256 and 2,048; (b) the keyed service at
+   electing rows and row E - 1 active before the pads), A = 1 with K = 1,
+   and at the edge shapes of 3b, timed at A = 256 (K = 64 and K = 1) and
+   2,048 as 3b times full width, with the wrapper's per-call overhead
+   (ms per call back to back minus device time); (b) the keyed service at
    the headline size with 256 of 10,000 ensembles active, compacted
    against ``compact=False`` (equal results; payload bytes, sliced and F1
    launches, median flush time per arm); (c) a stream of K = 64 flushes
@@ -122,6 +130,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    a restart on ``D``, every name and acknowledged write read back.
 
 Phases 4-10 run the service's default (native) host arm.
+
+``--f1`` runs the build and F1's phases 3b and 6(a) alone (no result
+line); ``--f1-ab DIR`` times F1 at the headline shape in the tree DIR and
+in this one, on one card, in turns (DIR, this, this, DIR), each run a
+process of its own.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -287,20 +300,24 @@ def device_us_per_launch(fn, name: str, n: int = 50,
     """Device time per launch of the kernel whose name contains
     ``name``, from torch.profiler over ``n`` back-to-back calls that
     each launch it ``per_call`` times (averaged over the launches the
-    trace holds: it may drop one of a window)."""
+    trace holds: it may drop one of a window).  A window whose trace
+    dropped more is traced again, up to three windows in all."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages() if name in ev.key]
-    count = sum(ev.count for ev in evs)
-    if not n * per_call - 2 <= count <= n * per_call:
-        raise AssertionError(f"profiler saw {count} of {n * per_call} "
-                             f"launches of {name}")
-    return sum(ev.self_device_time_total for ev in evs) / count
+    for _ in range(3):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if name in ev.key]
+        count = sum(ev.count for ev in evs)
+        if n * per_call - 2 <= count <= n * per_call:
+            return sum(ev.self_device_time_total for ev in evs) / count
+        print(f"profiler saw {count} of {n * per_call} launches of {name}; "
+              f"tracing again")
+    raise AssertionError(f"profiler saw {count} of {n * per_call} "
+                         f"launches of {name}")
 
 
 def phase_k2(dev: torch.device, profile: Optional[str] = None):
@@ -434,7 +451,8 @@ def phase_engine(dev: torch.device) -> None:
 
 I32_MAX, I32_MIN = 2 ** 31 - 1, -2 ** 31
 
-#: (name, E, M, S, K, views, steps, elect every step)
+#: (name, E, M, S, K, views, steps, elect every step[, stream pattern])
+#: — the patterns are :func:`f1_stream`'s
 F1_CASES = [
     ("headline 10000x5x128 K=64", E_FULL, M_FULL, S_FULL, K_FULL, None, 3,
      True),
@@ -450,16 +468,27 @@ F1_CASES = [
     ("S=1024 (large)", 1024, 5, 1024, 16, None, 2, True),
     ("no election: kv_step_scan, then kv_step", 2048, 5, 128, 8, None, 3,
      False),
+    ("targeted damage, then repeated writes to one bucket", 2048, 5, 128,
+     64, None, 3, True, "bucket"),
+    ("a corrupt node that is never written", 2048, 5, 128, 64, None, 3,
+     True, "avoid"),
+    ("M=32 S=128 (32 replicas staged)", 512, 32, 128, 16, None, 3, True),
+    ("M=7 S=1024 (208 KB staged, near the cap)", 256, 7, 1024, 16, None, 2,
+     True),
 ]
 
 
 def f1_stream(rng: np.random.Generator, leader: np.ndarray, e: int, m: int,
-              s: int, k: int):
+              s: int, k: int, pattern: str = "mixed",
+              bucket: Optional[np.ndarray] = None):
     """One step's full_step inputs: elections with bogus candidates, down
     leaders and down peers, every op kind and RMW code (and one unknown
     code), operands at the int32 edges, invalid slots and tombstones;
     one column in seven runs put/RMW-add at INT32_MAX and put/RMW-sub at
-    INT32_MIN on one slot, so the wraparound is certain to run."""
+    INT32_MIN on one slot, so the wraparound is certain to run.
+    ``pattern="bucket"``: every op a read, put, CAS or RMW inside row r's
+    16-slot bucket starting at ``bucket[r]``; ``"avoid"``: no op reaches
+    slots 0-15, so a node over them is never written."""
     up = rng.random((e, m)) < 0.9
     down = (rng.random(e) < 0.15) & (leader >= 0) & (leader < m)
     up[np.nonzero(down)[0], leader[down]] = False
@@ -482,12 +511,25 @@ def f1_stream(rng: np.random.Generator, leader: np.ndarray, e: int, m: int,
             (eng.OP_PUT, I32_MIN, 0), (eng.OP_RMW, 1, eng.RMW_SUB)][:k]):
         kind[j, cols], slot[j, cols], val[j, cols] = op, 3 % s, v
         exp_e[j, cols] = fn
+    if pattern == "bucket":
+        slot = np.minimum(bucket[None, :] + rng.integers(0, 16, (k, e)),
+                          s - 1).astype(np.int32)
+        kind = rng.choice([eng.OP_GET, eng.OP_PUT, eng.OP_PUT, eng.OP_CAS,
+                           eng.OP_RMW], (k, e)).astype(np.int32)
+    elif pattern == "avoid":
+        slot = np.where((slot >= 0) & (slot < 16), slot + 16,
+                        slot).astype(np.int32)
     return elect, cand, kind, slot, val, lease, up, exp_e, exp_s
 
 
-def damage(rng: np.random.Generator, states, n: int) -> None:
+def damage(rng: np.random.Generator, states, n: int,
+           bucket: Optional[np.ndarray] = None, node0: bool = False) -> None:
     """The same out-of-band damage on every state: object values, leaf
-    lanes and upper-node lanes of random replicas."""
+    lanes and upper-node lanes of random replicas.  With ``bucket``
+    (row r's 16-slot bucket starts at ``bucket[r]``) the objects and
+    leaves hit lie in the row's bucket and the nodes hit are its
+    level-0 node; with ``node0`` the level-0 node over slots 0-15 of
+    ``n`` rows is hit too."""
     st = states[0]
     e, m, s = st.obj_val.shape
     u = st.tree_node.shape[2]
@@ -495,6 +537,11 @@ def damage(rng: np.random.Generator, states, n: int) -> None:
               rng.integers(0, s, n)) for _ in range(2)]
     nodes = (rng.integers(0, e, n), rng.integers(0, m, n),
              rng.integers(0, u, n))
+    if bucket is not None:
+        for rows, reps, slots in picks:
+            slots[:] = np.minimum(bucket[rows] + rng.integers(0, 16, n),
+                                  s - 1)
+        nodes[2][:] = bucket[nodes[0]] // 16
     lane = rng.integers(0, 4, n)
     for st in states:
         dev = st.obj_val.device
@@ -507,6 +554,8 @@ def damage(rng: np.random.Generator, states, n: int) -> None:
         st.tree_leaf[a, b, c, ix(lane)] ^= 1 << 9
         a, b, c = map(ix, nodes)
         st.tree_node[a, b, c, ix(lane)] ^= 3
+        if node0:
+            st.tree_node[ix(nodes[0]), ix(nodes[1]), 0, 1] ^= 0x40
 
 
 def diff_fields(a, b, fields) -> list:
@@ -519,7 +568,8 @@ def copy_state(st):
     return eng.EngineState(*(t.clone() for t in st))
 
 
-def f1_case(dev, name, e, m, s, k, views, steps, elect_every, seed):
+def f1_case(dev, name, e, m, s, k, views, steps, elect_every, seed,
+            pattern="mixed"):
     """Run one case's steps through F1 and through the plain version
     from the same state; raise on any difference.  Returns counts of
     what the stream exercised."""
@@ -527,12 +577,16 @@ def f1_case(dev, name, e, m, s, k, views, steps, elect_every, seed):
     st_f1 = eng.init_state(e, m, s, views=views, device=dev)
     st_pl = copy_state(st_f1)
     stats = {"won": 0, "commits": 0, "corrupt": 0, "get_ok": 0}
+    bucket = 16 * rng.integers(0, -(-s // 16), e)
     for step in range(steps):
         if step:
-            damage(rng, (st_f1, st_pl), max(e // 40, 4))
+            damage(rng, (st_f1, st_pl), max(e // 40, 4),
+                   bucket=bucket if pattern == "bucket" else None,
+                   node0=pattern == "avoid")
         leader = st_pl.leader.cpu().numpy()
         planes = [torch.from_numpy(p).to(dev)
-                  for p in f1_stream(rng, leader, e, m, s, k)]
+                  for p in f1_stream(rng, leader, e, m, s, k, pattern,
+                                     bucket)]
         elect, cand, kind, slot, val, lease, up, exp_e, exp_s = planes
         if elect_every or step == 0:
             st_f1, won_f, res_f = eng.full_step(
@@ -593,10 +647,92 @@ def bound(nbytes: int, ops: int) -> tuple:
     return bytes_ms, ops_ms, max(bytes_ms, ops_ms)
 
 
-def phase_f1(dev: torch.device, card: str):
-    for i, (name, e, m, s, k, views, steps, every) in enumerate(F1_CASES):
+def gated_us(fn, n: int = 20, reps: int = 3) -> float:
+    """Device µs per call of ``fn`` (one kernel launch each): CUDA events
+    around ``n`` calls queued behind a 50 ms stream sleep, so the host's
+    enqueue time stays out of the window; the median of ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.05 * 1.98e9))
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) * 1e3 / n)
+    return statistics.median(per)
+
+
+def host_us(fn, n: int = 20, reps: int = 5) -> float:
+    """Host µs per call of ``fn`` (the enqueue, without a synchronise):
+    the median over ``reps`` windows of ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
         t0 = time.perf_counter()
-        stats = f1_case(dev, name, e, m, s, k, views, steps, every, 100 + i)
+        for _ in range(n):
+            fn()
+        per.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def f1_occupancy(label: str, e: int, m: int, s: int, v: int, k: int,
+                 a: int) -> dict:
+    """Print and return how an F1 launch at these dims runs."""
+    occ = cuda_engine.occupancy(e, m, s, v, k, a)
+    print(f"F1 occupancy {label}: {occ['regs_per_thread']} registers per "
+          f"thread, {occ['static_smem']} B static + {occ['dynamic_smem']} B "
+          f"dynamic shared memory, {occ['spill_bytes']} B spilled, "
+          f"{occ['warps_per_block']} warps per block, "
+          f"{occ['blocks_per_sm']} resident blocks per SM of {occ['sms']} "
+          f"SMs")
+    return occ
+
+
+def f1_bounds(st, up: np.ndarray, kind: np.ndarray, slot: np.ndarray,
+              committed: np.ndarray,
+              rows: Optional[np.ndarray] = None) -> dict:
+    """F1's bounds on these inputs: the bytes, the reference arithmetic's
+    int32 ops (``cuda_engine.step_work``) and the design's
+    (``cuda_engine.design_work``); ``bound_ms`` is the larger of the bytes
+    and the design's ops."""
+    nbytes, ref_ops = f1_work(st, up, committed, rows)
+    heard = up & st.view_mask.any(1).cpu().numpy()
+    m, s = heard.shape[1], st.obj_val.shape[2]
+    cols = np.zeros((kind.shape[1], m), bool)
+    if rows is None:
+        cols[:] = heard
+    else:
+        cols[:len(rows)] = heard[rows]
+    work = cuda_engine.design_work(cols, kind, slot, committed, s)
+    bytes_ms, ref_ms, _ = bound(nbytes, ref_ops)
+    _, design_ms, _ = bound(nbytes, work["ops"])
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "ref_ops": ref_ops,
+            "ref_ops_ms": ref_ms, "design_ops": work["ops"],
+            "design_ops_ms": design_ms, "design_work": work,
+            "bound_ms": max(bytes_ms, design_ms),
+            "bound_by": "bytes" if bytes_ms >= design_ms else "operations"}
+
+
+def bound_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.6f} ms = max(bytes {b['bytes']} B -> "
+            f"{b['bytes_ms']:.6f} ms, design int32 ops {b['design_ops']} -> "
+            f"{b['design_ops_ms']:.6f} ms); the reference arithmetic's "
+            f"{b['ref_ops']} ops -> {b['ref_ops_ms']:.6f} ms")
+
+
+def phase_f1(dev: torch.device, card: str):
+    for i, case in enumerate(F1_CASES):
+        name, e, m, s, k, views, steps, every = case[:8]
+        t0 = time.perf_counter()
+        stats = f1_case(dev, name, e, m, s, k, views, steps, every, 100 + i,
+                        *case[8:])
         print(f"F1 == plain  {name}: E={e} M={m} S={s} K={k}, {steps} "
               f"steps, {stats} ({time.perf_counter() - t0:.1f} s)")
         if k and not (stats["commits"] and stats["corrupt"]):
@@ -612,23 +748,27 @@ def phase_f1(dev: torch.device, card: str):
     kw = {"exp_epoch": planes[7], "exp_seq": planes[8]}
     st, _, res = eng.full_step(st, *args, **kw)    # elect, fill the store
     torch.cuda.synchronize()
-    f1_ms = cuda_ms(lambda: eng.full_step(st, *args, **kw), iters=10)
+
+    def step():
+        eng.full_step(st, *args, **kw)
+    f1_ms = cuda_ms(step, iters=10)
     st_pl = copy_state(st)
     plain_ms = cuda_ms(lambda: eng.full_step_plain(st_pl, *args, **kw),
                        iters=1, reps=3)
-    nbytes, ops = f1_work(st, planes[6].cpu().numpy(),
-                          res.committed.cpu().numpy())
-    bytes_ms, ops_ms, bound_ms = bound(nbytes, ops)
-    dev_us = device_us_per_launch(lambda: eng.full_step(st, *args, **kw),
-                                  "engine_step_kernel", n=20)
+    occ = f1_occupancy(f"full width {e}x{m}x{s} K={k}", e, m, s, 2, k, e)
+    b = f1_bounds(st, planes[6].cpu().numpy(), planes[2].cpu().numpy(),
+                  planes[3].cpu().numpy(), res.committed.cpu().numpy())
+    dev_us = gated_us(step)
+    host = host_us(step)
     print(f"F1 at {e}x{m}x{s} K={k} [{card}]: full_step {f1_ms:.6f} ms per "
-          f"call back to back, {dev_us:.3f} us device time per launch; "
-          f"plain {plain_ms:.3f} ms; bound {bound_ms:.6f} ms = max(bytes "
-          f"{nbytes} B -> {bytes_ms:.6f} ms, int32 ops {ops} -> "
-          f"{ops_ms:.6f} ms)")
-    return {"ms": f1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": 0, "device_us": dev_us}
+          f"call back to back, {dev_us:.3f} us device time per launch "
+          f"(gated events); host {host:.3f} us per call; plain "
+          f"{plain_ms:.3f} ms; {bound_text(b)}")
+    return {"ms": f1_ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "bytes_ms": b["bytes_ms"],
+            "ref_ops_ms": b["ref_ops_ms"],
+            "design_ops_ms": b["design_ops_ms"], "max_abs_err": 0,
+            "device_us": dev_us, "host_us": host, "occupancy": occ}
 
 
 # ---------------------------------------------------------------------------
@@ -1056,6 +1196,8 @@ F1_SLICED_CASES = [
      True),
     ("K=0 (election only)", 4096, 5, 128, 0, None, 2, 500, 512, True),
     ("K=1", 4096, 5, 128, 1, None, 3, 500, 512, True),
+    ("A=1, K=1 (a lone row, no pads)", E_FULL, M_FULL, S_FULL, 1, None, 3, 1,
+     1, True),
 ]
 
 
@@ -1139,11 +1281,14 @@ def f1_sliced_case(dev, name, e, m, s, k, views, steps, n_real, bucket,
     return stats
 
 
-def time_sliced(dev, card: str, n_real: int, bucket: int) -> dict:
+def time_sliced(dev, card: str, n_real: int, bucket: int,
+                k: int = K_FULL) -> dict:
     """Sliced F1 at the headline shape with ``n_real`` active rows in an
-    A = ``bucket`` grid: ms per call back to back, device µs per launch,
-    the plain version, and the bound of the stepped rows' work."""
-    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    A = ``bucket`` grid and ``k`` rounds: ms per call back to back,
+    device µs per launch (gated events), host µs per call, the wrapper's
+    per-call overhead (ms per call minus device time), the plain version,
+    and the bounds of the stepped rows' work."""
+    e, m, s = E_FULL, M_FULL, S_FULL
     rng = np.random.default_rng(98 + bucket)
     st = eng.init_state(e, m, s, device=dev)
     active, planes = sliced_inputs(rng, np.full(e, -1, np.int32), e, m, s,
@@ -1152,26 +1297,32 @@ def time_sliced(dev, card: str, n_real: int, bucket: int) -> dict:
     args, kw = t[:7], {"exp_epoch": t[7], "exp_seq": t[8]}
     st, _, res = eng.full_step_sliced(st, active, *args, **kw)  # elect, fill
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: eng.full_step_sliced(st, active, *args, **kw),
-                 iters=10)
-    dev_us = device_us_per_launch(
-        lambda: eng.full_step_sliced(st, active, *args, **kw),
-        "engine_step_kernel", n=20)
+
+    def step():
+        eng.full_step_sliced(st, active, *args, **kw)
+    ms = cuda_ms(step, iters=10)
+    dev_us = gated_us(step)
+    host = host_us(step)
     st_pl = copy_state(st)
     plain_ms = cuda_ms(lambda: eng.full_step_sliced_plain(
         st_pl, active, *args, **kw), iters=1, reps=3)
-    nbytes, ops = f1_work(st, planes[6], res.committed.cpu().numpy(),
-                          rows=active[:n_real])
-    bytes_ms, ops_ms, bound_ms = bound(nbytes, ops)
-    print(f"F1 sliced at {e}x{m}x{s} K={k}, A={bucket} ({n_real} rows) "
-          f"[{card}]: full_step_sliced {ms:.6f} ms per call back to back, "
-          f"{dev_us:.3f} us device time per launch; plain {plain_ms:.3f} "
-          f"ms; bound {bound_ms:.6f} ms = max(bytes {nbytes} B -> "
-          f"{bytes_ms:.6f} ms, int32 ops {ops} -> {ops_ms:.6f} ms)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "device_us": dev_us, "rows": n_real, "max_abs_err": 0,
-            "library_ms": None}
+    label = f"sliced A={bucket} ({n_real} rows) K={k}"
+    occ = f1_occupancy(label, e, m, s, 2, k, bucket)
+    b = f1_bounds(st, planes[6], planes[2], planes[3],
+                  res.committed.cpu().numpy(), rows=active[:n_real])
+    overhead = ms - dev_us / 1e3
+    print(f"F1 {label} at {e}x{m}x{s} [{card}]: full_step_sliced {ms:.6f} "
+          f"ms per call back to back, {dev_us:.3f} us device time per "
+          f"launch (gated events); host {host:.3f} us per call; per-call "
+          f"overhead {overhead:.6f} ms; plain {plain_ms:.3f} ms; "
+          f"{bound_text(b)}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "bytes_ms": b["bytes_ms"],
+            "ref_ops_ms": b["ref_ops_ms"],
+            "design_ops_ms": b["design_ops_ms"], "device_us": dev_us,
+            "host_us": host, "overhead_ms": overhead,
+            "rows": n_real, "k": k, "max_abs_err": 0, "library_ms": None,
+            "occupancy": occ}
 
 
 def phase_f1_sliced(dev: torch.device, card: str) -> dict:
@@ -1192,8 +1343,9 @@ def phase_f1_sliced(dev: torch.device, card: str) -> dict:
     if not all(total.values()):
         raise AssertionError(f"the sliced cases raised no integrity flag or "
                              f"no pad quorum: {total}")
-    return {f"A={b}": time_sliced(dev, card, n, b)
-            for n, b in ((250, 256), (2000, 2048))}
+    return {"A=256": time_sliced(dev, card, 250, 256),
+            "A=256 K=1": time_sliced(dev, card, 250, 256, k=1),
+            "A=2048": time_sliced(dev, card, 2000, 2048)}
 
 
 def keyed_rounds(svc: BatchedEnsembleService, dev: torch.device, sub: list,
@@ -3196,6 +3348,96 @@ def profile_flush(svc, kind, slots, card: str, path: str) -> None:
           f"{(t2 - t1) * 1e3:.3f} ms")
 
 
+#: F1's timings at the headline shape, run by :func:`f1_ab` in a tree of
+#: this package (as ``python3 -c``, from the tree's root): full width, and
+#: sliced at A = 256 (K = 64 and K = 1) and A = 2,048; ms per call back to
+#: back, gated device µs and host µs per call.  It uses only names that
+#: every version of this script and package has had since sliced F1.
+F1_AB_CODE = r"""
+import json, statistics, time
+import numpy as np, torch
+import chip_smoke as cs
+from riak_ensemble_tpu_torch.ops import engine as eng
+
+def gated(fn, n=20):
+    fn(); torch.cuda.synchronize(); per = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(0.05 * 1.98e9)); a.record()
+        for _ in range(n): fn()
+        b.record(); b.synchronize(); per.append(a.elapsed_time(b) * 1e3 / n)
+    return statistics.median(per)
+
+def host(fn, n=20):
+    fn(); torch.cuda.synchronize(); per = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n): fn()
+        per.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+def timed(fn):
+    ms = cs.cuda_ms(fn, iters=10); dev = gated(fn)
+    return {"ms": ms, "device_us": dev, "host_us": host(fn),
+            "overhead_ms": ms - dev / 1e3}
+
+dev = torch.device("cuda", 0)
+e, m, s, k = cs.E_FULL, cs.M_FULL, cs.S_FULL, cs.K_FULL
+out = {}
+rng = np.random.default_rng(99)
+st = eng.init_state(e, m, s, device=dev)
+p = [torch.from_numpy(x).to(dev) for x in cs.f1_stream(
+    rng, np.full(e, -1, np.int32), e, m, s, k)]
+kw = {"exp_epoch": p[7], "exp_seq": p[8]}
+eng.full_step(st, *p[:7], **kw); torch.cuda.synchronize()
+out["full"] = timed(lambda: eng.full_step(st, *p[:7], **kw))
+for n_real, bucket, kk in ((250, 256, 64), (250, 256, 1), (2000, 2048, 64)):
+    rng = np.random.default_rng(98 + bucket)
+    st = eng.init_state(e, m, s, device=dev)
+    active, planes = cs.sliced_inputs(rng, np.full(e, -1, np.int32), e, m,
+                                      s, kk, n_real, bucket, True,
+                                      elect_all=True)
+    t = [torch.from_numpy(x).to(dev) for x in planes]
+    kw = {"exp_epoch": t[7], "exp_seq": t[8]}
+    eng.full_step_sliced(st, active, *t[:7], **kw); torch.cuda.synchronize()
+    out[f"A={bucket} K={kk}"] = timed(
+        lambda: eng.full_step_sliced(st, active, *t[:7], **kw))
+print("F1AB " + json.dumps(out))
+"""
+
+
+def f1_ab(other: str, card: str) -> int:
+    """F1's timings (:data:`F1_AB_CODE`) in another tree of this package
+    and in this one, on one card, in turns: other, this, this, other.
+    Each run is a process of its own (it builds its tree's kernel)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for label, root in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", F1_AB_CODE], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        line = [ln for ln in out.stdout.splitlines()
+                if ln.startswith("F1AB ")]
+        if out.returncode != 0 or not line:
+            raise AssertionError(f"F1 timing in {root} failed "
+                                 f"({out.returncode}):\n{out.stderr[-3000:]}")
+        res = json.loads(line[0][5:])
+        runs.append((label, res))
+        print(f"F1 A/B {label} ({root}) [{card}], "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(res)}")
+    for mode in runs[0][1]:
+        for key in ("device_us", "ms", "host_us", "overhead_ms"):
+            vals = {lab: [r[mode][key] for l2, r in runs if l2 == lab]
+                    for lab in ("other", "this")}
+            print(f"F1 A/B {mode} {key}: other "
+                  f"{', '.join(f'{x:.6f}' for x in vals['other'])}; this "
+                  f"{', '.join(f'{x:.6f}' for x in vals['this'])}")
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3205,6 +3447,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
+    if "--f1-ab" in argv:
+        return f1_ab(argv[argv.index("--f1-ab") + 1], card)
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s wall "
@@ -3213,6 +3457,11 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    if "--f1" in argv:
+        # F1 alone: phases 3b and 6(a), no result line
+        phase_f1(dev, card)
+        phase_f1_sliced(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -3256,7 +3505,10 @@ def main(argv) -> int:
         "max_abs_err": f1["max_abs_err"], "ms": f1["ms"],
         "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
         "bound_by": f1["bound_by"], "library_ms": None,
-        "device_us": f1["device_us"], "sliced": f1_sliced}, {
+        "device_us": f1["device_us"], "host_us": f1["host_us"], "bytes_ms": f1["bytes_ms"],
+        "ref_ops_ms": f1["ref_ops_ms"],
+        "design_ops_ms": f1["design_ops_ms"],
+        "occupancy": f1["occupancy"], "sliced": f1_sliced}, {
         "name": "K1 quorum_met_e", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",

@@ -8,42 +8,62 @@
 // quorum predicate (the TPU kernel quorum_met_epallas,
 // riak_ensemble_tpu/ops/pallas_quorum.py:172, K1 in this package) inside.
 // Here that is one launch per flush; the predicate is a device function
-// (quorum_met_bits, quorum_common.cuh) on 32-bit peer masks.  The torch
-// loop it replaces (ops/engine.py kv_step_scan_plain) ran ~500 small
-// kernels per round, 32,203 per K = 64 flush at 10,000 x 5 x 128.
+// (quorum_regs, over quorum_common.cuh's resolve_view) on 32-bit peer masks
+// with the views in registers.
 //
 // Semantics are full_step_plain's, bit for bit: every state plane is read
 // and updated in place, and the stacked result planes [K, E] (tree_corrupt
-// [K, E, M]) are written in the layout KvResult holds.
+// [K, E, M]) are written in the layout KvResult holds.  The algorithm is
+// not the plain version's round for round (tests/test_torch_f1_design.py
+// holds a numpy transcription of it against the plain versions and the
+// JAX package):
 //
-// What bounds it on this card.  At 10,000 x 5 x 128, K = 64: the state is
-// 187.1 MB, read once and written once, plus ~13 MB of op planes and ~13 MB
-// of result planes (~0.4 GB, ~0.12 ms at 3.35 TB/s); the hash work is
-// ~10,000 int32 operations per ensemble per round (the path verify of
-// every replica, the leaf hashes, the path write of every committing
-// replica), ~6.3 G per flush, ~0.38 ms at the int32 rate (132 SMs x 64
-// lanes x 1.98 GHz): operations bound it.  The rounds of one ensemble are
-// sequential and every stage ends in a barrier, so latency, not either
-// bound, sets its time: on an H100 80GB HBM3 at 700 W one launch took
-// 2.13 ms, ~18 % of the bound (PERF.md).  The design:
-// - one thread block per ensemble: rounds of one ensemble are sequential,
-//   ensembles independent.  The block stages its ensemble's object and
-//   tree planes into shared memory once (TMA 1-D bulk copies on an
-//   mbarrier; coalesced 16-byte loads measured ~2 % slower, PERF.md),
-//   runs all K rounds there and writes them back once.  At M = 5,
-//   S = 128 that is ~18.7 KB per block;
-// - warp w does the Merkle work of the replicas r = w (mod warps): a
-//   16-child fold is one warp (lane = child pair x hash lane), the sum
-//   over children a butterfly of shuffles, the cross-lane stir two more
-//   shuffles — no block barrier inside a fold, and a replica's root-ward
-//   path write needs only __syncwarp between levels;
-// - the per-ensemble scalar logic (the election, the context, the
-//   newest-object reductions, commit / CAS / RMW / tombstone / read
-//   repair) runs on warp 0 with lane = replica: the peer reductions are
-//   __reduce_max_sync and ballots;
-// - three barriers per round: after the integrity checks, after the
-//   decision (which writes the touched slot's object and leaf), and after
-//   the path rewrite.
+// - Rounds fall into three classes.  A NOOP round (kind not 1-4) and a
+//   round with an invalid slot have results that are constants of the
+//   ballot: an invalid slot's integrity verdict reaches no output (each
+//   use is masked by the slot check or by obj_found, false there).  Their
+//   lanes write those results in parallel; only the LIVE rounds run in
+//   order.  A block with no live round stages and writes back nothing but
+//   its ballot.
+// - Integrity verdicts, not per-round re-verification.  Inside a launch
+//   only the kernel's own writes change an ensemble's objects and tree, and
+//   each write sets an object and its leaf together and (in the plain
+//   version) refolds the slot's path.  So a replica's verdict at a slot is
+//   exact from one state byte per upper node, BAD (the stored node differs
+//   from the fold of its stored children) and DIRTY (a write lies under
+//   it), and one per slot, BAD (the object's hash differs from its leaf)
+//   and DIRTY (written).  Every warp sets the verdicts of every heard
+//   replica once, at staging (a replica not heard reaches no output).  A
+//   write marks its slot and path DIRTY and clears BAD; the written leaves
+//   are hashed once, at the end.  (Verdicts on first touch, in the round
+//   loop, measured slower at K = 64 and no faster at K = 1: PERF.md.)
+//   A fold is one quad of lanes (lane = hash lane, each summing its lane
+//   of the 16 children), so a warp folds eight parents a step.
+// - Refold once, at the end: the DIRTY nodes, bottom-up, from their final
+//   children — what the plain version's last refold of each left there.
+//   Nodes off every written path keep their bits, corrupt ones included.
+// - No block barrier in the round loop: a round is scalar logic on warp 0
+//   (lane = replica) over shared memory.  Warp 0 holds 32 rounds' op
+//   fields in registers (lane = round), broadcast by shuffles, and loads
+//   the next 32 while it runs these; the first 32 load with the staging.
+//   A round's results go to its own lane's registers and the 32 rounds'
+//   are stored together, so no global access is on the rounds' chain.
+// - Write-back of only the replicas that wrote, with TMA bulk stores.
+//
+// What bounds it on this card.  At 10,000 x 5 x 128, K = 64 the state is
+// 187.1 MB; the bytes bound (every plane read once and written once, the
+// op and result planes once) is ~0.12 ms at 3.35 TB/s, and the design's
+// hashing (a fold per upper node and a leaf hash per slot of each heard
+// replica, once; the refolds and leaf hashes of what was written) ~0.05 ms
+// at the int32 rate.  Neither sets the time: a live round is a chain of
+// ~15 dependent warp-wide steps on warp 0 (shared-memory loads, ballots,
+// three max-reductions, the quorum predicate, the decision), so an
+// ensemble takes its live rounds x that latency, plus staging, verdicts,
+// refold and write-back.  At full width that runs in waves of resident
+// blocks, and shared memory (19.3 KB a block) caps them at 11 per SM; the
+// entry point picks the warps per block from the occupancy query (one at
+// full width, eight at A = 256).  On an H100 80GB HBM3 at 700 W a launch
+// takes ~0.42 ms full width; the bytes bound is ~29 % of that (PERF.md).
 //
 // Contract (the Python wrapper checks it and raises; the entry point
 // refuses it again): 1 <= M <= 32, 1 <= V <= 8, the staged planes within
@@ -67,22 +87,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #include "quorum_common.cuh"
 
 namespace {
 
 constexpr int kMaxPeers = 32;
 constexpr int kMaxViews = 8;
-constexpr int kMaxLevels = 8;
+constexpr int kMaxLevels = 4;  // S <= 65,536; shared memory caps S lower
 constexpr int kMaxWarps = 8;
 constexpr int kWidth = 16;  // Merkle trie fan-out
 constexpr unsigned kFull = 0xffffffffu;
 
+// per (replica, upper node) and (replica, slot) state bits
+constexpr uint8_t kBad = 1, kDirty = 2;
+
 // op kinds (ops/engine.py OP_*) and RMW fun codes (funref.RMW_*)
 constexpr int kOpGet = 1, kOpPut = 2, kOpCas = 3, kOpRmw = 4;
 constexpr int kRmwAdd = 0, kRmwSub = 1, kRmwMax = 2, kRmwMin = 3,
-              kRmwSet = 4, kRmwBand = 5, kRmwBor = 6, kRmwBxor = 7,
-              kRmwPia = 8;
+              kRmwBand = 5, kRmwBor = 6, kRmwBxor = 7, kRmwPia = 8;
 
 constexpr uint32_t kC1 = 0xCC9E2D51u;
 constexpr uint32_t kF1 = 0x85EBCA6Bu;
@@ -162,53 +186,8 @@ __device__ __forceinline__ uint32_t leaf_lane(int32_t ep, int32_t sq,
   return fmix(base * kC1 + (uint32_t)l);
 }
 
-// hash.fold of the 16 children of parent `pidx` in a per-replica level
-// array `arr` ([n, 4] words, zero-padded past n), by one whole warp.  Lane
-// = (child pair cp = lane >> 2: children cp and cp + 8) x (hash lane li =
-// lane & 3).  Every lane returns the parent's hash lane li.
-__device__ __forceinline__ uint32_t fold_warp(const uint32_t* arr, int n,
-                                              int pidx, int lane,
-                                              uint32_t salt0, uint32_t mul0,
-                                              uint32_t salt1, uint32_t mul1) {
-  const int li = lane & 3;
-  const int c0 = pidx * kWidth + (lane >> 2);
-  const int c1 = c0 + kWidth / 2;
-  const uint32_t x0 = c0 < n ? arr[c0 * 4 + li] : 0u;
-  const uint32_t x1 = c1 < n ? arr[c1 * 4 + li] : 0u;
-  // each child avalanched with its position's salt and multiplier; the
-  // mixes summed mod 2^32 over the 16 children (lane bits 2..4 hold cp)
-  uint32_t acc = fmix((x0 ^ salt0) * mul0 + (uint32_t)li) +
-                 fmix((x1 ^ salt1) * mul1 + (uint32_t)li);
-  acc += __shfl_xor_sync(kFull, acc, 4);
-  acc += __shfl_xor_sync(kFull, acc, 8);
-  acc += __shfl_xor_sync(kFull, acc, 16);
-  // the cross-lane stirs: torch.roll(acc, 1) gives lane j lane j - 1
-  const int quad = lane & ~3;
-  acc = fmix(acc ^ __shfl_sync(kFull, acc, quad | ((li + 3) & 3)));
-  acc ^= __shfl_sync(kFull, acc, quad | ((li + 2) & 3));
-  return fmix(acc ^ (uint32_t)kWidth);
-}
-
-// The round context's epoch check on warp 0 (lane = replica): the leader's
-// epoch (0 with no leader), whether it is up, and whether the heard members
-// at that epoch reach a quorum in every view.
-__device__ __forceinline__ bool epoch_check(int32_t epoch_m, int leader,
-                                            uint32_t heard, bool in, int m,
-                                            const uint32_t* views, int v,
-                                            int32_t* lead_epoch,
-                                            bool* leader_up) {
-  const bool leader_in = leader >= 0 && leader < m;
-  int32_t le = __shfl_sync(kFull, epoch_m, leader_in ? leader : 0);
-  if (!leader_in) le = 0;
-  const bool lu = leader_in && ((heard >> leader) & 1u);
-  const uint32_t ack = heard & __ballot_sync(kFull, in && epoch_m == le);
-  *lead_epoch = le;
-  *leader_up = lu;
-  return lu && quorum_met_bits(ack, heard & ~ack, views, v) == 1;
-}
-
 // ---------------------------------------------------------------------------
-// Staging: TMA 1-D bulk copies on an mbarrier.
+// TMA 1-D bulk copies: staging on an mbarrier, write-back in a bulk group.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -220,6 +199,15 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
       : "memory");
 }
 
@@ -243,31 +231,191 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
   }
 }
 
-// Copy n 32-bit words; 16-byte vectors when both ends allow it.  Stages
-// object rows that TMA cannot take (M * S not a multiple of 4) and writes
-// every plane back.
+// Copy n 32-bit words, one per thread of the block (the object rows that
+// TMA cannot take: M * S, or S, not a multiple of 4).
 __device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src,
                                            int n) {
-  if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0 && (n & 3) == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
 __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+__device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
 inline int pad4_host(int n) { return (n + 3) & ~3; }
+inline int pad16_host(int n) { return (n + 15) & ~15; }
+
+// One round's op fields, held by the lane of that round.
+struct OpRow {
+  int32_t kind, slot, val, exp_e, exp_s;
+  bool lease;
+};
+
+__device__ __forceinline__ OpRow load_op(const Params& p, int j, int C,
+                                         int col) {
+  OpRow r{0, 0, 0, 0, 0, false};
+  if (j < p.k) {
+    const size_t op = (size_t)j * C + col;
+    r.kind = p.kind[op];
+    r.slot = p.slot[op];
+    r.val = p.val[op];
+    r.lease = p.lease_ok[op];
+    r.exp_e = p.exp_epoch ? p.exp_epoch[op] : 0;
+    r.exp_s = p.exp_seq ? p.exp_seq[op] : 0;
+  }
+  return r;
+}
+
+__device__ __forceinline__ bool is_live(int kind, int slot, int s) {
+  return kind >= kOpGet && kind <= kOpRmw && slot >= 0 && slot < s;
+}
+
+// hash.fold of one parent's 16 children, by a quad of lanes: lane li =
+// lane & 3 of the quad sums hash lane li of the children (each avalanched
+// with its position's salt and multiplier, mod 2^32), then the stirs go
+// round the quad.  The whole warp calls it, each quad for its own parent
+// (`arr` null: an idle quad, zeros).  Quad q takes the children in the
+// order q, q + 1, ... (mod 16) — the same sum — so that eight quads over
+// one level array read eight banks.  `consts`: 16 salts, 16 multipliers.
+__device__ __forceinline__ uint32_t fold_quad(const uint32_t* arr, int n,
+                                              int pidx, int lane,
+                                              const uint32_t* consts) {
+  const int li = lane & 3;
+  const int rot = lane >> 2;
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < kWidth; ++i) {
+    const int c = (i + rot) & (kWidth - 1);
+    const int ci = pidx * kWidth + c;
+    const uint32_t x = (arr != nullptr && ci < n) ? arr[ci * 4 + li] : 0u;
+    acc += fmix((x ^ consts[c]) * consts[kWidth + c] + (uint32_t)li);
+  }
+  // the cross-lane stirs: torch.roll(acc, 1) gives lane j lane j - 1
+  const int quad = lane & ~3;
+  acc = fmix(acc ^ __shfl_sync(kFull, acc, quad | ((li + 3) & 3)));
+  acc ^= __shfl_sync(kFull, acc, quad | ((li + 2) & 3));
+  return fmix(acc ^ (uint32_t)kWidth);
+}
+
+// quorum_met_bits (quorum_common.cuh) over views held in registers.
+__device__ __forceinline__ int8_t quorum_regs(uint32_t valid, uint32_t nack,
+                                              const uint32_t (&views)[kMaxViews],
+                                              int v) {
+  int8_t res = 1;
+#pragma unroll
+  for (int j = 0; j < kMaxViews; ++j) {
+    if (j >= v) break;
+    const int members = __popc(views[j]);
+    if (resolve_view(__popc(views[j] & valid), __popc(views[j] & nack),
+                     members, members / 2 + 1, &res))
+      break;
+  }
+  return res;
+}
+
+// The round context's epoch check on warp 0 (lane = replica): the leader's
+// epoch (0 with no leader), whether it is up, and whether the heard members
+// at that epoch reach a quorum in every view.
+__device__ __forceinline__ bool epoch_check(int32_t epoch_m, int leader,
+                                            uint32_t heard, bool in, int m,
+                                            const uint32_t (&views)[kMaxViews],
+                                            int v, int32_t* lead_epoch,
+                                            bool* leader_up) {
+  const bool leader_in = leader >= 0 && leader < m;
+  int32_t le = __shfl_sync(kFull, epoch_m, leader_in ? leader : 0);
+  if (!leader_in) le = 0;
+  const bool lu = leader_in && ((heard >> leader) & 1u);
+  const uint32_t ack = heard & __ballot_sync(kFull, in && epoch_m == le);
+  *lead_epoch = le;
+  *leader_up = lu;
+  return lu && quorum_regs(ack, heard & ~ack, views, v) == 1;
+}
+
+// Warp 0 (lane = replica): row `row`'s views into registers, their union,
+// and the heard members.  Every byte loads before the first ballot.
+__device__ __forceinline__ uint32_t load_views(const Params& p, int row,
+                                               int lane, bool in,
+                                               uint32_t (&views)[kMaxViews],
+                                               uint32_t* heard) {
+  bool member[kMaxViews];
+#pragma unroll
+  for (int j = 0; j < kMaxViews; ++j)
+    member[j] =
+        in && j < p.v && p.view_mask[((size_t)row * p.v + j) * p.m + lane];
+  const bool up = in && p.up[(size_t)row * p.m + lane];
+  uint32_t any = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxViews; ++j) {
+    views[j] = __ballot_sync(kFull, member[j]);
+    any |= views[j];
+  }
+  *heard = __ballot_sync(kFull, up) & any;
+  return any;
+}
+
+// The trie's upper levels, leafward -> root (engine.tree_sizes): their
+// sizes and offsets in a replica's node array.  Indexed only by unrolled
+// loop counters, so they stay in registers.
+struct Levels {
+  int n[kMaxLevels];
+  int off[kMaxLevels];
+  int count;
+};
+
+__device__ __forceinline__ Levels levels_of(int s) {
+  Levels lv;
+  int n = s, off = 0;
+  lv.count = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    lv.n[l] = 0;
+    lv.off[l] = 0;
+    if (n > 1) {
+      n = (n + kWidth - 1) / kWidth;
+      lv.n[l] = n;
+      lv.off[l] = off;
+      off += n;
+      lv.count = l + 1;
+    }
+  }
+  if (lv.count == 0) {
+    lv.n[0] = 1;
+    lv.count = 1;
+  }
+  return lv;
+}
+
+// Upper node `n` of a replica: its level's index in `*pidx`, and the
+// array of its children (the replica's leaves, or the level below) with
+// their count.
+__device__ __forceinline__ const uint32_t* children_of(
+    const Levels& lv, int n, const uint32_t* leaf_r, const uint32_t* node_r,
+    int s, int* pidx, int* child_n) {
+  int l = 0;
+#pragma unroll
+  for (int t = 1; t < kMaxLevels; ++t)
+    if (t < lv.count && n >= lv.off[t]) l = t;
+  int noff = 0, coff = 0, cn = s;
+#pragma unroll
+  for (int t = 0; t < kMaxLevels; ++t) {
+    if (t == l) noff = lv.off[t];
+    if (t + 1 == l) {
+      coff = lv.off[t];
+      cn = lv.n[t];
+    }
+  }
+  *pidx = n - noff;
+  *child_n = cn;
+  return l == 0 ? leaf_r : node_r + coff * 4;
+}
 
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kMaxWarps * 32)
     engine_step_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint32_t s_views[kMaxViews];
-  __shared__ int s_flags[kMaxPeers];  // bit 0 leaf bad, bit 1 path bad
-  __shared__ uint32_t s_write;        // replicas that write this round
+  __shared__ uint32_t s_consts[2 * kWidth];  // the fold's salts, multipliers
+  __shared__ uint32_t s_heard;  // heard members of the row
+  __shared__ uint32_t s_wrote;  // replicas that wrote in this launch
+  __shared__ int s_stage;       // 1: a live round needs the planes
   __shared__ __align__(8) uint64_t s_bar;
 
   const int E = p.e, M = p.m, S = p.s, U = p.u, V = p.v, K = p.k;
@@ -278,30 +426,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int MS = M * S;
+  const bool in = lane < M;
+  uint32_t views[kMaxViews] = {};
 
   if (e >= E) {
     // A pad column: the epoch check of row E - 1 as it stood before the
     // launch, then NOOP results for every round.
     if (warp != 0) return;
     const int row = E - 1;
-    const bool in = lane < M;
-    uint32_t views_any = 0;
-    for (int j = 0; j < V; ++j) {
-      const bool b = in && p.view_mask[((size_t)row * V + j) * M + lane];
-      const uint32_t bits = __ballot_sync(kFull, b);
-      if (lane == 0) s_views[j] = bits;
-      views_any |= bits;
-    }
-    __syncwarp();
-    const uint32_t heard =
-        __ballot_sync(kFull, in && p.up[(size_t)row * M + lane]) & views_any;
+    uint32_t heard;
+    load_views(p, row, lane, in, views, &heard);
     const int32_t* ballot_epoch =
         p.pad_ballot ? p.pad_ballot : p.epoch + (size_t)row * M;
     const int32_t epoch_m = in ? ballot_epoch[lane] : 0;
     const int leader = p.pad_ballot ? p.pad_ballot[M] : p.leader[row];
     int32_t lead_epoch;
     bool leader_up;
-    const bool epoch_ok = epoch_check(epoch_m, leader, heard, in, M, s_views,
+    const bool epoch_ok = epoch_check(epoch_m, leader, heard, in, M, views,
                                       V, &lead_epoch, &leader_up);
     if (lane == 0 && p.won != nullptr) p.won[col] = 0;
     for (int j = lane; j < K; j += 32) {
@@ -324,97 +465,67 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   int32_t* s_ov = s_os + pad4(MS);
   uint32_t* s_leaf = reinterpret_cast<uint32_t*>(s_ov + pad4(MS));
   uint32_t* s_node = s_leaf + MS * 4;
+  uint8_t* s_nst = reinterpret_cast<uint8_t*>(s_node + M * U * 4);
+  uint8_t* s_sst = s_nst + pad16(M * U);  // [M, S]: a slot's leaf state
 
   const size_t obj_base = (size_t)e * MS;
   const size_t leaf_base = obj_base * 4;
   const size_t node_base = (size_t)e * M * U * 4;
+  // TMA needs 16-byte aligned rows: the ensemble's object rows are when
+  // M * S is a multiple of 4, a replica's when S is; tree rows always are.
+  const bool obj_tma = (MS & 3) == 0;
+  if (threadIdx.x < 2 * kWidth) s_consts[threadIdx.x] = p.fold_consts[threadIdx.x];
 
-  // Stage the planes the rounds read and write (none when K = 0).
-  if (K > 0) {
-    // TMA needs 16-byte aligned rows: the object rows are when M * S is a
-    // multiple of 4, the tree rows always are.
-    const bool obj_tma = (MS & 3) == 0;
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_u32(&s_bar))
-                   : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const uint32_t obj_b = obj_tma ? (uint32_t)MS * 4 : 0u;
-      const uint32_t leaf_b = (uint32_t)MS * 16;
-      const uint32_t node_b = (uint32_t)M * U * 16;
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              smem_u32(&s_bar)),
-          "r"(3 * obj_b + leaf_b + node_b)
-          : "memory");
-      if (obj_tma) {
-        bulk_g2s(s_oe, p.obj_epoch + obj_base, obj_b, &s_bar);
-        bulk_g2s(s_os, p.obj_seq + obj_base, obj_b, &s_bar);
-        bulk_g2s(s_ov, p.obj_val + obj_base, obj_b, &s_bar);
-      }
-      bulk_g2s(s_leaf, p.tree_leaf + leaf_base, leaf_b, &s_bar);
-      bulk_g2s(s_node, p.tree_node + node_base, node_b, &s_bar);
-    }
-    if (!obj_tma) {
-      copy_words((uint32_t*)s_oe, (const uint32_t*)p.obj_epoch + obj_base, MS);
-      copy_words((uint32_t*)s_os, (const uint32_t*)p.obj_seq + obj_base, MS);
-      copy_words((uint32_t*)s_ov, (const uint32_t*)p.obj_val + obj_base, MS);
-    }
-    mbar_wait(&s_bar, 0);
-  }
-
-  // The trie's upper levels, leafward -> root (engine.tree_sizes).
-  int nlev = 0;
-  int lvl_n[kMaxLevels], lvl_off[kMaxLevels];
-  {
-    int n = S, off = 0;
-#pragma unroll
-    for (int l = 0; l < kMaxLevels; ++l) {
-      if (n > 1) {
-        n = (n + kWidth - 1) / kWidth;
-        lvl_n[l] = n;
-        lvl_off[l] = off;
-        off += n;
-        nlev = l + 1;
-      }
-    }
-    if (nlev == 0) {
-      lvl_n[0] = 1;
-      lvl_off[0] = 0;
-      nlev = 1;
-    }
-  }
-  // This lane's fold constants: children cp and cp + 8.
-  const int cp = lane >> 2;
-  const uint32_t salt0 = p.fold_consts[cp], salt1 = p.fold_consts[cp + 8];
-  const uint32_t mul0 = p.fold_consts[16 + cp];
-  const uint32_t mul1 = p.fold_consts[16 + cp + 8];
-
-  // Warp 0, lane = replica: ballot state, election and round context.
-  const bool in = lane < M;
+  // Warp 0, lane = round: the first 32 rounds' op fields, and whether any
+  // round is live; lane = replica: the ballot, the election and the round
+  // context.  Lane 0 starts the staging as soon as it is known to be
+  // needed, and the election runs while it lands.
   int32_t epoch_m = 0, fact_m = 0, leader = 0, ctr = 0, lead_epoch = 0;
   uint32_t heard = 0, views_any = 0;
   bool leader_up = false, epoch_ok = false;
   int n_member = 0;
+  OpRow cur{0, 0, 0, 0, 0, false};
   if (warp == 0) {
-    for (int j = 0; j < V; ++j) {
-      const bool b = in && p.view_mask[((size_t)e * V + j) * M + lane];
-      const uint32_t bits = __ballot_sync(kFull, b);
-      if (lane == 0) s_views[j] = bits;
-      views_any |= bits;
+    cur = load_op(p, lane, C, col);
+    bool live = is_live(cur.kind, cur.slot, S);
+    for (int j = lane + 32; j < K; j += 32) {
+      const size_t op = (size_t)j * C + col;
+      live |= is_live(p.kind[op], p.slot[op], S);
     }
-    __syncwarp();
-    heard = __ballot_sync(kFull, in && p.up[(size_t)e * M + lane]) &
-            views_any;
+    views_any = load_views(p, e, lane, in, views, &heard);
     if (in) {
       epoch_m = p.epoch[(size_t)e * M + lane];
       fact_m = p.fact_seq[(size_t)e * M + lane];
     }
     leader = p.leader[e];
     ctr = p.obj_seq_ctr[e];
+    const bool stage = __any_sync(kFull, live);
+    if (lane == 0) {
+      s_stage = stage;
+      s_heard = heard;
+      s_wrote = 0;
+      if (stage) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                         smem_u32(&s_bar))
+                     : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        const uint32_t obj_b = obj_tma ? (uint32_t)MS * 4 : 0u;
+        const uint32_t leaf_b = (uint32_t)MS * 16;
+        const uint32_t node_b = (uint32_t)M * U * 16;
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                smem_u32(&s_bar)),
+            "r"(3 * obj_b + leaf_b + node_b)
+            : "memory");
+        if (obj_tma) {
+          bulk_g2s(s_oe, p.obj_epoch + obj_base, obj_b, &s_bar);
+          bulk_g2s(s_os, p.obj_seq + obj_base, obj_b, &s_bar);
+          bulk_g2s(s_ov, p.obj_val + obj_base, obj_b, &s_bar);
+        }
+        bulk_g2s(s_leaf, p.tree_leaf + leaf_base, leaf_b, &s_bar);
+        bulk_g2s(s_node, p.tree_node + node_base, node_b, &s_bar);
+      }
+    }
     const bool heard_m = (heard >> lane) & 1u;
 
     if (p.elect != nullptr) {
@@ -426,7 +537,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       const int cand = p.cand[col];
       const bool cand_heard = cand >= 0 && cand < M && ((heard >> cand) & 1u);
       const bool won = p.elect[col] && cand_heard &&
-                       quorum_met_bits(heard, 0u, s_views, V) == 1;
+                       quorum_regs(heard, 0u, views, V) == 1;
       if (won) {
         if (heard_m) {
           epoch_m = next_epoch;
@@ -439,197 +550,223 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     }
 
     // The round context: the epoch-check quorum shared by every round.
-    epoch_ok = epoch_check(epoch_m, leader, heard, in, M, s_views, V,
+    epoch_ok = epoch_check(epoch_m, leader, heard, in, M, views, V,
                            &lead_epoch, &leader_up);
     n_member = __popc(views_any);
   }
   __syncthreads();
+  const bool stage = s_stage;
+  const Levels lv = levels_of(S);
+  const int quad = lane >> 2, li = lane & 3;
 
-  for (int j = 0; j < K; ++j) {
-    const size_t op = (size_t)j * C + col;
-    const int slot = p.slot[op];
-    const bool slot_valid = slot >= 0 && slot < S;
-    const int sc = slot < 0 ? 0 : (slot >= S ? S - 1 : slot);
-
-    // Stage 1, every warp: the integrity gate of each replica at the slot —
-    // the object against its leaf, and every stored parent on the root-ward
-    // path against the fold of its stored children.
-    for (int r = warp; r < M; r += nwarps) {
-      const int o = r * S + sc;
-      const int32_t pe = slot_valid ? s_oe[o] : 0;
-      const int32_t ps = slot_valid ? s_os[o] : 0;
-      const int32_t pv = slot_valid ? s_ov[o] : 0;
-      const int li = lane & 3;
-      const bool leaf_bad =
-          __ballot_sync(kFull, leaf_lane(pe, ps, pv, li) != s_leaf[o * 4 + li]);
-      bool path_bad = false;
-      const uint32_t* child = s_leaf + (size_t)r * S * 4;
-      int child_n = S;
-      const uint32_t* node_r = s_node + (size_t)r * U * 4;
-      int idx = sc;
-#pragma unroll
-      for (int l = 0; l < kMaxLevels; ++l) {
-        if (l < nlev) {
-          const int pidx = idx / kWidth;
-          const uint32_t parent = fold_warp(child, child_n, pidx, lane, salt0,
-                                            mul0, salt1, mul1);
-          const uint32_t stored = node_r[(lvl_off[l] + pidx) * 4 + li];
-          path_bad |= __ballot_sync(kFull, parent != stored) != 0u;
-          child = node_r + lvl_off[l] * 4;
-          child_n = lvl_n[l];
-          idx = pidx;
-        }
-      }
-      if (lane == 0) s_flags[r] = (leaf_bad ? 1 : 0) | (path_bad ? 2 : 0);
+  if (stage) {
+    if (!obj_tma) {
+      copy_words((uint32_t*)s_oe, (const uint32_t*)p.obj_epoch + obj_base, MS);
+      copy_words((uint32_t*)s_os, (const uint32_t*)p.obj_seq + obj_base, MS);
+      copy_words((uint32_t*)s_ov, (const uint32_t*)p.obj_val + obj_base, MS);
     }
+    for (int i = threadIdx.x; i < M * U; i += blockDim.x) s_nst[i] = 0;
+    mbar_wait(&s_bar, 0);
     __syncthreads();
-
-    // Stage 2, warp 0 (lane = replica): the round's decision.
-    if (warp == 0) {
-      const int kind = p.kind[op];
-      const int32_t val = p.val[op];
-      const bool lease = p.lease_ok[op];
-      const int32_t exp_e = p.exp_epoch ? p.exp_epoch[op] : 0;
-      const int32_t exp_s = p.exp_seq ? p.exp_seq[op] : 0;
-      const bool is_put = kind == kOpPut, is_get = kind == kOpGet;
-      const bool is_cas = kind == kOpCas, is_rmw = kind == kOpRmw;
-      const bool active = is_put || is_get || is_cas || is_rmw;
-
-      const bool heard_m = (heard >> lane) & 1u;
-      const int o = lane * S + sc;
-      const int32_t pe = in && slot_valid ? s_oe[o] : 0;
-      const int32_t ps = in && slot_valid ? s_os[o] : 0;
-      const int32_t pv = in && slot_valid ? s_ov[o] : 0;
-      const int flags = in ? s_flags[lane] : 0;
-      const bool leaf_ok = !(flags & 1), path_bad = (flags & 2) != 0;
-      const bool ok_m = heard_m && leaf_ok && !path_bad;
-      const uint32_t okmask = __ballot_sync(kFull, ok_m);
-      const bool corrupt_m =
-          (path_bad || !leaf_ok) && heard_m && active && slot_valid;
-
-      // Newest (epoch, seq) object among the hash-valid replicas
-      // (_latest_among): three masked max-reduces over the peers.
-      const bool h = ok_m && ps > 0;
-      const int emax = __reduce_max_sync(kFull, h ? pe : -1);
-      const int smax = __reduce_max_sync(kFull, h && pe == emax ? ps : -1);
-      const int vmax = __reduce_max_sync(
-          kFull, h && pe == emax && ps == smax ? pv : INT32_MIN);
-      const bool obj_found = smax > 0;
-      const int32_t rd_epoch = emax > 0 ? emax : 0;
-      const int32_t rd_seq = smax > 0 ? smax : 0;
-      const int32_t rd_val = obj_found ? vmax : 0;
-      const bool found = obj_found && rd_val != 0;
-      const bool all_ok = __popc(okmask) == n_member;
-
-      const bool get_gate = is_get && leader_up && (lease || epoch_ok);
-      const bool stale = obj_found && rd_epoch != lead_epoch;
-      const bool rewrite = get_gate && stale && epoch_ok;
-      const bool nf = get_gate && !obj_found;
-      const bool nf_quorum =
-          quorum_met_bits(okmask, heard & ~okmask, s_views, V) == 1;
-      const bool nf_write =
-          nf && slot_valid && !all_ok && epoch_ok && nf_quorum;
-      const bool get_ok = (get_gate && obj_found && (!stale || rewrite)) ||
-                          (nf && (all_ok || !slot_valid || nf_write));
-
-      const bool put_commit = is_put && epoch_ok && slot_valid;
-      const bool exp_absent = exp_e == 0 && exp_s == 0;
-      const bool vsn_match =
-          (obj_found && rd_epoch == exp_e && rd_seq == exp_s) ||
-          (exp_absent && obj_found && rd_val == 0) ||
-          (exp_absent && !obj_found && nf_quorum);
-      const bool cas_commit = is_cas && epoch_ok && slot_valid && vsn_match;
-
-      // Device RMW: fn(cur, operand); + and - wrap mod 2^32 as in torch.
-      const int fn = exp_e;
-      const int32_t cur = rd_val;
-      int32_t new_rmw;
-      switch (fn) {
-        case kRmwAdd: new_rmw = (int32_t)((uint32_t)cur + (uint32_t)val); break;
-        case kRmwSub: new_rmw = (int32_t)((uint32_t)cur - (uint32_t)val); break;
-        case kRmwMax: new_rmw = cur > val ? cur : val; break;
-        case kRmwMin: new_rmw = cur < val ? cur : val; break;
-        case kRmwSet: new_rmw = val; break;
-        case kRmwBand: new_rmw = cur & val; break;
-        case kRmwBor: new_rmw = cur | val; break;
-        case kRmwBxor: new_rmw = cur ^ val; break;
-        default: new_rmw = val; break;  // RMW_PIA commits the operand
-      }
-      const bool rmw_absent =
-          (obj_found && rd_val == 0) || (!obj_found && nf_quorum);
-      const bool rmw_known = obj_found || nf_quorum;
-      const bool rmw_commit = is_rmw && epoch_ok && slot_valid &&
-                              (fn == kRmwPia ? rmw_absent : rmw_known);
-
-      const bool commit =
-          put_commit || cas_commit || rewrite || nf_write || rmw_commit;
-      const int32_t wval = (is_put || is_cas) ? val
-                           : is_rmw            ? new_rmw
-                           : rewrite           ? rd_val
-                                               : 0;
-      const int32_t new_seq = (int32_t)((uint32_t)ctr + (commit ? 1u : 0u));
-
-      // Read repair of the divergent replicas on a plain read.
-      const bool plain_read = get_ok && obj_found && !rewrite;
-      const bool divergent = heard_m && (pe != rd_epoch || ps != rd_seq ||
-                                         !leaf_ok || path_bad);
-      const bool do_write = (commit && heard_m) || (plain_read && divergent);
-      const int32_t w_epoch = commit ? lead_epoch : rd_epoch;
-      const int32_t w_seq = commit ? new_seq : rd_seq;
-      const int32_t w_val = commit ? wval : rd_val;
-      if (do_write) {
-        s_oe[o] = w_epoch;
-        s_os[o] = w_seq;
-        s_ov[o] = w_val;
+    // The verdicts of every heard replica: each slot's (its object's hash
+    // against its leaf) by every thread; each upper node's by every warp,
+    // eight a step (one a quad).
+    const uint32_t hrd = s_heard;
+    for (int i = threadIdx.x; i < MS; i += blockDim.x) {
+      bool bad = false;
+      if ((hrd >> (i / S)) & 1u) {
 #pragma unroll
         for (int l = 0; l < 4; ++l)
-          s_leaf[o * 4 + l] = leaf_lane(w_epoch, w_seq, w_val, l);
+          bad |= leaf_lane(s_oe[i], s_os[i], s_ov[i], l) != s_leaf[i * 4 + l];
       }
-      const uint32_t wmask = __ballot_sync(kFull, do_write);
-      ctr = new_seq;
-
-      if (lane == 0) {
-        s_write = wmask;
-        const bool served = get_ok && obj_found;
-        p.committed[op] = commit;
-        p.get_ok[op] = get_ok;
-        p.found[op] = found && get_ok;
-        p.value[op] = rmw_commit ? new_rmw : (get_ok && found ? rd_val : 0);
-        p.obj_vsn[op * 2] = commit ? lead_epoch : (served ? rd_epoch : 0);
-        p.obj_vsn[op * 2 + 1] = commit ? new_seq : (served ? rd_seq : 0);
-        p.quorum_ok[op] = epoch_ok;
-      }
-      if (in) p.tree_corrupt[op * M + lane] = corrupt_m;
+      s_sst[i] = bad ? kBad : 0;
     }
-    __syncthreads();
-
-    // Stage 3, every warp: the writing replicas' root-ward paths are
-    // refolded level by level from their post-write children.
-    const uint32_t wmask = s_write;
-    for (int r = warp; r < M; r += nwarps) {
-      if (!((wmask >> r) & 1u)) continue;
-      const uint32_t* child = s_leaf + (size_t)r * S * 4;
-      int child_n = S;
-      uint32_t* node_r = s_node + (size_t)r * U * 4;
-      int idx = sc;
-#pragma unroll
-      for (int l = 0; l < kMaxLevels; ++l) {
-        if (l < nlev) {
-          const int pidx = idx / kWidth;
-          const uint32_t parent = fold_warp(child, child_n, pidx, lane, salt0,
-                                            mul0, salt1, mul1);
-          if (lane < 4) node_r[(lvl_off[l] + pidx) * 4 + lane] = parent;
-          __syncwarp();
-          child = node_r + lvl_off[l] * 4;
-          child_n = lvl_n[l];
-          idx = pidx;
-        }
-      }
+    for (int base = warp * 8; base < M * U; base += nwarps * 8) {
+      const int i = base + quad;
+      const int r = i / U, n = i - r * U;
+      const bool mine = i < M * U && ((hrd >> r) & 1u);
+      int pidx = 0, cn = 0;
+      const uint32_t* child =
+          children_of(lv, n, s_leaf + (size_t)r * S * 4,
+                      s_node + (size_t)r * U * 4, S, &pidx, &cn);
+      const uint32_t got =
+          fold_quad(mine ? child : nullptr, cn, pidx, lane, s_consts);
+      const uint32_t diff = __ballot_sync(
+          kFull, mine && got != s_node[((size_t)r * U + n) * 4 + li]);
+      if (mine && li == 0)
+        s_nst[r * U + n] = ((diff >> (lane & ~3)) & 0xFu) ? kBad : 0;
     }
     __syncthreads();
   }
 
-  // Follower epoch catch-up at the end of the launch, then write back.
+  // Warp 0: the rounds, 32 at a time.  Lane j holds round base + j's op
+  // fields and, once it has run, its results, stored together at the end
+  // of the 32.
+  if (warp == 0 && K > 0) {
+    const bool heard_m = (heard >> lane) & 1u;
+    uint32_t wrote = 0;
+    for (int base = 0; base < K; base += 32) {
+      const OpRow nxt = load_op(p, base + 32 + lane, C, col);
+      const bool have = base + lane < K;
+      const bool live = have && is_live(cur.kind, cur.slot, S);
+      // a NOOP round's or an invalid slot's results: the ballot's alone
+      bool r_commit = false, r_found = false;
+      bool r_get = cur.kind == kOpGet && leader_up && (cur.lease || epoch_ok);
+      int32_t r_value = 0, r_vsn0 = 0, r_vsn1 = 0;
+      uint32_t r_corrupt = 0;
+      uint32_t todo = __ballot_sync(kFull, live);
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int kind = __shfl_sync(kFull, cur.kind, src);
+        const int sc = __shfl_sync(kFull, cur.slot, src);
+        const int32_t val = __shfl_sync(kFull, cur.val, src);
+        const int32_t exp_e = __shfl_sync(kFull, cur.exp_e, src);
+        const int32_t exp_s = __shfl_sync(kFull, cur.exp_s, src);
+        const bool lease = __shfl_sync(kFull, (int)cur.lease, src);
+
+        // the path's nodes, leafward -> root
+        int path[kMaxLevels];
+        {
+          int idx = sc;
+#pragma unroll
+          for (int l = 0; l < kMaxLevels; ++l) {
+            idx /= kWidth;
+            path[l] = lv.off[l] + idx;
+          }
+        }
+        const int o = lane * S + sc;
+        const int32_t pe = in ? s_oe[o] : 0;
+        const int32_t ps = in ? s_os[o] : 0;
+        const int32_t pv = in ? s_ov[o] : 0;
+        // A heard replica's verdicts at the slot (a replica not heard
+        // reaches no output).
+        bool leaf_ok = true, path_bad = false;
+        if (heard_m) {
+          leaf_ok = !(s_sst[o] & kBad);
+#pragma unroll
+          for (int l = 0; l < kMaxLevels; ++l)
+            if (l < lv.count)
+              path_bad |= (s_nst[lane * U + path[l]] & kBad) != 0;
+        }
+        const bool is_put = kind == kOpPut, is_get = kind == kOpGet;
+        const bool is_cas = kind == kOpCas, is_rmw = kind == kOpRmw;
+        const bool ok_m = heard_m && leaf_ok && !path_bad;
+        const uint32_t okmask = __ballot_sync(kFull, ok_m);
+        const bool corrupt_m = (path_bad || !leaf_ok) && heard_m;
+
+        // Newest (epoch, seq) object among the hash-valid replicas
+        // (_latest_among): three masked max-reduces over the peers.
+        const bool h = ok_m && ps > 0;
+        const int emax = __reduce_max_sync(kFull, h ? pe : -1);
+        const int smax = __reduce_max_sync(kFull, h && pe == emax ? ps : -1);
+        const int vmax = __reduce_max_sync(
+            kFull, h && pe == emax && ps == smax ? pv : INT32_MIN);
+        const bool obj_found = smax > 0;
+        const int32_t rd_epoch = emax > 0 ? emax : 0;
+        const int32_t rd_seq = smax > 0 ? smax : 0;
+        const int32_t rd_val = obj_found ? vmax : 0;
+        const bool found = obj_found && rd_val != 0;
+        const bool all_ok = __popc(okmask) == n_member;
+
+        // The notfound quorum of the hash-valid answers: read only where
+        // no object was found, by a read, a CAS or an RMW.
+        const bool nf_quorum =
+            !obj_found && !is_put &&
+            quorum_regs(okmask, heard & ~okmask, views, V) == 1;
+        const bool get_gate = is_get && leader_up && (lease || epoch_ok);
+        const bool stale = obj_found && rd_epoch != lead_epoch;
+        const bool rewrite = get_gate && stale && epoch_ok;
+        const bool nf = get_gate && !obj_found;
+        const bool nf_write = nf && !all_ok && epoch_ok && nf_quorum;
+        const bool get_ok = (get_gate && obj_found && (!stale || rewrite)) ||
+                            (nf && (all_ok || nf_write));
+
+        const bool put_commit = is_put && epoch_ok;
+        const bool exp_absent = exp_e == 0 && exp_s == 0;
+        const bool vsn_match =
+            (obj_found && rd_epoch == exp_e && rd_seq == exp_s) ||
+            (exp_absent && obj_found && rd_val == 0) ||
+            (exp_absent && !obj_found && nf_quorum);
+        const bool cas_commit = is_cas && epoch_ok && vsn_match;
+
+        // Device RMW: fn(cur, operand); + and - wrap mod 2^32 as in torch;
+        // RMW_SET, RMW_PIA and an unknown code commit the operand.
+        const int fn = exp_e;
+        const int32_t cv = rd_val;
+        const int32_t new_rmw =
+            fn == kRmwAdd   ? (int32_t)((uint32_t)cv + (uint32_t)val)
+            : fn == kRmwSub ? (int32_t)((uint32_t)cv - (uint32_t)val)
+            : fn == kRmwMax ? (cv > val ? cv : val)
+            : fn == kRmwMin ? (cv < val ? cv : val)
+            : fn == kRmwBand ? (cv & val)
+            : fn == kRmwBor  ? (cv | val)
+            : fn == kRmwBxor ? (cv ^ val)
+                             : val;
+        const bool rmw_absent =
+            (obj_found && rd_val == 0) || (!obj_found && nf_quorum);
+        const bool rmw_known = obj_found || nf_quorum;
+        const bool rmw_commit =
+            is_rmw && epoch_ok && (fn == kRmwPia ? rmw_absent : rmw_known);
+
+        const bool commit =
+            put_commit || cas_commit || rewrite || nf_write || rmw_commit;
+        const int32_t wval = (is_put || is_cas) ? val
+                             : is_rmw            ? new_rmw
+                             : rewrite           ? rd_val
+                                                 : 0;
+        const int32_t new_seq = (int32_t)((uint32_t)ctr + (commit ? 1u : 0u));
+
+        // Read repair of the divergent replicas on a plain read.
+        const bool plain_read = get_ok && obj_found && !rewrite;
+        const bool divergent = heard_m && (pe != rd_epoch || ps != rd_seq ||
+                                           !leaf_ok || path_bad);
+        const bool do_write = (commit && heard_m) || (plain_read && divergent);
+        if (do_write) {
+          const int32_t w_epoch = commit ? lead_epoch : rd_epoch;
+          const int32_t w_seq = commit ? new_seq : rd_seq;
+          const int32_t w_val = commit ? wval : rd_val;
+          s_oe[o] = w_epoch;
+          s_os[o] = w_seq;
+          s_ov[o] = w_val;
+          s_sst[o] = kDirty;  // its leaf is hashed at the end
+#pragma unroll
+          for (int l = 0; l < kMaxLevels; ++l)
+            if (l < lv.count) s_nst[lane * U + path[l]] = kDirty;
+        }
+        wrote |= __ballot_sync(kFull, do_write);
+        const uint32_t corrupt_bits = __ballot_sync(kFull, corrupt_m);
+        ctr = new_seq;
+        if (lane == src) {
+          const bool served = get_ok && obj_found;
+          r_commit = commit;
+          r_get = get_ok;
+          r_found = found && get_ok;
+          r_value = rmw_commit ? new_rmw : (get_ok && found ? rd_val : 0);
+          r_vsn0 = commit ? lead_epoch : (served ? rd_epoch : 0);
+          r_vsn1 = commit ? new_seq : (served ? rd_seq : 0);
+          r_corrupt = corrupt_bits;
+        }
+        __syncwarp();
+      }
+      if (have) {
+        const size_t op = (size_t)(base + lane) * C + col;
+        p.committed[op] = r_commit;
+        p.get_ok[op] = r_get;
+        p.found[op] = r_found;
+        p.value[op] = r_value;
+        p.obj_vsn[op * 2] = r_vsn0;
+        p.obj_vsn[op * 2 + 1] = r_vsn1;
+        p.quorum_ok[op] = epoch_ok;
+        for (int r = 0; r < M; ++r)
+          p.tree_corrupt[op * M + r] = (r_corrupt >> r) & 1u;
+      }
+      cur = nxt;
+    }
+    if (lane == 0) s_wrote = wrote;
+  }
+
+  // Follower epoch catch-up at the end of the launch; the ballot back.
   if (warp == 0) {
     const bool heard_m = (heard >> lane) & 1u;
     if (heard_m && leader_up && epoch_m < lead_epoch) epoch_m = lead_epoch;
@@ -642,19 +779,181 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       p.obj_seq_ctr[e] = ctr;
     }
   }
-  if (K > 0) {
-    copy_words((uint32_t*)p.obj_epoch + obj_base, (const uint32_t*)s_oe, MS);
-    copy_words((uint32_t*)p.obj_seq + obj_base, (const uint32_t*)s_os, MS);
-    copy_words((uint32_t*)p.obj_val + obj_base, (const uint32_t*)s_ov, MS);
-    copy_words(p.tree_leaf + leaf_base, s_leaf, MS * 4);
-    copy_words(p.tree_node + node_base, s_node, M * U * 4);
+  if (!stage) return;  // block-uniform
+  __syncthreads();
+  const uint32_t wrote = s_wrote;
+  if (wrote == 0) return;  // block-uniform
+
+  // The written slots' leaves, from their final objects.
+  for (int i = threadIdx.x; i < MS; i += blockDim.x) {
+    if (s_sst[i] & kDirty) {
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        s_leaf[i * 4 + l] = leaf_lane(s_oe[i], s_os[i], s_ov[i], l);
+    }
   }
+  __syncthreads();
+
+  // Refold the DIRTY nodes bottom-up from their final children, eight a
+  // warp step (one a quad).
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < lv.count) {
+      const int total = M * lv.n[l];
+      for (int base = warp * 8; base < total; base += nwarps * 8) {
+        const int i = base + quad;
+        const int r = i / lv.n[l], pidx = i - r * lv.n[l];
+        const int n = lv.off[l] + pidx;
+        const bool mine = i < total && ((wrote >> r) & 1u) &&
+                          (s_nst[r * U + n] & kDirty);
+        const uint32_t* child =
+            l == 0 ? s_leaf + (size_t)r * S * 4
+                   : s_node + ((size_t)r * U + lv.off[l > 0 ? l - 1 : 0]) * 4;
+        const int cn = l == 0 ? S : lv.n[l > 0 ? l - 1 : 0];
+        const uint32_t got =
+            fold_quad(mine ? child : nullptr, cn, pidx, lane, s_consts);
+        if (mine) s_node[((size_t)r * U + n) * 4 + li] = got;
+      }
+      __syncthreads();
+    }
+  }
+
+  // Write back the replicas that wrote: TMA bulk stores, one thread per
+  // replica (the object rows by every thread where S is not a multiple of
+  // 4).  The generic-proxy writes above are fenced for the async proxy,
+  // and the block waits only until its stores have read shared memory.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const bool row_tma = (S & 3) == 0;
+  const int r = threadIdx.x;
+  const bool mine = r < M && ((wrote >> r) & 1u);
+  if (mine) {
+    const size_t ro = obj_base + (size_t)r * S;
+    if (row_tma) {
+      bulk_s2g(p.obj_epoch + ro, s_oe + r * S, (uint32_t)S * 4);
+      bulk_s2g(p.obj_seq + ro, s_os + r * S, (uint32_t)S * 4);
+      bulk_s2g(p.obj_val + ro, s_ov + r * S, (uint32_t)S * 4);
+    }
+    bulk_s2g(p.tree_leaf + ro * 4, s_leaf + (size_t)r * S * 4,
+             (uint32_t)S * 16);
+    bulk_s2g(p.tree_node + node_base + (size_t)r * U * 4,
+             s_node + (size_t)r * U * 4, (uint32_t)U * 16);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+  if (!row_tma) {
+    for (int q = 0; q < M; ++q) {
+      if (!((wrote >> q) & 1u)) continue;
+      const size_t ro = obj_base + (size_t)q * S;
+      for (int i = threadIdx.x; i < S; i += blockDim.x) {
+        p.obj_epoch[ro + i] = s_oe[q * S + i];
+        p.obj_seq[ro + i] = s_os[q * S + i];
+        p.obj_val[ro + i] = s_ov[q * S + i];
+      }
+    }
+  }
+  if (mine) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Dynamic shared memory of one block: the object planes (each padded to
-// 16 bytes), the leaves and the upper nodes of its ensemble.
+// 16 bytes), the leaves, the upper nodes, their state bytes and the
+// slots' state bytes.
 int smem_bytes(int m, int s, int u) {
-  return 4 * 3 * pad4_host(m * s) + 16 * m * s + 16 * m * u;
+  return 4 * 3 * pad4_host(m * s) + 16 * m * s + 16 * m * u +
+         pad16_host(m * u) + pad16_host(m * s);
+}
+
+// The launch shape: warps per block from {1, 2, 4, 8} (at most 8, the
+// kernel's bound), the one that needs the fewest waves of resident blocks
+// for `a` blocks; on a tie the most warps (the verdicts and refolds spread
+// over them).  Occupancy comes from the runtime's own query, cached per
+// shared-memory size.
+struct Shape {
+  int warps, blocks_per_sm, sms;
+};
+
+std::mutex shape_lock;  // the caches below; launches may come from threads
+
+int occupancy(int warps, int smem, int* blocks) {
+  static int cache_smem[16], cache_occ[16][4], cache_n = 0;
+  const int slot = warps == 1 ? 0 : warps == 2 ? 1 : warps == 4 ? 2 : 3;
+  for (int i = 0; i < cache_n; ++i) {
+    if (cache_smem[i] == smem && cache_occ[i][slot] >= 0) {
+      *blocks = cache_occ[i][slot];
+      return 0;
+    }
+  }
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, engine_step_kernel, warps * 32, smem);
+  if (err != cudaSuccess) return (int)err;
+  int i = 0;
+  while (i < cache_n && cache_smem[i] != smem) ++i;
+  if (i == cache_n) {
+    if (cache_n == 16) i = 0; else ++cache_n;
+    cache_smem[i] = smem;
+    for (int q = 0; q < 4; ++q) cache_occ[i][q] = -1;
+  }
+  cache_occ[i][slot] = *blocks;
+  return 0;
+}
+
+int prepare(int smem) {
+  static int smem_set = -1;
+  if (smem <= smem_set) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      engine_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  smem_set = smem;
+  return 0;
+}
+
+int choose_shape(int a, int smem, Shape* out) {
+  std::lock_guard<std::mutex> hold(shape_lock);
+  int rc = prepare(smem);
+  if (rc != 0) return rc;
+  static int sms_of[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
+  if (sms_of[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int sms = sms_of[dev];
+  int best = -1, best_waves = 0, best_occ = 0;
+  for (int w = 1; w <= kMaxWarps; w *= 2) {
+    int occ = 0;
+    rc = occupancy(w, smem, &occ);
+    if (rc != 0) return rc;
+    if (occ <= 0) continue;
+    const long per_wave = (long)occ * sms;
+    const int waves = (int)((a + per_wave - 1) / per_wave);
+    if (best < 0 || waves <= best_waves) {
+      best = w;
+      best_waves = waves;
+      best_occ = occ;
+    }
+  }
+  if (best < 0) return (int)cudaErrorInvalidConfiguration;
+  out->warps = best;
+  out->blocks_per_sm = best_occ;
+  out->sms = sms;
+  return 0;
+}
+
+int n_levels(int s) {
+  int nlev = 0;
+  for (int n = s; n > 1; n = (n + kWidth - 1) / kWidth) ++nlev;
+  return nlev > 0 ? nlev : 1;
+}
+
+int check_dims(const int* dims) {
+  if (dims[kM] < 1 || dims[kM] > kMaxPeers || dims[kV] < 1 ||
+      dims[kV] > kMaxViews || dims[kS] < 1 || dims[kU] < 1 || dims[kK] < 0 ||
+      n_levels(dims[kS]) > kMaxLevels)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -704,17 +1003,39 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
   p.k = dims[kK];
   p.a = dims[kA];
   if (p.e <= 0 || p.a <= 0) return 0;
-  if (p.m < 1 || p.m > kMaxPeers || p.v < 1 || p.v > kMaxViews ||
-      p.s < 1 || p.u < 1 || p.k < 0 ||
+  if (check_dims(dims) != 0 ||
       (p.elect != nullptr) != (p.won != nullptr) ||
       (p.active_idx == nullptr && p.a != p.e) ||
       (p.active_idx == nullptr && p.pad_ballot != nullptr))
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(p.m, p.s, p.u);
-  const int warps = p.m < kMaxWarps ? p.m : kMaxWarps;
-  cudaError_t err = cudaFuncSetAttribute(
-      engine_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  engine_step_kernel<<<p.a, warps * 32, smem, (cudaStream_t)stream>>>(p);
+  Shape shape;
+  const int rc = choose_shape(p.a, smem, &shape);
+  if (rc != 0) return rc;
+  engine_step_kernel<<<p.a, shape.warps * 32, smem, (cudaStream_t)stream>>>(
+      p);
   return (int)cudaGetLastError();
+}
+
+// What a launch with these dims would run as: out[0] registers per
+// thread, [1] static shared memory, [2] dynamic shared memory, [3] local
+// (spill) bytes per thread, [4] warps per block, [5] resident blocks per
+// SM, [6] SMs.  Returns a CUDA error code (0 = filled).
+extern "C" int retpu_engine_step_occupancy(const int* dims, int* out) {
+  if (check_dims(dims) != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, engine_step_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = smem_bytes(dims[kM], dims[kS], dims[kU]);
+  Shape shape;
+  const int rc = choose_shape(dims[kA] > 0 ? dims[kA] : 1, smem, &shape);
+  if (rc != 0) return rc;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = shape.warps;
+  out[5] = shape.blocks_per_sm;
+  out[6] = shape.sms;
+  return 0;
 }

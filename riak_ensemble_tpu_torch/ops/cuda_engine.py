@@ -18,7 +18,11 @@ never runs the plain version.
 Sliced mode (``engine.full_step_sliced``): with a host ``active_idx [A]``
 the grid is A blocks, block b steps state row ``active_idx[b]`` in place,
 and the op, election and result planes are A-wide.  The wrapper checks
-the index on the host (:func:`check_active`) and uploads it itself.
+the index on the host (:func:`check_active`) and uploads it itself,
+through a ring of reused pinned buffers (:class:`_IndexRing`).
+
+The kernel's launch shape (warps per block) comes from the runtime's
+occupancy query; :func:`occupancy` reports what a launch runs as.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ engine_step_sliced_launches = 0
 _N_PTRS = 30
 _N_DIMS = 7
 _fn = None
+_occ_fn = None
 
 
 def _kernel():
@@ -63,21 +68,37 @@ def _kernel():
     return _fn
 
 
+def _levels(s: int) -> Tuple[list, list]:
+    """(sizes, offsets) of the upper levels of an ``s``-leaf width-16
+    trie, leafward → root (``engine.tree_sizes``)."""
+    sizes, n = [], s
+    while n > 1:
+        n = -(-n // 16)
+        sizes.append(n)
+    sizes = sizes or [1]
+    return sizes, list(np.cumsum([0] + sizes[:-1]))
+
+
 def n_uppers(n_slots: int) -> int:
     """Upper tree nodes of an ``n_slots``-leaf width-16 trie (the sum of
     ``engine.tree_sizes``)."""
-    total, n = 0, n_slots
-    while n > 1:
-        n = -(-n // 16)
-        total += n
-    return max(total, 1)
+    return sum(_levels(n_slots)[0])
 
 
 def shared_bytes(m: int, s: int, u: int) -> int:
     """Dynamic shared memory of one block (``smem_bytes`` in the
     kernel): three object planes padded to 16 bytes, the leaves, the
-    uppers."""
-    return 4 * 3 * ((m * s + 3) & ~3) + 16 * m * s + 16 * m * u
+    uppers, and the uppers' and the slots' state bytes (each padded to
+    16)."""
+    return (4 * 3 * ((m * s + 3) & ~3) + 16 * m * s + 16 * m * u
+            + ((m * u + 15) & ~15) + ((m * s + 15) & ~15))
+
+
+#: int32 operations of one 16-child fold (16 children x 4 lanes x (xor,
+#: mul, add, 8 for fmix, sum), plus 4 lanes x 19 for the stir and seal)
+#: and of one 4-lane leaf hash
+FOLD_OPS = 16 * 4 * 12 + 4 * 19
+LEAF_OPS = 4 * 13
 
 
 def step_work(e: int, m: int, s: int, v: int, k: int, a: int,
@@ -91,24 +112,56 @@ def step_work(e: int, m: int, s: int, v: int, k: int, a: int,
     and round, the integrity gate of every replica (its leaf hash and one
     16-child fold per upper level) and, per committing replica, the new
     leaf hash and its path's folds; read repairs are not counted."""
-    u = n_uppers(s)
-    nlev = 0
-    n = s
-    while n > 1:
-        n = -(-n // 16)
-        nlev += 1
-    nlev = max(nlev, 1)
+    sizes = _levels(s)[0]
+    u, nlev = sum(sizes), len(sizes)
     rw = 3 * e * m * s * 4 + e * m * s * 16 + e * m * u * 16 + 2 * e * m * 4 \
         + 2 * e * 4
     nbytes = (2 * rw + e * v * m + e * m + 5 * a
               + k * a * (5 * 4 + 1)                  # op planes
               + k * a * (4 + 4 + 8 + m) + a)         # results, won
-    # a fold: 16 children x 4 lanes x (xor, mul, add, 8 for fmix, sum)
-    # plus 4 lanes x 19 for the stir and seal; a leaf hash 4 x 13
-    fold, leaf = 16 * 4 * 12 + 4 * 19, 4 * 13
-    ops = k * e * m * (leaf + 4 + nlev * (fold + 4)) \
-        + writers * (leaf + nlev * fold)
+    ops = k * e * m * (LEAF_OPS + 4 + nlev * (FOLD_OPS + 4)) \
+        + writers * (LEAF_OPS + nlev * FOLD_OPS)
     return nbytes, ops
+
+
+def design_work(heard: np.ndarray, kind: np.ndarray, slot: np.ndarray,
+                committed: np.ndarray, s: int) -> dict:
+    """The hashing F1's design needs for one launch on these inputs,
+    counted on the host: ``heard [A, M]`` (the stepped rows' up members,
+    pads all False), ``kind`` / ``slot`` / ``committed [K, A]``.  A round
+    is LIVE when its kind is an op (1-4) and its slot valid; a row with a
+    live round is staged.  Every heard replica of a staged row gets a
+    verdict for each upper node (a fold) and each slot (a leaf hash).  A
+    commit writes its slot for every heard
+    replica: each distinct written slot's leaf is hashed once and each
+    distinct node on the written paths refolded once.  Read repairs are not
+    counted (as in :func:`step_work`).  ``ops`` is the int32 operations of
+    it all, at :func:`step_work`'s price per fold and per leaf hash (+4 a
+    compare)."""
+    k, a = kind.shape
+    sizes, offs = _levels(s)
+    u = sum(sizes)
+    live = (kind >= 1) & (kind <= 4) & (slot >= 0) & (slot < s)
+    done = live & committed.astype(bool)
+    n_heard = heard.sum(1)
+    staged = live.any(0) if k else np.zeros(a, bool)
+    written = np.zeros((a, u), bool)
+    slots_written = np.zeros((a, s), bool)
+    cols = np.broadcast_to(np.arange(a), (k, a))
+    slots_written[cols[done], slot[done]] = True
+    for lvl, off in enumerate(offs):
+        node = off + np.clip(slot, 0, s - 1) // 16 ** (lvl + 1)
+        written[cols[done], node[done]] = True
+    verdicts = int((staged * n_heard).sum()) * u
+    leaf_verdicts = int((staged * n_heard).sum()) * s
+    refolds = int((written.sum(1) * n_heard).sum())
+    leaf_writes = int((slots_written.sum(1) * n_heard).sum())
+    return {"staged_rows": int(staged.sum()), "live_rounds": int(live.sum()),
+            "verdict_folds": verdicts, "refold_folds": refolds,
+            "leaf_verdicts": leaf_verdicts, "leaf_writes": leaf_writes,
+            "ops": (verdicts * (FOLD_OPS + 4) + refolds * FOLD_OPS
+                    + leaf_verdicts * (LEAF_OPS + 4)
+                    + leaf_writes * LEAF_OPS)}
 
 
 def fold_consts() -> torch.Tensor:
@@ -124,12 +177,18 @@ def _fold_consts_on(device: torch.device) -> torch.Tensor:
     return fold_consts().to(device)
 
 
-def _want(name, t, dtype, shape) -> None:
+def _refuse(name, t, dtype, shape, dev) -> None:
+    """Raise the error for the first way ``t`` breaks the contract."""
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the state on {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def check_active(active_idx, e: int) -> int:
@@ -148,15 +207,14 @@ def check_active(active_idx, e: int) -> int:
     if active_idx.size == 0:
         raise ValueError("active_idx is empty")
     n_real = int(np.count_nonzero(active_idx < e))
-    real, pads = active_idx[:n_real], active_idx[n_real:]
-    if (real < 0).any():
-        raise ValueError("active_idx holds a negative row")
-    if (pads != e).any():
+    if n_real < active_idx.size and (active_idx[n_real:] != e).any():
         raise ValueError(f"active_idx: after the real rows every entry must "
                          f"be the padding index {e}")
-    if n_real > 1 and not (np.diff(real) > 0).all():
+    if n_real > 1 and (active_idx[1:n_real] <= active_idx[:n_real - 1]).any():
         raise ValueError("active_idx: the real rows must ascend with no "
                          "duplicate")
+    if n_real and active_idx[0] < 0:    # ascending: the first is the least
+        raise ValueError("active_idx holds a negative row")
     return n_real
 
 
@@ -224,13 +282,84 @@ def check_contract(state, elect: Optional[torch.Tensor],
             named.append((name, t, i32, (k, a)))
     dev = state.epoch.device
     for name, t, dtype, shape in named:
-        _want(name, t, dtype, shape)
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the state on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.numel() and t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() & 15 and t.numel()):
+            _refuse(name, t, dtype, shape, dev)
+
+
+class _IndexRing:
+    """Reused pinned host buffers and device buffers for the sliced
+    launch's index, one ring per device: a launch writes its index into
+    the next slot's pinned buffer, copies it to the slot's device buffer
+    on the launch's stream and records the slot's event after the launch.
+    A slot is rewritten only once its event has completed, so neither
+    buffer changes under a copy or a kernel still reading it."""
+
+    SLOTS = 32
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.cap = 0
+        self.slots: list = []
+        self.next = 0
+
+    def _grow(self, n: int) -> None:
+        for *_, ev in self.slots:
+            ev.synchronize()
+        self.cap = 1 << max(n - 1, 1).bit_length()
+        self.slots = []
+        for _ in range(self.SLOTS):
+            host = torch.empty(self.cap, dtype=torch.int32, pin_memory=True)
+            self.slots.append((host, host.numpy(), torch.empty(
+                self.cap, dtype=torch.int32, device=self.device),
+                torch.cuda.Event()))
+        self.next = 0
+
+    def upload(self, idx: np.ndarray) -> Tuple[torch.Tensor, torch.cuda.Event]:
+        """The index on the device, and the event to record after the
+        launch that reads it."""
+        n = idx.size
+        if n > self.cap:
+            self._grow(n)
+        host, host_np, dev, ev = self.slots[self.next]
+        self.next = (self.next + 1) % self.SLOTS
+        ev.synchronize()
+        host_np[:n] = idx
+        out = dev[:n]
+        out.copy_(host[:n], non_blocking=True)
+        return out, ev
+
+
+@functools.lru_cache(maxsize=None)
+def _ring(device: torch.device) -> _IndexRing:
+    return _IndexRing(device)
+
+
+def _dims(n_rows: int, m: int, s: int, u: int, v: int, k: int, a: int):
+    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a)
+
+
+def occupancy(e: int, m: int, s: int, v: int, k: int,
+              a: Optional[int] = None) -> dict:
+    """How an F1 launch at these dims runs on the current card (the C
+    entry point's query): registers per thread, static and dynamic
+    shared memory, spill bytes, warps per block, resident blocks per SM
+    and the SM count."""
+    global _occ_fn
+    if _occ_fn is None:
+        fn = build.load("engine_step").retpu_engine_step_occupancy
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _occ_fn = fn
+    out = (ctypes.c_int * 7)()
+    rc = _occ_fn(_dims(e, m, s, n_uppers(s), v, k, e if a is None else a),
+                 out)
+    if rc != 0:
+        raise RuntimeError(f"F1 occupancy query failed: {rc}")
+    keys = ("regs_per_thread", "static_smem", "dynamic_smem", "spill_bytes",
+            "warps_per_block", "blocks_per_sm", "sms")
+    return dict(zip(keys, out))
 
 
 def engine_step(state, elect: Optional[torch.Tensor],
@@ -251,13 +380,12 @@ def engine_step(state, elect: Optional[torch.Tensor],
         raise ValueError(f"F1 runs on cuda, not {state.epoch.device}")
     n_rows = state.epoch.shape[0]
     dev = state.epoch.device
-    idx_dev = pad_ballot = None
+    idx_dev = pad_ballot = done = None
     if active_idx is not None:
         n_real = check_active(active_idx, n_rows)
         check_contract(state, elect, cand, kind, slot, val, lease_ok, up,
                        exp_epoch, exp_seq, n_cols=active_idx.size)
-        idx_dev = torch.from_numpy(active_idx).pin_memory().to(
-            dev, non_blocking=True)
+        idx_dev, done = _ring(dev).upload(active_idx)
         if n_real < active_idx.size and n_real \
                 and active_idx[n_real - 1] == n_rows - 1:
             # the pads read row E - 1 as it was before this launch, which
@@ -287,11 +415,12 @@ def engine_step(state, elect: Optional[torch.Tensor],
         state.tree_leaf, state.tree_node, elect, cand, kind, slot, val,
         lease_ok, exp_epoch, exp_seq, up, _fold_consts_on(dev), won,
         *res, idx_dev, pad_ballot)))
-    dims = (ctypes.c_int * _N_DIMS)(
-        n_rows, m, state.obj_epoch.shape[2], state.tree_node.shape[2],
-        state.view_mask.shape[1], k, e)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel()(ptrs, dims, stream)
+    dims = _dims(n_rows, m, state.obj_epoch.shape[2],
+                 state.tree_node.shape[2], state.view_mask.shape[1], k, e)
+    stream = torch.cuda.current_stream(dev)
+    rc = _kernel()(ptrs, dims, stream.cuda_stream)
+    if done is not None:
+        done.record(stream)
     if rc != 0:
         raise RuntimeError(f"F1 launch failed: cudaGetLastError() = {rc}")
     engine_step_launches += 1

@@ -10,7 +10,7 @@ holds it against both ``full_step_plain`` and the JAX package's
   ``kv_step`` and launches nothing;
 - the contract checks raise on bad dtypes, shapes and sizes;
 - the kernel's hash arithmetic, transcribed lane for lane into numpy
-  (the warp's 16-child fold with its shuffles and stirs, the leaf hash),
+  (the quad's 16-child fold with its stirs, the leaf hash),
   with the fold constants the wrapper hands the kernel, equals the JAX
   package's ``hash.fold`` / ``obj_leaf_hash``;
 - ``kv_step`` is the K = 1 ``kv_step_scan``, in both packages (the
@@ -152,7 +152,7 @@ def test_contract_admits_every_shape_the_port_runs():
         p = _planes(np.random.default_rng(2), e, m, s, k)
         cuda_engine.check_contract(st, *p)
         cuda_engine.check_contract(st, None, None, *p[2:])
-    assert cuda_engine.shared_bytes(5, 128, 9) == 18_640
+    assert cuda_engine.shared_bytes(5, 128, 9) == 19_328
 
 
 def test_engine_step_refuses_a_cpu_state():
@@ -180,18 +180,18 @@ def _rotl(x, r):
 
 
 def _kernel_fold(children, consts):
-    """engine_step.cu fold_warp, lane for lane: 32 lanes = (child pair
-    cp, hash lane li), butterfly sum over lane bits 2..4, then the two
-    quad shuffles."""
+    """engine_step.cu fold_quad, lane for lane: 32 lanes = 8 quads x
+    hash lane li; lane li of quad q sums hash lane li of the 16 children
+    in the order q, q + 1, ... (mod 16), then the two quad shuffles.
+    Every quad folds the same children here, so all eight must agree."""
     salt, mul = consts[:16], consts[16:]
     lanes = np.arange(32)
-    li, cp = lanes & 3, lanes >> 2
+    li, rot = lanes & 3, lanes >> 2
     liu = li.astype(np.uint32)
-    acc = (_fmix((children[cp, li] ^ salt[cp]) * mul[cp] + liu)
-           + _fmix((children[cp + 8, li] ^ salt[cp + 8]) * mul[cp + 8]
-                   + liu))
-    for off in (4, 8, 16):
-        acc = acc + acc[lanes ^ off]
+    acc = np.zeros(32, dtype=np.uint32)
+    for i in range(16):
+        c = (i + rot) & 15
+        acc = acc + _fmix((children[c, li] ^ salt[c]) * mul[c] + liu)
     quad = lanes & ~3
     acc = _fmix(acc ^ acc[quad | ((li + 3) & 3)])
     acc = acc ^ acc[quad | ((li + 2) & 3)]
