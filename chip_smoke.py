@@ -59,8 +59,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    against ``compact=False`` (equal results; payload bytes, sliced and F1
    launches, median flush time per arm); (c) a stream of K = 64 flushes
    through ``execute_async`` at depth 2 against ``execute`` at depth 1
-   (equal results and final state; wall per flush; the host's settle of
-   launch N returning while launch N + 1 still runs on the card);
+   (equal results and final state; wall per flush; launch N + 1
+   enqueued before the host's settle of launch N begins, and how often
+   the card still runs it then);
 7. the host passes of the service's default arm: (a) one mixed keyed
    flush of the phase-4 pattern with a sliced A = 256 payload and a
    full-width one, and one flush of phase 5's RMW traffic (RMW and CAS
@@ -132,9 +133,10 @@ Phases (each raises on failure, so any failure exits non-zero):
 Phases 4-10 run the service's default (native) host arm.
 
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone (no result
-line); ``--f1-ab DIR`` times F1 at the headline shape in the tree DIR and
-in this one, on one card, in turns (DIR, this, this, DIR), each run a
-process of its own.
+line); ``--ab DIR`` times F1 at the headline shape (full width and four
+sliced shapes) and phase 6(c) in the tree DIR and in this one, on one
+card, in turns (DIR, this, this, DIR), each turn a process of its own
+running this file's timing code on its tree's package.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -147,6 +149,7 @@ of the depth-1 and depth-2 streams of phase 6(c).
 """
 
 import gc
+import inspect
 import json
 import os
 import pickle
@@ -622,24 +625,6 @@ def f1_case(dev, name, e, m, s, k, views, steps, elect_every, seed,
     return stats
 
 
-def f1_work(st, up: np.ndarray, committed: np.ndarray,
-            rows: Optional[np.ndarray] = None) -> tuple:
-    """(bytes, int32 ops) F1 needs for one full_step on these inputs —
-    for a sliced step, of the ``rows`` it steps (``committed`` is then
-    A-wide, its pad columns never commit): ``cuda_engine.step_work`` with
-    this run's writers (its commits x the ensemble's up members)."""
-    e, m, s = st.obj_val.shape
-    v = st.view_mask.shape[1]
-    k, a = committed.shape
-    heard = up & st.view_mask.any(1).cpu().numpy()
-    if rows is not None:
-        e = len(rows)
-        heard = heard[rows]
-        committed = committed[:, :e]
-    writers = int((committed * heard.sum(1)[None, :]).sum())
-    return cuda_engine.step_work(e, m, s, v, k, a, writers)
-
-
 def bound(nbytes: int, ops: int) -> tuple:
     """(bytes ms, int32 ops ms, bound ms) at the card's published peaks."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -682,6 +667,16 @@ def host_us(fn, n: int = 20, reps: int = 5) -> float:
     return statistics.median(per)
 
 
+def launch_timings(fn) -> dict:
+    """One launch per call of ``fn``: ms per call back to back, device µs
+    per launch (gated events), host µs per call, and the per-call
+    overhead (ms per call minus the device time)."""
+    ms = cuda_ms(fn, iters=10)
+    dev_us = gated_us(fn)
+    return {"ms": ms, "device_us": dev_us, "host_us": host_us(fn),
+            "overhead_ms": ms - dev_us / 1e3}
+
+
 def f1_occupancy(label: str, e: int, m: int, s: int, v: int, k: int,
                  a: int) -> dict:
     """Print and return how an F1 launch at these dims runs."""
@@ -695,36 +690,108 @@ def f1_occupancy(label: str, e: int, m: int, s: int, v: int, k: int,
     return occ
 
 
-def f1_bounds(st, up: np.ndarray, kind: np.ndarray, slot: np.ndarray,
-              committed: np.ndarray,
+def f1_bounds(pre, post, up: np.ndarray, kind: np.ndarray,
+              slot: np.ndarray, committed: np.ndarray,
               rows: Optional[np.ndarray] = None) -> dict:
-    """F1's bounds on these inputs: the bytes, the reference arithmetic's
-    int32 ops (``cuda_engine.step_work``) and the design's
-    (``cuda_engine.design_work``); ``bound_ms`` is the larger of the bytes
-    and the design's ops."""
-    nbytes, ref_ops = f1_work(st, up, committed, rows)
-    heard = up & st.view_mask.any(1).cpu().numpy()
-    m, s = heard.shape[1], st.obj_val.shape[2]
-    cols = np.zeros((kind.shape[1], m), bool)
-    if rows is None:
-        cols[:] = heard
-    else:
-        cols[:len(rows)] = heard[rows]
+    """F1's bound for one launch with election planes that took ``pre`` to
+    ``post`` on these inputs (``kind`` / ``slot`` / ``committed``
+    ``[K, A]``; sliced: column i steps ``rows[i]``, the rest are pads).
+    The bytes it must move (``cuda_engine.design_bytes``: the heard
+    replicas of the staged rows read, the replicas that changed written),
+    the design's hashing (``cuda_engine.design_work``), and the counts of
+    PR 3-8's bound (``cuda_engine.step_work``: every plane read and
+    written once, a path verify per replica and round).  ``bound_ms`` is
+    the larger of the bytes and the design's ops."""
+    e, m, s = pre.obj_val.shape
+    v = pre.view_mask.shape[1]
+    k, a = kind.shape
+    rows = np.arange(e) if rows is None else np.asarray(rows)
+    n = len(rows)
+
+    def changed(*fields):
+        out = torch.zeros(pre.epoch.shape, dtype=torch.bool,
+                          device=pre.epoch.device)
+        for f in fields:
+            x, y = getattr(pre, f), getattr(post, f)
+            out |= (x != y).reshape(e, -1).any(1)[:, None] if x.dim() == 1 \
+                else (x != y).reshape(e, m, -1).any(2)
+        return out.cpu().numpy()[rows]
+    wrote = changed("obj_epoch", "obj_seq", "obj_val", "tree_leaf",
+                    "tree_node")
+    ballot = changed("epoch", "fact_seq", "leader", "obj_seq_ctr").any(1)
+    heard = (up & pre.view_mask.any(1).cpu().numpy())[rows]
+    live = (kind >= 1) & (kind <= 4) & (slot >= 0) & (slot < s)
+    staged = live[:, :n].any(0) if k else np.zeros(n, bool)
+    moved = cuda_engine.design_bytes(heard, staged, wrote, ballot, s, v, k, a)
+    cols = np.zeros((a, m), bool)
+    cols[:n] = heard
     work = cuda_engine.design_work(cols, kind, slot, committed, s)
-    bytes_ms, ref_ms, _ = bound(nbytes, ref_ops)
-    _, design_ms, _ = bound(nbytes, work["ops"])
-    return {"bytes": nbytes, "bytes_ms": bytes_ms, "ref_ops": ref_ops,
-            "ref_ops_ms": ref_ms, "design_ops": work["ops"],
-            "design_ops_ms": design_ms, "design_work": work,
-            "bound_ms": max(bytes_ms, design_ms),
+    writers = int((committed[:, :n] * heard.sum(1)[None, :]).sum())
+    old_bytes, ref_ops = cuda_engine.step_work(n, m, s, v, k, a, writers)
+    bytes_ms, design_ms, bound_ms = bound(moved["bytes"], work["ops"])
+    return {"bytes": moved["bytes"], "bytes_read": sum(moved["read"].values()),
+            "bytes_written": sum(moved["written"].values()),
+            "bytes_ms": bytes_ms, "design_ops": work["ops"],
+            "design_ops_ms": design_ms, "ref_ops": ref_ops,
+            "ref_ops_ms": bound(0, ref_ops)[1], "old_bytes": old_bytes,
+            "old_bytes_ms": bound(old_bytes, 0)[0],
+            "heard_staged": int((heard & staged[:, None]).sum()),
+            "replicas_written": int(wrote.sum()),
+            "design_work": work, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= design_ms else "operations"}
 
 
 def bound_text(b: dict) -> str:
-    return (f"bound {b['bound_ms']:.6f} ms = max(bytes {b['bytes']} B -> "
+    return (f"bound {b['bound_ms']:.6f} ms = max(bytes {b['bytes']} B "
+            f"({b['bytes_read']} read: {b['heard_staged']} heard replicas "
+            f"of staged rows; {b['bytes_written']} written: "
+            f"{b['replicas_written']} replicas changed) -> "
             f"{b['bytes_ms']:.6f} ms, design int32 ops {b['design_ops']} -> "
-            f"{b['design_ops_ms']:.6f} ms); the reference arithmetic's "
-            f"{b['ref_ops']} ops -> {b['ref_ops_ms']:.6f} ms")
+            f"{b['design_ops_ms']:.6f} ms); PR 3-8's counts: bytes "
+            f"{b['old_bytes']} -> {b['old_bytes_ms']:.6f} ms, the reference "
+            f"arithmetic's {b['ref_ops']} ops -> {b['ref_ops_ms']:.6f} ms")
+
+
+def time_full(dev: torch.device, card: str, detail: bool = True) -> dict:
+    """F1 at the headline shape, full width, on phase 3b's stream (about
+    half the rows elect in every launch): :func:`launch_timings`; with
+    ``detail`` also the plain version, the occupancy and the bound of one
+    launch as timed."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(99)
+    st = eng.init_state(e, m, s, device=dev)
+    planes = [torch.from_numpy(p).to(dev) for p in f1_stream(
+        rng, np.full(e, -1, np.int32), e, m, s, k)]
+    args = planes[:7]
+    kw = {"exp_epoch": planes[7], "exp_seq": planes[8]}
+    st, _, _ = eng.full_step(st, *args, **kw)    # elect, fill the store
+    torch.cuda.synchronize()
+    out = {"max_abs_err": 0}
+    if detail:
+        pre = copy_state(st)
+        st, _, res = eng.full_step(st, *args, **kw)
+        torch.cuda.synchronize()
+        b = f1_bounds(pre, st, planes[6].cpu().numpy(),
+                      planes[2].cpu().numpy(), planes[3].cpu().numpy(),
+                      res.committed.cpu().numpy())
+        del pre
+        out.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+    def step():
+        eng.full_step(st, *args, **kw)
+    out.update(launch_timings(step))
+    if not detail:
+        return out
+    st_pl = copy_state(st)
+    out["plain_ms"] = cuda_ms(lambda: eng.full_step_plain(st_pl, *args, **kw),
+                              iters=1, reps=3)
+    out["occupancy"] = f1_occupancy(f"full width {e}x{m}x{s} K={k}", e, m,
+                                    s, 2, k, e)
+    print(f"F1 at {e}x{m}x{s} K={k} [{card}]: full_step {out['ms']:.6f} ms "
+          f"per call back to back, {out['device_us']:.3f} us device time "
+          f"per launch (gated events); host {out['host_us']:.3f} us per "
+          f"call; plain {out['plain_ms']:.3f} ms; {bound_text(b)}")
+    return out
 
 
 def phase_f1(dev: torch.device, card: str):
@@ -738,37 +805,7 @@ def phase_f1(dev: torch.device, card: str):
         if k and not (stats["commits"] and stats["corrupt"]):
             raise AssertionError(f"F1 case {name} exercised no commits or "
                                  f"no integrity flags: {stats}")
-    # timing at the headline shape
-    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
-    rng = np.random.default_rng(99)
-    st = eng.init_state(e, m, s, device=dev)
-    planes = [torch.from_numpy(p).to(dev) for p in f1_stream(
-        rng, np.full(e, -1, np.int32), e, m, s, k)]
-    args = planes[:7]
-    kw = {"exp_epoch": planes[7], "exp_seq": planes[8]}
-    st, _, res = eng.full_step(st, *args, **kw)    # elect, fill the store
-    torch.cuda.synchronize()
-
-    def step():
-        eng.full_step(st, *args, **kw)
-    f1_ms = cuda_ms(step, iters=10)
-    st_pl = copy_state(st)
-    plain_ms = cuda_ms(lambda: eng.full_step_plain(st_pl, *args, **kw),
-                       iters=1, reps=3)
-    occ = f1_occupancy(f"full width {e}x{m}x{s} K={k}", e, m, s, 2, k, e)
-    b = f1_bounds(st, planes[6].cpu().numpy(), planes[2].cpu().numpy(),
-                  planes[3].cpu().numpy(), res.committed.cpu().numpy())
-    dev_us = gated_us(step)
-    host = host_us(step)
-    print(f"F1 at {e}x{m}x{s} K={k} [{card}]: full_step {f1_ms:.6f} ms per "
-          f"call back to back, {dev_us:.3f} us device time per launch "
-          f"(gated events); host {host:.3f} us per call; plain "
-          f"{plain_ms:.3f} ms; {bound_text(b)}")
-    return {"ms": f1_ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "bytes_ms": b["bytes_ms"],
-            "ref_ops_ms": b["ref_ops_ms"],
-            "design_ops_ms": b["design_ops_ms"], "max_abs_err": 0,
-            "device_us": dev_us, "host_us": host, "occupancy": occ}
+    return time_full(dev, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1282,47 +1319,54 @@ def f1_sliced_case(dev, name, e, m, s, k, views, steps, n_real, bucket,
 
 
 def time_sliced(dev, card: str, n_real: int, bucket: int,
-                k: int = K_FULL) -> dict:
+                k: int = K_FULL, puts: bool = False,
+                detail: bool = True) -> dict:
     """Sliced F1 at the headline shape with ``n_real`` active rows in an
-    A = ``bucket`` grid and ``k`` rounds: ms per call back to back,
-    device µs per launch (gated events), host µs per call, the wrapper's
-    per-call overhead (ms per call minus device time), the plain version,
-    and the bounds of the stepped rows' work."""
+    A = ``bucket`` grid and ``k`` rounds, every real row electing
+    (``puts``: every real round a put at a valid slot, as a serial
+    ``kput`` sends): :func:`launch_timings`; with ``detail`` also the
+    plain version, the occupancy and the bound of one launch as timed."""
     e, m, s = E_FULL, M_FULL, S_FULL
     rng = np.random.default_rng(98 + bucket)
     st = eng.init_state(e, m, s, device=dev)
     active, planes = sliced_inputs(rng, np.full(e, -1, np.int32), e, m, s,
-                                   k, n_real, bucket, True, elect_all=True)
+                                   k, n_real, bucket, n_real > 1,
+                                   elect_all=True)
+    if puts:
+        planes[2][:, :n_real] = eng.OP_PUT
+        planes[3][:, :n_real] = rng.integers(0, s, (k, n_real))
     t = [torch.from_numpy(p).to(dev) for p in planes]
     args, kw = t[:7], {"exp_epoch": t[7], "exp_seq": t[8]}
-    st, _, res = eng.full_step_sliced(st, active, *args, **kw)  # elect, fill
+    st, _, _ = eng.full_step_sliced(st, active, *args, **kw)  # elect, fill
     torch.cuda.synchronize()
+    out = {"rows": n_real, "k": k, "max_abs_err": 0, "library_ms": None}
+    if detail:
+        pre = copy_state(st)
+        st, _, res = eng.full_step_sliced(st, active, *args, **kw)
+        torch.cuda.synchronize()
+        b = f1_bounds(pre, st, planes[6], planes[2], planes[3],
+                      res.committed.cpu().numpy(), rows=active[:n_real])
+        del pre
+        out.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
 
     def step():
         eng.full_step_sliced(st, active, *args, **kw)
-    ms = cuda_ms(step, iters=10)
-    dev_us = gated_us(step)
-    host = host_us(step)
+    out.update(launch_timings(step))
+    if not detail:
+        return out
     st_pl = copy_state(st)
-    plain_ms = cuda_ms(lambda: eng.full_step_sliced_plain(
+    out["plain_ms"] = cuda_ms(lambda: eng.full_step_sliced_plain(
         st_pl, active, *args, **kw), iters=1, reps=3)
-    label = f"sliced A={bucket} ({n_real} rows) K={k}"
-    occ = f1_occupancy(label, e, m, s, 2, k, bucket)
-    b = f1_bounds(st, planes[6], planes[2], planes[3],
-                  res.committed.cpu().numpy(), rows=active[:n_real])
-    overhead = ms - dev_us / 1e3
-    print(f"F1 {label} at {e}x{m}x{s} [{card}]: full_step_sliced {ms:.6f} "
-          f"ms per call back to back, {dev_us:.3f} us device time per "
-          f"launch (gated events); host {host:.3f} us per call; per-call "
-          f"overhead {overhead:.6f} ms; plain {plain_ms:.3f} ms; "
-          f"{bound_text(b)}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "bytes_ms": b["bytes_ms"],
-            "ref_ops_ms": b["ref_ops_ms"],
-            "design_ops_ms": b["design_ops_ms"], "device_us": dev_us,
-            "host_us": host, "overhead_ms": overhead,
-            "rows": n_real, "k": k, "max_abs_err": 0, "library_ms": None,
-            "occupancy": occ}
+    label = (f"sliced A={bucket} ({n_real} rows) K={k}"
+             + (" puts" if puts else ""))
+    out["occupancy"] = f1_occupancy(label, e, m, s, 2, k, bucket)
+    print(f"F1 {label} at {e}x{m}x{s} [{card}]: full_step_sliced "
+          f"{out['ms']:.6f} ms per call back to back, "
+          f"{out['device_us']:.3f} us device time per launch (gated "
+          f"events); host {out['host_us']:.3f} us per call; per-call "
+          f"overhead {out['overhead_ms']:.6f} ms; plain "
+          f"{out['plain_ms']:.3f} ms; {bound_text(b)}")
+    return out
 
 
 def phase_f1_sliced(dev: torch.device, card: str) -> dict:
@@ -1345,7 +1389,8 @@ def phase_f1_sliced(dev: torch.device, card: str) -> dict:
                              f"no pad quorum: {total}")
     return {"A=256": time_sliced(dev, card, 250, 256),
             "A=256 K=1": time_sliced(dev, card, 250, 256, k=1),
-            "A=2048": time_sliced(dev, card, 2000, 2048)}
+            "A=2048": time_sliced(dev, card, 2000, 2048),
+            "A=8 K=1 put": time_sliced(dev, card, 1, 8, k=1, puts=True)}
 
 
 def keyed_rounds(svc: BatchedEnsembleService, dev: torch.device, sub: list,
@@ -1545,18 +1590,21 @@ def execute_batches(n: int) -> list:
 
 
 def phase_pipeline(dev: torch.device, card: str,
-                   profile: Optional[str] = None) -> dict:
+                   profile: Optional[str] = None) -> tuple:
     """6(c): a stream of K = 64 flushes at the headline size through
     ``execute`` at depth 1 and ``execute_async`` at depth 2, each run
     twice in the order 1, 2, 2, 1: equal results (first runs) and final
     state, the wall and host split per flush of every run, and the
-    overlap — at depth 2 the settle of launch N starts while launch N + 1
-    still runs on the card.  Returns the first depth-2 run's counts."""
+    overlap — at depth 2 launch N + 1 is enqueued before the settle of
+    launch N begins (at depth 1 never), and how often the card still
+    runs it then.  Returns the first depth-2 run's counts, and
+    the ms per flush and host split of every run by depth and of the
+    device-resident stream."""
     e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
     n = 12
     batches = execute_batches(n)
     stream = torch.cuda.current_stream(dev)
-    svcs, busy, splits = {}, {}, {}
+    svcs, busy, ahead, launched, splits = {}, {}, {}, {}, {}
     for depth in (1, 2):
         svc = svcs[depth] = BatchedEnsembleService(
             FixedClock(), e, m, s, tick=None, max_ops_per_tick=k, device=dev,
@@ -1566,14 +1614,23 @@ def phase_pipeline(dev: torch.device, card: str,
         for _ in range(4):
             svc.execute(*batches[0])
         torch.cuda.synchronize()
-        busy[depth] = []
-        fetch = svc._fetch_packed
+        busy[depth], ahead[depth], launched[depth] = [], [], [0]
+        fetch, enqueue = svc._fetch_packed, svc._launch_enqueue
 
-        def watched(fl, fetch=fetch, out=busy[depth]):
+        def watched(fl, fetch=fetch, out=busy[depth], seen=ahead[depth],
+                    n_launched=launched[depth]):
+            # a later launch was enqueued before this settle began
+            seen.append(n_launched[0] > len(seen) + 1)
             got = fetch(fl)
             out.append(not stream.query())  # a later launch still runs
             return got
+
+        def counted(*args, enqueue=enqueue, n_launched=launched[depth],
+                    **kwargs):
+            n_launched[0] += 1
+            return enqueue(*args, **kwargs)
         svc._fetch_packed = watched
+        svc._launch_enqueue = counted
         splits[depth] = HostSplit(svc)
 
     def run(depth):
@@ -1586,6 +1643,8 @@ def phase_pipeline(dev: torch.device, card: str,
     runs, outs, counts = [], {}, {}
     for depth in (1, 2, 2, 1):
         busy[depth].clear()
+        ahead[depth].clear()
+        launched[depth][0] = 0
         splits[depth].take()
         reset_counts()                                # this path's run
         t0 = time.perf_counter()
@@ -1595,7 +1654,7 @@ def phase_pipeline(dev: torch.device, card: str,
         if depth not in outs:
             outs[depth], counts[depth] = out, read_counts()
         runs.append((depth, wall, splits[depth].take(), sum(busy[depth][:-1]),
-                     len(busy[depth])))
+                     len(busy[depth]), sum(ahead[depth])))
     for i, (a, b) in enumerate(zip(outs[1], outs[2])):
         if not all(np.array_equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"6(c): flush {i} results differ between "
@@ -1616,14 +1675,16 @@ def phase_pipeline(dev: torch.device, card: str,
     bad = diff_fields(svcs[1].state, svcs[2].state, eng.EngineState._fields)
     if bad:
         raise AssertionError(f"6(c): final state planes {bad} differ")
-    for depth, wall, split, overlapped, settles in runs:
-        if overlapped < (n - 1) // 2 if depth == 2 else overlapped:
-            raise AssertionError(f"6(c): depth {depth}: the card was busy at "
-                                 f"{overlapped} of {settles - 1} settles")
+    for depth, wall, split, overlapped, settles, early in runs:
+        if early != (settles - 1 if depth == 2 else 0):
+            raise AssertionError(f"6(c): depth {depth}: the next launch was "
+                                 f"enqueued before {early} of {settles} "
+                                 f"settles")
         print(f"6(c) pipeline depth {depth} [{card}]: {n} flushes of K={k} x "
               f"{e} in {wall * 1e3:.3f} ms, {wall / n * 1e3:.3f} ms per "
-              f"flush, {n * k * e / wall:.1f} ops/s; card busy at "
-              f"{overlapped} of {settles - 1} settles; host ms per flush: "
+              f"flush, {n * k * e / wall:.1f} ops/s; the next launch "
+              f"enqueued before {early} of {settles} settles, the card still "
+              f"busy at {overlapped} of {settles - 1}; host ms per flush: "
               f"{split_line(split, n)}")
     for depth, (dev_us, share) in shares.items():
         print(f"6(c) pipeline depth {depth} [{card}]: device kernel time "
@@ -1631,19 +1692,29 @@ def phase_pipeline(dev: torch.device, card: str,
               f"(profiled)")
     print(f"6(c) launches [{card}]: depth 1 {counts[1]}, depth 2 "
           f"{counts[2]}")
-    device_resident_stream(dev, card, batches, outs[1])
-    return counts[2]
+    summary = {f"depth {d}": {"ms_per_flush": [w / n * 1e3 for d2, w, *_
+                                               in runs if d2 == d],
+                              "busy_at_settle": [r[3] for r in runs
+                                                 if r[0] == d],
+                              "split": [{key: x / n for key, x in sp.items()}
+                                        for d2, _, sp, *_ in runs
+                                        if d2 == d]}
+               for d in (1, 2)}
+    summary["device-resident"] = device_resident_stream(dev, card, batches,
+                                                        outs[1])
+    return counts[2], summary
 
 
 OP_PLANES = ("kind", "slot", "val", "exp_e", "exp_s")
 
 
 def device_resident_stream(dev: torch.device, card: str, batches: list,
-                           want: list) -> None:
+                           want: list) -> float:
     """6(c), device-resident: the same stream as CUDA int32 planes
     through ``execute`` at depth 1 on a service warmed like the
     depth-1 one: results bit-equal to the host-array run, no op-plane
-    byte staged for the device, and ``k * E`` ops served per call."""
+    byte staged for the device, and ``k * E`` ops served per call.
+    Returns the ms per flush."""
     e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
     svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
                                  max_ops_per_tick=k, device=dev)
@@ -1679,6 +1750,7 @@ def device_resident_stream(dev: torch.device, card: str, batches: list,
           f"host-array run; H2D op-plane bytes 0 (other inputs "
           f"{staged['other'] / n:.0f} B per flush)")
     del svc, planes
+    return wall / n * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -2952,6 +3024,66 @@ def parse_prometheus(text: str) -> dict:
     return out
 
 
+class LaunchShapes:
+    """F1's launches on a path by shape (K, A, sliced): how many, the
+    real rows of each, and a copy of the first launch's inputs of each
+    shape, to time F1 at the shapes the path runs.  It wraps the wrapper
+    ``cuda_engine.engine_step`` (which the engine calls by attribute) and
+    calls through, so the launch counts are untouched."""
+
+    def __init__(self) -> None:
+        self.count: dict = {}
+        self.rows: dict = {}
+        self.sample: dict = {}
+        self.fn = cuda_engine.engine_step
+        self.sig = inspect.signature(self.fn)
+        cuda_engine.engine_step = self._record
+
+    def _record(self, state, *args, **kwargs):
+        got = self.sig.bind(state, *args, **kwargs).arguments
+        idx = got.get("active_idx")
+        k, a = got["kind"].shape
+        key = (k, a, idx is not None)
+        self.count[key] = self.count.get(key, 0) + 1
+        self.rows.setdefault(key, []).append(
+            a if idx is None else int((idx < state.epoch.shape[0]).sum()))
+        if key not in self.sample:
+            self.sample[key] = {
+                n: v.clone() if isinstance(v, torch.Tensor)
+                else v.copy() if isinstance(v, np.ndarray) else v
+                for n, v in got.items() if n != "state"}
+        return self.fn(state, *args, **kwargs)
+
+    def close(self) -> None:
+        cuda_engine.engine_step = self.fn
+
+    def top(self, n: int) -> list:
+        return sorted(self.count, key=lambda key: -self.count[key])[:n]
+
+    def time_top(self, state, card: str, label: str, n: int = 3) -> dict:
+        """F1 at the path's ``n`` most launched shapes, each on a copy of
+        ``state`` with its first launch's inputs: :func:`launch_timings`,
+        and the launches and real rows of the shape on the path."""
+        out = {}
+        for key in self.top(n):
+            k, a, sliced = key
+            st = copy_state(state)
+            args = self.sample[key]
+            t = launch_timings(lambda: self.fn(st, **args))
+            rows = self.rows[key]
+            name = f"K={k} A={a}" + (" sliced" if sliced else "")
+            out[name] = {"launches": self.count[key],
+                         "rows_median": statistics.median(rows), **t}
+            print(f"{label} F1 at its shape {name} [{card}]: "
+                  f"{self.count[key]} launches, real rows median "
+                  f"{statistics.median(rows)} (min {min(rows)}, max "
+                  f"{max(rows)}); {t['device_us']:.3f} us device time per "
+                  f"launch (gated events), {t['ms']:.6f} ms per call back "
+                  f"to back, host {t['host_us']:.3f} us per call")
+            del st
+        return out
+
+
 async def front_end_session(dev, card: str, data: str) -> dict:
     """10(b): ``serve()`` in process on loopback, one ServiceClient: the
     serial ops, the batched keyed pattern with up to 256 batches in
@@ -2972,6 +3104,7 @@ async def front_end_session(dev, card: str, data: str) -> dict:
     rng = np.random.default_rng(20)
     torch.cuda.synchronize()
     reset_counts()                                 # the main path's run
+    shapes = LaunchShapes()
     codec.armed = True
     acked = {}
     serial = {"kput": [], "kget": []}
@@ -3040,6 +3173,8 @@ async def front_end_session(dev, card: str, data: str) -> dict:
     torch.cuda.synchronize()
     codec.armed = False
     counts = read_counts()
+    shapes.close()
+    state = copy_state(svc.state)
     stats = await c.stats()
     health = await c.health()
     health0 = await c.health(int(sub[0]))
@@ -3055,6 +3190,11 @@ async def front_end_session(dev, card: str, data: str) -> dict:
         print(f"10(b) {label} [{card}]: {json.dumps(v, default=str)}")
     print(f"10(b) ('metrics', 'prometheus') [{card}]: {len(samples)} "
           f"samples parsed")
+    print(f"10(b) F1 launches by (K, A, sliced) [{card}]: "
+          + ", ".join(f"{key}: {shapes.count[key]}"
+                      for key in shapes.top(len(shapes.count))))
+    f1_shapes = shapes.time_top(state, card, "10(b)")
+    del state
     print(scrape)
     if not (samples.get("retpu_flushes_total", 0) >= 1
             and stats["obs_enabled"] and health["storage"]["degraded"]
@@ -3080,6 +3220,7 @@ async def front_end_session(dev, card: str, data: str) -> dict:
                            if k.startswith("retpu_compile_events_total")},
         "flush_total_ms_p50": lb.get("total", {}).get("p50_ms"),
         "flush_total_ms_p99": lb.get("total", {}).get("p99_ms"),
+        "f1_shapes": f1_shapes,
     }
     print(f"10(b) svcnode on loopback {E_FULL}x{M_FULL}x{S_FULL} K={K_FULL} "
           f"[{card}]: serial kput p50 {out['serial_kput_ms_p50']:.3f} / p99 "
@@ -3348,93 +3489,78 @@ def profile_flush(svc, kind, slots, card: str, path: str) -> None:
           f"{(t2 - t1) * 1e3:.3f} ms")
 
 
-#: F1's timings at the headline shape, run by :func:`f1_ab` in a tree of
-#: this package (as ``python3 -c``, from the tree's root): full width, and
-#: sliced at A = 256 (K = 64 and K = 1) and A = 2,048; ms per call back to
-#: back, gated device µs and host µs per call.  It uses only names that
-#: every version of this script and package has had since sliced F1.
-F1_AB_CODE = r"""
-import json, statistics, time
-import numpy as np, torch
-import chip_smoke as cs
-from riak_ensemble_tpu_torch.ops import engine as eng
+#: F1's sliced shapes that ``--ab`` times: (real rows, A, K, puts) — 6(a)'s
+#: three, and 10(b)'s serial ``kput`` (one row in the A = 8 bucket, a put)
+AB_SLICED = ((250, 256, 64, False), (250, 256, 1, False),
+             (2000, 2048, 64, False), (1, 8, 1, True))
 
-def gated(fn, n=20):
-    fn(); torch.cuda.synchronize(); per = []
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(0.05 * 1.98e9)); a.record()
-        for _ in range(n): fn()
-        b.record(); b.synchronize(); per.append(a.elapsed_time(b) * 1e3 / n)
-    return statistics.median(per)
-
-def host(fn, n=20):
-    fn(); torch.cuda.synchronize(); per = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        for _ in range(n): fn()
-        per.append((time.perf_counter() - t0) / n * 1e6)
-        torch.cuda.synchronize()
-    return statistics.median(per)
-
-def timed(fn):
-    ms = cs.cuda_ms(fn, iters=10); dev = gated(fn)
-    return {"ms": ms, "device_us": dev, "host_us": host(fn),
-            "overhead_ms": ms - dev / 1e3}
-
-dev = torch.device("cuda", 0)
-e, m, s, k = cs.E_FULL, cs.M_FULL, cs.S_FULL, cs.K_FULL
-out = {}
-rng = np.random.default_rng(99)
-st = eng.init_state(e, m, s, device=dev)
-p = [torch.from_numpy(x).to(dev) for x in cs.f1_stream(
-    rng, np.full(e, -1, np.int32), e, m, s, k)]
-kw = {"exp_epoch": p[7], "exp_seq": p[8]}
-eng.full_step(st, *p[:7], **kw); torch.cuda.synchronize()
-out["full"] = timed(lambda: eng.full_step(st, *p[:7], **kw))
-for n_real, bucket, kk in ((250, 256, 64), (250, 256, 1), (2000, 2048, 64)):
-    rng = np.random.default_rng(98 + bucket)
-    st = eng.init_state(e, m, s, device=dev)
-    active, planes = cs.sliced_inputs(rng, np.full(e, -1, np.int32), e, m,
-                                      s, kk, n_real, bucket, True,
-                                      elect_all=True)
-    t = [torch.from_numpy(x).to(dev) for x in planes]
-    kw = {"exp_epoch": t[7], "exp_seq": t[8]}
-    eng.full_step_sliced(st, active, *t[:7], **kw); torch.cuda.synchronize()
-    out[f"A={bucket} K={kk}"] = timed(
-        lambda: eng.full_step_sliced(st, active, *t[:7], **kw))
-print("F1AB " + json.dumps(out))
-"""
+#: How ``--ab`` runs one tree: this file, loaded by its path, in a process
+#: whose ``riak_ensemble_tpu_torch`` is that tree's (its root is the
+#: working directory, first on ``sys.path``)
+AB_BOOT = ("import importlib.util, sys\n"
+           "spec = importlib.util.spec_from_file_location('chip_smoke', "
+           "sys.argv[1])\n"
+           "cs = importlib.util.module_from_spec(spec)\n"
+           "sys.modules['chip_smoke'] = cs\n"
+           "spec.loader.exec_module(cs)\n"
+           "sys.exit(cs.ab_run())\n")
 
 
-def f1_ab(other: str, card: str) -> int:
-    """F1's timings (:data:`F1_AB_CODE`) in another tree of this package
-    and in this one, on one card, in turns: other, this, this, other.
-    Each run is a process of its own (it builds its tree's kernel)."""
-    here = os.path.dirname(os.path.abspath(__file__))
+def ab_run() -> int:
+    """One side of ``--ab``: F1 at the headline shape (full width and
+    :data:`AB_SLICED`) and phase 6(c), on whichever tree's package this
+    process imported; prints the numbers as one ``AB`` JSON line."""
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    out = {"F1 full width": time_full(dev, card, detail=False)}
+    for n_real, bucket, k, puts in AB_SLICED:
+        out[f"F1 A={bucket} ({n_real} rows) K={k}{' puts' if puts else ''}"] \
+            = time_sliced(dev, card, n_real, bucket, k, puts, detail=False)
+    out["6(c)"] = phase_pipeline(dev, card)[1]
+    print("AB " + json.dumps(out))
+    return 0
+
+
+def ab(other: str, card: str) -> int:
+    """F1's timings and phase 6(c) in another tree of this package and in
+    this one, on one card, in turns: other, this, this, other.  Each turn
+    is a process of its own that builds its tree's kernels and runs this
+    file's :func:`ab_run`."""
+    here = os.path.abspath(__file__)
     runs = []
-    for label, root in (("other", other), ("this", here), ("this", here),
-                        ("other", other)):
+    for label, root in (("other", other), ("this", os.path.dirname(here)),
+                        ("this", os.path.dirname(here)), ("other", other)):
         t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-c", F1_AB_CODE], cwd=root,
+        out = subprocess.run([sys.executable, "-c", AB_BOOT, here], cwd=root,
                              capture_output=True, text=True, timeout=900)
-        line = [ln for ln in out.stdout.splitlines()
-                if ln.startswith("F1AB ")]
+        for ln in out.stdout.splitlines():
+            if not ln.startswith("AB "):
+                print(f"[{label}] {ln}")
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith("AB ")]
         if out.returncode != 0 or not line:
-            raise AssertionError(f"F1 timing in {root} failed "
+            raise AssertionError(f"A/B run in {root} failed "
                                  f"({out.returncode}):\n{out.stderr[-3000:]}")
-        res = json.loads(line[0][5:])
-        runs.append((label, res))
-        print(f"F1 A/B {label} ({root}) [{card}], "
-              f"{time.perf_counter() - t0:.1f} s: {json.dumps(res)}")
+        runs.append((label, json.loads(line[0][3:])))
+        print(f"A/B {label} ({root}) [{card}]: "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def series(name, get):
+        print(f"A/B {name} [{card}]: " + "; ".join(
+            f"{lab} " + ", ".join(f"{x:.6f}" for l2, r in runs if l2 == lab
+                                  for x in get(r))
+            for lab in ("other", "this")))
     for mode in runs[0][1]:
-        for key in ("device_us", "ms", "host_us", "overhead_ms"):
-            vals = {lab: [r[mode][key] for l2, r in runs if l2 == lab]
-                    for lab in ("other", "this")}
-            print(f"F1 A/B {mode} {key}: other "
-                  f"{', '.join(f'{x:.6f}' for x in vals['other'])}; this "
-                  f"{', '.join(f'{x:.6f}' for x in vals['this'])}")
+        if mode.startswith("F1"):
+            for key in ("device_us", "ms", "host_us", "overhead_ms"):
+                series(f"{mode} {key}", lambda r: [r[mode][key]])
+    for depth in ("depth 1", "depth 2"):
+        series(f"6(c) {depth} ms per flush",
+               lambda r: r["6(c)"][depth]["ms_per_flush"])
+        for key in ("enqueue", "wait", "unpack", "fanout"):
+            series(f"6(c) {depth} {key} ms per flush",
+                   lambda r: [sp[key] for sp in r["6(c)"][depth]["split"]])
+    series("6(c) device-resident ms per flush",
+           lambda r: [r["6(c)"]["device-resident"]])
     return 0
 
 
@@ -3447,8 +3573,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
-    if "--f1-ab" in argv:
-        return f1_ab(argv[argv.index("--f1-ab") + 1], card)
+    if "--ab" in argv:
+        return ab(argv[argv.index("--ab") + 1], card)
     t0 = time.perf_counter()
     secs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s wall "
@@ -3476,7 +3602,7 @@ def main(argv) -> int:
                "phase6b compacted keyed service":
                    phase_compaction_service(dev, card),
                "phase6c pipeline depth 2": phase_pipeline(dev, card,
-                                                          profile)}
+                                                          profile)[0]}
     host = phase_host_passes(dev, card)
     host_calls = phase_host_arms(dev, card)
     durable = phase_durable(dev, card)
@@ -3505,9 +3631,7 @@ def main(argv) -> int:
         "max_abs_err": f1["max_abs_err"], "ms": f1["ms"],
         "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
         "bound_by": f1["bound_by"], "library_ms": None,
-        "device_us": f1["device_us"], "host_us": f1["host_us"], "bytes_ms": f1["bytes_ms"],
-        "ref_ops_ms": f1["ref_ops_ms"],
-        "design_ops_ms": f1["design_ops_ms"],
+        "device_us": f1["device_us"], "host_us": f1["host_us"],
         "occupancy": f1["occupancy"], "sliced": f1_sliced}, {
         "name": "K1 quorum_met_e", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",

@@ -51,19 +51,21 @@
 // - Write-back of only the replicas that wrote, with TMA bulk stores.
 //
 // What bounds it on this card.  At 10,000 x 5 x 128, K = 64 the state is
-// 187.1 MB; the bytes bound (every plane read once and written once, the
-// op and result planes once) is ~0.12 ms at 3.35 TB/s, and the design's
-// hashing (a fold per upper node and a leaf hash per slot of each heard
-// replica, once; the refolds and leaf hashes of what was written) ~0.05 ms
-// at the int32 rate.  Neither sets the time: a live round is a chain of
-// ~15 dependent warp-wide steps on warp 0 (shared-memory loads, ballots,
-// three max-reductions, the quorum predicate, the decision), so an
+// 187.1 MB, but a launch must move only ~250 MB: the heard replicas of the
+// rows with a live round read, the ~30 % of replicas that change written,
+// the ballot, op and result planes (cuda_engine.design_bytes) — ~0.075 ms
+// at 3.35 TB/s.  The design's hashing (a fold per upper node and a leaf
+// hash per slot of each heard replica, once; the refolds and leaf hashes
+// of what was written) is ~0.05 ms at the int32 rate.  Neither sets the
+// time: a live round is a chain of ~15 dependent warp-wide steps on warp 0
+// (shared-memory loads, ballots, three max-reductions, the quorum
+// predicate, the decision), so an
 // ensemble takes its live rounds x that latency, plus staging, verdicts,
 // refold and write-back.  At full width that runs in waves of resident
 // blocks, and shared memory (19.3 KB a block) caps them at 11 per SM; the
 // entry point picks the warps per block from the occupancy query (one at
 // full width, eight at A = 256).  On an H100 80GB HBM3 at 700 W a launch
-// takes ~0.42 ms full width; the bytes bound is ~29 % of that (PERF.md).
+// takes ~0.39 ms full width; the bytes bound is ~19 % of that (PERF.md).
 //
 // Contract (the Python wrapper checks it and raises; the entry point
 // refuses it again): 1 <= M <= 32, 1 <= V <= 8, the staged planes within
@@ -865,69 +867,73 @@ int smem_bytes(int m, int s, int u) {
 // The launch shape: warps per block from {1, 2, 4, 8} (at most 8, the
 // kernel's bound), the one that needs the fewest waves of resident blocks
 // for `a` blocks; on a tie the most warps (the verdicts and refolds spread
-// over them).  Occupancy comes from the runtime's own query, cached per
-// shared-memory size.
+// over them).  Occupancy comes from the runtime's own query.
 struct Shape {
   int warps, blocks_per_sm, sms;
 };
 
-std::mutex shape_lock;  // the caches below; launches may come from threads
+constexpr int kMaxDevices = 64;
 
-int occupancy(int warps, int smem, int* blocks) {
-  static int cache_smem[16], cache_occ[16][4], cache_n = 0;
+// What the runtime said of one card, cached: the shared memory the kernel
+// may take there (cudaFuncSetAttribute holds per device), its SMs, and
+// the occupancy query's answers by shared-memory size.  Launches may come
+// from threads, so shape_lock guards it.
+struct DeviceCache {
+  int smem_set = -1;
+  int sms = 0;
+  int n = 0;
+  int smem[16];
+  int occ[16][4];
+};
+DeviceCache device_cache[kMaxDevices];
+std::mutex shape_lock;
+
+int occupancy(DeviceCache& dc, int warps, int smem, int* blocks) {
   const int slot = warps == 1 ? 0 : warps == 2 ? 1 : warps == 4 ? 2 : 3;
-  for (int i = 0; i < cache_n; ++i) {
-    if (cache_smem[i] == smem && cache_occ[i][slot] >= 0) {
-      *blocks = cache_occ[i][slot];
-      return 0;
-    }
+  int i = 0;
+  while (i < dc.n && dc.smem[i] != smem) ++i;
+  if (i < dc.n && dc.occ[i][slot] >= 0) {
+    *blocks = dc.occ[i][slot];
+    return 0;
   }
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, engine_step_kernel, warps * 32, smem);
   if (err != cudaSuccess) return (int)err;
-  int i = 0;
-  while (i < cache_n && cache_smem[i] != smem) ++i;
-  if (i == cache_n) {
-    if (cache_n == 16) i = 0; else ++cache_n;
-    cache_smem[i] = smem;
-    for (int q = 0; q < 4; ++q) cache_occ[i][q] = -1;
+  if (i == dc.n) {
+    if (dc.n == 16) i = 0; else ++dc.n;
+    dc.smem[i] = smem;
+    for (int q = 0; q < 4; ++q) dc.occ[i][q] = -1;
   }
-  cache_occ[i][slot] = *blocks;
+  dc.occ[i][slot] = *blocks;
   return 0;
 }
 
-int prepare(int smem) {
-  static int smem_set = -1;
-  if (smem <= smem_set) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      engine_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  smem_set = smem;
-  return 0;
-}
-
+// The shape of a launch of `a` blocks on the current device, after
+// raising the kernel's dynamic shared memory limit there if it needs it.
 int choose_shape(int a, int smem, Shape* out) {
   std::lock_guard<std::mutex> hold(shape_lock);
-  int rc = prepare(smem);
-  if (rc != 0) return rc;
-  static int sms_of[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
-  if (sms_of[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms_of[dev],
-                                 cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidValue;
+  DeviceCache& dc = device_cache[dev];
+  if (smem > dc.smem_set) {
+    err = cudaFuncSetAttribute(
+        engine_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    dc.smem_set = smem;
+  }
+  if (dc.sms == 0) {
+    err = cudaDeviceGetAttribute(&dc.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  const int sms = sms_of[dev];
   int best = -1, best_waves = 0, best_occ = 0;
   for (int w = 1; w <= kMaxWarps; w *= 2) {
     int occ = 0;
-    rc = occupancy(w, smem, &occ);
+    const int rc = occupancy(dc, w, smem, &occ);
     if (rc != 0) return rc;
     if (occ <= 0) continue;
-    const long per_wave = (long)occ * sms;
+    const long per_wave = (long)occ * dc.sms;
     const int waves = (int)((a + per_wave - 1) / per_wave);
     if (best < 0 || waves <= best_waves) {
       best = w;
@@ -938,7 +944,7 @@ int choose_shape(int a, int smem, Shape* out) {
   if (best < 0) return (int)cudaErrorInvalidConfiguration;
   out->warps = best;
   out->blocks_per_sm = best_occ;
-  out->sms = sms;
+  out->sms = dc.sms;
   return 0;
 }
 
@@ -960,8 +966,9 @@ int check_dims(const int* dims) {
 
 // Plain C entry point (bound with ctypes): `ptrs` holds the kNumPtrs
 // device pointers in Ptr order, `dims` the kNumDims ints in Dim order.
-// Launches on `stream` and returns cudaGetLastError() as an int (0 =
-// launched); never synchronises or allocates.
+// Launches on `stream`, a stream of the current device, and returns
+// cudaGetLastError() as an int (0 = launched); never synchronises or
+// allocates.
 extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
                                  void* stream) {
   Params p;
@@ -1017,7 +1024,7 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
   return (int)cudaGetLastError();
 }
 
-// What a launch with these dims would run as: out[0] registers per
+// What a launch with these dims would run as on the current device: out[0] registers per
 // thread, [1] static shared memory, [2] dynamic shared memory, [3] local
 // (spill) bytes per thread, [4] warps per block, [5] resident blocks per
 // SM, [6] SMs.  Returns a CUDA error code (0 = filled).

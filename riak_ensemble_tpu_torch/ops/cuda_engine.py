@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from riak_ensemble_tpu_torch.ops import build
+from riak_ensemble_tpu_torch.ops import build, cuda_quorum
 from riak_ensemble_tpu_torch.ops import hash as hashk
 
 #: the kernel's contract: peers fit one warp's lanes (and a 32-bit peer
@@ -162,6 +162,37 @@ def design_work(heard: np.ndarray, kind: np.ndarray, slot: np.ndarray,
             "ops": (verdicts * (FOLD_OPS + 4) + refolds * FOLD_OPS
                     + leaf_verdicts * (LEAF_OPS + 4)
                     + leaf_writes * LEAF_OPS)}
+
+
+def design_bytes(heard: np.ndarray, staged: np.ndarray, wrote: np.ndarray,
+                 ballot_changed: np.ndarray, s: int, v: int, k: int,
+                 a: int) -> dict:
+    """The bytes one F1 launch must move on these inputs, counted on the
+    host for the ``R`` rows it steps: ``heard [R, M]`` (each row's up
+    members), ``staged [R]`` (rows with a live round), ``wrote [R, M]``
+    (replicas whose objects or tree the launch changed: a commit or a
+    read repair), ``ballot_changed [R]`` (rows whose epoch, fact_seq,
+    leader or counter it changed); ``k`` rounds over ``a`` columns.
+    Reads: every stepped row's ballot, view and up masks; the object
+    planes (three int32 a slot), leaves (16 B a slot) and upper nodes
+    (16 B each) of each heard replica of a staged row; the op planes
+    (five int32 and a byte a round and column) and the election's (a
+    byte and an int32 a column).  Writes: the object and
+    tree rows of each replica that wrote, the ballot of each row whose
+    ballot changed, the result planes and ``won``."""
+    m = heard.shape[1]
+    u = n_uppers(s)
+    replica = 3 * s * 4 + s * 16 + u * 16
+    ballot = 2 * m * 4 + 2 * 4
+    n_rows = heard.shape[0]
+    reads = {"ballot": n_rows * (ballot + v * m + m),
+             "replicas": int((heard & staged[:, None]).sum()) * replica,
+             "ops": k * a * (5 * 4 + 1) + 5 * a}
+    writes = {"replicas": int(wrote.sum()) * replica,
+              "ballot": int(ballot_changed.sum()) * ballot,
+              "results": k * a * (4 + 4 + 8 + m) + a}
+    return {"read": reads, "written": writes,
+            "bytes": sum(reads.values()) + sum(writes.values())}
 
 
 def fold_consts() -> torch.Tensor:
@@ -418,7 +449,7 @@ def engine_step(state, elect: Optional[torch.Tensor],
     dims = _dims(n_rows, m, state.obj_epoch.shape[2],
                  state.tree_node.shape[2], state.view_mask.shape[1], k, e)
     stream = torch.cuda.current_stream(dev)
-    rc = _kernel()(ptrs, dims, stream.cuda_stream)
+    rc = cuda_quorum.call_on(dev, _kernel(), ptrs, dims, stream.cuda_stream)
     if done is not None:
         done.record(stream)
     if rc != 0:

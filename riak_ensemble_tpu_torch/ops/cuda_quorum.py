@@ -60,6 +60,16 @@ def _kernel(name: str = "retpu_quorum_met", n_ptr: int = 4,
     return fn
 
 
+def call_on(dev: torch.device, fn, *args) -> int:
+    """``fn(*args)``, a C entry point that launches on the current card,
+    with ``dev`` the current card: the caller's current device may be
+    another, and the stream in ``args`` belongs to ``dev``."""
+    if torch.cuda.current_device() == dev.index:
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
 def _check(valid: torch.Tensor, nack: torch.Tensor,
            view_mask: torch.Tensor, w: int) -> None:
     if valid.dim() != 2 or nack.shape != valid.shape:
@@ -120,9 +130,8 @@ def quorum_met_e(valid: torch.Tensor, nack: torch.Tensor,
     if r == 0:
         return out
     stream = torch.cuda.current_stream(valid.device).cuda_stream
-    rc = _kernel()(valid.data_ptr(), nack.data_ptr(),
-                   view_mask.data_ptr(), out.data_ptr(), r, m, v, w,
-                   stream)
+    rc = call_on(valid.device, _kernel(), valid.data_ptr(), nack.data_ptr(),
+                 view_mask.data_ptr(), out.data_ptr(), r, m, v, w, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaGetLastError() = {rc}")
     quorum_launches += 1
@@ -194,10 +203,10 @@ def quorum_met_s(valid: torch.Tensor, nack: torch.Tensor,
     if e == 0:
         return out
     stream = torch.cuda.current_stream(valid.device).cuda_stream
-    rc = _kernel("retpu_quorum_met_shared", 5, 4)(
-        valid.data_ptr(), nack.data_ptr(), view_mask.data_ptr(),
-        self_idx.data_ptr(), out.data_ptr(), e, m, v,
-        REQUIRED_MODES.index(required), stream)
+    rc = call_on(valid.device, _kernel("retpu_quorum_met_shared", 5, 4),
+                 valid.data_ptr(), nack.data_ptr(), view_mask.data_ptr(),
+                 self_idx.data_ptr(), out.data_ptr(), e, m, v,
+                 REQUIRED_MODES.index(required), stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaGetLastError() = {rc}")
     quorum_s_launches += 1

@@ -1,9 +1,9 @@
 """Kernel F1 (``ops/cuda_engine.py``, ``csrc/engine_step.cu``) on the CPU.
 
 F1 runs only on a CUDA card: ``chip_smoke.py`` phase 3b holds it against
-``full_step_plain`` there, bit for bit, and the ``cuda``-marked test below
-holds it against both ``full_step_plain`` and the JAX package's
-``full_step``.  Here, on the CPU:
+``full_step_plain`` there, bit for bit; the ``cuda``-marked tests below
+hold it against both ``full_step_plain`` and the JAX package's
+``full_step``, and launch it on a second card.  Here, on the CPU:
 
 - the module imports without nvcc and builds nothing;
 - a CPU state takes the plain path of ``full_step`` / ``kv_step_scan`` /
@@ -343,3 +343,34 @@ def test_f1_matches_plain_on_card():
             assert np.array_equal(getattr(res, f).cpu().numpy(),
                                   np.asarray(getattr(jres, f))), (step, f)
     assert int(res.committed.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_f1_launches_on_a_second_card():
+    """F1 on cuda:1 while cuda:0 is the current device, after a launch on
+    cuda:0, at a shape whose shared memory (S = 1,024, M = 5: ~151 KB a
+    block) needs the kernel's limit raised on each card: both launches
+    equal ``full_step_plain`` (whose quorum runs through K1 on a card)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(6)
+    e, m, s, k = 64, 5, 1024, 8
+    assert cuda_engine.shared_bytes(m, s, cuda_engine.n_uppers(s)) > 48 << 10
+    torch.cuda.set_device(0)
+    for idx in (0, 1):
+        dev = torch.device("cuda", idx)
+        st = teng.init_state(e, m, s, device=dev)
+        ref = _copy(st)
+        for step in range(2):
+            p = [t.to(dev) for t in _planes(rng, e, m, s, k)]
+            before = cuda_engine.engine_step_launches
+            st, won, res = teng.full_step(st, *p[:7], exp_epoch=p[7],
+                                          exp_seq=p[8])
+            ref, rwon, rres = teng.full_step_plain(
+                ref, *p[:7], exp_epoch=p[7], exp_seq=p[8])
+            torch.cuda.synchronize(dev)
+            assert cuda_engine.engine_step_launches == before + 1
+            assert torch.equal(won, rwon) and _equal_states(st, ref), \
+                (idx, step)
+            assert all(torch.equal(a, b) for a, b in zip(res, rres))
+        assert int(res.committed.sum()) > 0

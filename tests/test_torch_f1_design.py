@@ -715,3 +715,50 @@ def test_design_work_counts_what_the_model_hashes(s, k):
     for key in ("refold_folds", "leaf_writes"):
         assert work[key] <= counts[key], key
     assert work["ops"] > 0
+
+
+@pytest.mark.parametrize("s,k", [(128, 64), (128, 1), (33, 8)])
+def test_design_bytes_counts_what_the_model_moves(s, k):
+    """``cuda_engine.design_bytes`` on one electing launch of the model:
+    the replicas whose planes changed are exactly the ones the model
+    writes back, the rows with a live round exactly the ones it stages,
+    and the count charges one replica row for each of those and for each
+    heard replica of a staged row.  With every row staged, heard and
+    written, and every ballot changed, it is ``cuda_engine.step_work``'s
+    byte count."""
+    e, m = 6, 5
+    rng = np.random.default_rng(s * 3 + k)
+    st = to_numpy(teng.init_state(e, m, s, device="cpu"))
+    v = st["view_mask"].shape[1]
+    p = stream(rng, st["leader"], e, m, s, 4)
+    p[0][:] = True
+    p[1][:] = 0
+    p[6][:] = True
+    launch(st, *p)
+    p = stream(rng, st["leader"], e, m, s, k)
+    pre = {f: x.copy() for f, x in st.items()}
+    _, _, counts = launch(st, *p)
+
+    def changed(*fields):
+        return np.any([(pre[f] != st[f]).reshape(e, m, -1).any(2)
+                       for f in fields], axis=0)
+    wrote = changed("obj_epoch", "obj_seq", "obj_val", "tree_leaf",
+                    "tree_node")
+    ballot = (changed("epoch", "fact_seq").any(1)
+              | (pre["leader"] != st["leader"])
+              | (pre["obj_seq_ctr"] != st["obj_seq_ctr"]))
+    heard = p[6] & pre["view_mask"].any(1)
+    live = (p[2] >= 1) & (p[2] <= 4) & (p[3] >= 0) & (p[3] < s)
+    staged = live.any(0)
+    assert int(wrote.sum()) == counts["written_replicas"]
+    assert int(staged.sum()) == counts["staged_rows"]
+    moved = cuda_engine.design_bytes(heard, staged, wrote, ballot, s, v, k, e)
+    row = 3 * s * 4 + s * 16 + cuda_engine.n_uppers(s) * 16
+    assert moved["read"]["replicas"] == int((heard & staged[:, None]).sum()
+                                            ) * row
+    assert moved["written"]["replicas"] == counts["written_replicas"] * row
+    every = np.ones((e, m), bool)
+    full = cuda_engine.design_bytes(every, every[:, 0], every, every[:, 0],
+                                    s, v, k, e)
+    assert full["bytes"] == cuda_engine.step_work(e, m, s, v, k, e)[0]
+    assert counts["written_replicas"] and moved["bytes"] < full["bytes"]

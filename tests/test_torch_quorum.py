@@ -311,3 +311,29 @@ def test_k2_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             assert cuda_quorum.quorum_s_launches == before + 1
             assert torch.equal(got.cpu(), plain.cpu()), (e, v, m, required)
+
+
+@pytest.mark.cuda
+def test_k1_k2_launch_on_a_second_card():
+    """K1 and K2 on cuda:1 while cuda:0 is the current device equal their
+    plain versions there (each wrapper launches on its tensors' card)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(11)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    e, w, v, m = 1001, 2, 2, 5
+    valid, nack = _votes(rng, (e * w,), m)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (valid, nack, _masks(rng, e, v, m))]
+    got = cuda_quorum.quorum_met_e(*args, w)
+    plain = cuda_quorum.quorum_met_eplain(*args, w)
+    assert torch.equal(got.cpu(), plain.cpu())
+    valid, nack = _votes(rng, (e,), m)
+    self_idx = rng.integers(-2, m + 2, (e,)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (valid, nack, _masks(rng, 1, v, m)[0], self_idx)]
+    for required in tq.REQUIRED_MODES:
+        got = cuda_quorum.quorum_met_s(*args, required)
+        plain = cuda_quorum.quorum_met_splain(*args, required)
+        assert torch.equal(got.cpu(), plain.cpu()), required
