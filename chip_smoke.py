@@ -128,12 +128,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    each pass; (d)
    ``python -m riak_ensemble_tpu_torch.svcnode --dynamic --data-dir D``
    as a process on the card: 64 names and 4,096 keys written, SIGKILL,
-   a restart on ``D``, every name and acknowledged write read back.
+   a restart on ``D``, every name and acknowledged write read back;
+11. wide rounds and sharded host passes: (a) F1's wide mode against
+   ``full_step_wide_plain`` / ``full_step_wide_sliced_plain`` (and
+   ``kv_step_scan_wide`` against its plain twin) bit for bit on every
+   state plane, ``won`` and every result lane, at the headline shape with
+   distinct slots (G = 1) and duplicate chains (G = 2), sliced at A = 256
+   and 2,048, and at 3b's edge shapes (M = 3 / 7 / 32, S = 16 / 33 /
+   1,024, joint views) over damaged stores; timed as 3b times F1, beside
+   scalar F1 on the same ops in (group, lane) order, with its occupancy
+   and bound; (b) the headline service with ``wide=True`` on the card
+   against one on the CPU: ``execute()`` of distinct-slot planes, every
+   acknowledged put read back, then 6(b)'s keyed pattern; wide launches
+   run and F1 launches once per launch; (c) 6(b)'s keyed pattern and a
+   full-width ``execute`` stream at ``resolve_shards=4`` against 1: equal
+   results, mirror slabs and state, and the host split of each arm.
 
 Phases 4-10 run the service's default (native) host arm.
 
-``--f1`` runs the build and F1's phases 3b and 6(a) alone (no result
-line); ``--ab DIR`` times F1 at the headline shape (full width and four
+``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
+the build and phase 11(a) (no result line); ``--ab DIR`` times F1 at the headline shape (full width and four
 sliced shapes) and phase 6(c) in the tree DIR and in this one, on one
 card, in turns (DIR, this, this, DIR), each turn a process of its own
 running this file's timing code on its tree's package.
@@ -692,10 +706,13 @@ def f1_occupancy(label: str, e: int, m: int, s: int, v: int, k: int,
 
 def f1_bounds(pre, post, up: np.ndarray, kind: np.ndarray,
               slot: np.ndarray, committed: np.ndarray,
-              rows: Optional[np.ndarray] = None) -> dict:
+              rows: Optional[np.ndarray] = None,
+              groups: Optional[int] = None) -> dict:
     """F1's bound for one launch with election planes that took ``pre`` to
     ``post`` on these inputs (``kind`` / ``slot`` / ``committed``
-    ``[K, A]``; sliced: column i steps ``rows[i]``, the rest are pads).
+    ``[K, A]``; sliced: column i steps ``rows[i]``, the rest are pads; a
+    wide launch hands in its flat rounds, ``cuda_engine.flat_rounds``, and
+    its ``groups``).
     The bytes it must move (``cuda_engine.design_bytes``: the heard
     replicas of the staged rows read, the replicas that changed written),
     the design's hashing (``cuda_engine.design_work``), and the counts of
@@ -722,7 +739,8 @@ def f1_bounds(pre, post, up: np.ndarray, kind: np.ndarray,
     heard = (up & pre.view_mask.any(1).cpu().numpy())[rows]
     live = (kind >= 1) & (kind <= 4) & (slot >= 0) & (slot < s)
     staged = live[:, :n].any(0) if k else np.zeros(n, bool)
-    moved = cuda_engine.design_bytes(heard, staged, wrote, ballot, s, v, k, a)
+    moved = cuda_engine.design_bytes(heard, staged, wrote, ballot, s, v, k, a,
+                                     groups)
     cols = np.zeros((a, m), bool)
     cols[:n] = heard
     work = cuda_engine.design_work(cols, kind, slot, committed, s)
@@ -939,6 +957,7 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     cuda_engine.engine_step_launches = 0
     cuda_engine.engine_step_sliced_launches = 0
+    cuda_engine.engine_step_wide_launches = 0
     cuda_quorum.quorum_launches = 0
     cuda_quorum.quorum_s_launches = 0
 
@@ -946,6 +965,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return {"F1": cuda_engine.engine_step_launches,
             "F1 sliced": cuda_engine.engine_step_sliced_launches,
+            # (an older tree's package, under --ab, has no wide count)
+            "F1 wide": getattr(cuda_engine, "engine_step_wide_launches", 0),
             "K1": cuda_quorum.quorum_launches,
             "K2": cuda_quorum.quorum_s_launches}
 
@@ -3436,6 +3457,417 @@ def phase_front_end(dev: torch.device, card: str) -> tuple:
                                        "crash_restart": crash}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: wide rounds (F1's wide mode) and the sharded host passes
+
+#: (name, E, M, S, K, views, steps, chains, sliced (rows, bucket) or None):
+#: ``chains`` False gives distinct slots per column (G = 1), True every
+#: slot twice (G = 2)
+WIDE_CASES = [
+    ("headline, distinct slots (G=1)", E_FULL, M_FULL, S_FULL, K_FULL, None,
+     2, False, None),
+    ("headline, duplicate chains (G=2)", E_FULL, M_FULL, S_FULL, K_FULL,
+     None, 2, True, None),
+    ("M=3", 2048, 3, 128, 16, None, 2, True, None),
+    ("M=7 S=33 (unaligned object rows, short level)", 2048, 7, 33, 16, None,
+     2, True, None),
+    ("M=32 S=16 (one level, 8 warps)", 512, 32, 16, 16, None, 2, True, None),
+    ("M=7 S=1024 (208 KB staged)", 256, 7, 1024, 32, None, 2, True, None),
+    ("joint views", 2048, 5, 128, 16, [[0, 1, 2], [1, 2, 3, 4]], 2, False,
+     None),
+    ("sliced A=256, chains", E_FULL, M_FULL, S_FULL, K_FULL, None, 2, True,
+     (250, 256)),
+    ("sliced A=2048, distinct", E_FULL, M_FULL, S_FULL, K_FULL, None, 2,
+     False, (2000, 2048)),
+    ("sliced M=7 S=1024 A=64, chains", 256, 7, 1024, 32, None, 2, True,
+     (60, 64)),
+]
+
+
+def wide_slots(rng: np.random.Generator, k: int, a: int, s: int,
+               chains: bool) -> np.ndarray:
+    """``[K, A]`` slots that schedule to one group (distinct in every
+    column) or, with ``chains``, to two (each of K/2 distinct slots twice,
+    the second time in a later, shuffled row), with a few invalid slots
+    (below 0, and past S distinct by row: the scheduler chains every slot
+    from 0 up)."""
+    n = k // 2 if chains else k
+    first = np.argsort(rng.random((s, a)), axis=0)[:n]      # [n, A] distinct
+    if chains:
+        again = first[np.argsort(rng.random((n, a)), axis=0),
+                      np.arange(a)[None, :]]
+        slot = np.concatenate([first, again])
+    else:
+        slot = first
+    bad = rng.random((k, a))
+    past = s + np.arange(k)[:, None]          # past S, distinct by row
+    slot = np.where(bad < 0.03, -1, np.where(bad > 0.98, past, slot))
+    return slot.astype(np.int32)
+
+
+def wide_plan(kind, slot, val, lease, exp_e, exp_s, chains: bool):
+    # imported here: ``--ab`` loads this file over an older tree's package
+    from riak_ensemble_tpu_torch.ops import schedule
+    plan = schedule.schedule_wide(kind, slot, val, lease, exp_e, exp_s)
+    want = 2 if chains else 1
+    if plan.kind.shape[0] != want:
+        raise AssertionError(f"the wide plan has {plan.kind.shape[0]} "
+                             f"groups, want {want}")
+    return plan
+
+
+def wide_ops(plan, dev) -> list:
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        plan.kind, plan.slot, plan.val, plan.lease_ok, plan.exp_epoch,
+        plan.exp_seq)]
+
+
+def wide_case(dev, name, e, m, s, k, views, steps, chains, sliced, seed):
+    """One case's steps through F1's wide mode and through the plain wide
+    step from the same state, bit for bit on every state plane, ``won``
+    and every result lane (NOOP and pad lanes included).  The second step
+    of a full-width case runs ``kv_step_scan_wide`` (no election)."""
+    rng = np.random.default_rng(seed)
+    st_f1 = eng.init_state(e, m, s, views=views, device=dev)
+    st_pl = copy_state(st_f1)
+    stats = {"won": 0, "commits": 0, "corrupt": 0, "lanes": 0}
+    for step in range(steps):
+        if step:
+            damage(rng, (st_f1, st_pl), max(e // 40, 4))
+        leader = st_pl.leader.cpu().numpy()
+        if sliced is None:
+            active = None
+            elect, cand, kind, slot, val, lease, up, exp_e, exp_s = \
+                f1_stream(rng, leader, e, m, s, k)
+            slot = wide_slots(rng, k, e, s, chains)
+        else:
+            active, planes = sliced_inputs(rng, leader, e, m, s, k,
+                                           sliced[0], sliced[1], True,
+                                           elect_all=step == 0)
+            elect, cand, kind, slot, val, lease, up, exp_e, exp_s = planes
+            slot = wide_slots(rng, k, sliced[1], s, chains)
+        plan = wide_plan(kind, slot, val, lease, exp_e, exp_s, chains)
+        ops = wide_ops(plan, dev)
+        el, cd, upd = (torch.from_numpy(x).to(dev) for x in (elect, cand, up))
+        before = cuda_engine.engine_step_wide_launches
+        if active is not None:
+            args = (el, cd, *ops[:4], upd)
+            st_f1, won_f, res_f = eng.full_step_wide_sliced(
+                st_f1, active, *args, ops[4], ops[5])
+            st_pl, won_p, res_p = eng.full_step_wide_sliced_plain(
+                st_pl, active, *args, ops[4], ops[5])
+        elif step == 1:
+            st_f1, res_f = eng.kv_step_scan_wide(st_f1, *ops[:4], upd,
+                                                 ops[4], ops[5])
+            st_pl, res_p = eng.kv_step_scan_wide_plain(st_pl, *ops[:4], upd,
+                                                       ops[4], ops[5])
+            won_f = won_p = torch.zeros(0)
+        else:
+            args = (el, cd, *ops[:4], upd)
+            st_f1, won_f, res_f = eng.full_step_wide(st_f1, *args, ops[4],
+                                                     ops[5])
+            st_pl, won_p, res_p = eng.full_step_wide_plain(st_pl, *args,
+                                                           ops[4], ops[5])
+        torch.cuda.synchronize()
+        if cuda_engine.engine_step_wide_launches != before + 1:
+            raise AssertionError(f"F1 wide {name}: no wide launch")
+        if not torch.equal(won_f.cpu(), won_p.cpu()):
+            raise AssertionError(f"F1 wide {name}, step {step}: won differs")
+        bad = (diff_fields(st_f1, st_pl, eng.EngineState._fields)
+               + diff_fields(res_f, res_p, eng.KvResult._fields))
+        if bad:
+            raise AssertionError(f"F1 wide {name}, step {step}: {bad} differ "
+                                 f"from the plain wide step")
+        stats["won"] += int(won_p.sum())
+        stats["commits"] += int(res_p.committed.sum())
+        stats["corrupt"] += int(res_p.tree_corrupt.sum())
+        stats["lanes"] = list(plan.kind.shape)
+    return stats
+
+
+def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
+    """F1's wide mode at the headline shape on a filled store (G = 1, or
+    G = 2 with ``chains``; ``sliced`` (rows, bucket) for the sliced form):
+    :func:`launch_timings`, scalar F1 on the same ops in (group, lane)
+    order (``schedule.flat_order``), the plain wide step, the occupancy
+    and the bound of one launch as timed."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(97 + chains + (0 if sliced is None
+                                               else sliced[1]))
+    st = eng.init_state(e, m, s, device=dev)
+    if sliced is None:
+        active, rows = None, None
+        planes = list(f1_stream(rng, np.full(e, -1, np.int32), e, m, s, k))
+        a = e
+    else:
+        active, planes = sliced_inputs(rng, np.full(e, -1, np.int32), e, m,
+                                       s, k, sliced[0], sliced[1], True,
+                                       elect_all=True)
+        rows, a = active[:sliced[0]], sliced[1]
+    planes[3] = wide_slots(rng, k, a, s, chains)
+    elect, cand, kind, slot, val, lease, up, exp_e, exp_s = planes
+    plan = wide_plan(kind, slot, val, lease, exp_e, exp_s, chains)
+    g, _, w = plan.kind.shape
+    ops = wide_ops(plan, dev)
+    el, cd, upd = (torch.from_numpy(x).to(dev) for x in (elect, cand, up))
+    args = (el, cd, *ops[:4], upd)
+
+    def wide(state):
+        if active is None:
+            return eng.full_step_wide(state, *args, ops[4], ops[5])
+        return eng.full_step_wide_sliced(state, active, *args, ops[4],
+                                         ops[5])
+    st, _, _ = wide(st)                     # elect, fill the store
+    torch.cuda.synchronize()
+    pre = copy_state(st)
+    st, _, res = wide(st)
+    torch.cuda.synchronize()
+    flat = cuda_engine.flat_rounds
+    b = f1_bounds(pre, st, up, flat(plan.kind), flat(plan.slot),
+                  flat(res.committed.cpu().numpy()), rows=rows, groups=g)
+    out = {"g": g, "w": w, "rows": a if rows is None else len(rows),
+           "max_abs_err": 0, "library_ms": None, "bound_ms": b["bound_ms"],
+           "bound_by": b["bound_by"]}
+    out.update(launch_timings(lambda: wide(st)))
+    # scalar F1 on the same ops in (group, lane) order
+    from riak_ensemble_tpu_torch.ops import schedule
+    order, ee = schedule.flat_order(plan)
+    sc = [torch.from_numpy(np.ascontiguousarray(p[order, ee])).to(dev)
+          for p in (kind, slot, val, lease, exp_e, exp_s)]
+    st_sc = copy_state(pre)
+
+    def scalar():
+        if active is None:
+            eng.full_step(st_sc, el, cd, *sc[:4], upd, exp_epoch=sc[4],
+                          exp_seq=sc[5])
+        else:
+            eng.full_step_sliced(st_sc, active, el, cd, *sc[:4], upd,
+                                 exp_epoch=sc[4], exp_seq=sc[5])
+    out["scalar"] = launch_timings(scalar)
+    st_pl = copy_state(pre)
+    if active is None:
+        plain = lambda: eng.full_step_wide_plain(st_pl, *args, ops[4], ops[5])
+    else:
+        plain = lambda: eng.full_step_wide_sliced_plain(    # noqa: E731
+            st_pl, active, *args, ops[4], ops[5])
+    out["plain_ms"] = cuda_ms(plain, iters=1, reps=3)
+    label = (f"wide G={g} W={w}" + ("" if active is None
+                                    else f" sliced A={a} ({len(rows)} rows)"))
+    out["occupancy"] = occ = cuda_engine.occupancy(e, m, s, 2, g, a, w)
+    print(f"F1 occupancy {label}: {occ['regs_per_thread']} registers per "
+          f"thread, {occ['dynamic_smem']} B dynamic shared memory, "
+          f"{occ['spill_bytes']} B spilled, {occ['warps_per_block']} warps "
+          f"per block, {occ['blocks_per_sm']} resident blocks per SM")
+    print(f"F1 {label} at {e}x{m}x{s} K={k} [{card}]: {out['ms']:.6f} ms per "
+          f"call back to back, {out['device_us']:.3f} us device time per "
+          f"launch (gated events), host {out['host_us']:.3f} us per call; "
+          f"scalar F1 on the same ops in (group, lane) order "
+          f"{out['scalar']['device_us']:.3f} us per launch; plain wide "
+          f"{out['plain_ms']:.3f} ms; {bound_text(b)}; share of the bound "
+          f"{b['bound_ms'] * 1e3 / out['device_us'] * 100:.2f} %")
+    del pre, st_pl, st_sc
+    return out
+
+
+def phase_f1_wide(dev: torch.device, card: str) -> dict:
+    """11(a): F1's wide mode against the plain wide steps, then timed."""
+    total = {"commits": 0, "corrupt": 0, "won": 0}
+    for i, case in enumerate(WIDE_CASES):
+        name, e, m, s, k, views, steps, chains, sliced = case
+        t0 = time.perf_counter()
+        stats = wide_case(dev, name, e, m, s, k, views, steps, chains,
+                          sliced, 300 + i)
+        print(f"F1 wide == plain  {name}: E={e} M={m} S={s} K={k}, {steps} "
+              f"steps, {stats} ({time.perf_counter() - t0:.1f} s)")
+        if not stats["commits"]:
+            raise AssertionError(f"F1 wide case {name} committed nothing")
+        for key in total:
+            total[key] += stats[key]
+    if not all(total.values()):
+        raise AssertionError(f"the wide cases raised no integrity flag or "
+                             f"won no election: {total}")
+    return {"G=1": time_wide(dev, card, False),
+            "G=2": time_wide(dev, card, True),
+            "sliced A=256 G=2": time_wide(dev, card, True, (250, 256)),
+            "sliced A=2048 G=1": time_wide(dev, card, False, (2000, 2048))}
+
+
+def acked_puts(kind, slot, val, committed, want: np.ndarray) -> None:
+    """Fold one execute()'s committed puts into ``want [S, E]`` (the last
+    value per slot; 0 = none).  A wide launch runs a column's ops in
+    (group, lane) order, which keeps per-slot order."""
+    for j in range(kind.shape[0]):
+        hit = (kind[j] == eng.OP_PUT) & committed[j]
+        cols = np.nonzero(hit)[0]
+        want[slot[j, cols], cols] = val[j, cols]
+
+
+def wide_execute_run(dev, batches: list) -> dict:
+    """``execute()`` of distinct-slot planes on a ``wide=True`` service on
+    ``dev``, then every slot read back; the results, the state, counters."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                 max_ops_per_tick=k, device=dev, wide=True)
+    chk = LaunchCheck(svc) if dev.type == "cuda" else None
+    outs, ms = [], []
+    want = np.zeros((s, e), np.int32)
+    for kind, slot, val in batches:
+        t0 = time.perf_counter()
+        out = svc.execute(kind, slot, val)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        acked_puts(kind, slot, val, out[0], want)
+    slot0 = batches[0][1]
+    get = np.full((k, e), eng.OP_GET, np.int32)
+    _, get_ok, found, value = svc.execute(get, slot0, np.zeros_like(get))
+    seen = want[slot0, np.arange(e)[None, :]]
+    if not (get_ok.all() and np.array_equal(np.where(found, value, 0), seen)
+            and found[seen != 0].all()):
+        raise AssertionError("11(b) execute: acknowledged puts did not read "
+                             "back")
+    outs.append((get_ok, found, value))
+    return {"outs": outs, "state": svc.state, "ms": ms,
+            "wide": svc.wide_launches, "launches": chk.launches if chk
+            else None, "acked": int((want != 0).sum())}
+
+
+def phase_wide_service(dev: torch.device, card: str) -> dict:
+    """11(b): the headline service with ``wide=True`` on the card against a
+    CPU service with ``wide=True`` on the same stream: ``execute()`` of
+    distinct-slot planes, then 6(b)'s keyed pattern.  Every acknowledged
+    put reads back, F1 launches once per launch, and wide launches run.
+    Returns the card runs' launch counts."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    cpu = torch.device("cpu")
+    batches = execute_batches(2)[1:]
+    reset_counts()                               # this path's run
+    got = wide_execute_run(dev, batches)
+    counts = read_counts()
+    ref = wide_execute_run(cpu, batches)
+    for i, (a, b) in enumerate(zip(got["outs"], ref["outs"])):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"11(b) execute {i}: the card's wide "
+                                 f"service differs from the CPU's")
+    bad = diff_fields(got["state"], ref["state"], eng.EngineState._fields)
+    if bad or not (got["wide"] == ref["wide"] > 0
+                   and counts["F1"] == got["launches"]
+                   and counts["F1 wide"] == got["wide"]):
+        raise AssertionError(f"11(b) execute: state {bad}, wide launches "
+                             f"{got['wide']} / {ref['wide']}, counts {counts}"
+                             f", launches {got['launches']}")
+    print(f"11(b) wide execute {e}x{m}x{s} K={k} [{card}]: {got['wide']} wide "
+          f"launches of {got['launches']}, {got['acked']} acknowledged puts "
+          f"read back, equal to the CPU service; ms per execute "
+          f"{[round(x, 3) for x in got['ms']]}; launches {counts}")
+    del got, ref
+    rng = np.random.default_rng(14)
+    sub = np.sort(rng.choice(e, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    arms = {}
+    for d in (dev, cpu):
+        svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                     max_ops_per_tick=k, device=d, wide=True)
+        svc.flush()
+        chk = LaunchCheck(svc) if d.type == "cuda" else None
+        if d.type == "cuda":
+            reset_counts()
+        ms = []
+        results = keyed_rounds(svc, d, sub, keys, ms)
+        if d.type == "cuda":
+            keyed = read_counts()
+            if keyed["F1"] != chk.launches or not keyed["F1 wide"]:
+                raise AssertionError(f"11(b) keyed: counts {keyed} in "
+                                     f"{chk.launches} launches")
+            counts = {n: counts[n] + keyed[n] for n in counts}
+        arms[d.type] = (results, svc.state, svc.wide_launches, ms,
+                        svc.corruptions)
+    (r1, s1, w1, ms1, c1), (r2, s2, w2, _, c2) = arms["cuda"], arms["cpu"]
+    bad = diff_fields(s1, s2, eng.EngineState._fields)
+    if r1 != r2 or bad or not (w1 == w2 > 0) or c1 != c2:
+        raise AssertionError(f"11(b) keyed: results equal {r1 == r2}, state "
+                             f"{bad}, wide launches {w1} / {w2}, "
+                             f"corruptions {c1} / {c2}")
+    print(f"11(b) wide keyed service, 6(b)'s pattern [{card}]: {w1} wide "
+          f"launches, every acknowledged put read back, equal to the CPU "
+          f"service; median flush {statistics.median(ms1):.3f} ms over "
+          f"{len(ms1)} flushes; launches {counts}")
+    return counts
+
+
+class ShardWall:
+    """Wall ms of each sharded pass of a service (``_shard_map`` calls by
+    the chunk function's name: ``pack_chunk``, ``gather``, ``scatter``)."""
+
+    def __init__(self, svc: BatchedEnsembleService) -> None:
+        self.ms: dict = {}
+        run = svc._shard_map
+
+        def timed(fn, bounds):
+            t0 = time.perf_counter()
+            try:
+                return run(fn, bounds)
+            finally:
+                key = fn.__name__
+                self.ms[key] = self.ms.get(key, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+        svc._shard_map = timed
+
+
+def phase_sharded(dev: torch.device, card: str) -> None:
+    """11(c): 6(b)'s keyed pattern and a full-width ``execute`` stream at
+    ``resolve_shards=4`` against 1 on the card: equal results, mirrors and
+    state; the host split of each arm (and the wall of each sharded
+    pass)."""
+    e, m, s, k = E_FULL, M_FULL, S_FULL, K_FULL
+    rng = np.random.default_rng(14)
+    sub = np.sort(rng.choice(e, 256, replace=False)).tolist()
+    keys = [f"user:{i}" for i in range(48)]
+    batches = execute_batches(3)
+    arms = {}
+    for shards in (1, 4):
+        svc = BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
+                                     max_ops_per_tick=k, device=dev,
+                                     resolve_shards=shards)
+        svc.flush()
+        torch.cuda.synchronize()
+        split = HostSplit(svc)
+        wall = ShardWall(svc)
+        ms = []
+        results = keyed_rounds(svc, dev, sub, keys, ms)
+        keyed_split = split.take()
+        outs = [svc.execute(*b) for b in batches]
+        arms[shards] = {"results": results, "outs": outs, "ms": ms,
+                        "split": keyed_split, "wall": dict(wall.ms),
+                        "mirrors": mirrors_of(svc), "state": svc.state,
+                        "sharded": svc.sharded_flushes}
+        svc.stop()
+    one, four = arms[1], arms[4]
+    same_outs = all(np.array_equal(x, y) for a, b in zip(one["outs"],
+                                                         four["outs"])
+                    for x, y in zip(a, b))
+    bad = diff_fields(one["state"], four["state"], eng.EngineState._fields)
+    mirrors = [n for n in one["mirrors"]
+               if not np.array_equal(one["mirrors"][n], four["mirrors"][n])]
+    if (one["results"] != four["results"] or not same_outs or bad or mirrors
+            or one["sharded"] or not four["sharded"]):
+        raise AssertionError(f"11(c): results equal "
+                             f"{one['results'] == four['results']}, execute "
+                             f"{same_outs}, state {bad}, mirrors {mirrors}, "
+                             f"sharded flushes {one['sharded']} / "
+                             f"{four['sharded']}")
+    for shards, arm in arms.items():
+        n = len(arm["ms"])
+        print(f"11(c) resolve_shards={shards} keyed, 6(b)'s pattern [{card}]: "
+              f"median flush {statistics.median(arm['ms']):.3f} ms over {n} "
+              f"flushes; host ms per flush: {split_line(arm['split'], n)}; "
+              f"sharded passes' wall ms per flush: "
+              f"{split_line(arm['wall'], n) or 'none'}; sharded flushes "
+              f"{arm['sharded']}")
+    print(f"11(c) [{card}]: resolve_shards=4 equals 1 on every result, "
+          f"mirror slab and state plane (keyed pattern and {len(batches)} "
+          f"full-width execute launches)")
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -3588,6 +4020,10 @@ def main(argv) -> int:
         phase_f1(dev, card)
         phase_f1_sliced(dev, card)
         return 0
+    if "--wide" in argv:
+        # F1's wide mode alone: phase 11(a), no result line
+        phase_f1_wide(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -3611,14 +4047,20 @@ def main(argv) -> int:
     by_path.update(control_counts)
     front_counts, codec, front = phase_front_end(dev, card)
     by_path["phase10 svcnode"] = front_counts
+    f1_wide = phase_f1_wide(dev, card)
+    by_path["phase11b wide service"] = phase_wide_service(dev, card)
+    phase_sharded(dev, card)
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
+    wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
     if not (all(f1_by_path.values()) and k1_exchange and k2_launches
             and sliced_by_path["phase6b compacted keyed service"]
+            and wide_by_path["phase11b wide service"]
             and by_path["phase9a reconfig"]["K1"]):
         raise AssertionError(f"a kernel did not launch on its path: F1 "
-                             f"{f1_by_path} (sliced {sliced_by_path}), K1 "
-                             f"{k1_exchange}, K2 {k2_launches}")
+                             f"{f1_by_path} (sliced {sliced_by_path}, wide "
+                             f"{wide_by_path}), K1 {k1_exchange}, K2 "
+                             f"{k2_launches}")
     kernels = [{
         "name": "F1 engine_step", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
@@ -3633,6 +4075,17 @@ def main(argv) -> int:
         "bound_by": f1["bound_by"], "library_ms": None,
         "device_us": f1["device_us"], "host_us": f1["host_us"],
         "occupancy": f1["occupancy"], "sliced": f1_sliced}, {
+        "name": "F1 engine_step, wide mode", "route": "cuda",
+        "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
+        "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
+        "fuses": "riak_ensemble_tpu/ops/engine.py:1421",
+        "launches": sum(wide_by_path.values()),
+        "launches_by_path": wide_by_path,
+        "max_abs_err": 0, "ms": f1_wide["G=1"]["ms"],
+        "plain_ms": f1_wide["G=1"]["plain_ms"],
+        "bound_ms": f1_wide["G=1"]["bound_ms"],
+        "bound_by": f1_wide["G=1"]["bound_by"], "library_ms": None,
+        "device_us": f1_wide["G=1"]["device_us"], "shapes": f1_wide}, {
         "name": "K1 quorum_met_e", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",

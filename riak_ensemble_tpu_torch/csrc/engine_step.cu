@@ -67,6 +67,19 @@
 // full width, eight at A = 256).  On an H100 80GB HBM3 at 700 W a launch
 // takes ~0.39 ms full width; the bytes bound is ~19 % of that (PERF.md).
 //
+// Wide mode (_full_step_wide_body, riak_ensemble_tpu/ops/engine.py:1421, and
+// _full_step_wide_sliced_body, :1523): dims[kW] = W > 1 lanes a round, the
+// op and result planes [G, C, W] (tree_corrupt [G, C, M]), G = dims[kK].
+// The G*W flat rounds run in (group, lane) order, which the reference's
+// contract allows (kv_step_scan_wide: valid slots are distinct within a
+// group, seqs go by lane order).  One thing differs from G*W scalar rounds:
+// a wide round's lanes verify against the tree as it stood before the round
+// (_kv_round's corruption caveat), so a write inside a group marks its path
+// DIRTY but leaves BAD set until the walk leaves the group, and the group's
+// tree_corrupt row ORs its lanes'.  The "live round" test is per lane.  The
+// op fields stay in registers 32 rounds at a time, so shared memory does
+// not grow with G*W.  W = 1 is the scalar mode above, path for path.
+//
 // Contract (the Python wrapper checks it and raises; the entry point
 // refuses it again): 1 <= M <= 32, 1 <= V <= 8, the staged planes within
 // the card's shared memory, 16-byte aligned contiguous planes.
@@ -123,7 +136,7 @@ enum Ptr {
   kGetOk, kFound, kValue, kObjVsn, kQuorumOk, kTreeCorrupt, kActiveIdx,
   kPadBallot, kNumPtrs
 };
-enum Dim { kE, kM, kS, kU, kV, kK, kA, kNumDims };
+enum Dim { kE, kM, kS, kU, kV, kK, kA, kW, kNumDims };
 
 struct Params {
   int32_t* epoch;
@@ -157,6 +170,7 @@ struct Params {
   const int32_t* active_idx;  // null: every row, A = E
   const int32_t* pad_ballot;  // row E - 1's epoch [M] then leader; or null
   int e, m, s, u, v, k, a;
+  int w;  // lanes per round: 1, or W of a wide launch (k = G groups)
 };
 
 // ---------------------------------------------------------------------------
@@ -251,11 +265,23 @@ struct OpRow {
   bool lease;
 };
 
+// Flat round j of column `col` in the op and result planes: (g, col, w)
+// of [K, C, W] with g = j / W in wide mode, (j, col) of [K, C] in scalar
+// mode.  Rounds run in (g, w) order.
+template <bool kWide>
+__device__ __forceinline__ size_t op_index(const Params& p, int j, int C,
+                                           int col) {
+  if (!kWide) return (size_t)j * C + col;
+  const int g = j / p.w;
+  return ((size_t)g * C + col) * p.w + (j - g * p.w);
+}
+
+template <bool kWide>
 __device__ __forceinline__ OpRow load_op(const Params& p, int j, int C,
                                          int col) {
   OpRow r{0, 0, 0, 0, 0, false};
-  if (j < p.k) {
-    const size_t op = (size_t)j * C + col;
+  if (j < (kWide ? p.k * p.w : p.k)) {
+    const size_t op = op_index<kWide>(p, j, C, col);
     r.kind = p.kind[op];
     r.slot = p.slot[op];
     r.val = p.val[op];
@@ -411,6 +437,9 @@ __device__ __forceinline__ const uint32_t* children_of(
 
 // ---------------------------------------------------------------------------
 
+// One instantiation per mode: the scalar one (kWide false) compiles to the
+// scalar algorithm alone, none of the wide mode's group bookkeeping.
+template <bool kWide>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     engine_step_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -421,6 +450,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   __shared__ __align__(8) uint64_t s_bar;
 
   const int E = p.e, M = p.m, S = p.s, U = p.u, V = p.v, K = p.k;
+  const int R = kWide ? K * p.w : K;  // flat rounds, (group, lane) order
+  constexpr bool wide = kWide;
   const int C = p.a;  // columns of the op, election and result planes
   const int col = blockIdx.x;
   const int e = p.active_idx ? p.active_idx[col] : col;  // the state row
@@ -447,8 +478,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const bool epoch_ok = epoch_check(epoch_m, leader, heard, in, M, views,
                                       V, &lead_epoch, &leader_up);
     if (lane == 0 && p.won != nullptr) p.won[col] = 0;
-    for (int j = lane; j < K; j += 32) {
-      const size_t op = (size_t)j * C + col;
+    for (int j = lane; j < R; j += 32) {
+      const size_t op = op_index<kWide>(p, j, C, col);
       p.committed[op] = 0;
       p.get_ok[op] = 0;
       p.found[op] = 0;
@@ -488,10 +519,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   int n_member = 0;
   OpRow cur{0, 0, 0, 0, 0, false};
   if (warp == 0) {
-    cur = load_op(p, lane, C, col);
+    cur = load_op<kWide>(p, lane, C, col);
     bool live = is_live(cur.kind, cur.slot, S);
-    for (int j = lane + 32; j < K; j += 32) {
-      const size_t op = (size_t)j * C + col;
+    for (int j = lane + 32; j < R; j += 32) {
+      const size_t op = op_index<kWide>(p, j, C, col);
       live |= is_live(p.kind[op], p.slot[op], S);
     }
     views_any = load_views(p, e, lane, in, views, &heard);
@@ -603,13 +634,35 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
   // Warp 0: the rounds, 32 at a time.  Lane j holds round base + j's op
   // fields and, once it has run, its results, stored together at the end
-  // of the 32.
+  // of the 32.  In wide mode a group's tree_corrupt row (its rounds'
+  // corrupt replicas OR'd) is stored when the walk leaves the group, lane
+  // = replica; a scalar round's is stored with its other results.
   if (warp == 0 && K > 0) {
     const bool heard_m = (heard >> lane) & 1u;
     uint32_t wrote = 0;
-    for (int base = 0; base < K; base += 32) {
-      const OpRow nxt = load_op(p, base + 32 + lane, C, col);
-      const bool have = base + lane < K;
+    int group = 0;             // the group the walk is in
+    uint32_t group_bits = 0;   // its corrupt replicas so far
+    bool heal_m = false;       // this replica wrote over a BAD node in it
+    // Leave group `group` for group `to`: store its row and zero rows of
+    // the groups skipped; a write's path becomes trusted (BAD cleared)
+    // only now, for the wide round's lanes verify against the tree as it
+    // stood before the round.
+    auto leave_group = [&](int to) {
+      for (int g = group; g < to; ++g)
+        if (in)
+          p.tree_corrupt[((size_t)g * C + col) * M + lane] =
+              g == group ? (group_bits >> lane) & 1u : 0;
+      if (heal_m)
+        for (int n = 0; n < U; ++n)
+          if (s_nst[lane * U + n] & kDirty) s_nst[lane * U + n] = kDirty;
+      heal_m = false;
+      group_bits = 0;
+      group = to;
+      __syncwarp();
+    };
+    for (int base = 0; base < R; base += 32) {
+      const OpRow nxt = load_op<kWide>(p, base + 32 + lane, C, col);
+      const bool have = base + lane < R;
       const bool live = have && is_live(cur.kind, cur.slot, S);
       // a NOOP round's or an invalid slot's results: the ballot's alone
       bool r_commit = false, r_found = false;
@@ -620,6 +673,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       while (todo) {
         const int src = __ffs(todo) - 1;
         todo &= todo - 1;
+        if (wide && (base + src) / p.w != group)
+          leave_group((base + src) / p.w);
         const int kind = __shfl_sync(kFull, cur.kind, src);
         const int sc = __shfl_sync(kFull, cur.slot, src);
         const int32_t val = __shfl_sync(kFull, cur.val, src);
@@ -733,11 +788,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           s_ov[o] = w_val;
           s_sst[o] = kDirty;  // its leaf is hashed at the end
 #pragma unroll
-          for (int l = 0; l < kMaxLevels; ++l)
-            if (l < lv.count) s_nst[lane * U + path[l]] = kDirty;
+          for (int l = 0; l < kMaxLevels; ++l) {
+            if (l < lv.count) {
+              uint8_t& st = s_nst[lane * U + path[l]];
+              if (wide) {
+                heal_m |= (st & kBad) != 0;
+                st |= kDirty;
+              } else {
+                st = kDirty;
+              }
+            }
+          }
         }
         wrote |= __ballot_sync(kFull, do_write);
         const uint32_t corrupt_bits = __ballot_sync(kFull, corrupt_m);
+        group_bits |= corrupt_bits;
         ctr = new_seq;
         if (lane == src) {
           const bool served = get_ok && obj_found;
@@ -752,7 +817,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         __syncwarp();
       }
       if (have) {
-        const size_t op = (size_t)(base + lane) * C + col;
+        const size_t op = op_index<kWide>(p, base + lane, C, col);
         p.committed[op] = r_commit;
         p.get_ok[op] = r_get;
         p.found[op] = r_found;
@@ -760,11 +825,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         p.obj_vsn[op * 2] = r_vsn0;
         p.obj_vsn[op * 2 + 1] = r_vsn1;
         p.quorum_ok[op] = epoch_ok;
-        for (int r = 0; r < M; ++r)
-          p.tree_corrupt[op * M + r] = (r_corrupt >> r) & 1u;
+        if (!wide)
+          for (int r = 0; r < M; ++r)
+            p.tree_corrupt[op * M + r] = (r_corrupt >> r) & 1u;
       }
       cur = nxt;
     }
+    if (wide) leave_group(K);
     if (lane == 0) s_wrote = wrote;
   }
 
@@ -879,49 +946,58 @@ constexpr int kMaxDevices = 64;
 // the occupancy query's answers by shared-memory size.  Launches may come
 // from threads, so shape_lock guards it.
 struct DeviceCache {
-  int smem_set = -1;
+  int smem_set[2] = {-1, -1};  // by mode: scalar, wide
   int sms = 0;
   int n = 0;
   int smem[16];
-  int occ[16][4];
+  int occ[16][2][4];
 };
+
+// The kernel of a mode.
+const void* kernel_of(bool wide) {
+  return wide ? (const void*)engine_step_kernel<true>
+              : (const void*)engine_step_kernel<false>;
+}
 DeviceCache device_cache[kMaxDevices];
 std::mutex shape_lock;
 
-int occupancy(DeviceCache& dc, int warps, int smem, int* blocks) {
+int occupancy(DeviceCache& dc, bool wide, int warps, int smem, int* blocks) {
   const int slot = warps == 1 ? 0 : warps == 2 ? 1 : warps == 4 ? 2 : 3;
   int i = 0;
   while (i < dc.n && dc.smem[i] != smem) ++i;
-  if (i < dc.n && dc.occ[i][slot] >= 0) {
-    *blocks = dc.occ[i][slot];
+  if (i < dc.n && dc.occ[i][wide][slot] >= 0) {
+    *blocks = dc.occ[i][wide][slot];
     return 0;
   }
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, engine_step_kernel, warps * 32, smem);
+      blocks, kernel_of(wide), warps * 32, smem);
   if (err != cudaSuccess) return (int)err;
   if (i == dc.n) {
     if (dc.n == 16) i = 0; else ++dc.n;
     dc.smem[i] = smem;
-    for (int q = 0; q < 4; ++q) dc.occ[i][q] = -1;
+    for (int m = 0; m < 2; ++m)
+      for (int q = 0; q < 4; ++q) dc.occ[i][m][q] = -1;
   }
-  dc.occ[i][slot] = *blocks;
+  dc.occ[i][wide][slot] = *blocks;
   return 0;
 }
 
-// The shape of a launch of `a` blocks on the current device, after
-// raising the kernel's dynamic shared memory limit there if it needs it.
-int choose_shape(int a, int smem, Shape* out) {
+// The shape of a launch of `a` blocks of the mode's kernel on the current
+// device, after raising that kernel's dynamic shared memory limit there if
+// it needs it.
+int choose_shape(bool wide, int a, int smem, Shape* out) {
   std::lock_guard<std::mutex> hold(shape_lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidValue;
   DeviceCache& dc = device_cache[dev];
-  if (smem > dc.smem_set) {
-    err = cudaFuncSetAttribute(
-        engine_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > dc.smem_set[wide]) {
+    err = cudaFuncSetAttribute(kernel_of(wide),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return (int)err;
-    dc.smem_set = smem;
+    dc.smem_set[wide] = smem;
   }
   if (dc.sms == 0) {
     err = cudaDeviceGetAttribute(&dc.sms, cudaDevAttrMultiProcessorCount, dev);
@@ -930,7 +1006,7 @@ int choose_shape(int a, int smem, Shape* out) {
   int best = -1, best_waves = 0, best_occ = 0;
   for (int w = 1; w <= kMaxWarps; w *= 2) {
     int occ = 0;
-    const int rc = occupancy(dc, w, smem, &occ);
+    const int rc = occupancy(dc, wide, w, smem, &occ);
     if (rc != 0) return rc;
     if (occ <= 0) continue;
     const long per_wave = (long)occ * dc.sms;
@@ -957,7 +1033,7 @@ int n_levels(int s) {
 int check_dims(const int* dims) {
   if (dims[kM] < 1 || dims[kM] > kMaxPeers || dims[kV] < 1 ||
       dims[kV] > kMaxViews || dims[kS] < 1 || dims[kU] < 1 || dims[kK] < 0 ||
-      n_levels(dims[kS]) > kMaxLevels)
+      dims[kW] < 1 || n_levels(dims[kS]) > kMaxLevels)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1009,6 +1085,7 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
   p.v = dims[kV];
   p.k = dims[kK];
   p.a = dims[kA];
+  p.w = dims[kW];
   if (p.e <= 0 || p.a <= 0) return 0;
   if (check_dims(dims) != 0 ||
       (p.elect != nullptr) != (p.won != nullptr) ||
@@ -1017,10 +1094,15 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(p.m, p.s, p.u);
   Shape shape;
-  const int rc = choose_shape(p.a, smem, &shape);
+  const bool wide = p.w > 1;
+  const int rc = choose_shape(wide, p.a, smem, &shape);
   if (rc != 0) return rc;
-  engine_step_kernel<<<p.a, shape.warps * 32, smem, (cudaStream_t)stream>>>(
-      p);
+  if (wide)
+    engine_step_kernel<true>
+        <<<p.a, shape.warps * 32, smem, (cudaStream_t)stream>>>(p);
+  else
+    engine_step_kernel<false>
+        <<<p.a, shape.warps * 32, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1031,11 +1113,12 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
 extern "C" int retpu_engine_step_occupancy(const int* dims, int* out) {
   if (check_dims(dims) != 0) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, engine_step_kernel);
+  const bool wide = dims[kW] > 1;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel_of(wide));
   if (err != cudaSuccess) return (int)err;
   const int smem = smem_bytes(dims[kM], dims[kS], dims[kU]);
   Shape shape;
-  const int rc = choose_shape(dims[kA] > 0 ? dims[kA] : 1, smem, &shape);
+  const int rc = choose_shape(wide, dims[kA] > 0 ? dims[kA] : 1, smem, &shape);
   if (rc != 0) return rc;
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;

@@ -21,6 +21,12 @@ and the op, election and result planes are A-wide.  The wrapper checks
 the index on the host (:func:`check_active`) and uploads it itself,
 through a ring of reused pinned buffers (:class:`_IndexRing`).
 
+Wide mode (``engine.full_step_wide`` / ``full_step_wide_sliced`` /
+``kv_step_scan_wide``): ``[G, C, W]`` op planes make the launch walk the
+G·W rounds in (group, lane) order with the wide round's verify-before-
+the-round semantics, and return ``[G, C, W]`` result planes
+(``tree_corrupt [G, C, M]``).  Full width or sliced, as above.
+
 The kernel's launch shape (warps per block) comes from the runtime's
 occupancy query; :func:`occupancy` reports what a launch runs as.
 """
@@ -47,12 +53,14 @@ MAX_ROUNDS = 4096
 MAX_SHARED_BYTES = 232_448 - 1_024
 
 #: launches of F1 since the count was last set to 0 — counted where the
-#: kernel launches and nowhere else; the sliced ones also in the second
+#: kernel launches and nowhere else; the sliced ones also in the second,
+#: the wide ones (either grid) also in the third
 engine_step_launches = 0
 engine_step_sliced_launches = 0
+engine_step_wide_launches = 0
 
 _N_PTRS = 30
-_N_DIMS = 7
+_N_DIMS = 8
 _fn = None
 _occ_fn = None
 
@@ -164,15 +172,24 @@ def design_work(heard: np.ndarray, kind: np.ndarray, slot: np.ndarray,
                     + leaf_writes * LEAF_OPS)}
 
 
+def flat_rounds(x: np.ndarray) -> np.ndarray:
+    """A wide launch's ``[G, A, W]`` host plane as its ``[G*W, A]`` flat
+    rounds in (group, lane) order, the order F1 walks them — the form
+    :func:`design_work` and :func:`design_bytes` count."""
+    g, a, w = x.shape
+    return x.transpose(0, 2, 1).reshape(g * w, a)
+
+
 def design_bytes(heard: np.ndarray, staged: np.ndarray, wrote: np.ndarray,
                  ballot_changed: np.ndarray, s: int, v: int, k: int,
-                 a: int) -> dict:
+                 a: int, groups: Optional[int] = None) -> dict:
     """The bytes one F1 launch must move on these inputs, counted on the
     host for the ``R`` rows it steps: ``heard [R, M]`` (each row's up
     members), ``staged [R]`` (rows with a live round), ``wrote [R, M]``
     (replicas whose objects or tree the launch changed: a commit or a
     read repair), ``ballot_changed [R]`` (rows whose epoch, fact_seq,
-    leader or counter it changed); ``k`` rounds over ``a`` columns.
+    leader or counter it changed); ``k`` rounds over ``a`` columns, in
+    ``groups`` tree_corrupt rows (a wide launch's G; None: one a round).
     Reads: every stepped row's ballot, view and up masks; the object
     planes (three int32 a slot), leaves (16 B a slot) and upper nodes
     (16 B each) of each heard replica of a staged row; the op planes
@@ -188,9 +205,10 @@ def design_bytes(heard: np.ndarray, staged: np.ndarray, wrote: np.ndarray,
     reads = {"ballot": n_rows * (ballot + v * m + m),
              "replicas": int((heard & staged[:, None]).sum()) * replica,
              "ops": k * a * (5 * 4 + 1) + 5 * a}
+    rows = k if groups is None else groups
     writes = {"replicas": int(wrote.sum()) * replica,
               "ballot": int(ballot_changed.sum()) * ballot,
-              "results": k * a * (4 + 4 + 8 + m) + a}
+              "results": k * a * (4 + 4 + 8) + rows * a * m + a}
     return {"read": reads, "written": writes,
             "bytes": sum(reads.values()) + sum(writes.values())}
 
@@ -259,10 +277,10 @@ def check_contract(state, elect: Optional[torch.Tensor],
     """Raise ``TypeError`` / ``ValueError`` unless every argument lies
     inside F1's contract: the engine's dtypes and shapes, one device,
     contiguous 16-byte aligned tensors, ``1 <= M <= 32``,
-    ``1 <= V <= 8``, ``K <= MAX_ROUNDS`` and the block's staged planes
-    within ``MAX_SHARED_BYTES``.  ``n_cols`` is the width of the op,
-    election and result planes: E (the default), or A for a sliced
-    launch."""
+    ``1 <= V <= 8``, ``K <= MAX_ROUNDS`` (``G*W`` for the ``[G, C, W]``
+    planes of a wide launch) and the block's staged planes within
+    ``MAX_SHARED_BYTES``.  ``n_cols`` is the width C of the op, election
+    and result planes: E (the default), or A for a sliced launch."""
     i32, b = torch.int32, torch.bool
     e, m = state.epoch.shape if state.epoch.dim() == 2 else (-1, -1)
     if e < 0:
@@ -279,16 +297,23 @@ def check_contract(state, elect: Optional[torch.Tensor],
         raise ValueError("obj_epoch must be [E, M, S]")
     s = state.obj_epoch.shape[2]
     u = n_uppers(s)
-    if kind.dim() != 2:
-        raise ValueError(f"kind must be [K, E], got {tuple(kind.shape)}")
+    if kind.dim() not in (2, 3):
+        raise ValueError(f"kind must be [K, E] or [G, E, W], got "
+                         f"{tuple(kind.shape)}")
     k = kind.shape[0]
     a = e if n_cols is None else n_cols
-    if k > MAX_ROUNDS:
-        raise ValueError(f"F1 takes K <= {MAX_ROUNDS} rounds, got {k}")
+    wide = kind.dim() == 3
+    w = kind.shape[2] if wide else 1
+    if w < 1:
+        raise ValueError("a wide launch needs W >= 1 lanes a round")
+    if k * w > MAX_ROUNDS:
+        raise ValueError(f"F1 takes K <= {MAX_ROUNDS} rounds (G*W wide), "
+                         f"got {k * w}")
     need = shared_bytes(m, s, u)
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"M={m} x S={s} needs {need} B of shared memory "
                          f"per block, over F1's {MAX_SHARED_BYTES}")
+    ops = (k, a, w) if wide else (k, a)
     named = [
         ("epoch", state.epoch, i32, (e, m)),
         ("fact_seq", state.fact_seq, i32, (e, m)),
@@ -300,8 +325,8 @@ def check_contract(state, elect: Optional[torch.Tensor],
         ("obj_val", state.obj_val, i32, (e, m, s)),
         ("tree_leaf", state.tree_leaf, i32, (e, m, s, hashk.LANES)),
         ("tree_node", state.tree_node, i32, (e, m, u, hashk.LANES)),
-        ("kind", kind, i32, (k, a)), ("slot", slot, i32, (k, a)),
-        ("val", val, i32, (k, a)), ("lease_ok", lease_ok, b, (k, a)),
+        ("kind", kind, i32, ops), ("slot", slot, i32, ops),
+        ("val", val, i32, ops), ("lease_ok", lease_ok, b, ops),
         ("up", up, b, (e, m)),
     ]
     if (elect is None) != (cand is None):
@@ -310,7 +335,7 @@ def check_contract(state, elect: Optional[torch.Tensor],
         named += [("elect", elect, b, (a,)), ("cand", cand, i32, (a,))]
     for name, t in (("exp_epoch", exp_epoch), ("exp_seq", exp_seq)):
         if t is not None:
-            named.append((name, t, i32, (k, a)))
+            named.append((name, t, i32, ops))
     dev = state.epoch.device
     for name, t, dtype, shape in named:
         if (t.dtype != dtype or t.shape != shape or t.device != dev
@@ -366,16 +391,17 @@ def _ring(device: torch.device) -> _IndexRing:
     return _IndexRing(device)
 
 
-def _dims(n_rows: int, m: int, s: int, u: int, v: int, k: int, a: int):
-    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a)
+def _dims(n_rows: int, m: int, s: int, u: int, v: int, k: int, a: int,
+          w: int = 1):
+    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a, w)
 
 
 def occupancy(e: int, m: int, s: int, v: int, k: int,
-              a: Optional[int] = None) -> dict:
+              a: Optional[int] = None, w: int = 1) -> dict:
     """How an F1 launch at these dims runs on the current card (the C
     entry point's query): registers per thread, static and dynamic
     shared memory, spill bytes, warps per block, resident blocks per SM
-    and the SM count."""
+    and the SM count (``k`` groups of ``w`` lanes for a wide launch)."""
     global _occ_fn
     if _occ_fn is None:
         fn = build.load("engine_step").retpu_engine_step_occupancy
@@ -384,7 +410,7 @@ def occupancy(e: int, m: int, s: int, v: int, k: int,
         fn.restype = ctypes.c_int
         _occ_fn = fn
     out = (ctypes.c_int * 7)()
-    rc = _occ_fn(_dims(e, m, s, n_uppers(s), v, k, e if a is None else a),
+    rc = _occ_fn(_dims(e, m, s, n_uppers(s), v, k, e if a is None else a, w),
                  out)
     if rc != 0:
         raise RuntimeError(f"F1 occupancy query failed: {rc}")
@@ -403,10 +429,12 @@ def engine_step(state, elect: Optional[torch.Tensor],
                 ) -> Tuple[Optional[torch.Tensor], Tuple[torch.Tensor, ...]]:
     """One F1 launch over a CUDA engine state (see the module docstring).
     ``elect``/``cand`` None skip the election (``kv_step_scan``);
-    ``active_idx`` (host int32 ``[A]``) makes it a sliced launch.
-    Returns ``(won, (committed, get_ok, found, value, obj_vsn,
-    quorum_ok, tree_corrupt))``, A-wide when sliced."""
-    global engine_step_launches, engine_step_sliced_launches
+    ``active_idx`` (host int32 ``[A]``) makes it a sliced launch; ``[G, C,
+    W]`` op planes make it a wide one.  Returns ``(won, (committed,
+    get_ok, found, value, obj_vsn, quorum_ok, tree_corrupt))``, A-wide
+    when sliced, ``[G, C, W]`` (``tree_corrupt [G, C, M]``) when wide."""
+    global engine_step_launches, engine_step_sliced_launches, \
+        engine_step_wide_launches
     if state.epoch.device.type != "cuda":
         raise ValueError(f"F1 runs on cuda, not {state.epoch.device}")
     n_rows = state.epoch.shape[0]
@@ -426,14 +454,17 @@ def engine_step(state, elect: Optional[torch.Tensor],
     else:
         check_contract(state, elect, cand, kind, slot, val, lease_ok, up,
                        exp_epoch, exp_seq)
-    k, e = kind.shape
+    k, e = kind.shape[:2]
+    w = kind.shape[2] if kind.dim() == 3 else 1
+    lanes = tuple(kind.shape)
     m = state.epoch.shape[1]
 
     def empty(*shape, dtype=torch.bool):
         return torch.empty(shape, dtype=dtype, device=dev)
-    res = (empty(k, e), empty(k, e), empty(k, e),
-           empty(k, e, dtype=torch.int32), empty(k, e, 2, dtype=torch.int32),
-           empty(k, e), empty(k, e, m))
+    res = (empty(*lanes), empty(*lanes), empty(*lanes),
+           empty(*lanes, dtype=torch.int32),
+           empty(*lanes, 2, dtype=torch.int32), empty(*lanes),
+           empty(k, e, m))
     won = None if elect is None else empty(e)
     if e == 0:
         return won, res
@@ -447,7 +478,7 @@ def engine_step(state, elect: Optional[torch.Tensor],
         lease_ok, exp_epoch, exp_seq, up, _fold_consts_on(dev), won,
         *res, idx_dev, pad_ballot)))
     dims = _dims(n_rows, m, state.obj_epoch.shape[2],
-                 state.tree_node.shape[2], state.view_mask.shape[1], k, e)
+                 state.tree_node.shape[2], state.view_mask.shape[1], k, e, w)
     stream = torch.cuda.current_stream(dev)
     rc = cuda_quorum.call_on(dev, _kernel(), ptrs, dims, stream.cuda_stream)
     if done is not None:
@@ -457,4 +488,6 @@ def engine_step(state, elect: Optional[torch.Tensor],
     engine_step_launches += 1
     if idx_dev is not None:
         engine_step_sliced_launches += 1
+    if kind.dim() == 3:
+        engine_step_wide_launches += 1
     return won, res

@@ -5,7 +5,10 @@ state layout (:class:`EngineState`, :class:`KvResult`, identical field
 names, dtypes and shapes), the Merkle path kernels, the election step,
 the K/V round with its whole RMW table, the K-round scan, the fused
 :func:`full_step` the service launches once per flush, its sliced form
-on the active rows only (:func:`full_step_sliced`), the anti-entropy
+on the active rows only (:func:`full_step_sliced`), the wide rounds over
+``[G, E, W]`` conflict-free op planes (:func:`kv_step_scan_wide`,
+:func:`full_step_wide`, :func:`full_step_wide_sliced`,
+:func:`validate_wide_plane`), the anti-entropy
 exchange (:func:`verify_trees`, :func:`exchange_step`), row recycling
 (:func:`reset_rows`) and joint-consensus reconfiguration
 (:func:`reconfig_propose`, :func:`reconfig_transition`,
@@ -25,12 +28,13 @@ What differs from the reference, and why:
   names ``torch.int32``: torch widens int sums to int64 where JAX (x64
   off) stays int32.
 - On a CUDA state :func:`full_step`, :func:`full_step_sliced`,
-  :func:`kv_step_scan` and :func:`kv_step` are ONE launch of kernel F1
-  (:mod:`.cuda_engine`):
+  :func:`kv_step_scan`, :func:`kv_step` and their wide forms are ONE
+  launch of kernel F1 (:mod:`.cuda_engine`):
   election, context, all K rounds and the epoch adoption, with the
   quorum predicate inside, updating every state plane IN PLACE.  On a
   CPU state they run the plain versions below (:func:`full_step_plain`,
-  :func:`full_step_sliced_plain`, :func:`kv_step_scan_plain`), where
+  :func:`full_step_sliced_plain`, :func:`kv_step_scan_plain` and the
+  ``*_wide*_plain`` twins), where
   ``lax.scan`` is a Python loop whose
   rounds update the object and tree planes IN PLACE.  Either way a
   caller that needs its input state afterwards passes a copy.
@@ -40,10 +44,9 @@ What differs from the reference, and why:
   reconfig ops are launches of their own, as in the reference, not part
   of F1; on CUDA they step the state's membership planes in place.
 - ``.at[].set(mode="drop")`` scatters become gather → ``where`` →
-  ``scatter_``: a lane that must not write writes back the value it
-  read.  That is exact because each (ensemble, replica) row has ONE
-  lane per round in this engine (the scan runs W = 1), so no two lanes
-  of a scatter share a target (see :func:`_set_lanes`).
+  ``scatter_`` in which a lane that must not write lands where it
+  changes nothing (:func:`_set_lanes`), exact for the wide rounds'
+  W lanes as for one.
 - Nothing inside a round reads the device from the host (no ``.item``,
   boolean-mask indexing or ``nonzero``), so on CUDA the K loop only
   enqueues kernels.
@@ -246,21 +249,35 @@ def _set_lanes(plane: torch.Tensor, idx: torch.Tensor, new: torch.Tensor,
     ``mask[e, m, w]`` — the reference's ``.at[].set(mode="drop")`` with
     masked-off lanes aimed out of bounds (engine.py:388-393, 399-400,
     825-826).  torch's ``index_put`` raises on an out-of-range index and
-    a boolean select would sync the host, so a masked-off lane instead
-    writes back the value it gathers.  Exact when no two lanes of one
-    (e, m) row target the same index, which holds for the W = 1 rounds
-    this engine runs (one lane per row); lanes of DIFFERENT rows never
-    collide.  ``new``/``mask`` broadcast to ``[E, Ml, W(, LANES)]``."""
+    a boolean select would sync the host, so every lane scatters, and a
+    masked-off lane is made harmless instead: in an (e, m) row with a
+    live lane it aims at the row's FIRST live lane with that lane's
+    value; in a row with none it writes back the value it gathers.  Two
+    lanes that meet at one index then carry one value, so CUDA's
+    unordered scatter is deterministic even when a NOOP, invalid or pad
+    lane clips onto a live lane's slot (W > 1); live lanes meet only
+    where they carry equal values (distinct slots, or path parents
+    refolded from the same children).  ``new``/``mask`` broadcast to
+    ``[E, Ml, W(, LANES)]``."""
     e, ml = plane.shape[:2]
     w = idx.shape[1]
-    ix = idx.to(torch.int64)[:, None, :]
+    mask = mask.expand(e, ml, w)
+    ix = idx.to(torch.int64)[:, None, :].expand(e, ml, w)
+    live = mask.any(-1, keepdim=True)                        # [E, Ml, 1]
+    first = mask.to(torch.uint8).argmax(-1, keepdim=True)    # [E, Ml, 1]
+    tgt = torch.where(mask | ~live, ix, torch.gather(ix, 2, first))
     if plane.dim() == 4:
-        ix = ix[..., None].expand(e, ml, w, plane.shape[3])
-        mask = mask[..., None]
+        lanes = plane.shape[3]
+        tgt = tgt[..., None].expand(e, ml, w, lanes)
+        new = new.expand(e, ml, w, lanes)
+        mask, live = mask[..., None], live[..., None]
+        first = first[..., None].expand(e, ml, 1, lanes)
     else:
-        ix = ix.expand(e, ml, w)
-    cur = torch.gather(plane, 2, ix)
-    plane.scatter_(2, ix, torch.where(mask, new, cur))
+        new = new.expand(e, ml, w)
+    cur = torch.gather(plane, 2, tgt)
+    head = torch.gather(new, 2, first)
+    plane.scatter_(2, tgt, torch.where(mask, new,
+                                       torch.where(live, head, cur)))
 
 
 def _verify_path(tree_leaf: torch.Tensor, tree_node: torch.Tensor,
@@ -471,16 +488,15 @@ def _kv_round(state: EngineState, ctx: _KvCtx, kind: torch.Tensor,
               exp_epoch: Optional[torch.Tensor] = None,
               exp_seq: Optional[torch.Tensor] = None
               ) -> Tuple[EngineState, KvResult]:
-    """One K/V protocol round (engine.py:629-864) for ``[E, W]`` op lanes
-    with W = 1 (see :func:`_set_lanes`).  Lanes see the pre-round state
-    and commit seqs in lane order.  Updates the object and tree planes
-    of ``state`` IN PLACE and returns them with the round's result."""
+    """One WIDE K/V protocol round (engine.py:629-864) for ``[E, W]`` op
+    lanes whose valid slots are distinct within each row (the scheduler's
+    precondition; W = 1 is the scalar round).  Lanes see the pre-round
+    state, integrity verdicts included, and commit seqs in lane order.
+    Updates the object and tree planes of ``state`` IN PLACE and returns
+    them with the round's result (``tree_corrupt`` OR'd over the lanes,
+    ``[E, Ml]``)."""
     e, ml = state.epoch.shape
     s = state.obj_epoch.shape[-1]
-    w = kind.shape[1]
-    if w != 1:
-        raise NotImplementedError(
-            "wide rounds (W > 1) are not part of this engine yet")
     heard = ctx.heard                                        # [E, Ml]
     heard3 = heard[:, :, None]                               # [E, Ml, 1]
     leader_up = ctx.leader_up[:, None]                       # [E, 1]
@@ -623,15 +639,6 @@ def _kv_round(state: EngineState, ctx: _KvCtx, kind: torch.Tensor,
     return state._replace(obj_seq_ctr=obj_seq_ctr), res
 
 
-def _squeeze_lane(res: KvResult) -> KvResult:
-    """Collapse a W=1 result back to the scalar [E] shapes (tree_corrupt
-    is already lane-reduced to [E, Ml])."""
-    return res._replace(
-        committed=res.committed[:, 0], get_ok=res.get_ok[:, 0],
-        found=res.found[:, 0], value=res.value[:, 0],
-        obj_vsn=res.obj_vsn[:, 0], quorum_ok=res.quorum_ok[:, 0])
-
-
 def _adopt_epochs(state: EngineState, ctx: _KvCtx) -> EngineState:
     """Follower epoch catch-up at the END of the launch (the
     ``following({commit, Fact})`` adoption, peer.erl:794-836)."""
@@ -659,14 +666,16 @@ def kv_step(state: EngineState, kind: torch.Tensor, slot: torch.Tensor,
     return state, KvResult(*(p[0] for p in res))
 
 
-def _empty_results(e: int, ml: int, device: torch.device) -> KvResult:
+def _empty_results(e: int, ml: int, w: Optional[int],
+                   device: torch.device) -> KvResult:
     """Stacked results of a zero-round scan (the ``[0, E]`` shapes
-    ``lax.scan`` gives)."""
-    b = torch.zeros((0, e), dtype=torch.bool, device=device)
+    ``lax.scan`` gives; ``[0, E, W]`` for a wide scan)."""
+    lanes = (0, e) if w is None else (0, e, w)
+    b = torch.zeros(lanes, dtype=torch.bool, device=device)
     return KvResult(
         committed=b, get_ok=b, found=b,
-        value=torch.zeros((0, e), dtype=I32, device=device),
-        obj_vsn=torch.zeros((0, e, 2), dtype=I32, device=device),
+        value=torch.zeros(lanes, dtype=I32, device=device),
+        obj_vsn=torch.zeros(lanes + (2,), dtype=I32, device=device),
         quorum_ok=b,
         tree_corrupt=torch.zeros((0, e, ml), dtype=torch.bool,
                                  device=device))
@@ -696,29 +705,98 @@ def kv_step_scan_plain(state: EngineState, kind: torch.Tensor,
                        exp_epoch: Optional[torch.Tensor] = None,
                        exp_seq: Optional[torch.Tensor] = None
                        ) -> Tuple[EngineState, KvResult]:
-    """:func:`kv_step_scan` as torch ops — F1's plain version.  The
-    reference's ``lax.scan`` is a Python loop, with :func:`_kv_context`
-    before it and :func:`_adopt_epochs` after it.  The rounds update the
-    obj_* and tree_* planes of ``state`` IN PLACE (the scan carry); the
-    returned state shares those tensors."""
+    """:func:`kv_step_scan` as torch ops — F1's plain version: the wide
+    scan of one lane per round (:func:`kv_step_scan_wide_plain` on
+    ``[K, E, 1]`` planes, the reference's ``kind[:, None]`` rounds) with
+    the lane axis squeezed.  The rounds update the obj_* and tree_*
+    planes of ``state`` IN PLACE (the scan carry); the returned state
+    shares those tensors."""
+    def lane(t):
+        return None if t is None else t[..., None]
+    state, res = kv_step_scan_wide_plain(
+        state, lane(kind), lane(slot), lane(val), lane(lease_ok), up,
+        lane(exp_epoch), lane(exp_seq))
+    return state, res._replace(
+        committed=res.committed[..., 0], get_ok=res.get_ok[..., 0],
+        found=res.found[..., 0], value=res.value[..., 0],
+        obj_vsn=res.obj_vsn[:, :, 0], quorum_ok=res.quorum_ok[..., 0])
+
+
+def kv_step_scan_wide(state: EngineState, kind: torch.Tensor,
+                      slot: torch.Tensor, val: torch.Tensor,
+                      lease_ok: torch.Tensor, up: torch.Tensor,
+                      exp_epoch: Optional[torch.Tensor] = None,
+                      exp_seq: Optional[torch.Tensor] = None
+                      ) -> Tuple[EngineState, KvResult]:
+    """G sequential WIDE rounds of W conflict-free lanes per ensemble
+    (engine.py:983-1027): kind/slot/val/lease_ok (and exp_epoch /
+    exp_seq) ``[G, E, W]``; results stacked ``[G, E, W]``
+    (``tree_corrupt [G, E, Ml]``).  Within every ``[g, e]`` row the
+    slots of valid ops must be DISTINCT (the scheduler's precondition,
+    :func:`validate_wide_plane` checks concrete planes).  One F1 launch
+    in its wide mode for a CUDA state, :func:`kv_step_scan_wide_plain`
+    for a CPU state.  Updates ``state`` in place."""
+    if state.epoch.device.type == "cpu":
+        return kv_step_scan_wide_plain(state, kind, slot, val, lease_ok, up,
+                                       exp_epoch, exp_seq)
+    _, res = cuda_engine.engine_step(state, None, None, kind, slot, val,
+                                     lease_ok, up, exp_epoch, exp_seq)
+    return state, KvResult(*res)
+
+
+def kv_step_scan_wide_plain(state: EngineState, kind: torch.Tensor,
+                            slot: torch.Tensor, val: torch.Tensor,
+                            lease_ok: torch.Tensor, up: torch.Tensor,
+                            exp_epoch: Optional[torch.Tensor] = None,
+                            exp_seq: Optional[torch.Tensor] = None
+                            ) -> Tuple[EngineState, KvResult]:
+    """:func:`kv_step_scan_wide` as torch ops — F1's plain version in
+    wide mode: :func:`_kv_context`, a Python loop of wide rounds (the
+    reference's ``lax.scan``) updating the obj_* and tree_* planes IN
+    PLACE, then :func:`_adopt_epochs`."""
     ctx = _kv_context(state, up)
-    k = kind.shape[0]
-    if k == 0:
-        e, ml = state.epoch.shape
-        return _adopt_epochs(state, ctx), _empty_results(e, ml, kind.device)
+    g, e, w = kind.shape
+    if g == 0:
+        return _adopt_epochs(state, ctx), _empty_results(
+            e, state.epoch.shape[1], w, kind.device)
     if exp_epoch is None:
         exp_epoch = torch.zeros_like(kind)
     if exp_seq is None:
         exp_seq = torch.zeros_like(kind)
     outs = []
-    for j in range(k):
-        state, r = _kv_round(state, ctx, kind[j, :, None],
-                             slot[j, :, None], val[j, :, None],
-                             lease_ok[j, :, None], exp_epoch[j, :, None],
-                             exp_seq[j, :, None])
-        outs.append(_squeeze_lane(r))
+    for j in range(g):
+        state, r = _kv_round(state, ctx, kind[j], slot[j], val[j],
+                             lease_ok[j], exp_epoch[j], exp_seq[j])
+        outs.append(r)
     res = KvResult(*(torch.stack(planes) for planes in zip(*outs)))
     return _adopt_epochs(state, ctx), res
+
+
+def validate_wide_plane(kind, slot) -> None:
+    """Check the wide rounds' conflict-free precondition on CONCRETE
+    ``[G, E, W]`` planes (engine.py:1030-1062): within one ``[g, e]``
+    row, ops with kind != OP_NOOP and slot >= 0 must target distinct
+    slots — the scheduler's chaining rule exactly, stricter than the
+    kernel's write gate (which also needs slot < S).  Raises ValueError
+    naming the first offending (group, ensemble, slot).  Host-side only;
+    the service runs it with ``validate_wide=True``."""
+    kind = np.asarray(kind)
+    slot = np.asarray(slot)
+    g, e, w = kind.shape
+    valid = (kind != OP_NOOP) & (slot >= 0)
+    # sentinel-out non-writing lanes (distinct negatives never collide
+    # with a real slot), then look for duplicates per row
+    s = np.where(valid, slot, -1 - np.arange(w))
+    s_sorted = np.sort(s, axis=-1)
+    dup = (s_sorted[..., 1:] == s_sorted[..., :-1]).any(-1)
+    if dup.any():
+        gi, ei = np.argwhere(dup)[0]
+        row = slot[gi, ei][valid[gi, ei]]
+        vals, counts = np.unique(row, return_counts=True)
+        raise ValueError(
+            f"wide plane violates the conflict-free precondition: "
+            f"group {gi}, ensemble {ei} has duplicate valid slot "
+            f"{int(vals[counts > 1][0])} (kv_step_scan_wide docstring)")
 
 
 def full_step(state: EngineState, elect: torch.Tensor, cand: torch.Tensor,
@@ -756,6 +834,42 @@ def full_step_plain(state: EngineState, elect: torch.Tensor,
     return state, won, res
 
 
+def full_step_wide(state: EngineState, elect: torch.Tensor,
+                   cand: torch.Tensor, kind: torch.Tensor,
+                   slot: torch.Tensor, val: torch.Tensor,
+                   lease_ok: torch.Tensor, up: torch.Tensor,
+                   exp_epoch: Optional[torch.Tensor] = None,
+                   exp_seq: Optional[torch.Tensor] = None
+                   ) -> Tuple[EngineState, torch.Tensor, KvResult]:
+    """:func:`full_step` with ``[G, E, W]`` conflict-free op planes
+    (engine.py:1421-1437; the precondition of
+    :func:`kv_step_scan_wide`): one F1 launch in wide mode for a CUDA
+    state, :func:`full_step_wide_plain` for a CPU state.  Updates
+    ``state`` in place."""
+    if state.epoch.device.type == "cpu":
+        return full_step_wide_plain(state, elect, cand, kind, slot, val,
+                                    lease_ok, up, exp_epoch, exp_seq)
+    won, res = cuda_engine.engine_step(state, elect, cand, kind, slot, val,
+                                       lease_ok, up, exp_epoch, exp_seq)
+    return state, won, KvResult(*res)
+
+
+def full_step_wide_plain(state: EngineState, elect: torch.Tensor,
+                         cand: torch.Tensor, kind: torch.Tensor,
+                         slot: torch.Tensor, val: torch.Tensor,
+                         lease_ok: torch.Tensor, up: torch.Tensor,
+                         exp_epoch: Optional[torch.Tensor] = None,
+                         exp_seq: Optional[torch.Tensor] = None
+                         ) -> Tuple[EngineState, torch.Tensor, KvResult]:
+    """:func:`full_step_wide` as torch ops — wide F1's plain version:
+    :func:`elect_step`, then :func:`kv_step_scan_wide_plain`."""
+    state, won = elect_step(state, elect, cand, up)
+    state, res = kv_step_scan_wide_plain(state, kind, slot, val, lease_ok,
+                                         up, exp_epoch=exp_epoch,
+                                         exp_seq=exp_seq)
+    return state, won, res
+
+
 # ---------------------------------------------------------------------------
 # Active-column SLICED full step (the shrunk [K, A] launch grid)
 
@@ -787,6 +901,50 @@ def full_step_sliced(state: EngineState, active_idx: np.ndarray,
     return state, won, KvResult(*res)
 
 
+def full_step_wide_sliced(state: EngineState, active_idx: np.ndarray,
+                          elect: torch.Tensor, cand: torch.Tensor,
+                          kind: torch.Tensor, slot: torch.Tensor,
+                          val: torch.Tensor, lease_ok: torch.Tensor,
+                          up: torch.Tensor,
+                          exp_epoch: Optional[torch.Tensor] = None,
+                          exp_seq: Optional[torch.Tensor] = None
+                          ) -> Tuple[EngineState, torch.Tensor, KvResult]:
+    """:func:`full_step_sliced` with ``[G, A, W]`` conflict-free wide op
+    planes (engine.py:1523-1542; the active-set contract of the scalar
+    sliced step): one sliced F1 launch in wide mode for a CUDA state,
+    :func:`full_step_wide_sliced_plain` for a CPU state."""
+    if state.epoch.device.type == "cpu":
+        return full_step_wide_sliced_plain(state, active_idx, elect, cand,
+                                           kind, slot, val, lease_ok, up,
+                                           exp_epoch, exp_seq)
+    won, res = cuda_engine.engine_step(state, elect, cand, kind, slot, val,
+                                       lease_ok, up, exp_epoch, exp_seq,
+                                       active_idx=active_idx)
+    return state, won, KvResult(*res)
+
+
+def _sliced_plain(step_plain, state: EngineState, active_idx, elect, cand,
+                  kind, slot, val, lease_ok, up, exp_epoch, exp_seq):
+    """The reference's ``_slice_columns`` / step / ``_scatter_columns``
+    around ``step_plain``: gather every state plane and ``up`` at the
+    clipped index (a pad, index E, reads a copy of row E - 1), step the
+    gathered rows, and copy the real rows back into ``state``'s planes IN
+    PLACE, dropping the pads."""
+    e = state.epoch.shape[0]
+    dev = state.epoch.device
+    idx = torch.as_tensor(np.asarray(active_idx), device=dev).to(torch.int64)
+    idx_c = idx.clamp(0, e - 1)
+    sub = EngineState(*(torch.index_select(t, 0, idx_c) for t in state))
+    sub, won, res = step_plain(sub, elect, cand, kind, slot, val, lease_ok,
+                               torch.index_select(up, 0, idx_c), exp_epoch,
+                               exp_seq)
+    keep = torch.nonzero(idx < e).squeeze(1)
+    rows = idx.index_select(0, keep)
+    for full, part in zip(state, sub):
+        full.index_copy_(0, rows, part.index_select(0, keep))
+    return state, won, res
+
+
 def full_step_sliced_plain(state: EngineState, active_idx,
                            elect: torch.Tensor, cand: torch.Tensor,
                            kind: torch.Tensor, slot: torch.Tensor,
@@ -796,24 +954,26 @@ def full_step_sliced_plain(state: EngineState, active_idx,
                            exp_seq: Optional[torch.Tensor] = None
                            ) -> Tuple[EngineState, torch.Tensor, KvResult]:
     """:func:`full_step_sliced` as torch ops — sliced F1's plain version
-    and oracle, the reference's ``_slice_columns`` / ``_full_step_body`` /
-    ``_scatter_columns``: gather every state plane and ``up`` at the
-    clipped index (a pad, index E, reads a copy of row E - 1), run
-    :func:`full_step_plain` on the gathered rows, and copy the real rows
-    back into ``state``'s planes IN PLACE, dropping the pads."""
-    e = state.epoch.shape[0]
-    dev = state.epoch.device
-    idx = torch.as_tensor(np.asarray(active_idx), device=dev).to(torch.int64)
-    idx_c = idx.clamp(0, e - 1)
-    sub = EngineState(*(torch.index_select(t, 0, idx_c) for t in state))
-    sub, won, res = full_step_plain(sub, elect, cand, kind, slot, val,
-                                    lease_ok, torch.index_select(up, 0, idx_c),
-                                    exp_epoch, exp_seq)
-    keep = torch.nonzero(idx < e).squeeze(1)
-    rows = idx.index_select(0, keep)
-    for full, part in zip(state, sub):
-        full.index_copy_(0, rows, part.index_select(0, keep))
-    return state, won, res
+    and oracle: :func:`full_step_plain` on the gathered rows
+    (:func:`_sliced_plain`)."""
+    return _sliced_plain(full_step_plain, state, active_idx, elect, cand,
+                         kind, slot, val, lease_ok, up, exp_epoch, exp_seq)
+
+
+def full_step_wide_sliced_plain(state: EngineState, active_idx,
+                                elect: torch.Tensor, cand: torch.Tensor,
+                                kind: torch.Tensor, slot: torch.Tensor,
+                                val: torch.Tensor, lease_ok: torch.Tensor,
+                                up: torch.Tensor,
+                                exp_epoch: Optional[torch.Tensor] = None,
+                                exp_seq: Optional[torch.Tensor] = None
+                                ) -> Tuple[EngineState, torch.Tensor,
+                                           KvResult]:
+    """:func:`full_step_wide_sliced` as torch ops: :func:`full_step_wide_plain`
+    on the gathered rows (:func:`_sliced_plain`)."""
+    return _sliced_plain(full_step_wide_plain, state, active_idx, elect,
+                         cand, kind, slot, val, lease_ok, up, exp_epoch,
+                         exp_seq)
 
 
 # ---------------------------------------------------------------------------

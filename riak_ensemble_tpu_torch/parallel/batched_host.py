@@ -99,14 +99,24 @@ unless ``RETPU_AUTOTUNE=1`` or :meth:`~BatchedEnsembleService.set_autotune`
 arms it.  Trace events go to ``runtime.trace`` when one is installed
 (:class:`..utils.trace.Tracer`).
 
-It implements the reference service with ``RETPU_RESOLVE_SHARDS=1`` and
-no ``RETPU_WIDE``.  It reads the obs knobs (``RETPU_OBS``,
-``RETPU_SLO_RING``, ``RETPU_OBS_DUMP_DIR``, ``RETPU_AUTOTUNE``, ...) and
-the fault knobs of :mod:`..faults`, and no other environment variable:
-the reference's ``RETPU_FAST_READS`` is
-:meth:`BatchedEnsembleService.set_fast_reads`, its ``RETPU_COMM_REPL`` the
-``comm_repl`` argument and its ``RETPU_COMPACT`` the ``compact`` argument.
-Wide rounds and ``install_objs`` are later slices.
+Wide rounds (``wide=True``, the reference's ``RETPU_WIDE=1``): a flush
+whose host op planes schedule into at most two conflict-free wide rounds
+(:mod:`..ops.schedule`) launches ``full_step_wide`` (F1's wide mode on
+CUDA) and its results route back to op order at settle;
+``validate_wide=True`` (``RETPU_VALIDATE_WIDE=1``) checks each plan's
+precondition on the host.  Sharded host passes (``resolve_shards=N``,
+``RETPU_RESOLVE_SHARDS``): the pending-slab pack, the completion-slab
+gather and the mirror scatter split over N threads, state-identical to
+one.
+
+The service reads the obs knobs (``RETPU_OBS``, ``RETPU_SLO_RING``,
+``RETPU_OBS_DUMP_DIR``, ``RETPU_AUTOTUNE``, ...) and the fault knobs of
+:mod:`..faults`, and no other environment variable: the reference's
+``RETPU_FAST_READS`` is :meth:`BatchedEnsembleService.set_fast_reads`, its
+``RETPU_COMM_REPL`` the ``comm_repl`` argument, its ``RETPU_COMPACT`` the
+``compact`` argument, and ``RETPU_WIDE``, ``RETPU_VALIDATE_WIDE`` and
+``RETPU_RESOLVE_SHARDS`` the ``wide``, ``validate_wide`` and
+``resolve_shards`` arguments.  ``install_objs`` is a later slice.
 """
 
 from __future__ import annotations
@@ -120,6 +130,7 @@ import random
 import shutil
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -133,6 +144,7 @@ from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
 from riak_ensemble_tpu_torch.ops import build, checkpoint
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops import hash as hashk
+from riak_ensemble_tpu_torch.ops import schedule
 from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
 from riak_ensemble_tpu_torch.parallel.wal import ServiceWAL
 from riak_ensemble_tpu_torch.parallel.resolve_native import unpack_results
@@ -244,6 +256,21 @@ def _bulk_planes(kind, slot, val, exp_epoch, exp_seq):
             None if exp_seq is None else np.asarray(exp_seq, np.int32))
 
 
+def _wide_to_packed_layout(res: eng.KvResult, g: int, w: int,
+                           e: int) -> eng.KvResult:
+    """A wide ``[G, E, W]`` result in the packed ``[G*W, E]`` layout,
+    lane-major per group (batched_host.py:305-319), so the pack and the
+    unpacks serve both step flavours; the settle routes rows back to op
+    order through the plan's ``map_g * W + map_w``."""
+    def t(x):
+        return x.transpose(1, 2).reshape(g * w, e)
+    return res._replace(
+        committed=t(res.committed), get_ok=t(res.get_ok),
+        found=t(res.found), value=t(res.value),
+        obj_vsn=res.obj_vsn.transpose(1, 2).reshape(g * w, e, 2),
+        quorum_ok=t(res.quorum_ok))
+
+
 class _LocalEngine:
     """The default engine adapter (batched_host.py:494-515): the engine
     module's functions.  A subclass that overrides one of them (a test's
@@ -253,6 +280,8 @@ class _LocalEngine:
     init_state = staticmethod(eng.init_state)
     full_step = staticmethod(eng.full_step)
     full_step_sliced = staticmethod(eng.full_step_sliced)
+    full_step_wide = staticmethod(eng.full_step_wide)
+    full_step_wide_sliced = staticmethod(eng.full_step_wide_sliced)
     exchange_step = staticmethod(eng.exchange_step)
     verify_trees = staticmethod(eng.verify_trees)
     rebuild_trees = staticmethod(eng.rebuild_trees)
@@ -295,6 +324,8 @@ class _InFlightLaunch:
     elect: np.ndarray       # [E] this launch's election vector
     cand: np.ndarray        # [E] its candidates
     now: float              # runtime.now at enqueue (lease renewal)
+    #: rounds in the packed layout (a wide launch's G*W, else k)
+    k_eff: int
     #: host kind and slot planes in op order (the mirror scatter reads
     #: them at settle: this launch's own arrays, never a reused buffer;
     #: None for device-resident planes)
@@ -306,6 +337,9 @@ class _InFlightLaunch:
     active: Optional[np.ndarray] = None
     a_width: int = 0
     sliced: bool = False
+    #: wide launch: its WidePlan (None: the scalar scan) and plane width W
+    plan: Any = None
+    w_b: int = 0
     #: flush path: the (ensemble, taken ops) pairs this launch serves
     taken: Any = None
     #: slab enqueue path: the flush's pending-slab record (ent_col,
@@ -560,7 +594,10 @@ class BatchedEnsembleService:
                  data_dir: Optional[str] = None,
                  wal_sync: str = "fsync",
                  wal_compact_records: int = 1 << 18,
-                 dynamic: bool = False) -> None:
+                 dynamic: bool = False,
+                 wide: bool = False,
+                 validate_wide: bool = False,
+                 resolve_shards: int = 1) -> None:
         self.runtime = runtime
         self.config = config if config is not None else Config()
         self.n_ens, self.n_peers, self.n_slots = n_ens, n_peers, n_slots
@@ -744,6 +781,15 @@ class BatchedEnsembleService:
         self._occ_launches = 0
         #: launches whose step ran on the active rows only
         self.sliced_launches = 0
+        #: opt-in wide rounds (the reference's RETPU_WIDE=1,
+        #: batched_host.py:958-970): a flush whose host op planes schedule
+        #: into <= 2 conflict-free wide rounds launches through
+        #: ``full_step_wide`` (:mod:`..ops.schedule`); ``validate_wide``
+        #: (its RETPU_VALIDATE_WIDE=1) checks each plan's precondition on
+        #: the host first.  ``wide_launches`` counts launches that took it.
+        self._wide = bool(wide)
+        self._validate_wide = bool(validate_wide)
+        self.wide_launches = 0
         #: the bounded launch pipeline: enqueued, unsettled launches, FIFO
         self.pipeline_depth = max(1, int(pipeline_depth))
         self._inflight: "deque[_InFlightLaunch]" = deque()
@@ -773,6 +819,17 @@ class BatchedEnsembleService:
         #: the rounds those wakes fanned in
         self.completion_wakes = 0
         self.completion_rows = 0
+        #: sharded host passes (the reference's RETPU_RESOLVE_SHARDS,
+        #: batched_host.py:1132-1147): above 1 the pending-slab pack, the
+        #: completion-slab gather and the mirror scatter split by
+        #: contiguous run-descriptor / column ranges over a small thread
+        #: pool (the C++ passes release the GIL).  Chunks touch disjoint
+        #: plane cells and mirror rows and concatenate in chunk order, so
+        #: the result is state-identical to 1.  The pool is made on the
+        #: first sharded pass and shut down in :meth:`stop`.
+        self._resolve_shards = max(1, int(resolve_shards))
+        self._resolve_pool: Optional[ThreadPoolExecutor] = None
+        self.sharded_flushes = 0
         #: durability (batched_host.py:1044-1097): the WAL of committed
         #: writes, its compaction into checkpoints, and the read-only
         #: degrade after a fatal storage error at its barrier
@@ -2048,10 +2105,43 @@ class BatchedEnsembleService:
     # -- the timer ----------------------------------------------------------
 
     def stop(self) -> None:
-        """Cancel the timer (batched_host.py:2700-2707)."""
+        """Cancel the timer and shut the sharded passes' pool down
+        (batched_host.py:2700-2707)."""
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
+        if self._resolve_pool is not None:
+            self._resolve_pool.shutdown(wait=True)
+            self._resolve_pool = None
+
+    # -- sharded host passes (batched_host.py:2708-2737) --------------------
+
+    def _shard_bounds(self, n: int) -> Optional[List[Tuple[int, int]]]:
+        """Contiguous ``[lo, hi)`` chunks partitioning ``n`` run
+        descriptors (or taken columns) over the pool, or None when
+        sharding is off or pointless (the single-threaded path).  A
+        descriptor's run never splits, so chunks touch disjoint plane
+        cells."""
+        s = self._resolve_shards
+        if s <= 1 or n <= 1:
+            return None
+        s = min(s, n)
+        step = -(-n // s)
+        return [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+
+    def _shard_map(self, fn, bounds: List[Tuple[int, int]]) -> list:
+        """``fn(lo, hi)`` over every chunk, the first on the calling
+        thread and the rest on the pool, results in chunk order (which
+        every sharded site's concatenation relies on)."""
+        if self._resolve_pool is None:
+            self._resolve_pool = ThreadPoolExecutor(
+                max_workers=self._resolve_shards,
+                thread_name_prefix="retpu-resolve")
+        futs = [self._resolve_pool.submit(fn, lo, hi)
+                for lo, hi in bounds[1:]]
+        out = [fn(*bounds[0])]
+        out.extend(f.result() for f in futs)
+        return out
 
     def _maybe_kick(self, ens: int) -> None:
         """The burst trigger (batched_host.py:3237-3261): a queue that
@@ -2367,13 +2457,30 @@ class BatchedEnsembleService:
             ec = np.asarray(ent_col, np.int32)
             er = np.asarray(ent_row0, np.int32)
             el = np.asarray(ent_len, np.int32)
-            args = (k, self.n_ens, ec, er, el,
-                    np.asarray(ent_kind, np.int32),
-                    np.asarray(slot_l, np.int32), np.asarray(val_l, np.int32),
-                    np.asarray(expe_l, np.int32),
-                    np.asarray(exps_l, np.int32),
+            ek = np.asarray(ent_kind, np.int32)
+            lane_arrays = [np.asarray(x, np.int32)
+                           for x in (slot_l, val_l, expe_l, exps_l)]
+            args = (k, self.n_ens, ec, er, el, ek, *lane_arrays,
                     kind, slot, val, exp_e, exp_s)
-            if self._native_enqueue is not None:
+            bounds = (self._shard_bounds(len(ec))
+                      if self._native_enqueue is not None else None)
+            if bounds is not None:
+                # the sharded pack (batched_host.py:5359-5386): a chunk's
+                # runs write disjoint [K, E] cells (rows [er, er + el) of
+                # their columns); its lanes start at its first run's
+                # slab offset
+                def pack_chunk(lo: int, hi: int) -> None:
+                    a0 = offs[lo]
+                    a1 = offs[hi] if hi < len(offs) else lane_n
+                    self._native_enqueue.pack(
+                        k, self.n_ens, ec[lo:hi], er[lo:hi], el[lo:hi],
+                        ek[lo:hi], *(x[a0:a1] for x in lane_arrays),
+                        kind, slot, val, exp_e, exp_s)
+                self._shard_map(pack_chunk, bounds)
+                self.sharded_flushes += 1
+                self.native_enqueue_flushes += 1
+                pack_mark = "enqueue_native"
+            elif self._native_enqueue is not None:
                 self._native_enqueue.pack(*args)
                 self.native_enqueue_flushes += 1
                 pack_mark = "enqueue_native"
@@ -2614,6 +2721,12 @@ class BatchedEnsembleService:
         the client planes (pads = column 0).  Device-resident planes
         (tensors) skip compaction and every op-plane upload.
 
+        With ``wide`` on, host planes that schedule into at most two
+        conflict-free wide rounds (:meth:`_wide_plan`) launch through
+        ``full_step_wide`` (sliced: ``full_step_wide_sliced``) on the
+        plan's ``[G, width, W]`` planes; the scheduler moves ops only
+        within their column, so the active set is the same.
+
         On the CPU the launch first snapshots the state, the leader
         mirror and the leases; a failure here restores them
         (:meth:`_rollback_launch`), and so does one at settle."""
@@ -2623,8 +2736,9 @@ class BatchedEnsembleService:
         lease_ok = self.lease_until > now
         t0 = time.perf_counter()
         e = self.n_ens
-        step, step_sliced = self._step_fns()
+        step, step_wide, step_sliced, step_wide_sliced = self._step_fns()
         host_planes = not isinstance(kind, torch.Tensor)
+        plan = self._wide_plan(kind, slot, val, k, exp_e, exp_s)
         active = pad = None
         a_width = 0
         sliced = False
@@ -2638,7 +2752,9 @@ class BatchedEnsembleService:
                 if a_b < e:
                     active = cols.astype(np.int32)
                     a_width = a_b
-                    sliced = (step_sliced is not None
+                    have = step_wide_sliced if plan is not None \
+                        else step_sliced
+                    sliced = (have is not None
                               and e >= SLICE_MIN_E and a_b * 4 <= e)
                     pad = np.full((a_b,), e if sliced else 0, np.int32)
                     pad[:cols.size] = active
@@ -2648,11 +2764,13 @@ class BatchedEnsembleService:
         ups.begin()
 
         def plane(name: str, src: np.ndarray, dtype: torch.dtype):
-            """Upload a [K, E] host plane, column-sliced when sliced (a
-            device-resident plane is used as it is)."""
+            """Upload a [K, E] host plane ([G, E, W] for a wide launch),
+            column-sliced when sliced (a device-resident plane is used as
+            it is)."""
             if not host_planes:
                 return src
-            buf = ups.buffer(name, (k, width), dtype)
+            buf = ups.buffer(name, (src.shape[0], width) + src.shape[2:],
+                             dtype)
             out = buf.numpy()
             if sliced:
                 out[:, :a_n] = src[:, active]
@@ -2671,22 +2789,31 @@ class BatchedEnsembleService:
                 out[...] = src
             return ups.upload(buf)
 
-        kind_j = plane("kind", kind, torch.int32)
-        slot_j = plane("slot", slot, torch.int32)
-        val_j = plane("val", val, torch.int32)
-        exp_e_j = None if exp_e is None else plane("exp_e", exp_e,
-                                                   torch.int32)
-        exp_s_j = None if exp_s is None else plane("exp_s", exp_s,
-                                                   torch.int32)
-        # the lease plane travels contiguous [K, width]: F1 refuses
-        # broadcast views
-        lease_buf = ups.buffer("lease", (k, width), torch.bool)
-        lease_np = lease_buf.numpy()
-        if sliced:
-            lease_np[:, :a_n] = lease_ok[active][None, :]
-            lease_np[:, a_n:] = False
+        if plan is not None:
+            ops = (plan.kind, plan.slot, plan.val, plan.exp_epoch,
+                   plan.exp_seq)
+            g_b, _, w_b = plan.kind.shape
+            lanes: Tuple[int, ...] = (g_b, width, w_b)
         else:
-            lease_np[...] = lease_ok[None, :]
+            ops = (kind, slot, val, exp_e, exp_s)
+            g_b = w_b = 0
+            lanes = (k, width)
+        kind_j = plane("kind", ops[0], torch.int32)
+        slot_j = plane("slot", ops[1], torch.int32)
+        val_j = plane("val", ops[2], torch.int32)
+        exp_e_j = None if ops[3] is None else plane("exp_e", ops[3],
+                                                    torch.int32)
+        exp_s_j = None if ops[4] is None else plane("exp_s", ops[4],
+                                                    torch.int32)
+        # the lease plane travels contiguous [K, width] ([G, width, W]):
+        # F1 refuses broadcast views
+        lease_buf = ups.buffer("lease", lanes, torch.bool)
+        lease_np = lease_buf.numpy()
+        row = lease_ok[active] if sliced else lease_ok
+        if plan is not None:
+            row = row[:, None]
+        lease_np[:, :row.shape[0]] = row
+        lease_np[:, row.shape[0]:] = False
         lease_j = ups.upload(lease_buf)
         elect_j = vector("elect", elect, torch.bool)
         cand_j = vector("cand", cand, torch.int32)
@@ -2704,15 +2831,21 @@ class BatchedEnsembleService:
             eng.EngineState(*(t.clone() for t in self.state)),
             self.leader_np.copy(), self.lease_until.copy())
         try:
+            wide = plan is not None
+            args = (elect_j, cand_j, kind_j, slot_j, val_j, lease_j, up_j)
             if sliced:
-                state, won, res = step_sliced(
-                    self.state, pad, elect_j, cand_j, kind_j, slot_j,
-                    val_j, lease_j, up_j, exp_epoch=exp_e_j,
-                    exp_seq=exp_s_j)
+                fn = step_wide_sliced if wide else step_sliced
+                state, won, res = fn(self.state, pad, *args,
+                                     exp_epoch=exp_e_j, exp_seq=exp_s_j)
             else:
-                state, won, res = step(
-                    self.state, elect_j, cand_j, kind_j, slot_j, val_j,
-                    lease_j, up_j, exp_epoch=exp_e_j, exp_seq=exp_s_j)
+                fn = step_wide if wide else step
+                state, won, res = fn(self.state, *args, exp_epoch=exp_e_j,
+                                     exp_seq=exp_s_j)
+            k_eff = k
+            if wide:
+                res = _wide_to_packed_layout(res, g_b, w_b, width)
+                k_eff = g_b * w_b
+                self.wide_launches += 1
             self.state = state
             # a sliced launch's planes are already A-wide; pack-gather
             # hands the pack the index
@@ -2737,22 +2870,25 @@ class BatchedEnsembleService:
             self.sliced_launches += 1
         return _InFlightLaunch(
             flat=flat, host=host, done=done, k=k, want_vsn=want_vsn,
-            elect=elect, cand=cand, now=now,
+            elect=elect, cand=cand, now=now, k_eff=k_eff,
             kind_np=kind if host_planes else None,
             op_slot_np=slot if host_planes else None,
-            active=active, a_width=a_width, sliced=sliced,
+            active=active, a_width=a_width, sliced=sliced, plan=plan,
+            w_b=w_b,
             snapshot=snapshot, leader_snapshot=self.leader_np,
             rec={"h2d": t1 - t0, "dispatch": t2 - t1},
             flush_id=obs.next_flush_id() if self._obs else 0,
             t_join=t0)
 
-    def _step_fns(self) -> Tuple[Any, Any]:
-        """The engine's (full_step, full_step_sliced) programs
-        (batched_host.py:3324-3383).  An engine subclass that overrides
-        the plain step but inherits the sliced one must not have its
-        override bypassed: the sliced step is trusted only when the
-        class (or instance) that defines the plain step defines it too;
-        otherwise launches keep the full grid (None)."""
+    def _step_fns(self) -> Tuple[Any, Any, Any, Any]:
+        """The engine's (full_step, full_step_wide, full_step_sliced,
+        full_step_wide_sliced) programs (batched_host.py:3324-3383).  An
+        engine subclass that overrides a plain step but inherits its
+        sliced form must not have its override bypassed: a sliced step
+        is trusted only when the class (or instance) that defines the
+        plain step defines it too; otherwise launches keep the full grid
+        (None).  An engine without ``full_step_wide`` gets None there and
+        never launches wide."""
         e = self.engine
 
         def definer(attr):
@@ -2760,12 +2896,67 @@ class BatchedEnsembleService:
                 if attr in c.__dict__:
                     return c
             return None
-        sliced = getattr(e, "full_step_sliced", None)
-        if (sliced is not None
-                and "full_step_sliced" not in getattr(e, "__dict__", {})
-                and definer("full_step_sliced") is not definer("full_step")):
-            sliced = None
-        return e.full_step, sliced
+
+        def sliced(name: str, plain_name: str):
+            fn = getattr(e, name, None)
+            if (fn is not None and name not in getattr(e, "__dict__", {})
+                    and definer(name) is not definer(plain_name)):
+                return None
+            return fn
+        return (e.full_step, getattr(e, "full_step_wide", None),
+                sliced("full_step_sliced", "full_step"),
+                sliced("full_step_wide_sliced", "full_step_wide"))
+
+    def _wide_plan(self, kind, slot, val, k: int, exp_e, exp_s
+                   ) -> Optional[schedule.WidePlan]:
+        """Schedule host ``[K, E]`` planes into conflict-free wide rounds
+        when ``wide`` is on and the plan has at most two groups (the
+        warmed shapes); None keeps the scalar scan (batched_host.py:
+        3877-3910).  Device-resident planes keep the scalar scan.
+
+        A wide flush runs its ops in (group, lane) order: per-slot order
+        is kept (the g-th same-slot op runs in group g), while commit
+        seqs across DIFFERENT slots may interleave otherwise than the
+        scalar scan's k order — a valid serialization with exactly the
+        reference's freedom (key-hashed workers complete distinct keys in
+        unspecified relative order, peer.erl:1220-1225)."""
+        if (not self._wide or k <= 1 or isinstance(kind, torch.Tensor)
+                or getattr(self.engine, "full_step_wide", None) is None):
+            return None
+        e = self.n_ens
+        zeros = np.zeros((k, e), np.int32)
+        exp_e = zeros if exp_e is None else exp_e
+        exp_s = zeros if exp_s is None else exp_s
+        # The schedule is column by column, so it sorts the columns that
+        # carry an op and is laid into the full planes: the reference's
+        # plan over every column (an idle column is NOOP lanes routed to
+        # (0, 0)), for a sort of the active columns only.
+        cols = np.flatnonzero((kind != eng.OP_NOOP).any(axis=0))
+        sub = schedule.schedule_wide(
+            kind[:, cols], slot[:, cols], val[:, cols],
+            None,  # the lease rides an [E] broadcast
+            exp_e[:, cols], exp_s[:, cols], max_groups=2)
+        if sub is None:
+            return None
+        g, _, w = sub.kind.shape
+
+        def lay(part: np.ndarray, fill: int) -> np.ndarray:
+            out = np.full((g, e, w), fill, np.int32)
+            out[:, cols] = part
+            return out
+
+        def route(part: np.ndarray) -> np.ndarray:
+            out = np.zeros((k, e), np.int32)
+            out[:, cols] = part
+            return out
+        plan = schedule.WidePlan(
+            kind=lay(sub.kind, eng.OP_NOOP), slot=lay(sub.slot, -1),
+            val=lay(sub.val, 0), lease_ok=None,
+            exp_epoch=lay(sub.exp_epoch, 0), exp_seq=lay(sub.exp_seq, 0),
+            map_g=route(sub.map_g), map_w=route(sub.map_w))
+        if self._validate_wide:
+            eng.validate_wide_plane(plan.kind, plan.slot)
+        return plan
 
     def _rollback_launch(self, snapshot) -> None:
         """Restore the pre-launch state and host mirrors after a failed
@@ -2813,28 +3004,43 @@ class BatchedEnsembleService:
             # the arm unpacks it with numpy: the same bytes either way.
             # Election-only launches (k == 0) take the oracle's unpack, as in
             # the reference.
-            if self._native_resolve is not None and fl.k:
+            k_eff = fl.k_eff
+            if self._native_resolve is not None and k_eff:
                 if fl.active is not None:
                     planes8 = self._native_resolve.unpack(
-                        flat, e, m, fl.k, fl.want_vsn, fl.active, fl.a_width,
-                        fl.sliced)
+                        flat, e, m, k_eff, fl.want_vsn, fl.active,
+                        fl.a_width, fl.sliced)
                 else:
-                    planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn)
+                    planes8 = unpack_results(flat, e, m, k_eff, fl.want_vsn)
                 self.native_resolve_flushes += 1
                 arm_key = "resolve_native"
             else:
-                planes8 = unpack_results(flat, e, m, fl.k, fl.want_vsn,
+                planes8 = unpack_results(flat, e, m, k_eff, fl.want_vsn,
                                          active=fl.active, a_width=fl.a_width,
                                          sliced=fl.sliced)
                 self.fallback_resolve_flushes += 1
                 arm_key = "resolve_fallback"
             (won_np, quorum_ok, corrupt_np, committed, get_ok, found, value,
              vsn) = planes8
+            if fl.plan is not None:
+                # the [G*W, E] rows back to the caller's [K, E] op order
+                # (batched_host.py:3775-3782); NOOP and pad rows read
+                # unrelated lanes, so they get the scalar scan's NOOP
+                # results (all false, zero value and vsn)
+                ee = np.arange(e, dtype=np.int32)[None, :]
+                fli = fl.plan.map_g * fl.w_b + fl.plan.map_w
+                act = fl.kind_np != eng.OP_NOOP
+                committed = committed[fli, ee] & act
+                get_ok = get_ok[fli, ee] & act
+                found = found[fli, ee] & act
+                value = np.where(act, value[fli, ee], 0)
+                if vsn is not None:
+                    vsn = np.where(act[..., None], vsn[fli, ee], 0)
             # the resolve half's per-arm share (a derived mark: unpack
             # here, the mirror scatter and WAL encode add theirs)
             rec[arm_key] = rec.get(arm_key, 0.0) + (time.perf_counter() - t3)
             self.payload_bytes += int(flat.nbytes)
-            self.payload_bytes_full_width += packed_nbytes(e, m, fl.k,
+            self.payload_bytes_full_width += packed_nbytes(e, m, k_eff,
                                                            fl.want_vsn)
             self._occ_sum += (fl.a_width / e if fl.active is not None
                               else 1.0)
@@ -3182,8 +3388,7 @@ class BatchedEnsembleService:
                  | self._queued_mask).sum()),
             "queued_ops": sum(self._queue_rounds),
             "execute_unlogged": self._dev_exec_unlogged,
-            # wide rounds are not ported: no launch takes them
-            "wide_launches": 0,
+            "wide_launches": self.wide_launches,
             "pipeline_depth": self.pipeline_depth,
             "launches_in_flight": len(self._inflight),
             "rmw_conflicts": self.rmw_conflicts,
@@ -3253,9 +3458,8 @@ class BatchedEnsembleService:
             # sharded resolve/enqueue workers (ARCHITECTURE §16):
             # pool width and how many flushes actually chunked
             "resolve_shards": {
-                # one shard: the reference's RETPU_RESOLVE_SHARDS=1
-                "shards": 1,
-                "sharded_flushes": 0,
+                "shards": self._resolve_shards,
+                "sharded_flushes": self.sharded_flushes,
             },
         }
 
@@ -3571,7 +3775,7 @@ class BatchedEnsembleService:
                 self.wal_compactions),
             "retpu_wide_launches_total": fam(
                 "counter", "launches through the wide scheduler",
-                0),
+                self.wide_launches),
             "retpu_flight_anomalies_total": fam(
                 "counter", "flight-recorder trigger firings (flush "
                 "> 5x rolling p50)", self.flight.anomalies),
@@ -3989,7 +4193,11 @@ class BatchedEnsembleService:
         in {0, 1, 2, 4, ..., max_k}, A the :meth:`_a_ladder` — on a
         THROWAWAY state, never ``self.state``: the sliced step where the
         launch path would slice, else the pack-gather pack, plus the
-        full-width packs with and without versions.
+        full-width packs with and without versions.  With ``wide`` on it
+        also launches the wide step at every (G, W) the gate admits (G in
+        {1, 2}, pow2 W up to the flush depth's pow2) with its A ladder,
+        and sizes the pinned slots for the widest wide launch
+        (batched_host.py:4959-4976).
 
         ``buckets``: optional ``(k, a_width)`` pairs (a_width None = full
         width) restricting the A grid; the K ladder always runs in full.
@@ -4016,22 +4224,28 @@ class BatchedEnsembleService:
             for kb, aw in buckets:
                 by_k.setdefault(int(kb), []).append(aw)
         ladder = self._a_ladder()
+        step, step_wide, step_sliced, step_wide_sliced = self._step_fns()
+        wide = self._wide and step_wide is not None
+        # the wide gate admits G in {1, 2} and pow2 W up to the flush
+        # depth's pow2 (batched_host.py:4959-4976)
+        w_max = 1 << (max(self.max_k, 1) - 1).bit_length()
+        rounds = max(self.max_k, 2 * w_max if wide else 0)
         if self._uploads.pinned:
-            # every slot's buffers at the widest launch: no first flush
-            # pays a pinned allocation
+            # every slot's buffers at the widest launch (a wide plan's
+            # G*W rounds included): no first flush pays a pinned
+            # allocation
             widest = max((a for a in ladder if a is not None), default=0)
             for _ in range(len(self._uploads._slots)):
                 ups = self._uploads
                 ups.begin()
                 for name in ("kind", "slot", "val", "exp_e", "exp_s"):
-                    ups.buffer(name, (self.max_k, e), torch.int32)
-                ups.buffer("lease", (self.max_k, e), torch.bool)
+                    ups.buffer(name, (rounds, e), torch.int32)
+                ups.buffer("lease", (rounds, e), torch.bool)
                 ups.buffer("elect", (e,), torch.bool)
                 ups.buffer("cand", (e,), torch.int32)
                 ups.buffer("aidx", (widest,), torch.int32)
-                ups.buffer("out", (packed_nbytes(e, m, self.max_k, True),),
+                ups.buffer("out", (packed_nbytes(e, m, rounds, True),),
                            torch.uint8)
-        step, step_sliced = self._step_fns()
         st = self.engine.init_state(e, m, s, device=dev)
         v = int(st.view_mask.shape[1])
         elect = torch.zeros((e,), dtype=torch.bool, device=dev)
@@ -4042,6 +4256,39 @@ class BatchedEnsembleService:
             nbytes, ops = step_work(rows, m, s, v, k, a)
             self._step_costs[key] = {"flops": float(ops),
                                      "bytes_accessed": float(nbytes)}
+
+        def warm_widths(k_eff: int, won, res, gw=None) -> None:
+            """The A ladder of one K bucket (a wide (G, W) one when
+            ``gw``): the sliced step where the launch path would slice,
+            else the pack-gather pack."""
+            nonlocal st
+            widths = ([] if k_eff == 0 else
+                      by_k.get(k_eff, []) if by_k is not None else ladder)
+            have = step_wide_sliced if gw else step_sliced
+            for aw in widths:
+                if aw is None:
+                    continue
+                if have is not None and e >= SLICE_MIN_E and aw * 4 <= e:
+                    # all pads: every row index is E, so nothing is
+                    # stepped and the state stays as it was
+                    aidx = np.full((aw,), e, np.int32)
+                    shape = (gw[0], aw, gw[1]) if gw else (k_eff, aw)
+                    kind_a = torch.zeros(shape, dtype=torch.int32,
+                                         device=dev)
+                    st, won_a, res_a = have(
+                        st, aidx, elect[:aw], cand[:aw], kind_a, kind_a,
+                        kind_a, kind_a.bool(), up, exp_epoch=kind_a,
+                        exp_seq=kind_a)
+                    if gw:
+                        res_a = _wide_to_packed_layout(res_a, gw[0], gw[1],
+                                                       aw)
+                    _pack_results_body(won_a, res_a, True)
+                    if self._obs and capture_costs and not gw:
+                        cost(f"k{k_eff}_a{aw}", k_eff, aw, aw)
+                else:
+                    aidx_t = torch.zeros((aw,), dtype=torch.int32,
+                                         device=dev)
+                    _pack_results_body(won, res, True, active_idx=aidx_t)
 
         k = 0
         while True:
@@ -4054,32 +4301,24 @@ class BatchedEnsembleService:
                 cost(f"k{k}", k, e, e)
             _pack_results_body(won, res, True)
             _pack_results_body(won, res, False)
-            widths = ([] if k == 0 else
-                      by_k.get(k, []) if by_k is not None else ladder)
-            for aw in widths:
-                if aw is None:
-                    continue
-                if (step_sliced is not None and e >= SLICE_MIN_E
-                        and aw * 4 <= e):
-                    # all pads: every row index is E, so nothing is
-                    # stepped and the state stays as it was
-                    aidx = np.full((aw,), e, np.int32)
-                    kind_a = torch.zeros((k, aw), dtype=torch.int32,
-                                         device=dev)
-                    st, won_a, res_a = step_sliced(
-                        st, aidx, elect[:aw], cand[:aw], kind_a, kind_a,
-                        kind_a, kind_a.bool(), up, exp_epoch=kind_a,
-                        exp_seq=kind_a)
-                    _pack_results_body(won_a, res_a, True)
-                    if self._obs and capture_costs:
-                        cost(f"k{k}_a{aw}", k, aw, aw)
-                else:
-                    aidx_t = torch.zeros((aw,), dtype=torch.int32,
-                                         device=dev)
-                    _pack_results_body(won, res, True, active_idx=aidx_t)
+            warm_widths(k, won, res)
             if k >= self.max_k:
                 break
             k = 1 if k == 0 else k * 2
+        if wide:
+            for g in (1, 2):
+                w = 1
+                while w <= w_max:
+                    kind = torch.zeros((g, e, w), dtype=torch.int32,
+                                       device=dev)
+                    st, won, res = step_wide(
+                        st, elect, cand, kind, kind, kind, kind.bool(), up,
+                        exp_epoch=kind, exp_seq=kind)
+                    res = _wide_to_packed_layout(res, g, w, e)
+                    _pack_results_body(won, res, True)
+                    _pack_results_body(won, res, False)
+                    warm_widths(g * w, won, res, gw=(g, w))
+                    w *= 2
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -4307,20 +4546,44 @@ class BatchedEnsembleService:
         ent_col, ent_row0, ent_len, n_rows, offs = lanes[:5]
         k, e = committed.shape
         if self._native_enqueue is not None:
-            got = self._native_enqueue.gather(
-                k, e, ent_col, ent_row0, ent_len, _u8view(committed),
-                _u8view(get_ok), _u8view(found),
-                np.ascontiguousarray(value, np.int32),
-                np.ascontiguousarray(vsn, np.int32), n_rows)
+            bounds = self._shard_bounds(len(ent_col))
+            args = (_u8view(committed), _u8view(get_ok), _u8view(found),
+                    np.ascontiguousarray(value, np.int32),
+                    np.ascontiguousarray(vsn, np.int32))
+
+            def gather(lo: int, hi: int):
+                """Runs [lo, hi): the C++ gather (which releases the
+                GIL) and the lists of its records (which hold it)."""
+                a0 = offs[lo]
+                a1 = offs[hi] if hi < len(ent_col) else n_rows
+                g = self._native_enqueue.gather(
+                    k, e, ent_col[lo:hi], ent_row0[lo:hi], ent_len[lo:hi],
+                    *args, a1 - a0)
+                # (epoch, seq) as tuples of ints, not R two-int lists:
+                # the GC untracks such tuples, while R live lists survive
+                # into the old generation and bring its full collections
+                # sooner
+                return g, [a.tolist() for a in g[:4]] + [
+                    list(zip(*g[4].T.tolist()))]
+            if bounds is not None:
+                # the sharded gather (batched_host.py:6151-6185): chunk
+                # [lo, hi) covers slab rows [offs[lo], offs[hi]); records
+                # and lists concatenate in chunk order, element-equal to
+                # the one-pass gather
+                chunks = self._shard_map(gather, bounds)
+                got = tuple(np.concatenate([c[0][i] for c in chunks])
+                            for i in range(5))
+                lists = [sum((c[1][i] for c in chunks), [])
+                         for i in range(5)]
+            else:
+                got, lists = gather(0, len(ent_col))
         else:
             got = enqueue_native.gather_plain(
                 k, e, ent_col, ent_row0, ent_len, committed, get_ok, found,
                 value, vsn, n_rows)
-        ok_l, gok_l, fnd_l, val_l = (a.tolist() for a in got[:4])
-        # (epoch, seq) as tuples of ints, not R two-int lists: the GC
-        # untracks such tuples, while R live lists survive into the old
-        # generation and bring its full collections sooner
-        vs_l = list(zip(*got[4].T.tolist()))
+            lists = [a.tolist() for a in got[:4]] + [
+                list(zip(*got[4].T.tolist()))]
+        ok_l, gok_l, fnd_l, val_l, vs_l = lists
         self.completion_wakes += 1
         self.completion_rows += n_rows
         served = 0
@@ -4594,13 +4857,23 @@ class BatchedEnsembleService:
                                    for _e, ops in taken), np.int32,
                                   len(taken))
             # reads always ack here: no replication group withholds them
-            self._native_resolve.scatter_mirrors(
-                self.n_ens, self.n_slots, fl.kind_np, fl.op_slot_np,
-                committed, get_ok, found, value, vsn, cols, kcounts, True,
-                (eng.OP_PUT, eng.OP_CAS, eng.OP_GET, eng.OP_RMW),
-                self._slot_vsn_np, self._slot_vsn_ok,
-                self._inline_value_np, self._inline_value_ok,
-                self._inline_np)
+            def scatter(lo: int, hi: int) -> None:
+                self._native_resolve.scatter_mirrors(
+                    self.n_ens, self.n_slots, fl.kind_np, fl.op_slot_np,
+                    committed, get_ok, found, value, vsn, cols[lo:hi],
+                    kcounts[lo:hi], True,
+                    (eng.OP_PUT, eng.OP_CAS, eng.OP_GET, eng.OP_RMW),
+                    self._slot_vsn_np, self._slot_vsn_ok,
+                    self._inline_value_np, self._inline_value_ok,
+                    self._inline_np)
+            bounds = self._shard_bounds(len(cols))
+            if bounds is not None:
+                # the sharded mirror scatter (batched_host.py:6539-6567):
+                # chunks split the taken COLUMNS, each column is taken at
+                # most once, so chunks write disjoint mirror rows
+                self._shard_map(scatter, bounds)
+            else:
+                scatter(0, len(cols))
             native_mirrors = True
             fl.rec["resolve_native"] = (fl.rec.get("resolve_native", 0.0)
                                         + time.perf_counter() - t0)

@@ -45,6 +45,7 @@ from riak_ensemble_tpu_torch.ops import checkpoint as tckpt
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from test_torch_kmodify import FixedClock
 from test_torch_wal import Durable, _read_all, assert_same_service
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -28,6 +28,7 @@ from riak_ensemble_tpu_torch.parallel.batched_host import (
     BatchedEnsembleService, WallRuntime)
 from test_torch_compaction import norm
 from test_torch_native_enqueue import _jax_env
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 
 def _ref():

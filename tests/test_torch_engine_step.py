@@ -97,6 +97,7 @@ def _args(e=4, m=5, s=16, k=3, v=2):
     "cand int64", "exp_epoch shape", "tree_node rows", "leader shape",
     "too many peers", "too many views", "too many rounds",
     "too much shared memory", "not contiguous", "epoch 1-D",
+    "wide slot shape", "wide too many rounds", "wide no lanes",
 ])
 def test_contract_checks_raise(case):
     st, (elect, cand, kind, slot, val, lease, up, exp_e, exp_s) = _args()
@@ -136,6 +137,15 @@ def test_contract_checks_raise(case):
         val = torch.zeros((4, 3), dtype=torch.int32).t()
     elif case == "epoch 1-D":
         st = st._replace(epoch=st.epoch[:, 0])
+    elif case.startswith("wide"):
+        g, w = ((2, 3) if case == "wide slot shape" else
+                (2, cuda_engine.MAX_ROUNDS // 2 + 1)
+                if case == "wide too many rounds" else (2, 0))
+        kind = val = exp_e = exp_s = torch.zeros((g, 16, w),
+                                                 dtype=torch.int32)
+        slot = kind[..., :max(w - 1, 0)].contiguous() \
+            if case == "wide slot shape" else kind
+        lease = torch.zeros((g, 16, w), dtype=torch.bool)
     with pytest.raises((TypeError, ValueError)):
         cuda_engine.check_contract(st, elect, cand, kind, slot, val, lease,
                                    up, exp_e, exp_s, **kw)
@@ -152,6 +162,10 @@ def test_contract_admits_every_shape_the_port_runs():
         p = _planes(np.random.default_rng(2), e, m, s, k)
         cuda_engine.check_contract(st, *p)
         cuda_engine.check_contract(st, None, None, *p[2:])
+        for g, w in ((1, 64), (2, 32), (2, 1)):     # wide planes
+            z = torch.zeros((g, e, w), dtype=torch.int32)
+            cuda_engine.check_contract(st, p[0], p[1], z, z, z, z.bool(),
+                                       p[6], z, z)
     assert cuda_engine.shared_bytes(5, 128, 9) == 19_328
 
 
@@ -374,3 +388,64 @@ def test_f1_launches_on_a_second_card():
                 (idx, step)
             assert all(torch.equal(a, b) for a, b in zip(res, rres))
         assert int(res.committed.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_f1_wide_matches_plain_on_card():
+    """F1's wide mode, full width and sliced, equals
+    ``full_step_wide_plain`` / ``full_step_wide_sliced_plain`` on the card:
+    every state plane, ``won`` and every result lane, NOOP lanes included,
+    over planes with duplicate chains (G = 2 and more) on a damaged
+    store."""
+    if not torch.cuda.is_available():
+        pytest.skip("F1 is a CUDA kernel: no CUDA device is visible")
+    from riak_ensemble_tpu_torch.ops import schedule
+    rng = np.random.default_rng(8)
+    e, m, s, k = 257, 5, 128, 16
+    st = teng.init_state(e, m, s, device="cuda")
+    ref = _copy(st)
+    for step in range(4):
+        elect, cand, kind, slot, val, lease, up, exp_e, exp_s = (
+            t.numpy() for t in _planes(rng, e, m, s, k))
+        reuse = rng.random((k, e)) < 0.3
+        for i in range(1, k):
+            slot[i, reuse[i]] = slot[i - 1, reuse[i]]
+        if step:
+            for t in (st, ref):
+                t.tree_node[step::7, 1, 0, 2] ^= 5
+                t.obj_val[step::11, 2, 3] += 1
+        plan = schedule.schedule_wide(kind, slot, val, lease, exp_e, exp_s)
+        ops = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (
+            plan.kind, plan.slot, plan.val, plan.lease_ok, plan.exp_epoch,
+            plan.exp_seq)]
+        vec = [torch.from_numpy(x).cuda() for x in (elect, cand, up)]
+        before = cuda_engine.engine_step_wide_launches
+        if step % 2 == 0:
+            args = (vec[0], vec[1], *ops[:4], vec[2])
+            st, won, res = teng.full_step_wide(st, *args, ops[4], ops[5])
+            ref, rwon, rres = teng.full_step_wide_plain(ref, *args, ops[4],
+                                                        ops[5])
+        else:
+            rows = np.sort(rng.choice(e, 40, replace=False)).astype(np.int32)
+            aidx = np.full(64, e, np.int32)
+            aidx[:40] = rows
+            cols = np.minimum(aidx, e - 1)
+            sub = [np.ascontiguousarray(p[:, cols]) for p in
+                   (kind, slot, val, lease, exp_e, exp_s)]
+            sub[0][:, 40:] = teng.OP_NOOP
+            plan = schedule.schedule_wide(*sub)
+            ops = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                   for x in (plan.kind, plan.slot, plan.val, plan.lease_ok,
+                             plan.exp_epoch, plan.exp_seq)]
+            el = torch.from_numpy(np.where(aidx < e, elect[cols], False))
+            cd = torch.from_numpy(np.ascontiguousarray(cand[cols]))
+            args = (el.cuda(), cd.cuda(), *ops[:4], vec[2])
+            st, won, res = teng.full_step_wide_sliced(st, aidx, *args,
+                                                      ops[4], ops[5])
+            ref, rwon, rres = teng.full_step_wide_sliced_plain(
+                ref, aidx, *args, ops[4], ops[5])
+        torch.cuda.synchronize()
+        assert cuda_engine.engine_step_wide_launches == before + 1
+        assert torch.equal(won, rwon) and _equal_states(st, ref), step
+        assert all(torch.equal(a, b) for a, b in zip(res, rres)), step
+        assert res.committed.dim() == 3

@@ -34,6 +34,7 @@ from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from test_torch_kmodify import (  # noqa: F401  (harness)
     ORACLE_ENV, FixedClock, Pair, _record_packed)
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 E, M, S = 4, 5, 16
 

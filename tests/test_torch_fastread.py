@@ -26,6 +26,7 @@ from riak_ensemble_tpu_torch.config import Config
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from test_torch_kmodify import FixedClock, pair  # noqa: F401  (fixture)
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("fast", [True, False], ids=["fast", "nofast"])

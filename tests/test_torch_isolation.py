@@ -10,7 +10,11 @@ restore) with both names blocked.  The front end's modules (``wire``,
 ``utils.trace``) are named too; a fourth subprocess serves a
 ``ServiceClient`` session with obs on and both names blocked, and maps
 only the port's own wire codec; a fifth runs
-``python -m riak_ensemble_tpu_torch.svcnode --help``.
+``python -m riak_ensemble_tpu_torch.svcnode --help``.  The wide-round
+slice's modules (``ops.schedule``, the wide steps of ``ops.engine``) are
+named too, and a sixth subprocess runs a service with ``wide=True`` and
+``resolve_shards=2`` (wide launches, sharded passes, ``stop()``) with
+both names blocked.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
@@ -43,6 +47,8 @@ FRONT_END_MODULES = ("wire", "state", "netruntime", "svcnode", "obs",
                      "obs.registry", "obs.spans", "obs.fingerprint",
                      "obs.flightrec", "obs.opslo", "obs.controller",
                      "obs.fleet", "utils.trace")
+WIDE_MODULES = ("ops.schedule", "ops.engine", "ops.cuda_engine",
+                "parallel.batched_host")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -89,7 +95,7 @@ def test_port_imports_with_jax_and_reference_blocked():
                                       "riak_ensemble_tpu_torch."))
     assert n == len(mods) + 1 and n >= 28
     names = {m.name for m in mods}
-    for mod in DURABILITY_MODULES + FRONT_END_MODULES:
+    for mod in DURABILITY_MODULES + FRONT_END_MODULES + WIDE_MODULES:
         assert "riak_ensemble_tpu_torch." + mod in names, mod
 
 
@@ -281,3 +287,43 @@ def test_svcnode_help_runs_with_jax_blocked():
     assert "--device" in proc.stdout and "--data-dir" in proc.stdout
     assert "--mesh-devices N" not in proc.stdout
     assert "--mesh-devices MESH_DEVICES" not in proc.stdout
+
+
+_WIDE_SHARDED = r"""
+import sys
+sys.path.insert(0, ROOT)
+import numpy as np
+from riak_ensemble_tpu_torch.ops import engine as eng
+from riak_ensemble_tpu_torch.parallel.batched_host import (
+    BatchedEnsembleService, WallRuntime)
+svc = BatchedEnsembleService(WallRuntime(), 4, 3, 16, tick=None,
+                             max_ops_per_tick=8, device="cpu", wide=True,
+                             validate_wide=True, resolve_shards=2)
+futs = [svc.kput_many(e, ["a", "b", "a"], [b"1", b"2", b"3"])
+        for e in range(4)]
+svc.flush()
+assert all(f.done for f in futs), futs
+g = [svc.kget_many(e, ["a", "b"]) for e in range(4)]
+svc.flush()
+kind = np.full((4, 4), eng.OP_PUT, np.int32)
+slot = np.tile(np.arange(4, dtype=np.int32)[:, None], (1, 4))
+assert svc.execute(kind, slot, np.ones((4, 4), np.int32))[0].all()
+st = svc.stats()
+assert st["wide_launches"] >= 2 and st["resolve_shards"]["shards"] == 2
+assert st["resolve_shards"]["sharded_flushes"] > 0
+assert [f.value for f in g] == [[("ok", b"3"), ("ok", b"2")]] * 4
+svc.stop()
+assert svc._resolve_pool is None
+print("WIDE SHARDED OK")
+"""
+
+
+def test_wide_and_sharded_service_run_with_jax_blocked():
+    """Wide rounds (a duplicate chain, so G = 2) and the sharded host
+    passes run with ``jax`` and the JAX package blocked."""
+    code = f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + _WIDE_SHARDED
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "WIDE SHARDED OK" in proc.stdout

@@ -28,6 +28,7 @@ from riak_ensemble_tpu_torch import funref as tfunref
 from riak_ensemble_tpu_torch import interop
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.types import NOTFOUND as T_NOTFOUND
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 ORACLE_ENV = {"RETPU_COMPACT": "0", "RETPU_NATIVE_RESOLVE": "0",
               "RETPU_NATIVE_ENQUEUE": "0", "RETPU_OBS": "0"}

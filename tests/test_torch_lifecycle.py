@@ -35,6 +35,7 @@ from test_torch_compaction import norm
 from test_torch_native_enqueue import PORT_KW
 from test_torch_runtime import MIRRORS, HOST, Twin
 from test_torch_wal import _tree
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 ARMS = ["default", "oracle", "plain"]
 

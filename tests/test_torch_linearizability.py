@@ -36,6 +36,7 @@ from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.types import NOTFOUND as T_NOTFOUND
 from test_torch_compaction import norm
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 N_ENS = 6
 N_PEERS = 5

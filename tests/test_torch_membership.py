@@ -33,6 +33,7 @@ from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.types import NOTFOUND as T_NOTFOUND
 from test_torch_runtime import Twin
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -44,6 +44,7 @@ from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.parallel import enqueue_native as ten
 from test_torch_compaction import norm
 from test_torch_kmodify import FixedClock, _record_packed
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 #: the JAX service's environment per port arm ("default" and "oracle"
 #: leave compaction and fast reads to the case)

@@ -25,6 +25,7 @@ import pytest
 from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import resolve_native as trn
 from test_torch_native_enqueue import Pair
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 OPS = (teng.OP_PUT, teng.OP_CAS, teng.OP_GET, teng.OP_RMW)
 

@@ -32,6 +32,7 @@ from riak_ensemble_tpu_torch.config import fast_test_config
 from riak_ensemble_tpu_torch.netruntime import FRAME_HEADER, NetRuntime
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.runtime import Actor
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 
 class _Sink(Actor):

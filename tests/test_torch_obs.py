@@ -32,6 +32,7 @@ from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.runtime import Runtime
 from test_torch_native_enqueue import JAX_ENV
 from test_torch_runtime import Twin, _workload
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 def _ref_obs():
     pytest.importorskip("jax")

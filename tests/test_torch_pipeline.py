@@ -38,6 +38,7 @@ from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from test_torch_compaction import DEFAULT_ENV, UNSET, Lockstep, norm
 from test_torch_kmodify import FixedClock
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 
 def make(depth=2, n_ens=4, n_slots=8, max_k=1, **kw):

@@ -33,6 +33,7 @@ from riak_ensemble_tpu_torch.config import fast_test_config as t_config
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from test_torch_compaction import norm
 from test_torch_native_enqueue import PORT_KW, _jax_env
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 MIRRORS = ("_slot_vsn_np", "_slot_vsn_ok", "_inline_value_np",
            "_inline_value_ok", "_inline_np", "leader_np", "lease_until",

@@ -31,6 +31,7 @@ across packages.
 
 import numpy as np
 import pytest
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 from riak_ensemble_tpu_torch import interop
 from riak_ensemble_tpu_torch.parallel import batched_host as tb

@@ -43,6 +43,7 @@ from riak_ensemble_tpu_torch.parallel import wal as twal
 from test_torch_compaction import norm
 from test_torch_kmodify import FixedClock
 from test_torch_wal import Durable, _read_all
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -39,6 +39,7 @@ import pytest
 from riak_ensemble_tpu_torch import funref, svcnode, wire
 from riak_ensemble_tpu_torch.config import fast_test_config
 from riak_ensemble_tpu_torch.types import NOTFOUND
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -39,6 +39,7 @@ from riak_ensemble_tpu_torch.parallel import resolve_native as trn
 from test_torch_compaction import norm
 from test_torch_kmodify import FixedClock
 from test_torch_native_enqueue import PORT_KW, _jax_env
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 MIRRORS = ("_slot_vsn_np", "_slot_vsn_ok", "_inline_value_np",
            "_inline_value_ok", "_inline_np", "leader_np", "lease_until")

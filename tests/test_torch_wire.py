@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 from riak_ensemble_tpu_torch import state as tstate
 from riak_ensemble_tpu_torch import types as ttypes
