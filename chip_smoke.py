@@ -3569,8 +3569,11 @@ def wide_case(dev, name, e, m, s, k, views, steps, chains, sliced, seed):
             st_pl, won_p, res_p = eng.full_step_wide_plain(st_pl, *args,
                                                            ops[4], ops[5])
         torch.cuda.synchronize()
-        if cuda_engine.engine_step_wide_launches != before + 1:
-            raise AssertionError(f"F1 wide {name}: no wide launch")
+        want = before + (ops[0].shape[2] > 1)
+        if cuda_engine.engine_step_wide_launches != want:
+            raise AssertionError(f"F1 wide {name}: wide launches "
+                                 f"{cuda_engine.engine_step_wide_launches}"
+                                 f", want {want}")
         if not torch.equal(won_f.cpu(), won_p.cpu()):
             raise AssertionError(f"F1 wide {name}, step {step}: won differs")
         bad = (diff_fields(st_f1, st_pl, eng.EngineState._fields)
@@ -3770,10 +3773,12 @@ def phase_wide_service(dev: torch.device, card: str) -> dict:
         svc.flush()
         chk = LaunchCheck(svc) if d.type == "cuda" else None
         if d.type == "cuda":
+            split, plan_ms = HostSplit(svc), time_wide_plan(svc)
             reset_counts()
         ms = []
         results = keyed_rounds(svc, d, sub, keys, ms)
         if d.type == "cuda":
+            keyed_split = split.take()
             keyed = read_counts()
             if keyed["F1"] != chk.launches or not keyed["F1 wide"]:
                 raise AssertionError(f"11(b) keyed: counts {keyed} in "
@@ -3790,8 +3795,26 @@ def phase_wide_service(dev: torch.device, card: str) -> dict:
     print(f"11(b) wide keyed service, 6(b)'s pattern [{card}]: {w1} wide "
           f"launches, every acknowledged put read back, equal to the CPU "
           f"service; median flush {statistics.median(ms1):.3f} ms over "
-          f"{len(ms1)} flushes; launches {counts}")
+          f"{len(ms1)} flushes; host ms per flush: "
+          f"{split_line(keyed_split, len(ms1))} (the wide plan "
+          f"{plan_ms[0] / len(ms1):.3f} of the enqueue); launches {counts}")
     return counts
+
+
+def time_wide_plan(svc: BatchedEnsembleService) -> list:
+    """Wrap the service's wide scheduling: ``[ms]`` summed over its
+    calls (a part of HostSplit's enqueue stage)."""
+    total = [0.0]
+    run = svc._wide_plan
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return run(*args, **kwargs)
+        finally:
+            total[0] += (time.perf_counter() - t0) * 1e3
+    svc._wide_plan = timed
+    return total
 
 
 class ShardWall:

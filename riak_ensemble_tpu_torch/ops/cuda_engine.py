@@ -54,7 +54,9 @@ MAX_SHARED_BYTES = 232_448 - 1_024
 
 #: launches of F1 since the count was last set to 0 — counted where the
 #: kernel launches and nowhere else; the sliced ones also in the second,
-#: the wide ones (either grid) also in the third
+#: the wide ones (either grid) also in the third.  A wide launch counts
+#: there only at W > 1: the C entry runs a ``[G, C, 1]`` plane through
+#: the scalar instantiation (``wide = p.w > 1``), so that one is not.
 engine_step_launches = 0
 engine_step_sliced_launches = 0
 engine_step_wide_launches = 0
@@ -488,6 +490,6 @@ def engine_step(state, elect: Optional[torch.Tensor],
     engine_step_launches += 1
     if idx_dev is not None:
         engine_step_sliced_launches += 1
-    if kind.dim() == 3:
+    if w > 1:
         engine_step_wide_launches += 1
     return won, res

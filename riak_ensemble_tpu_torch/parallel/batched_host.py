@@ -337,8 +337,10 @@ class _InFlightLaunch:
     active: Optional[np.ndarray] = None
     a_width: int = 0
     sliced: bool = False
-    #: wide launch: its WidePlan (None: the scalar scan) and plane width W
+    #: wide launch: its WidePlan over the live columns ``live`` (None:
+    #: the scalar scan) and plane width W
     plan: Any = None
+    live: Optional[np.ndarray] = None
     w_b: int = 0
     #: flush path: the (ensemble, taken ops) pairs this launch serves
     taken: Any = None
@@ -653,9 +655,11 @@ class BatchedEnsembleService:
         #: watcher exceptions contained by _safe_notify
         self._leader_watchers: Dict[int, List[Any]] = {}
         self.watcher_errors = 0
-        #: the timer and the burst trigger's queued flush (_maybe_kick)
+        #: the timer and the burst trigger's queued flush (_maybe_kick);
+        #: stop() disarms both
         self._timer: Optional[Timer] = None
         self._kick_pending = False
+        self._stopped = False
         #: per-ensemble key→slot and free slots
         self.key_slot: List[Dict[Any, int]] = [dict() for _ in range(n_ens)]
         self.free_slots: List[List[int]] = [
@@ -2105,8 +2109,10 @@ class BatchedEnsembleService:
     # -- the timer ----------------------------------------------------------
 
     def stop(self) -> None:
-        """Cancel the timer and shut the sharded passes' pool down
-        (batched_host.py:2700-2707)."""
+        """Cancel the timer and any burst kick still deferred, and shut
+        the sharded passes' pool down (batched_host.py:2700-2707, where a
+        kick deferred before the stop still flushes once after it)."""
+        self._stopped = True
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
@@ -2149,7 +2155,7 @@ class BatchedEnsembleService:
         turn (deferred, never inside the enqueue) instead of waiting for
         the tick; the kick re-arms while queues stay non-empty, so a
         deeper burst drains whole.  Timer-driven services only."""
-        if self.tick is None or self._kick_pending:
+        if self.tick is None or self._kick_pending or self._stopped:
             return
         if self._queue_rounds[ens] < self.max_k:
             return
@@ -2157,6 +2163,8 @@ class BatchedEnsembleService:
 
         def kick() -> None:
             self._kick_pending = False
+            if self._stopped:
+                return
             self.flush()
             if self._active:
                 self._kick_pending = True
@@ -2460,15 +2468,11 @@ class BatchedEnsembleService:
             ek = np.asarray(ent_kind, np.int32)
             lane_arrays = [np.asarray(x, np.int32)
                            for x in (slot_l, val_l, expe_l, exps_l)]
-            args = (k, self.n_ens, ec, er, el, ek, *lane_arrays,
-                    kind, slot, val, exp_e, exp_s)
-            bounds = (self._shard_bounds(len(ec))
-                      if self._native_enqueue is not None else None)
-            if bounds is not None:
-                # the sharded pack (batched_host.py:5359-5386): a chunk's
-                # runs write disjoint [K, E] cells (rows [er, er + el) of
-                # their columns); its lanes start at its first run's
-                # slab offset
+            if self._native_enqueue is not None:
+                # a chunk's runs write disjoint [K, E] cells (rows
+                # [er, er + el) of their columns); its lanes start at its
+                # first run's slab offset.  Sharded (batched_host.py:
+                # 5359-5386), the chunks run on the pool.
                 def pack_chunk(lo: int, hi: int) -> None:
                     a0 = offs[lo]
                     a1 = offs[hi] if hi < len(offs) else lane_n
@@ -2476,16 +2480,18 @@ class BatchedEnsembleService:
                         k, self.n_ens, ec[lo:hi], er[lo:hi], el[lo:hi],
                         ek[lo:hi], *(x[a0:a1] for x in lane_arrays),
                         kind, slot, val, exp_e, exp_s)
-                self._shard_map(pack_chunk, bounds)
-                self.sharded_flushes += 1
-                self.native_enqueue_flushes += 1
-                pack_mark = "enqueue_native"
-            elif self._native_enqueue is not None:
-                self._native_enqueue.pack(*args)
+                bounds = self._shard_bounds(len(ec))
+                if bounds is not None:
+                    self._shard_map(pack_chunk, bounds)
+                    self.sharded_flushes += 1
+                else:
+                    pack_chunk(0, len(ec))
                 self.native_enqueue_flushes += 1
                 pack_mark = "enqueue_native"
             else:
-                enqueue_native.pack_plain(*args)
+                enqueue_native.pack_plain(
+                    k, self.n_ens, ec, er, el, ek, *lane_arrays,
+                    kind, slot, val, exp_e, exp_s)
                 self.fallback_enqueue_flushes += 1
                 pack_mark = "enqueue_fallback"
             lanes = (ec, er, el, lane_n, offs,
@@ -2738,13 +2744,17 @@ class BatchedEnsembleService:
         e = self.n_ens
         step, step_wide, step_sliced, step_wide_sliced = self._step_fns()
         host_planes = not isinstance(kind, torch.Tensor)
-        plan = self._wide_plan(kind, slot, val, k, exp_e, exp_s)
+        # the live columns: those holding ops or elections (the rest are
+        # NOOP rows, which neither compaction nor the wide plan carries)
+        live = (np.flatnonzero((kind != eng.OP_NOOP).any(axis=0) | elect)
+                if k and host_planes else None)
+        plan = self._wide_plan(kind, slot, val, k, exp_e, exp_s, live)
+        wide = plan is not None
         active = pad = None
         a_width = 0
         sliced = False
-        if self._compact and k and host_planes:
-            cols = np.flatnonzero((kind != eng.OP_NOOP).any(axis=0)
-                                  | elect)
+        if self._compact and live is not None:
+            cols = live
             if cols.size:
                 a_b = A_BUCKET_MIN
                 while a_b < cols.size:
@@ -2752,8 +2762,7 @@ class BatchedEnsembleService:
                 if a_b < e:
                     active = cols.astype(np.int32)
                     a_width = a_b
-                    have = step_wide_sliced if plan is not None \
-                        else step_sliced
+                    have = step_wide_sliced if wide else step_sliced
                     sliced = (have is not None
                               and e >= SLICE_MIN_E and a_b * 4 <= e)
                     pad = np.full((a_b,), e if sliced else 0, np.int32)
@@ -2763,18 +2772,25 @@ class BatchedEnsembleService:
         ups = self._uploads
         ups.begin()
 
-        def plane(name: str, src: np.ndarray, dtype: torch.dtype):
-            """Upload a [K, E] host plane ([G, E, W] for a wide launch),
-            column-sliced when sliced (a device-resident plane is used as
-            it is)."""
+        def plane(name: str, src: np.ndarray, dtype: torch.dtype,
+                  fill: int = 0):
+            """Upload a [K, E] host plane, column-sliced when sliced (a
+            device-resident plane is used as it is).  A wide launch's
+            plane is the plan's [G, live, W], laid straight into the
+            upload buffer: its first columns when sliced (the live
+            columns are the active ones), else the live columns of a
+            full-width plane whose idle lanes hold ``fill``."""
             if not host_planes:
                 return src
             buf = ups.buffer(name, (src.shape[0], width) + src.shape[2:],
                              dtype)
             out = buf.numpy()
             if sliced:
-                out[:, :a_n] = src[:, active]
+                out[:, :a_n] = src if wide else src[:, active]
                 out[:, a_n:] = 0
+            elif wide:
+                out[...] = fill
+                out[:, live] = src
             else:
                 out[...] = src
             return ups.upload(buf)
@@ -2789,7 +2805,7 @@ class BatchedEnsembleService:
                 out[...] = src
             return ups.upload(buf)
 
-        if plan is not None:
+        if wide:
             ops = (plan.kind, plan.slot, plan.val, plan.exp_epoch,
                    plan.exp_seq)
             g_b, _, w_b = plan.kind.shape
@@ -2799,7 +2815,7 @@ class BatchedEnsembleService:
             g_b = w_b = 0
             lanes = (k, width)
         kind_j = plane("kind", ops[0], torch.int32)
-        slot_j = plane("slot", ops[1], torch.int32)
+        slot_j = plane("slot", ops[1], torch.int32, fill=-1)
         val_j = plane("val", ops[2], torch.int32)
         exp_e_j = None if ops[3] is None else plane("exp_e", ops[3],
                                                     torch.int32)
@@ -2810,7 +2826,7 @@ class BatchedEnsembleService:
         lease_buf = ups.buffer("lease", lanes, torch.bool)
         lease_np = lease_buf.numpy()
         row = lease_ok[active] if sliced else lease_ok
-        if plan is not None:
+        if wide:
             row = row[:, None]
         lease_np[:, :row.shape[0]] = row
         lease_np[:, row.shape[0]:] = False
@@ -2831,7 +2847,6 @@ class BatchedEnsembleService:
             eng.EngineState(*(t.clone() for t in self.state)),
             self.leader_np.copy(), self.lease_until.copy())
         try:
-            wide = plan is not None
             args = (elect_j, cand_j, kind_j, slot_j, val_j, lease_j, up_j)
             if sliced:
                 fn = step_wide_sliced if wide else step_sliced
@@ -2874,7 +2889,7 @@ class BatchedEnsembleService:
             kind_np=kind if host_planes else None,
             op_slot_np=slot if host_planes else None,
             active=active, a_width=a_width, sliced=sliced, plan=plan,
-            w_b=w_b,
+            live=live if wide else None, w_b=w_b,
             snapshot=snapshot, leader_snapshot=self.leader_np,
             rec={"h2d": t1 - t0, "dispatch": t2 - t1},
             flush_id=obs.next_flush_id() if self._obs else 0,
@@ -2907,12 +2922,19 @@ class BatchedEnsembleService:
                 sliced("full_step_sliced", "full_step"),
                 sliced("full_step_wide_sliced", "full_step_wide"))
 
-    def _wide_plan(self, kind, slot, val, k: int, exp_e, exp_s
+    def _wide_plan(self, kind, slot, val, k: int, exp_e, exp_s,
+                   live: Optional[np.ndarray]
                    ) -> Optional[schedule.WidePlan]:
         """Schedule host ``[K, E]`` planes into conflict-free wide rounds
         when ``wide`` is on and the plan has at most two groups (the
         warmed shapes); None keeps the scalar scan (batched_host.py:
         3877-3910).  Device-resident planes keep the scalar scan.
+
+        The schedule is column by column, so it runs on the ``live``
+        columns only and the plan stays in that form: ``[G, live, W]``
+        planes and ``[K, live]`` maps.  The reference plans over every
+        column; an idle column there is NOOP lanes, which the launch
+        lays as the fill of its full-width planes.
 
         A wide flush runs its ops in (group, lane) order: per-slot order
         is kept (the g-th same-slot op runs in group g), while commit
@@ -2920,42 +2942,25 @@ class BatchedEnsembleService:
         scalar scan's k order — a valid serialization with exactly the
         reference's freedom (key-hashed workers complete distinct keys in
         unspecified relative order, peer.erl:1220-1225)."""
-        if (not self._wide or k <= 1 or isinstance(kind, torch.Tensor)
+        if (not self._wide or k <= 1 or live is None
                 or getattr(self.engine, "full_step_wide", None) is None):
             return None
-        e = self.n_ens
-        zeros = np.zeros((k, e), np.int32)
-        exp_e = zeros if exp_e is None else exp_e
-        exp_s = zeros if exp_s is None else exp_s
-        # The schedule is column by column, so it sorts the columns that
-        # carry an op and is laid into the full planes: the reference's
-        # plan over every column (an idle column is NOOP lanes routed to
-        # (0, 0)), for a sort of the active columns only.
-        cols = np.flatnonzero((kind != eng.OP_NOOP).any(axis=0))
-        sub = schedule.schedule_wide(
-            kind[:, cols], slot[:, cols], val[:, cols],
+        zeros = np.zeros((k, live.size), np.int32)
+        plan = schedule.schedule_wide(
+            kind[:, live], slot[:, live], val[:, live],
             None,  # the lease rides an [E] broadcast
-            exp_e[:, cols], exp_s[:, cols], max_groups=2)
-        if sub is None:
-            return None
-        g, _, w = sub.kind.shape
+            zeros if exp_e is None else exp_e[:, live],
+            zeros if exp_s is None else exp_s[:, live], max_groups=2)
+        if plan is not None and self._validate_wide:
+            # checked at full width, so a fault names its ensemble
+            g, _, w = plan.kind.shape
 
-        def lay(part: np.ndarray, fill: int) -> np.ndarray:
-            out = np.full((g, e, w), fill, np.int32)
-            out[:, cols] = part
-            return out
-
-        def route(part: np.ndarray) -> np.ndarray:
-            out = np.zeros((k, e), np.int32)
-            out[:, cols] = part
-            return out
-        plan = schedule.WidePlan(
-            kind=lay(sub.kind, eng.OP_NOOP), slot=lay(sub.slot, -1),
-            val=lay(sub.val, 0), lease_ok=None,
-            exp_epoch=lay(sub.exp_epoch, 0), exp_seq=lay(sub.exp_seq, 0),
-            map_g=route(sub.map_g), map_w=route(sub.map_w))
-        if self._validate_wide:
-            eng.validate_wide_plane(plan.kind, plan.slot)
+            def lay(part: np.ndarray, fill: int) -> np.ndarray:
+                out = np.full((g, self.n_ens, w), fill, np.int32)
+                out[:, live] = part
+                return out
+            eng.validate_wide_plane(lay(plan.kind, eng.OP_NOOP),
+                                    lay(plan.slot, -1))
         return plan
 
     def _rollback_launch(self, snapshot) -> None:
@@ -3024,18 +3029,25 @@ class BatchedEnsembleService:
              vsn) = planes8
             if fl.plan is not None:
                 # the [G*W, E] rows back to the caller's [K, E] op order
-                # (batched_host.py:3775-3782); NOOP and pad rows read
-                # unrelated lanes, so they get the scalar scan's NOOP
-                # results (all false, zero value and vsn)
-                ee = np.arange(e, dtype=np.int32)[None, :]
+                # (batched_host.py:3775-3782), over the live columns only
+                # (the rest hold no op); NOOP rows read unrelated lanes,
+                # so they get the scalar scan's NOOP results (all false,
+                # zero value and vsn)
+                live = fl.live
                 fli = fl.plan.map_g * fl.w_b + fl.plan.map_w
-                act = fl.kind_np != eng.OP_NOOP
-                committed = committed[fli, ee] & act
-                get_ok = get_ok[fli, ee] & act
-                found = found[fli, ee] & act
-                value = np.where(act, value[fli, ee], 0)
+                act = fl.kind_np[:, live] != eng.OP_NOOP
+
+                def route(x: np.ndarray) -> np.ndarray:
+                    out = np.zeros(act.shape[:1] + x.shape[1:], x.dtype)
+                    a = act.reshape(act.shape + (1,) * (x.ndim - 2))
+                    out[:, live] = np.where(a, x[fli, live],
+                                            x.dtype.type(0))
+                    return out
+                committed, get_ok, found, value = (
+                    route(committed), route(get_ok), route(found),
+                    route(value))
                 if vsn is not None:
-                    vsn = np.where(act[..., None], vsn[fli, ee], 0)
+                    vsn = route(vsn)
             # the resolve half's per-arm share (a derived mark: unpack
             # here, the mirror scatter and WAL encode add theirs)
             rec[arm_key] = rec.get(arm_key, 0.0) + (time.perf_counter() - t3)

@@ -234,6 +234,28 @@ def test_service_timer_runs_on_real_time():
     asyncio.run(scenario())
 
 
+def test_stop_disarms_a_deferred_kick():
+    """A burst kick deferred before ``stop()`` does not flush after it (a
+    flush that drained the queue first, such as a tick, leaves it armed)."""
+    async def scenario():
+        rt = NetRuntime("svc", {"svc": ("127.0.0.1", 0)})
+        rt.loop = asyncio.get_running_loop()
+        svc = tb.BatchedEnsembleService(rt, 4, 3, 16, tick=60.0,
+                                        config=fast_test_config(),
+                                        device="cpu", max_ops_per_tick=4)
+        burst = [svc.kput(2, f"b{i}", b"v") for i in range(4)]
+        assert svc._kick_pending
+        svc.flush()                       # drains the queue before the kick
+        assert all(f.done for f in burst)
+        flushes = svc.flushes
+        svc.stop()
+        late = svc.kput(3, "z", b"v")
+        await asyncio.sleep(0.05)
+        assert not late.done and svc.flushes == flushes
+
+    asyncio.run(scenario())
+
+
 def test_soak_on_a_service_without_links():
     clock = [0.0]
     svc = tb.BatchedEnsembleService(tb.WallRuntime(), 2, 3, 8, tick=None,

@@ -154,6 +154,12 @@ def test_opslo_ring_equal_reference():
 def _obs_twin(monkeypatch, **kw):
     monkeypatch.setitem(JAX_ENV, "default", {})
     monkeypatch.delenv("RETPU_OBS", raising=False)
+    # each package's span store is process-global, and so are its miss
+    # counts (``retpu_span_misses_total``): start both from zero, so the
+    # registries compare this twin's lookups and not those of whatever
+    # ran earlier in the process
+    for spans in (_ref_obs().SPANS, tobs.SPANS):
+        monkeypatch.setattr(spans, "misses", {"evicted": 0, "unknown": 0})
     tw = Twin(monkeypatch, 6, 3, 16, max_ops_per_tick=4, **kw)
     assert tw.js._obs and tw.ts._obs
     return tw

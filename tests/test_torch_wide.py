@@ -287,9 +287,11 @@ class WidePair(Pair):
     ``wide=True``, one host arm each (``Pair``'s lockstep and checks)."""
 
     def __init__(self, monkeypatch, arm, compact=True, depth=1, e=256,
-                 m=3, s=16, k=4, shards=1):
+                 m=3, s=16, k=4, shards=1, validate=False):
         _jax_env(monkeypatch, arm, True, compact)
         monkeypatch.setenv("RETPU_WIDE", "1")
+        if validate:
+            monkeypatch.setenv("RETPU_VALIDATE_WIDE", "1")
         if shards > 1:
             monkeypatch.setenv("RETPU_RESOLVE_SHARDS", str(shards))
         self.js = jb.BatchedEnsembleService(
@@ -298,7 +300,7 @@ class WidePair(Pair):
         self.ts = tb.BatchedEnsembleService(
             FixedClock(), e, m, s, tick=None, max_ops_per_tick=k,
             device="cpu", compact=compact, pipeline_depth=depth, wide=True,
-            resolve_shards=shards, **PORT_KW[arm])
+            resolve_shards=shards, validate_wide=validate, **PORT_KW[arm])
         assert self.js._wide and self.ts._wide
         self.bufs = ([], [])
         _record_packed(self.js, self.bufs[0])
@@ -311,13 +313,17 @@ class WidePair(Pair):
         assert self.ts.stats()["wide_launches"] == self.ts.wide_launches
 
 
-@pytest.mark.parametrize("arm,depth,compact", [
-    ("default", 1, True), ("default", 2, False), ("oracle", 1, False),
-    ("oracle", 2, True)])
-def test_wide_service_matches_jax(monkeypatch, arm, depth, compact):
+@pytest.mark.parametrize("arm,depth,compact,validate", [
+    ("default", 1, True, False), ("default", 2, False, False),
+    ("oracle", 1, False, False), ("oracle", 2, True, False),
+    ("default", 1, True, True)])
+def test_wide_service_matches_jax(monkeypatch, arm, depth, compact,
+                                  validate):
     """Seeded keyed streams (every verb, host and device RMW): wide and
-    scalar-fallback flushes, sliced when compacted (E = 256)."""
-    p = WidePair(monkeypatch, arm, compact=compact, depth=depth)
+    scalar-fallback flushes, sliced when compacted (E = 256), and with
+    each plan validated."""
+    p = WidePair(monkeypatch, arm, compact=compact, depth=depth,
+                 validate=validate)
     p.run(seed=40 + depth + 2 * compact, rounds=4)
     p.check()
     if compact:
@@ -424,6 +430,28 @@ def test_wide_execute_bulk(monkeypatch):
     _assert_services_equal(js, ts)
 
 
+def _port_plan(ts, kind, slot, val, k):
+    """The port's plan over the live columns, laid out at full width as
+    the reference plans it (idle columns: NOOP lanes at slot -1, routed
+    to (0, 0))."""
+    live = np.flatnonzero((kind != teng.OP_NOOP).any(axis=0))
+    p = ts._wide_plan(kind, slot, val, k, None, None, live)
+    if p is None:
+        return None
+    g, _, w = p.kind.shape
+
+    def lay(part, shape, fill):
+        out = np.full(shape, fill, np.int32)
+        out[:, live] = part
+        return out
+    planes = {f: lay(getattr(p, f), (g, ts.n_ens, w), fill) for f, fill in (
+        ("kind", teng.OP_NOOP), ("slot", -1), ("val", 0), ("exp_epoch", 0),
+        ("exp_seq", 0))}
+    maps = {f: lay(getattr(p, f), (k, ts.n_ens), 0)
+            for f in ("map_g", "map_w")}
+    return p._replace(**planes, **maps)
+
+
 def test_wide_gate_falls_back_on_deep_duplicates(monkeypatch):
     js, ts = _mk(monkeypatch)
     k, e = 6, ts.n_ens
@@ -431,16 +459,16 @@ def test_wide_gate_falls_back_on_deep_duplicates(monkeypatch):
     val = np.ones((k, e), np.int32)
     deep = np.zeros((k, e), np.int32)         # a 6-deep duplicate chain
     flat = np.tile(np.arange(k, dtype=np.int32)[:, None], (1, e))
-    for svc in (js, ts):
-        assert svc._wide_plan(kind, deep, val, k, None, None) is None
+    assert js._wide_plan(kind, deep, val, k, None, None) is None
+    assert _port_plan(ts, kind, deep, val, k) is None
     jp = js._wide_plan(kind, flat, val, k, None, None)
-    tp = ts._wide_plan(kind, flat, val, k, None, None)
+    tp = _port_plan(ts, kind, flat, val, k)
     assert tp.kind.shape[0] == 1 and tp.lease_ok is None
     for f in ("kind", "slot", "val", "exp_epoch", "exp_seq", "map_g",
               "map_w"):
         assert np.array_equal(getattr(jp, f), getattr(tp, f)), f
-    # sparse columns and an all-NOOP plane: the port sorts the active
-    # columns only, and lays out the reference's plan
+    # sparse columns and an all-NOOP plane: the port plans the live
+    # columns only, and equals the reference's plan laid out
     rng = np.random.default_rng(9)
     for p_col in (0.0, 0.4):
         sparse = kind.copy()
@@ -448,15 +476,20 @@ def test_wide_gate_falls_back_on_deep_duplicates(monkeypatch):
         sparse[rng.random((k, e)) < 0.2] = teng.OP_NOOP
         chain = rng.integers(0, 2, (k, e)).astype(np.int32) + flat
         jp = js._wide_plan(sparse, chain, val, k, None, None)
-        tp = ts._wide_plan(sparse, chain, val, k, None, None)
+        tp = _port_plan(ts, sparse, chain, val, k)
         assert (jp is None) == (tp is None)
         for f in ("kind", "slot", "val", "exp_epoch", "exp_seq", "map_g",
                   "map_w"):
             assert jp is None or np.array_equal(getattr(jp, f),
                                                 getattr(tp, f)), f
     # device-resident planes keep the scalar scan
-    assert ts._wide_plan(torch.from_numpy(kind), torch.from_numpy(flat),
-                         torch.from_numpy(val), k, None, None) is None
+    dev = tb.BatchedEnsembleService(FixedClock(), 6, 3, 16, tick=None,
+                                    max_ops_per_tick=8, device="cpu",
+                                    wide=True)
+    dev.execute(*(torch.from_numpy(x) for x in (kind, flat, val)))
+    assert dev.wide_launches == 0
+    dev.execute(kind, flat, val)
+    assert dev.wide_launches == 1
     # the deep chain then runs the scalar scan, as in the reference
     for svc in (js, ts):
         svc.runtime.now += 1.0
