@@ -144,10 +144,33 @@ Phases (each raises on failure, so any failure exits non-zero):
    full-width ``execute`` stream at ``resolve_shards=4`` against 1: equal
    results, mirror slabs and state, and the host split of each arm.
 
+12. a three-host replication group at bench.py's headline lane (10,000
+   ensembles x 128 slots, K = 64): the leader in this process on the
+   card, two replica processes of ``python -m
+   riak_ensemble_tpu_torch.parallel.repgroup`` on the same card, each
+   host with its own data dir at ``wal_sync="fsync"``.  Stage A runs
+   6(b)'s keyed pattern with bytes payloads (256 rows, 48 keys, three
+   put / get rounds, every active row's leader taken down after the
+   first, so the replicas re-execute the election's full-plane entry
+   through F1) and a ``kmodify_many`` burst (the merge lane), and the
+   same ops on an in-process CPU group: equal futures and leader lanes.
+   Then kill -9 a replica (commits go on at 2 of 3), restart it
+   (catch-up by tree patch or install), kill both (nothing acks),
+   restart them, stop the leader and promote a replica that a
+   ``GroupClient`` follows, reading back every acknowledged put.  After
+   each stage every replica's lane (pulled over its replication port)
+   equals the leader's; F1 launches on every host (the replicas report
+   theirs through ``stats``).  It prints the group's keyed flush median
+   beside the one-host lane's, bytes per entry against the full-plane
+   equivalent, ship build / encode / ack ms, the replica's apply ms per
+   batch, catch-up ms and bytes, and the ms from promotion to the first
+   ack.
+
 Phases 4-10 run the service's default (native) host arm.
 
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
-the build and phase 11(a) (no result line); ``--ab DIR`` times F1 at the headline shape (full width and four
+the build and phase 11(a), ``--repgroup`` the build and phase 12 (no
+result line); ``--ab DIR`` times F1 at the headline shape (full width and four
 sliced shapes) and phase 6(c) in the tree DIR and in this one, on one
 card, in turns (DIR, this, this, DIR), each turn a process of its own
 running this file's timing code on its tree's package.
@@ -3891,6 +3914,464 @@ def phase_sharded(dev: torch.device, card: str) -> None:
           f"full-width execute launches)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: a three-host replication group on the card
+
+#: phase 12's traffic: 6(b)'s keyed pattern (256 of 10,000 rows, 48 keys)
+REPG_ROWS = list(range(0, E_FULL, E_FULL // 256))[:256]
+REPG_KEYS = [f"user:{i}" for i in range(48)]
+
+
+class StepClock:
+    """A leader runtime whose ``now`` only the script moves: the card
+    group and the CPU group see the same lease arithmetic."""
+
+    def __init__(self) -> None:
+        self.now = 1000.0
+
+    def schedule(self, delay, fn):
+        raise RuntimeError("caller-driven flush only")
+
+
+def replica_processes(specs: dict) -> dict:
+    """``python -m riak_ensemble_tpu_torch.parallel.repgroup`` on the card
+    at the headline lane shape (10,000 x 1 x 128, K = 64, WAL fsync), one
+    fresh interpreter per ``name: (data dir, log, repl port, client
+    port)``, all started together (the kernels are already built); returns
+    ``name: (process, repl port, client port)`` once each serves.  Their
+    stdout is drained by a thread, their stderr goes to the log."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    started = {}
+    for name, (data, log, repl_port, client_port) in specs.items():
+        cmd = [sys.executable, "-m",
+               "riak_ensemble_tpu_torch.parallel.repgroup",
+               "--n-ens", str(E_FULL), "--group-size", "3",
+               "--n-slots", str(S_FULL), "--repl-port", str(repl_port),
+               "--client-port", str(client_port), "--data-dir", data]
+        with open(log, "ab") as err:
+            started[name] = (subprocess.Popen(
+                cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                stdout=subprocess.PIPE, stderr=err, text=True), log)
+    return {name: serving(p, log) for name, (p, log) in started.items()}
+
+
+def serving(p, log: str):
+    """Wait (at most 300 s) for a replica process's banner; then drain
+    its stdout."""
+    import select
+    import threading
+    ready, _w, _x = select.select([p.stdout], [], [], 300.0)
+    line = p.stdout.readline() if ready else ""
+    if not line.startswith("repgroup replica"):
+        p.kill()
+        p.wait()
+        with open(log, "rb") as f:
+            tail = f.read()[-3000:].decode(errors="replace")
+        raise AssertionError(f"phase 12: replica did not start: {line!r} "
+                             f"{tail}")
+    threading.Thread(target=lambda: [None for _ in p.stdout],
+                     daemon=True).start()
+    parts = dict(kv.split("=") for kv in line.split()[2:])
+    return p, int(parts["repl"]), int(parts["client"])
+
+
+def repl_call(port: int, frame, timeout: float = 120.0):
+    """One frame on a fresh connection to a host's replication port."""
+    import socket
+
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=timeout) as s:
+        s.settimeout(timeout)
+        repgroup.send_frame(s, frame)
+        return repgroup.recv_frame(s)
+
+
+def client_stats(port: int) -> dict:
+    """A host's ``stats`` over its client port (the svcnode frame)."""
+    import socket
+
+    from riak_ensemble_tpu_torch import wire
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.settimeout(60)
+        repgroup.send_frame(s, (1, "stats"))
+        return repgroup.recv_frame(s)[1]
+
+
+def lane_canon(dump) -> tuple:
+    """A dumped lane: engine planes verbatim, keyed mirrors in an
+    order-insensitive form (their dict order is process history)."""
+    fields, host = dump
+    (key_slot, slot_handle, values, _nh, leader_b, dyn, _live, _free,
+     _names, member_b, inline) = host
+    return (fields, [sorted(p, key=repr) for p in key_slot],
+            [sorted(p) for p in slot_handle], sorted(values, key=repr),
+            leader_b, dyn, member_b, [sorted(x) for x in inline])
+
+
+def replicas_match(svc, ports, stage: str) -> None:
+    """Every replica process at the leader's applied position holds a lane
+    bit-equal to the leader's (pulled over its replication port)."""
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    svc._drain_pending(block_all=True)
+    want_pos = (svc.core.applied_ge, svc.core.applied_seq)
+    lead = lane_canon(repgroup.dump_state(svc))
+    for port in ports:
+        deadline = time.monotonic() + 60.0
+        while True:
+            st = repl_call(port, ("status",))
+            if (int(st[3]), int(st[4])) == want_pos:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 12 {stage}: replica {port} at "
+                                     f"{st[3:5]}, leader at {want_pos}")
+            time.sleep(0.05)
+        r = repl_call(port, ("pull",))
+        if r[0] != "state" or lane_canon(r[3]) != lead:
+            raise AssertionError(f"phase 12 {stage}: replica {port}'s lane "
+                                 f"differs from the leader's")
+
+
+def settle_flushes(svc, futs, ms: list, sync: bool) -> None:
+    """Flush until ``futs`` resolve (at most 16 flushes), each flush's wall
+    ms into ``ms``."""
+    for _ in range(16):
+        if all(f.done for f in futs):
+            return
+        t0 = time.perf_counter()
+        svc.flush()
+        if sync:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(f.done for f in futs):
+        raise AssertionError("phase 12: futures unresolved after 16 flushes")
+
+
+def group_keyed(svc, rnd: int, ms: list, acked: dict, results: list,
+                want_ok: bool = True, sync: bool = True) -> None:
+    """One round of the keyed pattern on a group leader: ``kput_many`` of
+    the 48 keys on each of the 256 rows (bytes payloads), then
+    ``kget_many``; every flush's wall ms into ``ms``; acknowledged puts
+    into ``acked``; every future's value into ``results``."""
+    def settle(futs):
+        settle_flushes(svc, futs, ms, sync)
+    puts = [svc.kput_many(x, REPG_KEYS,
+                          [b"v%d:%d:%d" % (rnd, x, i)
+                           for i in range(len(REPG_KEYS))])
+            for x in REPG_ROWS]
+    settle(puts)
+    results.append([f.value for f in puts])
+    for x, f in zip(REPG_ROWS, puts):
+        for i, r in enumerate(f.value):
+            if r[0] == "ok":
+                acked[(x, REPG_KEYS[i])] = b"v%d:%d:%d" % (rnd, x, i)
+            elif want_ok:
+                raise AssertionError(f"phase 12: put round {rnd} failed: "
+                                     f"{r}")
+    gets = [svc.kget_many(x, REPG_KEYS) for x in REPG_ROWS]
+    settle(gets)
+    results.append([f.value for f in gets])
+    if want_ok and results[-1] != [[("ok", acked[(x, k)]) for k in REPG_KEYS]
+                                   for x in REPG_ROWS]:
+        raise AssertionError(f"phase 12: round {rnd}: acknowledged puts did "
+                             f"not read back")
+
+
+def group_stage_a(svc, ms: list, acked: dict, sync: bool) -> list:
+    """Stage A, the same on the card group and the CPU group: the
+    election-only flush after takeover, three keyed rounds with every
+    active row's leader taken down after the first (the next flush
+    elects: a full-plane entry the replicas re-execute through F1), then
+    a ``kmodify_many`` burst of commutative increments (the merge lane)
+    and its read-back."""
+    results: list = []
+    svc.flush()                                  # elect every row
+    for rnd in range(3):
+        group_keyed(svc, rnd, ms, acked, results, sync=sync)
+        if rnd == 0:
+            svc.leader_np[REPG_ROWS] = -1        # leaders down: elections
+            svc._slot_vsn_ok[REPG_ROWS] = False
+        svc.runtime.now += 0.25
+    add = funref.ref("rmw:add", 3)
+    burst = [svc.kmodify_many(x, ["ctr"] * 8 + ["c2"] * 8, add, 0)
+             for x in REPG_ROWS]
+    settle_flushes(svc, burst, ms, sync)
+    results.append([f.value for f in burst])
+    reads = [svc.kget_many(x, ["ctr", "c2"]) for x in REPG_ROWS]
+    settle_flushes(svc, reads, [], sync)
+    results.append([f.value for f in reads])
+    if results[-1] != [[("ok", 24), ("ok", 24)]] * len(REPG_ROWS):
+        raise AssertionError(f"phase 12: the increments read back "
+                             f"{results[-1][:2]}")
+    return results
+
+
+def per(g: dict, key: str, n: str) -> float:
+    return g[key] * 1e3 / max(g[n], 1)
+
+
+def phase_repgroup(dev: torch.device, card: str) -> dict:
+    """Phase 12: bench.py's headline lane (10,000 ensembles x 128 slots,
+    K = 64) as the README's three-host group: the leader in this process
+    on the card, two replica processes of the port's ``main`` on the same
+    card, each host with its own data dir at ``wal_sync="fsync"``.
+    Stage A (keyed rounds, an election, a commutative burst) runs on the
+    card group and on an in-process CPU group fed the same ops (futures
+    and leader lanes equal); then the faults: kill -9 a replica, restart
+    it (catch-up), kill both (no ack), restart, stop the leader and
+    promote a replica that a ``GroupClient`` follows.  Every replica's
+    lane equals the leader's after each stage, F1 launches on every host,
+    and no acknowledged put is lost."""
+    import asyncio
+    import signal
+
+    from riak_ensemble_tpu_torch import wire
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    root = tempfile.mkdtemp(prefix="retpu_p12_")
+    procs: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        dirs = {n: os.path.join(root, n) for n in ("leader", "r1", "r2")}
+        logs = {n: os.path.join(root, f"{n}.log") for n in ("r1", "r2")}
+        t0 = time.perf_counter()
+        procs.update(replica_processes(
+            {n: (dirs[n], logs[n], 0, 0) for n in ("r1", "r2")}))
+        boot_s = time.perf_counter() - t0
+        repl = {n: procs[n][1] for n in procs}
+        cli = {n: procs[n][2] for n in procs}
+        svc = repgroup.ReplicatedService(
+            StepClock(), E_FULL, 1, S_FULL, group_size=3,
+            peers=[("127.0.0.1", repl[n]) for n in ("r1", "r2")],
+            ack_timeout=5.0, data_dir=dirs["leader"], device=dev)
+        repgroup.warmup_kernels(svc)
+        if not svc.takeover(timeout=60.0):
+            raise AssertionError("phase 12: takeover found no majority")
+        before = {n: client_stats(cli[n])["group"]["kernel_launches"]
+                  for n in procs}
+        # -- stage A: the counted group path, against a CPU group -------
+        ms_group: list = []
+        acked: dict = {}
+        shipped: list = []
+        ship = svc._ship_now
+
+        def recording_ship():
+            # every entry as it is coalesced into a frame
+            shipped.extend(x.entry for x in svc._ship_buf)
+            ship()
+        svc._ship_now = recording_ship
+        reset_counts()                             # this path's run
+        res_card = group_stage_a(svc, ms_group, acked, sync=True)
+        counts = read_counts()
+        replicas_match(svc, [repl["r1"], repl["r2"]], "stage A")
+        after = {n: client_stats(cli[n])["group"]["kernel_launches"]
+                 for n in procs}
+        replica_f1 = {n: after[n]["F1"] - before[n]["F1"] for n in procs}
+        if counts["F1"] == 0 or min(replica_f1.values()) == 0:
+            raise AssertionError(f"phase 12: F1 launches leader "
+                                 f"{counts['F1']}, replicas {replica_f1}")
+        g = dict(svc.stats()["group"])
+        svc._ship_now = ship
+        by_kind: dict = {}
+        for ent in shipped:
+            raw = sum(memoryview(x.buf).nbytes for x in ent
+                      if isinstance(x, wire.Raw))
+            cells = int(ent[3]) if ent[0] != "f" else 0
+            kind = ent[0] + ("0" if ent[0] == "d" and not cells else "")
+            by_kind.setdefault(kind, []).append(
+                (raw, cells,
+                 repgroup.full_plane_nbytes(int(ent[2]), E_FULL, True)))
+        t_cpu = time.perf_counter()
+        cpu_srvs = [repgroup.ReplicaServer(E_FULL, 3, S_FULL, device="cpu",
+                                           warmup=False) for _ in range(2)]
+        cpu = repgroup.ReplicatedService(
+            StepClock(), E_FULL, 1, S_FULL, group_size=3,
+            peers=[("127.0.0.1", s.repl_port) for s in cpu_srvs],
+            ack_timeout=60.0, device="cpu")
+        try:
+            if not cpu.takeover(timeout=60.0):
+                raise AssertionError("phase 12: CPU group takeover failed")
+            res_cpu = group_stage_a(cpu, [], {}, sync=False)
+            if res_cpu != res_card:
+                raise AssertionError("phase 12: the card group's futures "
+                                     "differ from the CPU group's")
+            cpu._drain_pending(block_all=True)
+            if lane_canon(repgroup.dump_state(cpu)) != \
+                    lane_canon(repgroup.dump_state(svc)):
+                raise AssertionError("phase 12: the card leader's lane "
+                                     "differs from the CPU leader's")
+        finally:
+            cpu.stop()
+            for s in cpu_srvs:
+                s.stop()
+        cpu_s = time.perf_counter() - t_cpu
+        # the one-host lane (no replication), same pattern, same call
+        one = BatchedEnsembleService(StepClock(), E_FULL, 1, S_FULL,
+                                     tick=None, device=dev,
+                                     data_dir=os.path.join(root, "one"))
+        ms_one: list = []
+        one.flush()
+        for rnd in range(3):
+            group_keyed(one, rnd, ms_one, {}, [])
+            one.runtime.now += 0.25
+        one.stop()
+        one._wal.close()
+        dump = repgroup.dump_state(svc)
+        snap = len(wire.encode(("install", 0, 0, dump, svc.core.cfg)))
+        if snap > repgroup._MAX_FRAME:
+            raise AssertionError(f"phase 12: a snapshot of {snap} B exceeds "
+                                 f"the {repgroup._MAX_FRAME} B frame")
+        entries = g["repl_delta_entries"] + g["repl_full_entries"]
+        print(f"12(a) group stage A [{card}]: {len(ms_group)} flushes, "
+              f"keyed flush median {statistics.median(ms_group):.3f} ms "
+              f"(one-host lane, no replication, same pattern: "
+              f"{statistics.median(ms_one):.3f} ms); {entries} entries "
+              f"({g['repl_delta_entries']} delta, {g['repl_full_entries']} "
+              f"full, {g['repl_merge_cells']} merge cells for "
+              f"{g['repl_merge_ops']} ops) in {g['repl_frames']} frames; "
+              f"sections {g['repl_bytes_sections'] / max(entries, 1):.1f} "
+              f"B/entry against {g['repl_bytes_full_equiv'] / max(entries, 1):.1f}"
+              f" B full-plane, {g['repl_bytes_shipped'] / max(g['repl_frames'], 1):.1f}"
+              f" B/frame shipped; build {per(g, 'repl_build_s', 'applies'):.3f}"
+              f" ms/entry, encode {per(g, 'repl_encode_s', 'repl_frames'):.3f}"
+              f" ms/frame, ack {per(g, 'repl_ack_s', 'repl_acked_batches'):.3f}"
+              f" ms/batch; F1 launches leader {counts['F1']} (sliced "
+              f"{counts['F1 sliced']}), replicas {replica_f1}; replica "
+              f"boot {boot_s:.3f} s; CPU group {cpu_s:.3f} s; snapshot "
+              f"{snap} B of {repgroup._MAX_FRAME}")
+        names = {"d": "delta with writes", "d0": "delta without writes",
+                 "m": "merge", "f": "full-plane"}
+        print(f"12(a) entry sections [{card}]: " + "; ".join(
+            f"{len(v)} {names[k]}: median "
+            f"{statistics.median(b for b, _c, _f in v):.0f} B "
+            + (f"({statistics.median(b / c for b, c, _f in v):.2f}"
+               f" B per ordered cell) " if k == "d" else "")
+            + f"against {statistics.median(f for _b, _c, f in v):.0f} B of "
+              f"full planes" for k, v in sorted(by_kind.items())))
+        rep_apply = {}
+        for n in procs:
+            rg = client_stats(cli[n])["group"]
+            rep_apply[n] = per(rg, "replica_apply_s", "replica_apply_batches")
+        # where a write batch's replica apply goes: the replicas' own
+        # spans for the delta entries that carried writes, pulled over
+        # the fleet sideband (one frame per entry here)
+        split: dict = {}
+        n_split = 0
+        for ent in shipped:
+            if ent[0] != "d" or not int(ent[3]) or not ent[-1]:
+                continue
+            tl = svc.fleet_timeline(int(ent[-1]))
+            for role, info in tl.get("roles", {}).items():
+                if not str(role).startswith("replica"):
+                    continue
+                n_split += 1
+                for name, _t, dur in info["spans"]:
+                    split[name] = split.get(name, 0.0) + dur * 1e3
+        print(f"12(a) replica apply [{card}]: "
+              + ", ".join(f"{n} {v:.3f} ms/batch" for n, v in
+                          rep_apply.items())
+              + f"; a write batch's replica spans (mean of {n_split}): "
+              + ", ".join(f"{k} {v / max(n_split, 1):.3f} ms"
+                          for k, v in split.items()))
+        # -- stage B: kill -9 a replica; commits go on at 2 of 3 ---------
+        procs["r1"][0].send_signal(signal.SIGKILL)
+        procs["r1"][0].wait()
+        results: list = []
+        group_keyed(svc, 3, [], acked, results)
+        g0 = dict(svc.stats()["group"])
+        t0 = time.perf_counter()
+        procs.update(replica_processes(
+            {"r1": (dirs["r1"], logs["r1"], repl["r1"], cli["r1"])}))
+        t_up = time.perf_counter()
+        while svc.stats()["group"]["peers_synced"] < 2:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("phase 12: restarted replica never "
+                                     "caught up")
+            svc.heartbeat()
+        catch_ms = (time.perf_counter() - t_up) * 1e3
+        g1 = dict(svc.stats()["group"])
+        tree = g1["tree_resyncs"] - g0["tree_resyncs"]
+        how = (f"tree patch, {g1['tree_resync_bytes'] - g0['tree_resync_bytes']}"
+               f" B" if tree else f"full install, {snap} B snapshot")
+        replicas_match(svc, [repl["r1"], repl["r2"]], "stage B")
+        print(f"12(b) replica kill -9 + restart [{card}]: commits at 2 of 3 "
+              f"acked; restart to serving {t_up - t0:.3f} s; catch-up "
+              f"{catch_ms:.3f} ms by {how}")
+        # -- stage C: both replicas down; nothing acks -------------------
+        for n in ("r1", "r2"):
+            procs[n][0].send_signal(signal.SIGKILL)
+            procs[n][0].wait()
+        nq = [svc.kput_many(x, [f"nq:{i}" for i in range(4)], [b"x"] * 4)
+              for x in REPG_ROWS[:16]]
+        for _ in range(8):
+            if all(f.done for f in nq):
+                break
+            svc.flush()
+        else:
+            raise AssertionError("phase 12: puts without a quorum never "
+                                 "resolved")
+        if any(r[0] == "ok" for f in nq for r in f.value):
+            raise AssertionError("phase 12: a put acked without a quorum")
+        procs.update(replica_processes(
+            {n: (dirs[n], logs[n], repl[n], cli[n]) for n in ("r1", "r2")}))
+        t0 = time.perf_counter()
+        while svc.stats()["group"]["peers_synced"] < 2:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("phase 12: restarted replicas never "
+                                     "caught up")
+            svc.heartbeat()
+        replicas_match(svc, [repl["r1"], repl["r2"]], "stage C")
+        group_keyed(svc, 4, [], acked, [])
+        replicas_match(svc, [repl["r1"], repl["r2"]], "stage C writes")
+        print(f"12(c) both replicas down [{card}]: {len(nq)} batches, none "
+              f"acked; restarted and re-synced, writes acked again")
+        # -- stage D: the leader stops; a replica is promoted ------------
+        svc.stop()
+        svc._wal.close()
+        t0 = time.perf_counter()
+        r = repl_call(repl["r1"], ("promote", [("127.0.0.1", repl["r2"])]))
+        if r[0] != "ok":
+            raise AssertionError(f"phase 12: promotion answered {r}")
+
+        async def follow():
+            gc = repgroup.GroupClient([("127.0.0.1", cli[n])
+                                       for n in ("r1", "r2")],
+                                      discover_timeout=60.0)
+            first = await gc.kput(REPG_ROWS[0], "promoted", b"p")
+            t_first = time.perf_counter()
+            if first[0] != "ok":
+                raise AssertionError(f"phase 12: first put after promotion "
+                                     f"answered {first}")
+            got = await asyncio.gather(*[
+                gc.call("kget_many", x, REPG_KEYS, retryable=True)
+                for x in REPG_ROWS])
+            for x, g in zip(REPG_ROWS, got):
+                if g != [("ok", acked[(x, k)]) for k in REPG_KEYS]:
+                    raise AssertionError(f"phase 12: row {x}: acknowledged "
+                                         f"puts lost across the promotion")
+            await gc.close()
+            return t_first
+        t_first = asyncio.run(follow())
+        promo_ms = (t_first - t0) * 1e3
+        print(f"12(d) promotion [{card}]: {promo_ms:.3f} ms from the "
+              f"promote frame to the first acknowledged put through the "
+              f"GroupClient; {len(acked)} acknowledged puts read back; "
+              f"phase {time.perf_counter() - t_phase:.3f} s")
+        return {"counts": counts, "replica_f1": replica_f1,
+                "flush_ms": statistics.median(ms_group),
+                "one_host_flush_ms": statistics.median(ms_one),
+                "catch_up_ms": catch_ms, "promotion_ms": promo_ms,
+                "replica_apply_ms": rep_apply, "snapshot_bytes": snap,
+                "entry_bytes": {names[k]: statistics.median(
+                    b for b, _c, _f in v) for k, v in by_kind.items()}}
+    finally:
+        for p, _r, _c in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -4047,6 +4528,10 @@ def main(argv) -> int:
         # F1's wide mode alone: phase 11(a), no result line
         phase_f1_wide(dev, card)
         return 0
+    if "--repgroup" in argv:
+        # the replication group alone: phase 12, no result line
+        phase_repgroup(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -4073,6 +4558,8 @@ def main(argv) -> int:
     f1_wide = phase_f1_wide(dev, card)
     by_path["phase11b wide service"] = phase_wide_service(dev, card)
     phase_sharded(dev, card)
+    group = phase_repgroup(dev, card)
+    by_path["phase12 repgroup leader"] = group["counts"]
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
@@ -4091,6 +4578,7 @@ def main(argv) -> int:
         "fuses": "riak_ensemble_tpu/ops/engine.py:1386",
         "launches": sum(f1_by_path.values()),
         "launches_by_path": f1_by_path,
+        "replica_process_launches": group["replica_f1"],
         "sliced_launches": sum(sliced_by_path.values()),
         "sliced_launches_by_path": sliced_by_path,
         "max_abs_err": f1["max_abs_err"], "ms": f1["ms"],
@@ -4146,7 +4634,9 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels, "host": host_line,
                       "control_plane": {k: v for k, v in control.items()
                                         if k != "reconfig"},
-                      "front_end": front}))
+                      "front_end": front,
+                      "repgroup": {k: v for k, v in group.items()
+                                   if k != "counts"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,12 +17,13 @@ of the JAX package:
 - :mod:`.controller` — the runtime controller (observe-only unless
   ``RETPU_AUTOTUNE=1``) and its decision journal;
 - :mod:`.fleet` — the standalone fleet surfaces (clock offsets,
-  Prometheus merge, aligned timelines).
+  Prometheus merge, aligned timelines);
+- :mod:`.watchdog` — the replication group's standing anomaly watchdog
+  (``RETPU_WATCHDOG=0`` disarms its pulls).
 
 The reference's ``compilewatch`` watches XLA compiles and is not
 copied: the port counts its library builds instead
-(:func:`..ops.build.add_listener`).  Its ``watchdog`` serves
-replication groups, which the port does not have yet.
+(:func:`..ops.build.add_listener`).
 
 Knobs, as in the reference: ``RETPU_OBS=0`` disables hot-path
 recording (instruments stay constructed; the service caches the answer
@@ -47,13 +48,14 @@ from riak_ensemble_tpu_torch.obs.registry import (Counter, Gauge,
                                                   MS_BUCKETS)
 from riak_ensemble_tpu_torch.obs.spans import (SPANS, SpanStore,
                                                next_flush_id, timeline)
+from riak_ensemble_tpu_torch.obs.watchdog import AnomalyWatchdog
 
 __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram",
            "MS_BUCKETS", "FlightRecorder", "SpanStore", "SPANS",
            "next_flush_id", "timeline", "box_fingerprint", "enabled",
            "dump_dir", "OpSloRing", "RuntimeController",
            "DecisionJournal", "ClockOffset", "align_timeline",
-           "merge_prometheus"]
+           "merge_prometheus", "AnomalyWatchdog"]
 
 
 def enabled() -> bool:

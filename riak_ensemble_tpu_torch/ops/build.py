@@ -29,7 +29,10 @@ include directory of the running interpreter (``sysconfig``)::
         -o build/_retpu_wire-<hash>.so csrc/host/wirecodec.cc
 
 A failed build raises; nothing falls back.  Nothing here runs at import
-time; :func:`build_all` starts one compiler per library, all at once.
+time; :func:`build_all` starts one compiler per library, all at once,
+under an exclusive file lock (``build/.build.lock``): processes that
+start together (a replication group's replica hosts) build each library
+once, and the others load it.
 Every finished compile is reported to the callbacks registered with
 :func:`add_listener` (the service's compile counters).
 """
@@ -37,6 +40,7 @@ Every finished compile is reported to the callbacks registered with
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -176,6 +180,21 @@ def build_all(names: Optional[List[str]] = None,
         jobs.append((HOST, _host_lib_path(), _host_cmd))
         jobs.append((WIRE, _wire_lib_path(), _wire_cmd))
     os.makedirs(BUILD_DIR, exist_ok=True)
+    secs: Dict[str, float] = {name: 0.0 for name, out, _c in jobs
+                              if os.path.exists(out)}
+    if len(secs) == len(jobs):
+        return secs
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "a") as lock:
+        # a concurrent builder finishes first; its libraries are then
+        # current and skipped below
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_jobs(jobs)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_jobs(jobs) -> Dict[str, float]:
     procs: List[Tuple[str, str, str, subprocess.Popen]] = []
     secs: Dict[str, float] = {}
     failed = []

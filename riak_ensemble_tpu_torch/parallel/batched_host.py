@@ -271,6 +271,14 @@ def _wide_to_packed_layout(res: eng.KvResult, g: int, w: int,
         quorum_ok=t(res.quorum_ok))
 
 
+def warmup_kernels(svc: "BatchedEnsembleService") -> None:
+    """:meth:`BatchedEnsembleService.warmup` as a function
+    (batched_host.py:487-491): the port compiles nothing at run time, so
+    this builds the libraries and first-launches F1 on a throwaway
+    state."""
+    svc.warmup()
+
+
 class _LocalEngine:
     """The default engine adapter (batched_host.py:494-515): the engine
     module's functions.  A subclass that overrides one of them (a test's
@@ -367,6 +375,17 @@ class _InFlightLaunch:
     flush_id: int = 0
     t_join: float = 0.0
     payload_nbytes: int = 0
+    #: the round's quorum confirmations ([E], set at resolve) for
+    #: subclass resolve hooks: a replication group's delta entries ship
+    #: them so replica lanes renew leases as a re-executed launch would
+    quorum_np: Any = None
+    #: replication group (:mod:`.repgroup`): the launch's stream seq, its
+    #: put-lane metadata, the corruption count before it, and the exact
+    #: host inputs it ships (None outside a group leader)
+    grp_seq: int = 0
+    grp_meta: Any = None
+    grp_corr0: int = 0
+    grp_ship: Any = None
 
 
 class _Uploads:
@@ -1468,6 +1487,122 @@ class BatchedEnsembleService:
         self._recycle_on_ok(fut, ens, key, slot)
         return fut
 
+    # -- version-preserving bulk install (tenant handoff) -------------------
+
+    def install_objs(self, ens: int,
+                     items: List[Tuple[Any, Tuple[int, int], Any]]
+                     ) -> List[Any]:
+        """Install keyed objects WITH their versions
+        (batched_host.py:1753-1905), the version-continuity half of a
+        placement move: a re-ingest through ``kput`` would mint fresh
+        versions and void every outstanding CAS token.
+
+        ``items``: ``[(key, (epoch, seq), payload), ...]``.  Applied
+        synchronously: slots and handles allocate on the host, the
+        objects land in EVERY replica lane of the row, the row's trees
+        rebuild, and its ballot epoch rises to the max installed epoch
+        (see :meth:`_install_lead` for the leader).  Logged to the WAL
+        with the real versions.  Returns per item ``("ok", (epoch,
+        seq))`` or ``"failed"`` (no slot)."""
+        self._drain_launches()  # installs splice device state directly
+        results, applied = self._allocate_install(ens, items)
+        if applied:
+            self._apply_installed(ens, applied, self._install_lead(ens))
+        return results
+
+    def _install_lead(self, ens: int) -> int:
+        """The install's leadership decision, made ONCE (a replication
+        group ships it): a leaderless row gets its first view member,
+        declared at the installed epoch (no election, so the CAS tokens
+        survive); a row with a leader keeps it (-1)."""
+        return (int(np.argmax(self.member_np[ens]))
+                if int(self.leader_np[ens]) < 0 else -1)
+
+    def _allocate_install(self, ens: int, items):
+        """The host half: slots and handles for the installable items
+        (separate, so a group leader can ship the exact allocation)."""
+        results: List[Any] = []
+        applied: List[Tuple] = []
+        for key, (ve, vs), payload in items:
+            slot = self._slot_for(ens, key, allocate=True)
+            if slot is None:
+                results.append("failed")
+                continue
+            handle = self._alloc_handle()
+            self.values[handle] = payload
+            applied.append((key, int(slot), int(handle), int(ve),
+                            int(vs), payload))
+            results.append(("ok", (int(ve), int(vs))))
+        return results, applied
+
+    def _apply_installed(self, ens: int, applied: List[Tuple],
+                         lead: int = -1,
+                         extra_records: Optional[List[Tuple]] = None
+                         ) -> None:
+        """Device, mirror and WAL application of an allocation from
+        :meth:`_allocate_install` (verbatim on a group's replicas).
+        ``lead`` is :meth:`_install_lead`'s decision (-1 = keep);
+        ``extra_records`` replaces :meth:`_wal_extra_records` in the
+        install's durability barrier (a replica passes its own group
+        meta).  A slot installed twice keeps its last item, as the
+        reference's in-order scatter does."""
+        ens = int(ens)
+        dev = self.device
+        last: Dict[int, int] = {}
+        for i, a in enumerate(applied):
+            last[int(a[1])] = i
+        pick = sorted(last.values())
+        slots = np.asarray([applied[i][1] for i in pick], np.int64)
+        eps = np.asarray([a[3] for a in applied], np.int32)
+        sqs = np.asarray([a[4] for a in applied], np.int32)
+        hds = np.asarray([a[2] for a in applied], np.int32)
+        st = self.state
+        s_t = torch.from_numpy(slots).to(dev)
+        for plane, vals in ((st.obj_epoch, eps), (st.obj_seq, sqs),
+                            (st.obj_val, hds)):
+            row = plane[ens]  # [M, S] view: the writes land in place
+            row[:, s_t] = torch.from_numpy(
+                np.ascontiguousarray(vals[pick])).to(dev)[None, :]
+        # Version continuity needs NO epoch change on first touch: raise
+        # the row's ballot epoch to the max installed epoch and its seq
+        # counter past the installed seqs (batched_host.py:1845-1868).
+        row_max = int(eps.max()) if len(eps) else 0
+        st.epoch[ens].clamp_(min=row_max)
+        st.obj_seq_ctr[ens].clamp_(min=int(sqs.max()) if len(sqs) else 0)
+        if lead >= 0:
+            st.leader[ens] = lead
+        mask = torch.zeros((self.n_ens, self.n_peers), dtype=torch.bool,
+                           device=dev)
+        mask[ens] = True
+        self.state = self.engine.rebuild_trees(st, mask)
+        for key, slot, handle, ve, vs, payload in applied:
+            self._inline_slots[ens].discard(slot)
+            self._inline_np[ens, slot] = False
+            self._inline_value_ok[ens, slot] = False
+            self._slot_vsn_np[ens, slot] = (ve, vs)
+            self._slot_vsn_ok[ens, slot] = True
+            old = self.slot_handle[ens].pop(slot, 0)
+            if old and old != handle:
+                # values only, never the handle pool: the numbers are the
+                # allocating leader's
+                self.values.pop(old, None)
+            self.values[handle] = payload
+            self.slot_handle[ens][slot] = handle
+            if handle >= self._next_handle:
+                self._next_handle = handle + 1
+            self.key_slot[ens][key] = slot
+        if lead >= 0:
+            self.leader_np[ens] = lead
+            self.lease_until[ens] = 0.0
+        self._up_dev = None
+        if self._wal is not None:
+            recs = [(("kv", ens, slot),
+                     (key, handle, ve, vs, payload, False))
+                    for key, slot, handle, ve, vs, payload in applied]
+            self._wal.log(recs + (extra_records
+                                  if extra_records is not None
+                                  else self._wal_extra_records()))
+
     def kmodify(self, ens: int, key: Any, mod_fun: Any, default: Any,
                 retries: int = 8) -> Future:
         """Server-side modify (do_kmodify, peer.erl:303-317): read the
@@ -2510,7 +2645,8 @@ class BatchedEnsembleService:
         try:
             fl = self._launch_enqueue(kind, slot, val, k, want_vsn=True,
                                       exp_e=exp_e, exp_s=exp_s,
-                                      elect=elect, cand=cand)
+                                      entries=taken, elect=elect,
+                                      cand=cand)
         except BaseException:
             # A failed device launch must not orphan the taken ops:
             # fail them all, then let the error reach the flush() caller.
@@ -2708,8 +2844,11 @@ class BatchedEnsembleService:
                         val: np.ndarray, k: int, want_vsn: bool,
                         exp_e: Optional[np.ndarray] = None,
                         exp_s: Optional[np.ndarray] = None,
+                        entries: Optional[List[Tuple[int,
+                                                     List[Any]]]] = None,
                         elect: Optional[np.ndarray] = None,
-                        cand: Optional[np.ndarray] = None
+                        cand: Optional[np.ndarray] = None,
+                        lease_ok: Optional[np.ndarray] = None
                         ) -> _InFlightLaunch:
         """ENQUEUE half of a launch (batched_host.py:3405-3640): choose
         the active set, build and upload the inputs, step, pack, and
@@ -2735,11 +2874,19 @@ class BatchedEnsembleService:
 
         On the CPU the launch first snapshots the state, the leader
         mirror and the leases; a failure here restores them
-        (:meth:`_rollback_launch`), and so does one at settle."""
+        (:meth:`_rollback_launch`), and so does one at settle.
+
+        ``entries`` (the flush's taken (ensemble, ops) pairs) is unused
+        here; the replication group's override ships their key and
+        payload metadata.  ``elect`` / ``cand`` / ``lease_ok`` may come
+        precomputed, so a wrapper that replicates the launch ships the
+        very vectors it consumes."""
+        del entries
         if elect is None:
             elect, cand = self._election_inputs()
         now = self.runtime.now
-        lease_ok = self.lease_until > now
+        if lease_ok is None:
+            lease_ok = self.lease_until > now
         t0 = time.perf_counter()
         e = self.n_ens
         step, step_wide, step_sliced, step_wide_sliced = self._step_fns()
@@ -3067,6 +3214,7 @@ class BatchedEnsembleService:
                     self.tenant_rounds[self._live] += 1
             # Host mirror: a won election installed our candidate.
             self.leader_np = np.where(won_np, fl.cand, self.leader_np)
+            fl.quorum_np = quorum_ok
             # Lease renewal: a won election, or any round in which the
             # leader confirmed its epoch with a quorum (peer.erl:1092-1095).
             renew = won_np | quorum_ok
@@ -3123,11 +3271,16 @@ class BatchedEnsembleService:
     def _launch(self, kind: np.ndarray, slot: np.ndarray, val: np.ndarray,
                 k: int, want_vsn: bool,
                 exp_e: Optional[np.ndarray] = None,
-                exp_s: Optional[np.ndarray] = None):
+                exp_s: Optional[np.ndarray] = None,
+                elect: Optional[np.ndarray] = None,
+                cand: Optional[np.ndarray] = None,
+                lease_ok: Optional[np.ndarray] = None):
         """One SYNCHRONOUS launch: the two halves back to back (the bulk
-        :meth:`execute` path), fed to the obs plane as it settles."""
+        :meth:`execute` path, a group leader's heartbeat), fed to the obs
+        plane as it settles.  ``elect`` / ``cand`` / ``lease_ok`` as in
+        :meth:`_launch_enqueue`."""
         fl = self._launch_enqueue(kind, slot, val, k, want_vsn, exp_e,
-                                  exp_s)
+                                  exp_s, None, elect, cand, lease_ok)
         out = self._launch_resolve(fl)
         if self._obs:
             self._obs_flush_settled(fl)
@@ -3269,7 +3422,15 @@ class BatchedEnsembleService:
             "at_flush": int(self.flushes),
         }
         self._fail_queued_writes()
+        # the subclass hook first (a replicated leader steps down and
+        # rewrites the mode), so the journaled record says what happened
+        self._on_storage_degraded()
         self._emit("svc_storage_degraded", dict(self._storage_degraded))
+
+    def _on_storage_degraded(self) -> None:
+        """Subclass seam, called once when the storage plane degrades
+        (batched_host.py:5633-5637): the single service has no group
+        role to shed."""
 
     def _fail_queued_writes(self) -> None:
         """Fail every queued write entry, keeping queued reads
@@ -4427,7 +4588,7 @@ class BatchedEnsembleService:
         self._safe_resolve(op.fut, "failed")
 
     def _resolve_batch(self, e: int, j: int, op: _PendingBatch,
-                       planes, ack: bool,
+                       planes, ack: bool, ack_reads: bool = True,
                        native_mirrors: bool = False) -> None:
         """Resolve one batch entry from result-plane column slices.
         Every committed write updates the fast path's mirrors before
@@ -4435,7 +4596,8 @@ class BatchedEnsembleService:
         C++ pass already wrote this flush's ``_slot_vsn`` /
         ``_inline_value`` slabs, so only the Python-owned bookkeeping
         runs here.  ``ack=False`` (the WAL write failed) keeps the
-        committed writes' bookkeeping but resolves them 'failed'."""
+        committed writes' bookkeeping but resolves them 'failed';
+        ``ack_reads=False`` fails the reads too."""
         committed, get_ok, found, value, vsn = planes
         n = op.n
         results: List[Any] = []
@@ -4522,7 +4684,7 @@ class BatchedEnsembleService:
             values = self.values
             for ok, fnd, v, vs, s in zip(ok_l, found_l, val_l, vs_l,
                                          op.slot):
-                if ok:
+                if ok and ack_reads:
                     if fnd and v != 0:
                         if s in inline:
                             # device-native slots carry the value
@@ -4547,7 +4709,7 @@ class BatchedEnsembleService:
     # -- completion-slab resolve (the slab enqueue path) ---------------------
 
     def _resolve_taken_slab(self, taken, planes, lanes, ack: bool,
-                            native_mirrors: bool) -> int:
+                            ack_reads: bool, native_mirrors: bool) -> int:
         """Resolve every taken entry through the flush's COMPLETION SLAB
         (batched_host.py:6134-6229): each result plane is gathered through
         the flush's runs ONCE (``[R]`` records, R = taken rounds), the
@@ -4609,19 +4771,19 @@ class BatchedEnsembleService:
                     self._resolve_batch_slab(
                         e, op, ok_l[off:end], gok_l[off:end],
                         fnd_l[off:end], val_l[off:end], vs_l[off:end],
-                        ack, native_mirrors, got, off)
+                        ack, ack_reads, native_mirrors, got, off)
                 else:
                     self._resolve_scalar_slab(
                         e, op, ok_l[off], gok_l[off], fnd_l[off],
-                        val_l[off], tuple(vs_l[off]), ack,
+                        val_l[off], tuple(vs_l[off]), ack, ack_reads,
                         native_mirrors)
                 served += op.n
         return served
 
     def _resolve_batch_slab(self, e: int, op: _PendingBatch, comm_l,
                             gok_l, fnd_l, val_l, vs_l, ack: bool,
-                            native_mirrors: bool, np_lanes, off: int
-                            ) -> None:
+                            ack_reads: bool, native_mirrors: bool,
+                            np_lanes, off: int) -> None:
         """One batch entry from its completion-slab segment
         (batched_host.py:6230-6400): the slab form of
         :meth:`_resolve_batch`, with identical results and mirror slabs.
@@ -4736,6 +4898,8 @@ class BatchedEnsembleService:
                         self._slot_vsn_ok[e, csl] = True
         else:  # OP_GET segment
             want_vsn = op.want_vsn
+            if not ack_reads:
+                gok_l = [False] * n
             slot_l = op.slot
             inline = self._inline_slots[e]
             values = self.values
@@ -4775,7 +4939,8 @@ class BatchedEnsembleService:
 
     def _resolve_scalar_slab(self, e: int, op: _PendingOp, comm: bool,
                              gok: bool, fnd: bool, v: int, vs, ack: bool,
-                             native_mirrors: bool) -> None:
+                             ack_reads: bool, native_mirrors: bool
+                             ) -> None:
         """One scalar op from its completion-slab row
         (batched_host.py:6406-6481): the per-op loop's logic on the
         gathered row alone."""
@@ -4817,7 +4982,7 @@ class BatchedEnsembleService:
                 self._slot_vsn_np[e, s] = vs
                 self._slot_vsn_ok[e, s] = True
             self._safe_resolve(op.fut, ("ok", vs) if ack else "failed")
-        elif gok:  # OP_GET
+        elif gok and ack_reads:  # OP_GET
             if fnd and v != 0:
                 if s in self._inline_slots[e]:
                     out = v
@@ -4837,7 +5002,7 @@ class BatchedEnsembleService:
             self._fail_op(e, op)
 
     def _resolve_flush(self, fl: _InFlightLaunch, planes,
-                       ack: bool = True) -> int:
+                       ack: bool = True, ack_reads: bool = True) -> int:
         """Resolve every op ``fl`` took from the result planes, in device
         round order per ensemble (batched_host.py:6484-6720).
 
@@ -4851,7 +5016,9 @@ class BatchedEnsembleService:
         reference's oracle arm, with identical results and slabs.
         ``ack=False`` (the WAL write failed, or the service is read-only)
         resolves committed writes 'failed' with their bookkeeping kept;
-        reads still serve (batched_host.py:6484-6500)."""
+        reads still serve (batched_host.py:6484-6500).  ``ack_reads=False``
+        fails the reads too: a replication group passes it when the HOST
+        quorum was lost, where a read would be a minority leader's."""
         # the per-op SLO settle stamp: when this flush's outcome is known
         t_settle = time.perf_counter() if self._obs else 0.0
         taken, lanes = fl.taken or [], fl.lanes
@@ -4868,12 +5035,11 @@ class BatchedEnsembleService:
             kcounts = np.fromiter((sum(op.n for op in ops)
                                    for _e, ops in taken), np.int32,
                                   len(taken))
-            # reads always ack here: no replication group withholds them
             def scatter(lo: int, hi: int) -> None:
                 self._native_resolve.scatter_mirrors(
                     self.n_ens, self.n_slots, fl.kind_np, fl.op_slot_np,
                     committed, get_ok, found, value, vsn, cols[lo:hi],
-                    kcounts[lo:hi], True,
+                    kcounts[lo:hi], ack_reads,
                     (eng.OP_PUT, eng.OP_CAS, eng.OP_GET, eng.OP_RMW),
                     self._slot_vsn_np, self._slot_vsn_ok,
                     self._inline_value_np, self._inline_value_ok,
@@ -4891,7 +5057,7 @@ class BatchedEnsembleService:
                                         + time.perf_counter() - t0)
         if lanes is not None and taken:
             served = self._resolve_taken_slab(taken, planes, lanes, ack,
-                                              native_mirrors)
+                                              ack_reads, native_mirrors)
             self.ops_served += served
             if self._obs:
                 self._obs_account_taken(taken, committed, t_settle,
@@ -4916,7 +5082,7 @@ class BatchedEnsembleService:
             for op in ops:
                 if isinstance(op, _PendingBatch):
                     self._resolve_batch(e, j + 1, op, planes, ack,
-                                        native_mirrors)
+                                        ack_reads, native_mirrors)
                     served += op.n
                     j += op.n
                     continue
@@ -4979,7 +5145,7 @@ class BatchedEnsembleService:
                                            if ack else "failed")
                     else:
                         self._fail_op(e, op)
-                elif get_ok_l[j][e]:
+                elif get_ok_l[j][e] and ack_reads:
                     v = value_l[j][e]
                     if found_l[j][e] and v != 0:
                         if s in self._inline_slots[e]:
@@ -5011,6 +5177,14 @@ class BatchedEnsembleService:
         return served
 
     # -- durability: the WAL barrier, checkpoints, restore -------------------
+
+    def _wal_extra_records(self) -> List[Tuple[Any, Any]]:
+        """Records a subclass persists in the SAME durability barrier as
+        a flush's committed writes (one log call, one sync;
+        batched_host.py:5756-5762): the replication group rides its
+        (epoch, seq) meta here, so a leader restart never reads its own
+        data-bearing position as an older one."""
+        return []
 
     def _log_wal(self, taken, planes, rec=None) -> None:
         """Append this flush's committed client writes to the WAL,
@@ -5077,7 +5251,7 @@ class BatchedEnsembleService:
                                  (op.key, int(value[j, e]), ve, vs,
                                   None, True)))
         if recs:
-            self._wal.log(recs)
+            self._wal.log(recs + self._wal_extra_records())
 
     def _log_wal_native(self, taken, planes, rec=None) -> bool:
         """The single-pass WAL encode (batched_host.py:5834-5930): gather
@@ -5166,7 +5340,7 @@ class BatchedEnsembleService:
             rec["resolve_native"] = (rec.get("resolve_native", 0.0)
                                      + time.perf_counter() - t0)
         if len(idx):
-            self._wal.log_arena(arena, idx)
+            self._wal.log_arena(arena, idx, self._wal_extra_records())
         return True
 
     def _log_execute_wal(self, kind, slot, val, committed, vsn,
@@ -5184,7 +5358,8 @@ class BatchedEnsembleService:
         cols = (es.tolist(), slot[js, es].tolist(), wval[js, es].tolist(),
                 vsn[js, es, 0].tolist(), vsn[js, es, 1].tolist())
         self._wal.log([(("kv", e, s), (None, v, ve, vs, None, True))
-                       for e, s, v, ve, vs in zip(*cols)])
+                       for e, s, v, ve, vs in zip(*cols)]
+                      + self._wal_extra_records())
 
     def save(self, path: Optional[str] = None) -> None:
         """Checkpoint the whole service (batched_host.py:2741-2833): the
@@ -5407,6 +5582,10 @@ class BatchedEnsembleService:
                     self._live[ens] = bool(row.any())
                     if not row.any():
                         self._reset_row_host(ens)
+                continue
+            if key[0] != "kv":
+                # other record kinds (a replication group's ("grp",)
+                # meta) are not state; their owner reads them
                 continue
             _, ens, slot = key
             key_obj, handle, oe, os_, payload, inline = value

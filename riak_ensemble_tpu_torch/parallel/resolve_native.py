@@ -1,10 +1,7 @@
 """The resolve half's host passes: the packed-result unpack, the
 mirror-slab scatter and the WAL encode.
 
-Port of ``riak_ensemble_tpu/parallel/resolve_native.py`` (its unpack,
-mirror scatter and WAL encode; the delta sections and the commutative
-fold of ``csrc/host/resolvekernel.cc`` belong to the replication slice
-and have no wrapper yet):
+Port of ``riak_ensemble_tpu/parallel/resolve_native.py``:
 
 - :meth:`NativeResolve.unpack`: the packed device→host payload → full-
   width result planes in one C++ pass, the active-column scatter of a
@@ -15,7 +12,14 @@ and have no wrapper yet):
 - :meth:`NativeResolve.wal_encode`: a flush's committed keyed writes →
   one byte arena of protocol-4 pickled WAL records, byte-equal to
   ``pickle.dumps`` of the same terms (its plain version is the WAL's
-  own :meth:`..wal.ServiceWAL.log`, which pickles each record).
+  own :meth:`..wal.ServiceWAL.log`, which pickles each record);
+- :meth:`NativeResolve.delta_sections`: a flush's committed cells → the
+  replication group's changed-slot delta sections and their CRC (its
+  plain version is the numpy pipeline of
+  :func:`..repgroup.build_delta_entry`);
+- :meth:`NativeResolve.comm_fold`: the commutative lane's per-column
+  coalescing fold (its plain version is the Python fold of
+  :func:`..repgroup.build_comm_entry`).
 
 :func:`unpack_results` and :func:`scatter_mirrors_plain` are their plain
 versions: the unpack the service has always run, and the per-op loop's
@@ -33,6 +37,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from riak_ensemble_tpu_torch import funref
 from riak_ensemble_tpu_torch.ops import build
 
 __all__ = ["get", "NativeResolve", "unpack_results", "scatter_mirrors_plain"]
@@ -72,6 +77,13 @@ class NativeResolve:
         lib.retpu_resolve_mirrors.argtypes = [
             i32, i32, p, p, p, p, p, p, p, p, p, i32, i32,
             i32, i32, i32, i32, p, p, p, p, p]
+        lib.retpu_delta_sections.restype = ctypes.c_int
+        lib.retpu_delta_sections.argtypes = [
+            i32, i32, p, p, p, p, p, p, i32, i32, i32, i32, i32,
+            p, p, p, p, p, p, p, p, p]
+        lib.retpu_comm_fold.restype = ctypes.c_int
+        lib.retpu_comm_fold.argtypes = [
+            i32, i32, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
         lib.retpu_wal_encode.restype = ctypes.c_int64
         lib.retpu_wal_encode.argtypes = [
             ctypes.c_int64, i32, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
@@ -231,8 +243,119 @@ class NativeResolve:
             return None
         return arena[:used], idx
 
+    def delta_sections(self, k: int, e_dim: int,
+                       committed: np.ndarray, value: np.ndarray,
+                       kind: np.ndarray, slot: np.ndarray,
+                       opval: np.ndarray, quorum: np.ndarray,
+                       op_codes: Tuple[int, int, int], j_dt, s_dt
+                       ) -> Tuple:
+        """The committed-cell sections and section CRC of
+        :func:`..repgroup.build_delta_entry` in one column-major C pass
+        (resolve_native.py:204-244): ``(cols, counts, jj, slots, vals,
+        rmw_b, q_b, crc)`` with the numpy pipeline's dtypes and bytes.
+        An index width other than 1 or 2 bytes raises."""
+        op_put, op_cas, op_rmw = op_codes
+        ncap = k * e_dim
+        cols = np.empty((e_dim,), np.uint16)
+        counts = np.empty((e_dim,), np.uint16)
+        jj = np.empty((max(ncap, 1),), j_dt)
+        slots = np.empty((max(ncap, 1),), s_dt)
+        vals = np.empty((max(ncap, 1),), np.int32)
+        rmw_b = np.empty(((ncap + 7) // 8 or 1,), np.uint8)
+        q_b = np.empty(((e_dim + 7) // 8,), np.uint8)
+        meta = np.zeros((2,), np.int64)
+        crc = ctypes.c_uint32(0)
+        ins = [np.ascontiguousarray(a, dt) for a, dt in (
+            (committed, np.uint8), (value, np.int32), (kind, np.int32),
+            (slot, np.int32), (opval, np.int32), (quorum, np.uint8))]
+        for name, a, shape in zip(
+                ("committed", "value", "kind", "slot", "opval", "quorum"),
+                ins, [(k, e_dim)] * 5 + [(e_dim,)]):
+            if a.shape != shape:
+                raise TypeError(f"{name}: want shape {shape}, got {a.shape}")
+        rc = self._lib.retpu_delta_sections(
+            k, e_dim, *(_pt(a) for a in ins), op_put, op_cas, op_rmw,
+            int(np.dtype(j_dt).itemsize), int(np.dtype(s_dt).itemsize),
+            _pt(cols), _pt(counts), _pt(jj), _pt(slots), _pt(vals),
+            _pt(rmw_b), _pt(q_b), _pt(meta), ctypes.byref(crc))
+        if rc != 0:
+            raise ValueError(f"delta sections refused (rc {rc})")
+        ncells, ncols = int(meta[0]), int(meta[1])
+        return (cols[:ncols].copy(), counts[:ncols].copy(),
+                jj[:ncells].copy(), slots[:ncells].copy(),
+                vals[:ncells].copy(), rmw_b[:(ncells + 7) // 8].copy(),
+                q_b.copy(), int(crc.value))
+
+    def comm_fold(self, committed: np.ndarray, exp_e: np.ndarray,
+                  slot: np.ndarray, val: np.ndarray,
+                  cand: np.ndarray) -> dict:
+        """The commutative lane's per-candidate-column fold of
+        :func:`..repgroup.build_comm_entry` in one C pass
+        (resolve_native.py:246-296): ``{col: (cells, n_ops)}`` with
+        cells ``[(slot, merge_class, folded_operand, last_rank,
+        last_j), ...]`` in first-seen slot order; a candidate column
+        that mixes merge classes on one slot is absent."""
+        k, e_dim = committed.shape
+        committed_u8 = np.ascontiguousarray(committed, np.uint8)
+        ncap = max(int(committed_u8.sum()), 1)
+        merge_of, negate = _merge_lut()
+        out_cols = np.empty((e_dim,), np.int32)
+        out_counts = np.empty((e_dim,), np.int32)
+        out_nops = np.empty((e_dim,), np.int32)
+        out_slots = np.empty((ncap,), np.int32)
+        out_funs = np.empty((ncap,), np.uint8)
+        out_ops = np.empty((ncap,), np.int32)
+        out_rl = np.empty((ncap,), np.int32)
+        out_jl = np.empty((ncap,), np.int32)
+        meta = np.zeros((2,), np.int64)
+        ins = [np.ascontiguousarray(a, dt) for a, dt in (
+            (exp_e, np.int32), (slot, np.int32), (val, np.int32))]
+        for a in ins:
+            if a.shape != (k, e_dim):
+                raise TypeError(f"want [{k}, {e_dim}] planes, got {a.shape}")
+        cand_u8 = np.ascontiguousarray(cand, np.uint8)
+        if cand_u8.shape != (e_dim,):
+            raise TypeError(f"cand: want [{e_dim}], got {cand_u8.shape}")
+        rc = self._lib.retpu_comm_fold(
+            int(k), int(e_dim), _pt(committed_u8), *(_pt(a) for a in ins),
+            _pt(cand_u8), _pt(merge_of), _pt(negate),
+            _pt(out_cols), _pt(out_counts), _pt(out_nops),
+            _pt(out_slots), _pt(out_funs), _pt(out_ops),
+            _pt(out_rl), _pt(out_jl), _pt(meta))
+        if rc != 0:
+            raise ValueError(f"comm fold refused (rc {rc})")
+        out = {}
+        pos = 0
+        for i in range(int(meta[0])):
+            cnt = int(out_counts[i])
+            out[int(out_cols[i])] = (
+                [(int(out_slots[x]), int(out_funs[x]),
+                  int(out_ops[x]), int(out_rl[x]), int(out_jl[x]))
+                 for x in range(pos, pos + cnt)],
+                int(out_nops[i]))
+            pos += cnt
+        return out
+
 
 # -- plain versions ----------------------------------------------------------
+
+
+_MERGE_LUT: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+
+def _merge_lut() -> Tuple[np.ndarray, np.ndarray]:
+    """(merge_of[16], negate[16]) for the C fold, built from
+    :mod:`..funref`'s classification so the C++ never hard-codes the
+    RMW fun table (resolve_native.py:63-77)."""
+    global _MERGE_LUT
+    if _MERGE_LUT is None:
+        merge_of = np.full((16,), -1, np.int32)
+        for code, mcls in funref.MERGE_OF.items():
+            merge_of[code] = mcls
+        negate = np.zeros((16,), np.uint8)
+        negate[funref.RMW_SUB] = 1
+        _MERGE_LUT = (merge_of, negate)
+    return _MERGE_LUT
 
 
 def unpack_results(flat: np.ndarray, e: int, m: int, k: int,

@@ -14,7 +14,12 @@ only the port's own wire codec; a fifth runs
 slice's modules (``ops.schedule``, the wide steps of ``ops.engine``) are
 named too, and a sixth subprocess runs a service with ``wide=True`` and
 ``resolve_shards=2`` (wide launches, sharded passes, ``stop()``) with
-both names blocked.
+both names blocked.  The replication slice's modules
+(``parallel.repgroup``, ``obs.watchdog``, ``proxy``) are named too; a
+seventh subprocess runs a three-host group in one process (deltas, a
+merge entry, bit-equal replicas) and ``python -m
+riak_ensemble_tpu_torch.parallel.repgroup --help`` with both names
+blocked, and the group's entry points default to the card as well.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
@@ -49,6 +54,7 @@ FRONT_END_MODULES = ("wire", "state", "netruntime", "svcnode", "obs",
                      "obs.fleet", "utils.trace")
 WIDE_MODULES = ("ops.schedule", "ops.engine", "ops.cuda_engine",
                 "parallel.batched_host")
+GROUP_MODULES = ("parallel.repgroup", "obs.watchdog", "proxy")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -95,7 +101,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                                       "riak_ensemble_tpu_torch."))
     assert n == len(mods) + 1 and n >= 28
     names = {m.name for m in mods}
-    for mod in DURABILITY_MODULES + FRONT_END_MODULES + WIDE_MODULES:
+    for mod in (DURABILITY_MODULES + FRONT_END_MODULES + WIDE_MODULES
+                + GROUP_MODULES):
         assert "riak_ensemble_tpu_torch." + mod in names, mod
 
 
@@ -156,6 +163,11 @@ def test_entry_points_default_to_cuda():
         eng.init_state(2, 3, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedEnsembleService(WallRuntime(), 2, 3, 16, tick=None)
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repgroup.ReplicatedService(WallRuntime(), 2, 1, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repgroup.ReplicaServer(2, 3, 16)
     st = eng.init_state(2, 3, 16, device="cpu")
     assert st.epoch.device.type == "cpu"
 
@@ -327,3 +339,57 @@ def test_wide_and_sharded_service_run_with_jax_blocked():
                           text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "WIDE SHARDED OK" in proc.stdout
+
+
+_GROUP = r"""
+import sys, time
+sys.path.insert(0, ROOT)
+from riak_ensemble_tpu_torch import funref
+from riak_ensemble_tpu_torch.parallel import repgroup
+from riak_ensemble_tpu_torch.parallel.batched_host import WallRuntime
+srvs = [repgroup.ReplicaServer(4, 3, 8, device="cpu") for _ in range(2)]
+svc = repgroup.ReplicatedService(
+    WallRuntime(), 4, 1, 8, group_size=3, device="cpu",
+    peers=[("127.0.0.1", s.repl_port) for s in srvs])
+assert svc.takeover()
+futs = [svc.kput_many(e, ["a", "b"], [b"1", b"2"]) for e in range(4)]
+while not all(f.done for f in futs):
+    svc.flush()
+futs += [svc.kmodify_many(e, ["c", "c"], funref.ref("rmw:add", 2), 0)
+         for e in range(4)]
+while not all(f.done for f in futs):
+    svc.flush()
+assert all(r[0] == "ok" for f in futs for r in f.value), futs
+svc.heartbeat()
+g = svc.stats()["group"]
+assert g["repl_delta_entries"] > 0 and g["repl_merge_cells"] > 0, g
+want = repgroup.dump_state(svc)
+for s in srvs:
+    while s.core.applied_seq < svc.core.applied_seq:
+        time.sleep(0.01)
+    with s._lock:
+        assert repgroup.dump_state(s.svc) == want
+svc.stop()
+for s in srvs:
+    s.stop()
+import runpy
+sys.argv = ["repgroup", "--help"]
+try:
+    runpy.run_module("riak_ensemble_tpu_torch.parallel.repgroup",
+                     run_name="__main__")
+except SystemExit as exc:
+    assert exc.code == 0
+print("GROUP OK")
+"""
+
+
+def test_group_runs_with_jax_blocked():
+    """A three-host group in one process — full, delta and merge entries,
+    replicas bit-equal to the leader — and the replica host's CLI, with
+    ``jax`` and the JAX package blocked."""
+    code = f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + _GROUP
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "GROUP OK" in proc.stdout and "--device" in proc.stdout
