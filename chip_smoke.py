@@ -161,7 +161,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    each stage every replica's lane (pulled over its replication port)
    equals the leader's; F1 launches on every host (the replicas report
    theirs through ``stats``).  It prints the group's keyed flush median
-   beside the one-host lane's, bytes per entry against the full-plane
+   beside the one-host lane's (stage A's ops without replication), bytes per entry against the full-plane
    equivalent, ship build / encode / ack ms, the replica's apply ms per
    batch, catch-up ms and bytes, and the ms from promotion to the first
    ack.
@@ -4144,7 +4144,7 @@ def phase_repgroup(dev: torch.device, card: str) -> dict:
             StepClock(), E_FULL, 1, S_FULL, group_size=3,
             peers=[("127.0.0.1", repl[n]) for n in ("r1", "r2")],
             ack_timeout=5.0, data_dir=dirs["leader"], device=dev)
-        repgroup.warmup_kernels(svc)
+        svc.warmup()
         if not svc.takeover(timeout=60.0):
             raise AssertionError("phase 12: takeover found no majority")
         before = {n: client_stats(cli[n])["group"]["kernel_launches"]
@@ -4182,8 +4182,8 @@ def phase_repgroup(dev: torch.device, card: str) -> dict:
                 (raw, cells,
                  repgroup.full_plane_nbytes(int(ent[2]), E_FULL, True)))
         t_cpu = time.perf_counter()
-        cpu_srvs = [repgroup.ReplicaServer(E_FULL, 3, S_FULL, device="cpu",
-                                           warmup=False) for _ in range(2)]
+        cpu_srvs = [repgroup.ReplicaServer(E_FULL, 3, S_FULL, device="cpu")
+                    for _ in range(2)]
         cpu = repgroup.ReplicatedService(
             StepClock(), E_FULL, 1, S_FULL, group_size=3,
             peers=[("127.0.0.1", s.repl_port) for s in cpu_srvs],
@@ -4205,15 +4205,12 @@ def phase_repgroup(dev: torch.device, card: str) -> dict:
             for s in cpu_srvs:
                 s.stop()
         cpu_s = time.perf_counter() - t_cpu
-        # the one-host lane (no replication), same pattern, same call
+        # the one-host lane (no replication): stage A's ops, same call
         one = BatchedEnsembleService(StepClock(), E_FULL, 1, S_FULL,
                                      tick=None, device=dev,
                                      data_dir=os.path.join(root, "one"))
         ms_one: list = []
-        one.flush()
-        for rnd in range(3):
-            group_keyed(one, rnd, ms_one, {}, [])
-            one.runtime.now += 0.25
+        group_stage_a(one, ms_one, {}, sync=True)
         one.stop()
         one._wal.close()
         dump = repgroup.dump_state(svc)
@@ -4223,9 +4220,14 @@ def phase_repgroup(dev: torch.device, card: str) -> dict:
                                  f"the {repgroup._MAX_FRAME} B frame")
         entries = g["repl_delta_entries"] + g["repl_full_entries"]
         print(f"12(a) group stage A [{card}]: {len(ms_group)} flushes, "
-              f"keyed flush median {statistics.median(ms_group):.3f} ms "
-              f"(one-host lane, no replication, same pattern: "
-              f"{statistics.median(ms_one):.3f} ms); {entries} entries "
+              f"keyed flush median {statistics.median(ms_group):.3f} ms, "
+              f"{sum(ms_group):.3f} ms in all (one-host lane, no "
+              f"replication, the same ops: {len(ms_one)} flushes, median "
+              f"{statistics.median(ms_one):.3f} ms, {sum(ms_one):.3f} ms in "
+              f"all; its lease serves the get rounds without a flush); "
+              f"flushes in order {[round(x, 3) for x in ms_group]} / "
+              f"{[round(x, 3) for x in ms_one]} ms; "
+              f"{entries} entries "
               f"({g['repl_delta_entries']} delta, {g['repl_full_entries']} "
               f"full, {g['repl_merge_cells']} merge cells for "
               f"{g['repl_merge_ops']} ops) in {g['repl_frames']} frames; "
@@ -4360,6 +4362,7 @@ def phase_repgroup(dev: torch.device, card: str) -> dict:
         return {"counts": counts, "replica_f1": replica_f1,
                 "flush_ms": statistics.median(ms_group),
                 "one_host_flush_ms": statistics.median(ms_one),
+                "stage_a_ms": sum(ms_group), "one_host_stage_a_ms": sum(ms_one),
                 "catch_up_ms": catch_ms, "promotion_ms": promo_ms,
                 "replica_apply_ms": rep_apply, "snapshot_bytes": snap,
                 "entry_bytes": {names[k]: statistics.median(

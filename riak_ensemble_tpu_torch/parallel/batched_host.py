@@ -271,14 +271,6 @@ def _wide_to_packed_layout(res: eng.KvResult, g: int, w: int,
         quorum_ok=t(res.quorum_ok))
 
 
-def warmup_kernels(svc: "BatchedEnsembleService") -> None:
-    """:meth:`BatchedEnsembleService.warmup` as a function
-    (batched_host.py:487-491): the port compiles nothing at run time, so
-    this builds the libraries and first-launches F1 on a throwaway
-    state."""
-    svc.warmup()
-
-
 class _LocalEngine:
     """The default engine adapter (batched_host.py:494-515): the engine
     module's functions.  A subclass that overrides one of them (a test's

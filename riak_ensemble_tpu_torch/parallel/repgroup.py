@@ -173,8 +173,7 @@ from riak_ensemble_tpu_torch.interop import UINT32_FIELDS
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.parallel.batched_host import (
-    BatchedEnsembleService, WallRuntime, _PendingBatch,
-    warmup_kernels)
+    BatchedEnsembleService, WallRuntime, _PendingBatch)
 from riak_ensemble_tpu_torch.types import NOTFOUND
 
 _HDR = struct.Struct(">I")
@@ -456,6 +455,21 @@ def _rebuild_rows(st: eng.EngineState, rows: np.ndarray) -> eng.EngineState:
     return st
 
 
+def _put_cells(svc: BatchedEnsembleService, cells: np.ndarray) -> None:
+    """Write cells ``[n, (e, s, epoch, seq, val)]`` into the lane's
+    object planes in place, one ``index_put_`` per plane.  The cells
+    must be unique per (e, s): a scatter that carried an index twice
+    would have no defined winner on CUDA."""
+    c = torch.from_numpy(np.ascontiguousarray(cells, np.int32)).to(
+        svc.device)
+    e_j, s_j = c[:, 0].long(), c[:, 1].long()
+    st = svc.state
+    # [E, S] views of the single-peer lane
+    st.obj_epoch[:, 0].index_put_((e_j, s_j), c[:, 2])
+    st.obj_seq[:, 0].index_put_((e_j, s_j), c[:, 3])
+    st.obj_val[:, 0].index_put_((e_j, s_j), c[:, 4])
+
+
 def _delta_scatter_cells(svc: BatchedEnsembleService,
                          cells: np.ndarray, ctr_np: np.ndarray,
                          rows: np.ndarray,
@@ -466,21 +480,13 @@ def _delta_scatter_cells(svc: BatchedEnsembleService,
     counters and rebuild the touched rows' trees
     (repgroup.py:414-493's two compiled programs, as Torch ops; the
     rebuild hashes the touched rows only).  The
-    caller's cells are unique per (e, s) — a scatter that carried an
-    index twice would have no defined winner on CUDA.  ``marks`` (obs
-    tracing) gets the scatter / rebuild split in seconds (dispatch
-    times: nothing here waits for the device)."""
+    caller's cells are unique per (e, s) (:func:`_put_cells`).
+    ``marks`` (obs tracing) gets the scatter / rebuild split in seconds
+    (dispatch times: nothing here waits for the device)."""
     t0 = time.perf_counter()
-    dev = svc.device
     st = svc.state
     if cells.shape[0]:
-        c = torch.from_numpy(np.ascontiguousarray(cells, np.int32)).to(dev)
-        e_j = c[:, 0].long()
-        s_j = c[:, 1].long()
-        # [E, S] views of the single-peer lane: the writes land in place
-        st.obj_epoch[:, 0].index_put_((e_j, s_j), c[:, 2])
-        st.obj_seq[:, 0].index_put_((e_j, s_j), c[:, 3])
-        st.obj_val[:, 0].index_put_((e_j, s_j), c[:, 4])
+        _put_cells(svc, cells)
     if marks is not None:
         t1 = time.perf_counter()
         marks["scatter"] = t1 - t0
@@ -1946,17 +1952,11 @@ class ReplicaCore:
             _u, first_rev = np.unique(
                 (cells[::-1, 0] * svc.n_slots + cells[::-1, 1]),
                 return_index=True)
-            cells = cells[len(cells) - 1 - first_rev]
-            c = torch.from_numpy(cells).to(svc.device)
-            e_j, s_j = c[:, 0], c[:, 1]
-            st = svc.state
-            for plane, col in ((st.obj_epoch, 2), (st.obj_seq, 3),
-                               (st.obj_val, 4)):
-                plane[:, 0].index_put_((e_j, s_j), c[:, col].to(
-                    plane.dtype))
+            _put_cells(svc, cells[len(cells) - 1 - first_rev].astype(
+                np.int32))
             rows = np.zeros((svc.n_ens, svc.n_peers), bool)
             rows[np.unique([p[0] for p in patches])] = True
-            svc.state = _rebuild_rows(st, rows)
+            svc.state = _rebuild_rows(svc.state, rows)
             for e, s, ep, sq, vl, key, handle, payload in patches:
                 self._mirror_patch(int(e), int(s), key, int(handle),
                                    payload, int(ep), int(sq), int(vl))
@@ -4393,8 +4393,7 @@ class ReplicaServer:
                  trust_host_lease: bool = False,
                  follower_reads: Optional[bool] = None,
                  device: Any = None,
-                 comm_repl: Optional[bool] = None,
-                 warmup: bool = True) -> None:
+                 comm_repl: Optional[bool] = None) -> None:
         runtime = WallRuntime()
         # the commutative lane: the reference's RETPU_COMM_REPL knob
         # (read here, as each reference replica process reads it)
@@ -4420,10 +4419,10 @@ class ReplicaServer:
                 follower_reads=follower_reads, device=device,
                 comm_repl=comm_repl)
         self.core = self.svc.core
-        if warmup:
+        if self.svc.device.type == "cuda":
             # the libraries built and F1 first-launched before the first
-            # frame (``warmup=False`` skips it: a CPU lane gains nothing)
-            warmup_kernels(self.svc)
+            # frame (a CPU lane has nothing to build)
+            self.svc.warmup()
             warm_delta_apply(self.svc)
         self.tick = tick
         self._lock = threading.RLock()

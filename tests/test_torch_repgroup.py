@@ -468,10 +468,33 @@ def test_core_nacks_seq_gap_and_crc_like_the_reference(env, tmp_path):
     js.stop()
 
 
+def _record_cells(monkeypatch):
+    """Every cell run the port's replicas hand to one device scatter."""
+    calls = []
+    put = trg._put_cells
+
+    def record(svc, cells):
+        calls.append(np.array(cells, np.int64))
+        put(svc, cells)
+    monkeypatch.setattr(trg, "_put_cells", record)
+    return calls
+
+
+def _unique_cells(calls):
+    for cells in calls:
+        pairs = {(int(e), int(s)) for e, s in cells[:, :2]}
+        assert len(pairs) == len(cells), \
+            f"one scatter carried an (ensemble, slot) twice: {cells[:, :2]}"
+
+
 def test_coalesced_entries_writing_one_slot(env, tmp_path):
     """Several launches settled by one flush ride one frame, and every one
-    of them writes the same slot of every row: the replica's single
-    scatter carries each cell once and lands the last write."""
+    of them writes the same slot of every row: each of the replica's
+    scatters carries an (ensemble, slot) once (CUDA's ``index_put_``
+    picks no winner among repeated indices), the coalesced run's
+    scatter carries each row's cell once for all its entries, and the
+    last write lands."""
+    calls = _record_cells(env)
     svc, srvs = _build(trg, t_fast, str(tmp_path), {"device": "cpu"},
                        [(trg, t_fast, {"device": "cpu"})] * 2)
     try:
@@ -494,6 +517,40 @@ def test_coalesced_entries_writing_one_slot(env, tmp_path):
         assert (trg._host(srvs[0].svc.state.obj_val)[:, 0, S - 1] == 42).all()
     finally:
         _stop(svc, srvs)
+    _unique_cells(calls)
+    # the three writes of each row: a run of two or three entries gave
+    # one scatter of E cells, so the replicas' scatters carried at most
+    # 2 x 2 x E such cells between them, not 2 x 3 x E
+    last = [c for c in calls if (c[:, 1] == S - 1).any()]
+    assert 0 < sum(int((c[:, 1] == S - 1).sum()) for c in last) <= 4 * E
+
+
+def test_tree_patch_with_repeated_cells_like_the_reference(env, tmp_path):
+    """A tree patch that names one (ensemble, slot) twice: the port's one
+    scatter carries the cell once and lands the patch's last write, the
+    mirrors adopt the last key, and both packages' cores answer alike
+    and end with equal lanes."""
+    calls = _record_cells(env)
+    cores = _cores(tmp_path)
+    (tc, ts), (jc, js) = cores
+    patches = [(1, 2, 3, 7, 100, "a", 1, b"first"),
+               (2, 0, 3, 2, 5, "b", 2, b"b"),
+               (1, 2, 3, 8, 101, "a2", 3, b"second"),
+               (1, 2, 4, 9, 102, "a3", 4, b"last")]
+    frame = ("tpatch", 1, 4, (0, 0), trg.dump_meta(ts), patches)
+    payload = _encoded(frame, twire)
+    got = (tc.handle_tpatch(twire.decode(payload)),
+           jc.handle_tpatch(jwire.decode(payload)))
+    assert got[0] == got[1] == ("installed", 1, 4)
+    assert len(calls) == 1
+    _unique_cells(calls)
+    assert sorted(map(tuple, calls[0][:, :2].tolist())) == [(1, 2), (2, 0)]
+    tn = trg._host(ts.state.obj_val)
+    assert int(tn[1, 0, 2]) == 102 and int(tn[2, 0, 0]) == 5
+    assert trg.dump_state(ts) == jrg.dump_state(js)
+    assert ts.key_slot[1] == js.key_slot[1] == {"a3": 2}
+    ts.stop()
+    js.stop()
 
 
 def test_takeover_fences_the_old_leader(env, tmp_path):

@@ -20,6 +20,11 @@ threaded replica hosts in one process:
   and acks, a lost quorum, heals), checked by the reference's
   ``KeyModel``; a replicated lifecycle surviving the leader's death.
 
+These cases hold the port to its own invariants (acked writes read
+back, lanes equal to their leader, the patch's share of the snapshot);
+``test_torch_repgroup_lockstep.py`` holds the same catch-up, membership
+and follower-read paths against the JAX package, frame by frame.
+
 The OS-process case (kill -9 a replica process, restart it, promote it)
 runs the port's ``python -m riak_ensemble_tpu_torch.parallel.repgroup
 --device cpu``.  The ``cuda``-marked case holds a replica's full-plane
@@ -68,7 +73,6 @@ def _leader(root, srvs, cfg=None, **kw):
         peers=[("127.0.0.1", s.repl_port) for s in srvs], ack_timeout=15.0,
         config=cfg or fast_test_config(),
         data_dir=os.path.join(root, "leader"), device="cpu", **kw)
-    repgroup.warmup_kernels(svc)
     assert svc.takeover(), "takeover needs a replica majority"
     return svc
 
@@ -751,3 +755,49 @@ def test_full_plane_entry_through_f1_matches_plain(tmp_path):
         svc.stop()
     assert crcs[0] == crcs[1]
     assert lanes[0] == lanes[1]
+
+
+@pytest.mark.cuda
+def test_coalesced_delta_run_on_the_card_matches_cpu(monkeypatch):
+    """One ``abatch`` frame of three delta entries, each writing the same
+    slot of every row in both of its rounds, applied by a replica lane on
+    the card and by one on the CPU: every scatter carries an (ensemble,
+    slot) once (CUDA's ``index_put_`` picks no winner among repeated
+    indices), both answer alike, and the lanes end equal with the last
+    write in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card lane needs a CUDA device")
+    e_n, s_n, k = 300, 16, 2
+    calls = []
+    put = repgroup._put_cells
+
+    def record(svc, cells):
+        calls.append(np.array(cells, np.int64))
+        put(svc, cells)
+    monkeypatch.setattr(repgroup, "_put_cells", record)
+    q = np.ones((e_n,), bool)
+    committed = np.ones((k, e_n), bool)
+    kind = np.full((k, e_n), eng.OP_PUT, np.int32)
+    slot = np.full((k, e_n), s_n - 1, np.int32)
+    value = np.zeros((k, e_n), np.int32)
+    ents = [repgroup.build_delta_entry(
+        seq, k, committed, value, kind, slot,
+        np.full((k, e_n), 10 * seq, np.int32) + np.arange(k)[:, None], q,
+        [])[0] for seq in (1, 2, 3)]
+    payload = b"".join(bytes(memoryview(p).cast("B"))
+                       for p in wire.encode_parts(("abatch", 0, ents)))
+    answers, lanes = [], []
+    for dev in ("cuda", "cpu"):
+        svc = BatchedEnsembleService(WallRuntime(), e_n, 1, s_n, tick=None,
+                                     config=fast_test_config(), device=dev)
+        answers.append(repgroup.ReplicaCore(svc).handle_abatch(
+            wire.decode(payload)))
+        lanes.append(repgroup.dump_state(svc))
+        assert (repgroup._host(svc.state.obj_val)[:, 0, s_n - 1] == 31).all()
+        svc.stop()
+    assert answers[0] == answers[1] and answers[0][0] == "applied"
+    assert lanes[0] == lanes[1]
+    assert len(calls) == 2
+    for cells in calls:
+        assert len({(int(e), int(s)) for e, s in cells[:, :2]}) == \
+            len(cells) == e_n
