@@ -135,9 +135,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    state plane, ``won`` and every result lane, at the headline shape with
    distinct slots (G = 1) and duplicate chains (G = 2), sliced at A = 256
    and 2,048, and at 3b's edge shapes (M = 3 / 7 / 32, S = 16 / 33 /
-   1,024, joint views) over damaged stores; timed as 3b times F1, beside
-   scalar F1 on the same ops in (group, lane) order, with its occupancy
-   and bound; (b) the headline service with ``wide=True`` on the card
+   1,024, joint views) over damaged stores, and with a group's lanes aimed
+   under one corrupt level-0 node; timed as 3b times F1, beside scalar F1
+   on the same ops in (group, lane) order, with its occupancy and bound,
+   and at each warps-per-block choice; (b) the headline service with ``wide=True`` on the card
    against one on the CPU: ``execute()`` of distinct-slot planes, every
    acknowledged put read back, then 6(b)'s keyed pattern; wide launches
    run and F1 launches once per launch; (c) 6(b)'s keyed pattern and a
@@ -171,9 +172,10 @@ Phases 4-10 run the service's default (native) host arm.
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
 the build and phase 11(a), ``--repgroup`` the build and phase 12 (no
 result line); ``--ab DIR`` times F1 at the headline shape (full width and four
-sliced shapes) and phase 6(c) in the tree DIR and in this one, on one
-card, in turns (DIR, this, this, DIR), each turn a process of its own
-running this file's timing code on its tree's package.
+sliced shapes), phase 6(c) and F1's wide mode at 11(a)'s four timed
+shapes in the tree DIR and in this one, on one card, in turns (DIR,
+this, this, DIR), each turn a process of its own running this file's
+timing code on its tree's package.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -205,6 +207,7 @@ from riak_ensemble_tpu_torch import funref, interop
 from riak_ensemble_tpu_torch.ops import build
 from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
 from riak_ensemble_tpu_torch.ops import engine as eng
+from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.ops.quorum import REQUIRED_MODES
 from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
 from riak_ensemble_tpu_torch.parallel.batched_host import (
@@ -3483,39 +3486,46 @@ def phase_front_end(dev: torch.device, card: str) -> tuple:
 # ---------------------------------------------------------------------------
 # Phase 11: wide rounds (F1's wide mode) and the sharded host passes
 
-#: (name, E, M, S, K, views, steps, chains, sliced (rows, bucket) or None):
-#: ``chains`` False gives distinct slots per column (G = 1), True every
-#: slot twice (G = 2)
+#: (name, E, M, S, K, views, steps, chains, sliced (rows, bucket) or None,
+#: aimed): ``chains`` False gives distinct slots per column (G = 1), True
+#: every slot twice (G = 2); ``aimed`` puts a group's first lanes on slots
+#: 0-15 and damages their level-0 node on a quarter of the rows, so that
+#: several lanes of one group cross one corrupt internal node
 WIDE_CASES = [
     ("headline, distinct slots (G=1)", E_FULL, M_FULL, S_FULL, K_FULL, None,
-     2, False, None),
+     2, False, None, False),
     ("headline, duplicate chains (G=2)", E_FULL, M_FULL, S_FULL, K_FULL,
-     None, 2, True, None),
-    ("M=3", 2048, 3, 128, 16, None, 2, True, None),
+     None, 2, True, None, False),
+    ("M=3", 2048, 3, 128, 16, None, 2, True, None, False),
     ("M=7 S=33 (unaligned object rows, short level)", 2048, 7, 33, 16, None,
-     2, True, None),
-    ("M=32 S=16 (one level, 8 warps)", 512, 32, 16, 16, None, 2, True, None),
-    ("M=7 S=1024 (208 KB staged)", 256, 7, 1024, 32, None, 2, True, None),
+     2, True, None, False),
+    ("M=32 S=16 (one level, 8 warps)", 512, 32, 16, 16, None, 2, True, None,
+     False),
+    ("M=7 S=1024 (208 KB staged)", 256, 7, 1024, 32, None, 2, True, None,
+     False),
     ("joint views", 2048, 5, 128, 16, [[0, 1, 2], [1, 2, 3, 4]], 2, False,
-     None),
+     None, False),
     ("sliced A=256, chains", E_FULL, M_FULL, S_FULL, K_FULL, None, 2, True,
-     (250, 256)),
+     (250, 256), False),
     ("sliced A=2048, distinct", E_FULL, M_FULL, S_FULL, K_FULL, None, 2,
-     False, (2000, 2048)),
+     False, (2000, 2048), False),
     ("sliced M=7 S=1024 A=64, chains", 256, 7, 1024, 32, None, 2, True,
-     (60, 64)),
+     (60, 64), False),
+    ("shared corrupt node, lanes aimed under it (G=2)", 2048, M_FULL, S_FULL,
+     32, None, 3, True, None, True),
 ]
 
 
 def wide_slots(rng: np.random.Generator, k: int, a: int, s: int,
-               chains: bool) -> np.ndarray:
+               chains: bool, aimed: bool = False) -> np.ndarray:
     """``[K, A]`` slots that schedule to one group (distinct in every
     column) or, with ``chains``, to two (each of K/2 distinct slots twice,
     the second time in a later, shuffled row), with a few invalid slots
     (below 0, and past S distinct by row: the scheduler chains every slot
-    from 0 up)."""
+    from 0 up).  ``aimed``: slots 0-15 (one level-0 node) come first."""
     n = k // 2 if chains else k
-    first = np.argsort(rng.random((s, a)), axis=0)[:n]      # [n, A] distinct
+    keys = rng.random((s, a)) - aimed * (np.arange(s) < 16)[:, None]
+    first = np.argsort(keys, axis=0)[:n]                     # [n, A] distinct
     if chains:
         again = first[np.argsort(rng.random((n, a)), axis=0),
                       np.arange(a)[None, :]]
@@ -3545,24 +3555,29 @@ def wide_ops(plan, dev) -> list:
         plan.exp_seq)]
 
 
-def wide_case(dev, name, e, m, s, k, views, steps, chains, sliced, seed):
+def wide_case(dev, name, e, m, s, k, views, steps, chains, sliced, aimed,
+              seed):
     """One case's steps through F1's wide mode and through the plain wide
     step from the same state, bit for bit on every state plane, ``won``
     and every result lane (NOOP and pad lanes included).  The second step
-    of a full-width case runs ``kv_step_scan_wide`` (no election)."""
+    of a full-width case runs ``kv_step_scan_wide`` (no election).
+    ``aimed``: see :data:`WIDE_CASES`; ``shared`` then counts the (group,
+    row) pairs in which two or more live lanes crossed a corrupt level-0
+    node of one heard replica."""
     rng = np.random.default_rng(seed)
     st_f1 = eng.init_state(e, m, s, views=views, device=dev)
     st_pl = copy_state(st_f1)
-    stats = {"won": 0, "commits": 0, "corrupt": 0, "lanes": 0}
+    stats = {"won": 0, "commits": 0, "corrupt": 0, "lanes": 0, "shared": 0}
     for step in range(steps):
         if step:
-            damage(rng, (st_f1, st_pl), max(e // 40, 4))
+            damage(rng, (st_f1, st_pl), e // 4 if aimed else max(e // 40, 4),
+                   node0=aimed)
         leader = st_pl.leader.cpu().numpy()
         if sliced is None:
             active = None
             elect, cand, kind, slot, val, lease, up, exp_e, exp_s = \
                 f1_stream(rng, leader, e, m, s, k)
-            slot = wide_slots(rng, k, e, s, chains)
+            slot = wide_slots(rng, k, e, s, chains, aimed)
         else:
             active, planes = sliced_inputs(rng, leader, e, m, s, k,
                                            sliced[0], sliced[1], True,
@@ -3572,6 +3587,8 @@ def wide_case(dev, name, e, m, s, k, views, steps, chains, sliced, seed):
         plan = wide_plan(kind, slot, val, lease, exp_e, exp_s, chains)
         ops = wide_ops(plan, dev)
         el, cd, upd = (torch.from_numpy(x).to(dev) for x in (elect, cand, up))
+        if aimed:
+            stats["shared"] += shared_corrupt_lanes(st_pl, plan, up)
         before = cuda_engine.engine_step_wide_launches
         if active is not None:
             args = (el, cd, *ops[:4], upd)
@@ -3611,7 +3628,23 @@ def wide_case(dev, name, e, m, s, k, views, steps, chains, sliced, seed):
     return stats
 
 
-def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
+def shared_corrupt_lanes(st, plan, up: np.ndarray) -> int:
+    """Of a full-width wide plan about to run on ``st``: the (group, row)
+    pairs with two or more live lanes under a level-0 node that is corrupt
+    (differs from the fold of its stored leaves) on a heard replica."""
+    leaves = st.tree_leaf[:, :, :16].cpu()
+    bad = (hashk.fold(leaves.reshape(leaves.shape[:2] + (1, 16, 4)))[
+        :, :, 0] != st.tree_node[:, :, 0].cpu()).any(-1).numpy()
+    heard = up & st.view_mask.any(1).cpu().numpy()
+    s = st.obj_val.shape[2]
+    live = ((plan.kind >= 1) & (plan.kind <= 4) & (plan.slot >= 0)
+            & (plan.slot < min(s, 16)))
+    crossed = (bad & heard).any(1)[None, :] & (live.sum(2) >= 2)
+    return int(crossed.sum())
+
+
+def time_wide(dev, card: str, chains: bool, sliced=None,
+              detail: bool = True) -> dict:
     """F1's wide mode at the headline shape on a filled store (G = 1, or
     G = 2 with ``chains``; ``sliced`` (rows, bucket) for the sliced form):
     :func:`launch_timings`, scalar F1 on the same ops in (group, lane)
@@ -3638,10 +3671,11 @@ def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
     el, cd, upd = (torch.from_numpy(x).to(dev) for x in (elect, cand, up))
     args = (el, cd, *ops[:4], upd)
 
-    def wide(state):
+    def wide(state, ops=ops):
+        head = (el, cd, *ops[:4], upd)
         if active is None:
-            return eng.full_step_wide(state, *args, ops[4], ops[5])
-        return eng.full_step_wide_sliced(state, active, *args, ops[4],
+            return eng.full_step_wide(state, *head, ops[4], ops[5])
+        return eng.full_step_wide_sliced(state, active, *head, ops[4],
                                          ops[5])
     st, _, _ = wide(st)                     # elect, fill the store
     torch.cuda.synchronize()
@@ -3655,6 +3689,29 @@ def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
            "max_abs_err": 0, "library_ms": None, "bound_ms": b["bound_ms"],
            "bound_by": b["bound_by"]}
     out.update(launch_timings(lambda: wide(st)))
+    if detail:
+        # the same launch at each warps-per-block choice, and the one the
+        # occupancy query makes (`cuda_engine.force_warps` = 0)
+        out["by_warps"] = {}
+        for n in (1, 2, 4, 8):
+            cuda_engine.force_warps = n
+            try:
+                occ = cuda_engine.occupancy(e, m, s, 2, g, a, w)
+                out["by_warps"][n] = {"device_us": gated_us(lambda: wide(st)),
+                                      "blocks_per_sm": occ["blocks_per_sm"]}
+            finally:
+                cuda_engine.force_warps = 0
+        print(f"F1 wide G={g} A={a} by warps per block [{card}]: " + ", ".join(
+            f"{n}: {v['device_us']:.3f} us ({v['blocks_per_sm']} blocks per "
+            f"SM)" for n, v in out["by_warps"].items()))
+        # the launch's part that does not grow with the lanes: the same
+        # rows staged, verified, refolded and written back, with one live
+        # lane each (lane 0 of group 0; every other lane NOOP)
+        one = plan.kind.copy()
+        one[1:] = eng.OP_NOOP
+        one[0, :, 1:] = eng.OP_NOOP
+        ops_one = [torch.from_numpy(one).to(dev)] + ops[1:]
+        out["one_lane_us"] = gated_us(lambda: wide(st, ops_one))
     # scalar F1 on the same ops in (group, lane) order
     from riak_ensemble_tpu_torch.ops import schedule
     order, ee = schedule.flat_order(plan)
@@ -3662,7 +3719,7 @@ def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
           for p in (kind, slot, val, lease, exp_e, exp_s)]
     st_sc = copy_state(pre)
 
-    def scalar():
+    def scalar(sc=sc):
         if active is None:
             eng.full_step(st_sc, el, cd, *sc[:4], upd, exp_epoch=sc[4],
                           exp_seq=sc[5])
@@ -3670,13 +3727,17 @@ def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
             eng.full_step_sliced(st_sc, active, el, cd, *sc[:4], upd,
                                  exp_epoch=sc[4], exp_seq=sc[5])
     out["scalar"] = launch_timings(scalar)
-    st_pl = copy_state(pre)
-    if active is None:
-        plain = lambda: eng.full_step_wide_plain(st_pl, *args, ops[4], ops[5])
-    else:
-        plain = lambda: eng.full_step_wide_sliced_plain(    # noqa: E731
-            st_pl, active, *args, ops[4], ops[5])
-    out["plain_ms"] = cuda_ms(plain, iters=1, reps=3)
+    if detail:
+        # scalar F1 on the one-lane plan's flat rounds: the one live
+        # round of each row, then NOOP rounds
+        sc_one = [torch.from_numpy(np.ascontiguousarray(flat(x))).to(dev)
+                  for x in (one, plan.slot, plan.val, plan.lease_ok,
+                            plan.exp_epoch, plan.exp_seq)]
+        out["scalar_one_round_us"] = gated_us(lambda: scalar(sc_one))
+        print(f"F1 wide G={g} A={a} with one live lane a row [{card}]: "
+              f"{out['one_lane_us']:.3f} us device time per launch; scalar "
+              f"F1 with its one live round {out['scalar_one_round_us']:.3f} "
+              f"us")
     label = (f"wide G={g} W={w}" + ("" if active is None
                                     else f" sliced A={a} ({len(rows)} rows)"))
     out["occupancy"] = occ = cuda_engine.occupancy(e, m, s, 2, g, a, w)
@@ -3684,38 +3745,57 @@ def time_wide(dev, card: str, chains: bool, sliced=None) -> dict:
           f"thread, {occ['dynamic_smem']} B dynamic shared memory, "
           f"{occ['spill_bytes']} B spilled, {occ['warps_per_block']} warps "
           f"per block, {occ['blocks_per_sm']} resident blocks per SM")
+    plain_text = ""
+    if detail:
+        st_pl = copy_state(pre)
+        if active is None:
+            plain = lambda: eng.full_step_wide_plain(    # noqa: E731
+                st_pl, *args, ops[4], ops[5])
+        else:
+            plain = lambda: eng.full_step_wide_sliced_plain(    # noqa: E731
+                st_pl, active, *args, ops[4], ops[5])
+        out["plain_ms"] = cuda_ms(plain, iters=1, reps=3)
+        plain_text = f"; plain wide {out['plain_ms']:.3f} ms"
+        del st_pl
     print(f"F1 {label} at {e}x{m}x{s} K={k} [{card}]: {out['ms']:.6f} ms per "
           f"call back to back, {out['device_us']:.3f} us device time per "
           f"launch (gated events), host {out['host_us']:.3f} us per call; "
           f"scalar F1 on the same ops in (group, lane) order "
-          f"{out['scalar']['device_us']:.3f} us per launch; plain wide "
-          f"{out['plain_ms']:.3f} ms; {bound_text(b)}; share of the bound "
+          f"{out['scalar']['device_us']:.3f} us per launch{plain_text}; "
+          f"{bound_text(b)}; share of the bound "
           f"{b['bound_ms'] * 1e3 / out['device_us'] * 100:.2f} %")
-    del pre, st_pl, st_sc
+    del pre, st_sc
     return out
+
+
+#: 11(a)'s timed shapes: (label, chains, sliced (rows, bucket) or None)
+WIDE_TIMED = (("G=1", False, None), ("G=2", True, None),
+              ("sliced A=256 G=2", True, (250, 256)),
+              ("sliced A=2048 G=1", False, (2000, 2048)))
 
 
 def phase_f1_wide(dev: torch.device, card: str) -> dict:
     """11(a): F1's wide mode against the plain wide steps, then timed."""
     total = {"commits": 0, "corrupt": 0, "won": 0}
     for i, case in enumerate(WIDE_CASES):
-        name, e, m, s, k, views, steps, chains, sliced = case
+        name, e, m, s, k, views, steps, chains, sliced, aimed = case
         t0 = time.perf_counter()
         stats = wide_case(dev, name, e, m, s, k, views, steps, chains,
-                          sliced, 300 + i)
+                          sliced, aimed, 300 + i)
         print(f"F1 wide == plain  {name}: E={e} M={m} S={s} K={k}, {steps} "
               f"steps, {stats} ({time.perf_counter() - t0:.1f} s)")
         if not stats["commits"]:
             raise AssertionError(f"F1 wide case {name} committed nothing")
+        if aimed and not stats["shared"]:
+            raise AssertionError(f"F1 wide case {name}: no two lanes of a "
+                                 f"group crossed one corrupt node")
         for key in total:
             total[key] += stats[key]
     if not all(total.values()):
         raise AssertionError(f"the wide cases raised no integrity flag or "
                              f"won no election: {total}")
-    return {"G=1": time_wide(dev, card, False),
-            "G=2": time_wide(dev, card, True),
-            "sliced A=256 G=2": time_wide(dev, card, True, (250, 256)),
-            "sliced A=2048 G=1": time_wide(dev, card, False, (2000, 2048))}
+    return {label: time_wide(dev, card, chains, sliced)
+            for label, chains, sliced in WIDE_TIMED}
 
 
 def acked_puts(kind, slot, val, committed, want: np.ndarray) -> None:
@@ -4447,8 +4527,9 @@ AB_BOOT = ("import importlib.util, sys\n"
 
 def ab_run() -> int:
     """One side of ``--ab``: F1 at the headline shape (full width and
-    :data:`AB_SLICED`) and phase 6(c), on whichever tree's package this
-    process imported; prints the numbers as one ``AB`` JSON line."""
+    :data:`AB_SLICED`), phase 6(c) and F1's wide mode at 11(a)'s timed
+    shapes (:data:`WIDE_TIMED`), on whichever tree's package this process
+    imported; prints the numbers as one ``AB`` JSON line."""
     dev = torch.device("cuda", 0)
     card = card_line()
     out = {"F1 full width": time_full(dev, card, detail=False)}
@@ -4456,6 +4537,9 @@ def ab_run() -> int:
         out[f"F1 A={bucket} ({n_real} rows) K={k}{' puts' if puts else ''}"] \
             = time_sliced(dev, card, n_real, bucket, k, puts, detail=False)
     out["6(c)"] = phase_pipeline(dev, card)[1]
+    for label, chains, sliced in WIDE_TIMED:
+        out[f"F1 wide {label}"] = time_wide(dev, card, chains, sliced,
+                                            detail=False)
     print("AB " + json.dumps(out))
     return 0
 
@@ -4492,6 +4576,9 @@ def ab(other: str, card: str) -> int:
         if mode.startswith("F1"):
             for key in ("device_us", "ms", "host_us", "overhead_ms"):
                 series(f"{mode} {key}", lambda r: [r[mode][key]])
+            if "scalar" in runs[0][1][mode]:
+                series(f"{mode}: scalar F1 on the same ops device_us",
+                       lambda r: [r[mode]["scalar"]["device_us"]])
     for depth in ("depth 1", "depth 2"):
         series(f"6(c) {depth} ms per flush",
                lambda r: r["6(c)"][depth]["ms_per_flush"])

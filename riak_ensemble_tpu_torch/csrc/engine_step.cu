@@ -70,16 +70,33 @@
 // Wide mode (_full_step_wide_body, riak_ensemble_tpu/ops/engine.py:1421, and
 // _full_step_wide_sliced_body, :1523): dims[kW] = W > 1 lanes a round, the
 // op and result planes [G, C, W] (tree_corrupt [G, C, M]), G = dims[kK].
-// The G*W flat rounds run in (group, lane) order, which the reference's
-// contract allows (kv_step_scan_wide: valid slots are distinct within a
-// group, seqs go by lane order).  One thing differs from G*W scalar rounds:
-// a wide round's lanes verify against the tree as it stood before the round
-// (_kv_round's corruption caveat), so a write inside a group marks its path
-// DIRTY but leaves BAD set until the walk leaves the group, and the group's
-// tree_corrupt row ORs its lanes'.  The "live round" test is per lane.  The
-// op fields stay in registers 32 rounds at a time, so shared memory does
-// not grow with G*W.  W = 1 is the scalar mode above, path for path.
-//
+// The reference's wide round is data-parallel over its lanes, and so is
+// this: the valid slots of a group are distinct (kv_step_scan_wide's
+// precondition) and a lane verifies against the tree as it stood before
+// the group (_kv_round's corruption caveat), so each live lane's reads,
+// verdicts, max-reduces, quorum predicates and decision depend on no other
+// lane.  A warp holds lpw = 32 / M segments of M threads (thread =
+// replica; 6 lanes a warp at M = 5, one at M > 16), and every warp of the
+// block runs: a group goes in passes of nwarps * lpw lanes, which decide
+// at once with segment-masked reduces and ballots.  A committing lane's
+// seq is the counter plus the group's commits up to and including it (the
+// reference's cumsum): a ballot and a popcount in the warp, the warps
+// before it through shared memory (one block barrier a pass with more
+// than one warp).  The lanes then write their objects and slot state
+// bytes (distinct slots) and OR DIRTY into their paths' node bytes —
+// every lane under a node stores the same value — while BAD stays set
+// until the group ends: then the group's tree_corrupt row (its lanes'
+// corrupt replicas OR'd) is stored and, if a write crossed a BAD node,
+// BAD is cleared where DIRTY, four bytes a word, behind a block barrier.
+// Thread rr of a segment holds its lane's op fields at step rr of each
+// batch of M steps (shuffled out as scalar F1 shuffles its 32 rounds'),
+// and the next batch loads while one runs.  The warps per block come from
+// the occupancy query by its own rule (choose_shape).  W = 1 is the scalar
+// mode above, path for path.  On an H100 80GB HBM3 at 700 W a full-width
+// wide launch (G = 1, W = 64) takes ~0.28 ms, 26 % of its bytes bound, and
+// ~0.19 ms of that with one live lane a row: the staging, verdicts, refold
+// and write-back of blocks that hold one row each set it now (PERF.md).
+
 // Contract (the Python wrapper checks it and raises; the entry point
 // refuses it again): 1 <= M <= 32, 1 <= V <= 8, the staged planes within
 // the card's shared memory, 16-byte aligned contiguous planes.
@@ -136,7 +153,8 @@ enum Ptr {
   kGetOk, kFound, kValue, kObjVsn, kQuorumOk, kTreeCorrupt, kActiveIdx,
   kPadBallot, kNumPtrs
 };
-enum Dim { kE, kM, kS, kU, kV, kK, kA, kW, kNumDims };
+// kWarps: warps per block, or 0 for the occupancy query's choice.
+enum Dim { kE, kM, kS, kU, kV, kK, kA, kW, kWarps, kNumDims };
 
 struct Params {
   int32_t* epoch;
@@ -296,6 +314,28 @@ __device__ __forceinline__ bool is_live(int kind, int slot, int s) {
   return kind >= kOpGet && kind <= kOpRmw && slot >= 0 && slot < s;
 }
 
+// Wide mode: the op fields of this segment's lane at step t (group t / P,
+// lane (t mod P) * L + seg_lane), zeros past the plane or off a segment.
+__device__ __forceinline__ OpRow wide_op(const Params& p, int t, int T, int P,
+                                         int L, int seg_lane, bool seg, int C,
+                                         int col) {
+  OpRow r{0, 0, 0, 0, 0, false};
+  if (seg && t < T) {
+    const int g = t / P;
+    const int w = (t - g * P) * L + seg_lane;
+    if (w < p.w) {
+      const size_t op = ((size_t)g * C + col) * p.w + w;
+      r.kind = p.kind[op];
+      r.slot = p.slot[op];
+      r.val = p.val[op];
+      r.lease = p.lease_ok[op];
+      r.exp_e = p.exp_epoch ? p.exp_epoch[op] : 0;
+      r.exp_s = p.exp_seq ? p.exp_seq[op] : 0;
+    }
+  }
+  return r;
+}
+
 // hash.fold of one parent's 16 children, by a quad of lanes: lane li =
 // lane & 3 of the quad sums hash lane li of the children (each avalanched
 // with its position's salt and multiplier, mod 2^32), then the stirs go
@@ -337,6 +377,79 @@ __device__ __forceinline__ int8_t quorum_regs(uint32_t valid, uint32_t nack,
       break;
   }
   return res;
+}
+
+// A live round's decision, from the newest object among its hash-valid
+// replicas (_latest_among: obj_found, rd_*) and their mask `okmask`; the
+// same in every thread that runs the round.
+struct Decision {
+  bool commit, get_ok, found, served, rmw_commit, plain_read;
+  int32_t wval, new_rmw;
+};
+
+__device__ __forceinline__ Decision decide(
+    int kind, int32_t val, int32_t exp_e, int32_t exp_s, bool lease,
+    bool obj_found, int32_t rd_epoch, int32_t rd_seq, int32_t rd_val,
+    uint32_t okmask, uint32_t heard, const uint32_t (&views)[kMaxViews],
+    int v, int n_member, bool epoch_ok, bool leader_up, int32_t lead_epoch) {
+  const bool is_put = kind == kOpPut, is_get = kind == kOpGet;
+  const bool is_cas = kind == kOpCas, is_rmw = kind == kOpRmw;
+  const bool found = obj_found && rd_val != 0;
+  const bool all_ok = __popc(okmask) == n_member;
+
+  // The notfound quorum of the hash-valid answers: read only where no
+  // object was found, by a read, a CAS or an RMW.
+  const bool nf_quorum = !obj_found && !is_put &&
+                         quorum_regs(okmask, heard & ~okmask, views, v) == 1;
+  const bool get_gate = is_get && leader_up && (lease || epoch_ok);
+  const bool stale = obj_found && rd_epoch != lead_epoch;
+  const bool rewrite = get_gate && stale && epoch_ok;
+  const bool nf = get_gate && !obj_found;
+  const bool nf_write = nf && !all_ok && epoch_ok && nf_quorum;
+  const bool get_ok = (get_gate && obj_found && (!stale || rewrite)) ||
+                      (nf && (all_ok || nf_write));
+
+  const bool put_commit = is_put && epoch_ok;
+  const bool exp_absent = exp_e == 0 && exp_s == 0;
+  const bool vsn_match =
+      (obj_found && rd_epoch == exp_e && rd_seq == exp_s) ||
+      (exp_absent && obj_found && rd_val == 0) ||
+      (exp_absent && !obj_found && nf_quorum);
+  const bool cas_commit = is_cas && epoch_ok && vsn_match;
+
+  // Device RMW: fn(cur, operand); + and - wrap mod 2^32 as in torch;
+  // RMW_SET, RMW_PIA and an unknown code commit the operand.
+  const int fn = exp_e;
+  const int32_t cv = rd_val;
+  const int32_t new_rmw =
+      fn == kRmwAdd    ? (int32_t)((uint32_t)cv + (uint32_t)val)
+      : fn == kRmwSub  ? (int32_t)((uint32_t)cv - (uint32_t)val)
+      : fn == kRmwMax  ? (cv > val ? cv : val)
+      : fn == kRmwMin  ? (cv < val ? cv : val)
+      : fn == kRmwBand ? (cv & val)
+      : fn == kRmwBor  ? (cv | val)
+      : fn == kRmwBxor ? (cv ^ val)
+                       : val;
+  const bool rmw_absent =
+      (obj_found && rd_val == 0) || (!obj_found && nf_quorum);
+  const bool rmw_known = obj_found || nf_quorum;
+  const bool rmw_commit =
+      is_rmw && epoch_ok && (fn == kRmwPia ? rmw_absent : rmw_known);
+
+  Decision d;
+  d.commit = put_commit || cas_commit || rewrite || nf_write || rmw_commit;
+  d.wval = (is_put || is_cas) ? val
+           : is_rmw           ? new_rmw
+           : rewrite          ? rd_val
+                              : 0;
+  d.get_ok = get_ok;
+  d.found = found;
+  d.served = get_ok && obj_found;
+  d.rmw_commit = rmw_commit;
+  d.new_rmw = new_rmw;
+  // a plain read repairs the divergent replicas
+  d.plain_read = get_ok && obj_found && !rewrite;
+  return d;
 }
 
 // The round context's epoch check on warp 0 (lane = replica): the leader's
@@ -435,6 +548,33 @@ __device__ __forceinline__ const uint32_t* children_of(
   return l == 0 ? leaf_r : node_r + coff * 4;
 }
 
+// What every warp of a wide block shares: the row's round context, which
+// warp 0 works out before the first block barrier, and the per-pass and
+// per-group tallies.  Declared here, it exists only in the kernel that
+// calls it (the wide instantiation).
+struct WideShared {
+  uint32_t views[kMaxViews];
+  int32_t lead_epoch, ctr;
+  int n_member, epoch_ok, leader_up;
+  uint32_t commits[2][kMaxWarps];  // a pass's commits by warp, by parity
+  uint32_t corrupt[2];             // a group's corrupt replicas, by parity
+  int heal[2];                     // a write of the group crossed a BAD node
+};
+
+__device__ __forceinline__ WideShared& wide_shared() {
+  __shared__ WideShared ws;
+  return ws;
+}
+
+// The replicas flagged in `bits` (a ballot over a warp of `lpw` segments
+// of `m` lanes, lane = replica), OR'd over the segments.
+__device__ __forceinline__ uint32_t fold_segments(uint32_t bits, int m,
+                                                  int lpw, uint32_t low) {
+  uint32_t out = 0;
+  for (int q = 0; q < lpw; ++q) out |= (bits >> (q * m)) & low;
+  return out;
+}
+
 // ---------------------------------------------------------------------------
 
 // One instantiation per mode: the scalar one (kWide false) compiles to the
@@ -461,6 +601,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int MS = M * S;
   const bool in = lane < M;
   uint32_t views[kMaxViews] = {};
+  // Wide mode's lane map: lpw segments of M threads a warp, segment q
+  // taking lane `seg_lane` of each pass of L = nwarps * lpw lanes, thread rr
+  // of it replica rr; the threads past the last segment (q == lpw) idle.
+  const int lpw = 32 / M;
+  const int q = lane / M;
+  const int rr = lane - q * M;
+  const bool seg = q < lpw;
+  const int shift = q * M;
+  const uint32_t low = M == 32 ? kFull : (1u << M) - 1u;
+  const uint32_t segmask = seg ? low << shift : kFull << shift;
+  const int L = nwarps * lpw;
+  const int P = kWide ? (p.w + L - 1) / L : 0;  // passes a group
+  const int T = K * P;
+  const int seg_lane = warp * lpw + q;
 
   if (e >= E) {
     // A pad column: the epoch check of row E - 1 as it stood before the
@@ -521,9 +675,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (warp == 0) {
     cur = load_op<kWide>(p, lane, C, col);
     bool live = is_live(cur.kind, cur.slot, S);
-    for (int j = lane + 32; j < R; j += 32) {
-      const size_t op = op_index<kWide>(p, j, C, col);
-      live |= is_live(p.kind[op], p.slot[op], S);
+    if constexpr (kWide) {
+      // the other flat rounds' kinds and slots, four loads in flight a lane
+#pragma unroll 4
+      for (int j = lane + 32; j < R; j += 32) {
+        const size_t op = op_index<kWide>(p, j, C, col);
+        live |= is_live(p.kind[op], p.slot[op], S);
+      }
+    } else {
+      for (int j = lane + 32; j < R; j += 32) {
+        const size_t op = op_index<kWide>(p, j, C, col);
+        live |= is_live(p.kind[op], p.slot[op], S);
+      }
     }
     views_any = load_views(p, e, lane, in, views, &heard);
     if (in) {
@@ -586,7 +749,26 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     epoch_ok = epoch_check(epoch_m, leader, heard, in, M, views, V,
                            &lead_epoch, &leader_up);
     n_member = __popc(views_any);
+    if constexpr (kWide) {
+      WideShared& ws = wide_shared();
+      if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < kMaxViews; ++j) ws.views[j] = views[j];
+        ws.lead_epoch = lead_epoch;
+        ws.ctr = ctr;
+        ws.n_member = n_member;
+        ws.epoch_ok = epoch_ok;
+        ws.leader_up = leader_up;
+        ws.corrupt[0] = ws.corrupt[1] = 0;
+        ws.heal[0] = ws.heal[1] = 0;
+      }
+    }
   }
+  // Wide mode: thread rr of a segment holds the op fields of its lane at
+  // step rr of each batch of M steps; the first batch loads while the
+  // staging lands.
+  OpRow hold{0, 0, 0, 0, 0, false};
+  if constexpr (kWide) hold = wide_op(p, rr, T, P, L, seg_lane, seg, C, col);
   __syncthreads();
   const bool stage = s_stage;
   const Levels lv = levels_of(S);
@@ -632,12 +814,210 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     __syncthreads();
   }
 
-  // Warp 0: the rounds, 32 at a time.  Lane j holds round base + j's op
-  // fields and, once it has run, its results, stored together at the end
-  // of the 32.  In wide mode a group's tree_corrupt row (its rounds'
-  // corrupt replicas OR'd) is stored when the walk leaves the group, lane
-  // = replica; a scalar round's is stored with its other results.
-  if (warp == 0 && K > 0) {
+  if constexpr (kWide) {
+    // Every warp: a group's lanes, decided from the state as it stood
+    // before the group, in passes of L = nwarps * lpw lanes; one lane a
+    // segment of M threads (thread = replica).  See the header.
+    WideShared& ws = wide_shared();
+    const uint32_t hrd = s_heard;
+    uint32_t wv[kMaxViews];
+#pragma unroll
+    for (int j = 0; j < kMaxViews; ++j) wv[j] = ws.views[j];
+    const int32_t le = ws.lead_epoch;
+    const bool eok = ws.epoch_ok, lup = ws.leader_up;
+    const int nmem = ws.n_member;
+    uint32_t c = (uint32_t)ws.ctr;
+    const bool heard_r = seg && ((hrd >> rr) & 1u);
+    bool corrupt_r = false, heal = false, wrote_r = false;
+    int par = 0;
+    // the next batch loads while this one runs
+    OpRow ahead = wide_op(p, M + rr, T, P, L, seg_lane, seg, C, col);
+    // step t: pass t mod P of group g, batch step j
+    for (int t = 0, g = 0, pg = 0, j = 0; t < T; ++t, ++j) {
+      if (j == M) {
+        hold = ahead;
+        ahead = wide_op(p, t + M + rr, T, P, L, seg_lane, seg, C, col);
+        j = 0;
+      }
+      const int src = seg ? shift + j : lane;
+      OpRow cur;
+      cur.kind = __shfl_sync(kFull, hold.kind, src);
+      cur.slot = __shfl_sync(kFull, hold.slot, src);
+      cur.val = __shfl_sync(kFull, hold.val, src);
+      cur.exp_e = __shfl_sync(kFull, hold.exp_e, src);
+      cur.exp_s = __shfl_sync(kFull, hold.exp_s, src);
+      cur.lease = __shfl_sync(kFull, (int)hold.lease, src);
+      const int w = pg * L + seg_lane;
+      const bool have = seg && w < p.w;
+      const bool live = have && is_live(cur.kind, cur.slot, S);
+      // a NOOP lane's or an invalid slot's results: the ballot's alone
+      bool r_commit = false, r_found = false;
+      bool r_get = cur.kind == kOpGet && lup && (cur.lease || eok);
+      int32_t r_value = 0, r_vsn0 = 0, r_vsn1 = 0;
+      bool commit = false, do_write = false, path_bad = false;
+      int32_t w_epoch = 0, w_seq = 0, w_val = 0;
+      int path[kMaxLevels];
+      int o = 0;
+      if (__any_sync(kFull, live)) {
+        {
+          int idx = cur.slot;
+#pragma unroll
+          for (int l = 0; l < kMaxLevels; ++l) {
+            idx /= kWidth;
+            path[l] = lv.off[l] + idx;
+          }
+        }
+        o = rr * S + cur.slot;
+        const int32_t pe = live ? s_oe[o] : 0;
+        const int32_t ps = live ? s_os[o] : 0;
+        const int32_t pv = live ? s_ov[o] : 0;
+        // A heard replica's verdicts at the slot, as they stood before
+        // the group (a replica not heard reaches no output).
+        bool leaf_ok = true;
+        if (live && heard_r) {
+          leaf_ok = !(s_sst[o] & kBad);
+#pragma unroll
+          for (int l = 0; l < kMaxLevels; ++l)
+            if (l < lv.count)
+              path_bad |= (s_nst[rr * U + path[l]] & kBad) != 0;
+        }
+        const bool ok_m = live && heard_r && leaf_ok && !path_bad;
+        const uint32_t okmask = (__ballot_sync(kFull, ok_m) >> shift) & low;
+        corrupt_r |= live && heard_r && (path_bad || !leaf_ok);
+
+        // _latest_among: three max-reduces over the segment's replicas.
+        const bool h = ok_m && ps > 0;
+        const int emax = __reduce_max_sync(segmask, h ? pe : -1);
+        const int smax =
+            __reduce_max_sync(segmask, h && pe == emax ? ps : -1);
+        const int vmax = __reduce_max_sync(
+            segmask, h && pe == emax && ps == smax ? pv : INT32_MIN);
+        const bool obj_found = smax > 0;
+        const int32_t rd_epoch = emax > 0 ? emax : 0;
+        const int32_t rd_seq = smax > 0 ? smax : 0;
+        const int32_t rd_val = obj_found ? vmax : 0;
+        const Decision d =
+            decide(cur.kind, cur.val, cur.exp_e, cur.exp_s, cur.lease,
+                   obj_found, rd_epoch, rd_seq, rd_val, okmask, hrd, wv, V,
+                   nmem, eok, lup, le);
+        const bool divergent = heard_r && (pe != rd_epoch || ps != rd_seq ||
+                                           !leaf_ok || path_bad);
+        commit = live && d.commit;
+        do_write =
+            live && ((d.commit && heard_r) || (d.plain_read && divergent));
+        w_epoch = d.commit ? le : rd_epoch;
+        w_seq = rd_seq;  // a commit's seq comes from the count below
+        w_val = d.commit ? d.wval : rd_val;
+        if (live) {
+          r_commit = d.commit;
+          r_get = d.get_ok;
+          r_found = d.found && d.get_ok;
+          r_value = d.rmw_commit ? d.new_rmw
+                                 : (d.get_ok && d.found ? rd_val : 0);
+          r_vsn0 = d.commit ? le : (d.served ? rd_epoch : 0);
+          r_vsn1 = d.served ? rd_seq : 0;
+        }
+      }
+      // A commit's seq: the counter plus the group's commits up to and
+      // including its lane, in lane order (the reference's cumsum) — a
+      // ballot and a popcount in the warp, the warps before it through
+      // shared memory.
+      const uint32_t cb = __ballot_sync(kFull, commit && rr == 0);
+      uint32_t upto = __popc(cb & ((2u << shift) - 1u));
+      uint32_t total = __popc(cb);
+      if (nwarps > 1) {  // block-uniform
+        if (lane == 0) ws.commits[par][warp] = total;
+        __syncthreads();
+        uint32_t prior = 0;
+        total = 0;
+        for (int i = 0; i < nwarps; ++i) {
+          const uint32_t n = ws.commits[par][i];
+          prior += i < warp ? n : 0u;
+          total += n;
+        }
+        upto += prior;
+        par ^= 1;
+      }
+      if (commit) {
+        w_seq = (int32_t)(c + upto);
+        r_vsn1 = w_seq;
+      }
+      c += total;
+      // The lanes' slots are distinct: no other lane of the group reads
+      // what this one writes.  A path node is marked DIRTY by every lane
+      // under it with the same value; its BAD bit stays until the group
+      // ends, for the group's lanes verify against the tree as it stood.
+      if (do_write) {
+        s_oe[o] = w_epoch;
+        s_os[o] = w_seq;
+        s_ov[o] = w_val;
+        s_sst[o] = kDirty;  // its leaf is hashed at the end
+#pragma unroll
+        for (int l = 0; l < kMaxLevels; ++l)
+          if (l < lv.count) s_nst[rr * U + path[l]] |= kDirty;
+        wrote_r = true;
+        heal |= path_bad;
+      }
+      if (have && rr == 0) {
+        const size_t op = ((size_t)g * C + col) * p.w + w;
+        p.committed[op] = r_commit;
+        p.get_ok[op] = r_get;
+        p.found[op] = r_found;
+        p.value[op] = r_value;
+        p.obj_vsn[op * 2] = r_vsn0;
+        p.obj_vsn[op * 2 + 1] = r_vsn1;
+        p.quorum_ok[op] = eok;
+      }
+      __syncwarp();
+      if (++pg == P) {
+        // The group ends: its tree_corrupt row (its lanes' corrupt
+        // replicas OR'd), and the paths it wrote become trusted (BAD
+        // cleared where DIRTY, four state bytes a word).
+        uint32_t bits =
+            fold_segments(__ballot_sync(kFull, corrupt_r), M, lpw, low);
+        int healed = __any_sync(kFull, heal);
+        if (nwarps > 1) {
+          const int gp = g & 1;
+          if (lane == 0) {
+            if (bits) atomicOr(&ws.corrupt[gp], bits);
+            if (healed) ws.heal[gp] = 1;
+          }
+          __syncthreads();
+          bits = ws.corrupt[gp];
+          healed = ws.heal[gp];
+          if (threadIdx.x == 0) {  // the next group's tallies
+            ws.corrupt[gp ^ 1] = 0;
+            ws.heal[gp ^ 1] = 0;
+          }
+        }
+        if ((int)threadIdx.x < M)
+          p.tree_corrupt[((size_t)g * C + col) * M + threadIdx.x] =
+              (bits >> threadIdx.x) & 1u;
+        if (healed) {  // block-uniform
+          uint32_t* words = reinterpret_cast<uint32_t*>(s_nst);
+          for (int i = threadIdx.x; i < (M * U + 3) / 4; i += blockDim.x) {
+            const uint32_t x = words[i];
+            words[i] = x & ~((x >> 1) & 0x01010101u);
+          }
+        }
+        if (nwarps > 1) __syncthreads(); else __syncwarp();
+        corrupt_r = heal = false;
+        pg = 0;
+        ++g;
+      }
+    }
+    const uint32_t wb =
+        fold_segments(__ballot_sync(kFull, wrote_r), M, lpw, low);
+    if (lane == 0 && wb) atomicOr(&s_wrote, wb);
+    ctr = (int32_t)c;
+  } else if (warp == 0 && K > 0) {
+    // The scalar mode: warp 0 runs the rounds, 32 at a time.  Lane j holds
+    // round base + j's op fields and, once it has run, its results, stored
+    // together at the end of the 32.  This branch is compiled only with
+    // kWide false, so its `wide` branches (a group walk) are dead code.
+    // They stay because taking them out changes the compiler's schedule of
+    // the scalar instantiation (the same 106 registers, other instructions
+    // on an H100 build), which this mode keeps instruction for instruction.
     const bool heard_m = (heard >> lane) & 1u;
     uint32_t wrote = 0;
     int group = 0;             // the group the walk is in
@@ -932,9 +1312,13 @@ int smem_bytes(int m, int s, int u) {
 }
 
 // The launch shape: warps per block from {1, 2, 4, 8} (at most 8, the
-// kernel's bound), the one that needs the fewest waves of resident blocks
-// for `a` blocks; on a tie the most warps (the verdicts and refolds spread
-// over them).  Occupancy comes from the runtime's own query.
+// kernel's bound).  Scalar: the one that needs the fewest waves of
+// resident blocks for `a` blocks; on a tie the most warps (the verdicts
+// and refolds spread over them).  Wide: the one that keeps the most warps
+// on an SM at once (the launch's blocks an SM holds at once, times the
+// warps a block), for its lanes' chains are latency-bound; on a tie the
+// fewest warps a block (fewer block barriers a pass).  Occupancy comes
+// from the runtime's own query.
 struct Shape {
   int warps, blocks_per_sm, sms;
 };
@@ -984,8 +1368,8 @@ int occupancy(DeviceCache& dc, bool wide, int warps, int smem, int* blocks) {
 
 // The shape of a launch of `a` blocks of the mode's kernel on the current
 // device, after raising that kernel's dynamic shared memory limit there if
-// it needs it.
-int choose_shape(bool wide, int a, int smem, Shape* out) {
+// it needs it; `warps` > 0 names the warps per block.
+int choose_shape(bool wide, int a, int smem, int warps, Shape* out) {
   std::lock_guard<std::mutex> hold(shape_lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1004,14 +1388,19 @@ int choose_shape(bool wide, int a, int smem, Shape* out) {
     if (err != cudaSuccess) return (int)err;
   }
   int best = -1, best_waves = 0, best_occ = 0;
+  long best_resident = 0;
   for (int w = 1; w <= kMaxWarps; w *= 2) {
+    if (warps > 0 && w != warps) continue;
     int occ = 0;
     const int rc = occupancy(dc, wide, w, smem, &occ);
     if (rc != 0) return rc;
     if (occ <= 0) continue;
     const long per_wave = (long)occ * dc.sms;
     const int waves = (int)((a + per_wave - 1) / per_wave);
-    if (best < 0 || waves <= best_waves) {
+    const long per_sm = ((long)a + dc.sms - 1) / dc.sms;
+    const long resident = (occ < per_sm ? occ : per_sm) * w;
+    if (best < 0 || (wide ? resident > best_resident : waves <= best_waves)) {
+      best_resident = resident;
       best = w;
       best_waves = waves;
       best_occ = occ;
@@ -1033,7 +1422,9 @@ int n_levels(int s) {
 int check_dims(const int* dims) {
   if (dims[kM] < 1 || dims[kM] > kMaxPeers || dims[kV] < 1 ||
       dims[kV] > kMaxViews || dims[kS] < 1 || dims[kU] < 1 || dims[kK] < 0 ||
-      dims[kW] < 1 || n_levels(dims[kS]) > kMaxLevels)
+      dims[kW] < 1 || n_levels(dims[kS]) > kMaxLevels ||
+      (dims[kWarps] != 0 && dims[kWarps] != 1 && dims[kWarps] != 2 &&
+       dims[kWarps] != 4 && dims[kWarps] != kMaxWarps))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1095,7 +1486,7 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
   const int smem = smem_bytes(p.m, p.s, p.u);
   Shape shape;
   const bool wide = p.w > 1;
-  const int rc = choose_shape(wide, p.a, smem, &shape);
+  const int rc = choose_shape(wide, p.a, smem, dims[kWarps], &shape);
   if (rc != 0) return rc;
   if (wide)
     engine_step_kernel<true>
@@ -1118,7 +1509,8 @@ extern "C" int retpu_engine_step_occupancy(const int* dims, int* out) {
   if (err != cudaSuccess) return (int)err;
   const int smem = smem_bytes(dims[kM], dims[kS], dims[kU]);
   Shape shape;
-  const int rc = choose_shape(wide, dims[kA] > 0 ? dims[kA] : 1, smem, &shape);
+  const int rc = choose_shape(wide, dims[kA] > 0 ? dims[kA] : 1, smem,
+                              dims[kWarps], &shape);
   if (rc != 0) return rc;
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;

@@ -22,13 +22,15 @@ the index on the host (:func:`check_active`) and uploads it itself,
 through a ring of reused pinned buffers (:class:`_IndexRing`).
 
 Wide mode (``engine.full_step_wide`` / ``full_step_wide_sliced`` /
-``kv_step_scan_wide``): ``[G, C, W]`` op planes make the launch walk the
-G·W rounds in (group, lane) order with the wide round's verify-before-
-the-round semantics, and return ``[G, C, W]`` result planes
+``kv_step_scan_wide``): ``[G, C, W]`` op planes make the launch run the
+W lanes of each group at once (one segment of M threads a lane), each
+lane deciding from the state as it stood before its group, seqs by a
+prefix count in lane order, and return ``[G, C, W]`` result planes
 (``tree_corrupt [G, C, M]``).  Full width or sliced, as above.
 
 The kernel's launch shape (warps per block) comes from the runtime's
-occupancy query; :func:`occupancy` reports what a launch runs as.
+occupancy query, by one rule for each mode (``choose_shape`` in the
+source); :func:`occupancy` reports what a launch runs as.
 """
 
 from __future__ import annotations
@@ -61,8 +63,12 @@ engine_step_launches = 0
 engine_step_sliced_launches = 0
 engine_step_wide_launches = 0
 
+#: warps per block of every launch (1, 2, 4 or 8); 0 leaves the choice to
+#: the occupancy query.  ``chip_smoke.py`` sets it to time each shape.
+force_warps = 0
+
 _N_PTRS = 30
-_N_DIMS = 8
+_N_DIMS = 9
 _fn = None
 _occ_fn = None
 
@@ -395,7 +401,7 @@ def _ring(device: torch.device) -> _IndexRing:
 
 def _dims(n_rows: int, m: int, s: int, u: int, v: int, k: int, a: int,
           w: int = 1):
-    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a, w)
+    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a, w, force_warps)
 
 
 def occupancy(e: int, m: int, s: int, v: int, k: int,

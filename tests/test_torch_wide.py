@@ -21,9 +21,10 @@ package on the CPU — the mirror of ``tests/test_engine_wide.py`` and
   ``execute``, the G <= 2 gate, the warm-up's wide buckets and a dynamic
   row's lifecycle — each asserting ``wide_launches > 0`` in both packages.
 
-F1's wide mode itself runs only on a card (``test_torch_engine_step.py``'s
-``cuda`` cases, ``chip_smoke.py`` phase 11(a)).  Tolerance: exact
-equality everywhere.
+F1's wide mode itself runs only on a card: the ``cuda`` cases here and in
+``test_torch_engine_step.py``, and ``chip_smoke.py`` phase 11(a); its
+algorithm is held on the CPU by ``test_torch_f1_wide_design.py``.
+Tolerance: exact equality everywhere.
 """
 
 import numpy as np
@@ -277,6 +278,57 @@ def test_set_lanes_exact_with_colliding_masked_lanes(lanes):
                             torch.from_numpy(new[:, :, order]),
                             torch.from_numpy(mask[:, :, order]))
             assert np.array_equal(got.numpy(), want), (dims, order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aimed", (False, True))
+def test_f1_wide_lanes_match_plain_on_card(aimed):
+    """F1's wide mode (a group's lanes in parallel) equals
+    ``full_step_wide_plain`` on the card: every state plane, ``won`` and
+    every result lane, G = 2 over a damaged store.  ``aimed``: a group's
+    first lanes sit on slots 0-15 and every row's level-0 node over them
+    is corrupt on one replica, so that several lanes of one group cross
+    one corrupt node (counted, and required)."""
+    if not torch.cuda.is_available():
+        pytest.skip("F1 is a CUDA kernel: no CUDA device is visible")
+    from riak_ensemble_tpu_torch.ops import cuda_engine
+    from test_torch_f1_wide_design import ops_of, plan_of
+    rng = np.random.default_rng(50 + aimed)
+    e, m, s, k = 257, 5, 128, 32
+    st = teng.init_state(e, m, s, device="cuda")
+    ref = teng.EngineState(*(t.clone() for t in st))
+    shared = corrupt = 0
+    for step in range(4):
+        elect, cand, up, plan = plan_of(rng, st.leader.cpu().numpy(), e, m,
+                                        s, k, True, aimed)
+        if step == 0:
+            elect[:] = True
+            cand[:] = up.argmax(1)
+        else:
+            reps = rng.integers(0, m, e)
+            for t in (st, ref):
+                t.tree_node[torch.arange(e), torch.from_numpy(reps), 0, 1] \
+                    ^= 0x40
+                t.obj_val[step::9, 1, 3] += 1
+            heard = (up & st.view_mask.any(1).cpu().numpy())[
+                np.arange(e), reps]
+            under = ((plan.kind >= 1) & (plan.kind <= 4) & (plan.slot >= 0)
+                     & (plan.slot < 16)).sum(2) >= 2
+            shared += int((under & heard[None, :]).sum())
+        ops = [torch.from_numpy(x).cuda() for x in ops_of(plan)]
+        args = (torch.from_numpy(elect).cuda(), torch.from_numpy(cand).cuda(),
+                *ops[:4], torch.from_numpy(up).cuda())
+        before = cuda_engine.engine_step_wide_launches
+        st, won, res = teng.full_step_wide(st, *args, ops[4], ops[5])
+        ref, rwon, rres = teng.full_step_wide_plain(ref, *args, ops[4],
+                                                    ops[5])
+        torch.cuda.synchronize()
+        assert cuda_engine.engine_step_wide_launches == before + 1
+        assert torch.equal(won, rwon), step
+        assert all(torch.equal(a, b) for a, b in zip(st, ref)), step
+        assert all(torch.equal(a, b) for a, b in zip(res, rres)), step
+        corrupt += int(res.tree_corrupt.sum())
+    assert corrupt and (shared or not aimed), (corrupt, shared)
 
 
 # -- the service ---------------------------------------------------------------
