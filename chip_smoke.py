@@ -138,7 +138,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    1,024, joint views) over damaged stores, and with a group's lanes aimed
    under one corrupt level-0 node; timed as 3b times F1, beside scalar F1
    on the same ops in (group, lane) order, with its occupancy and bound,
-   and at each warps-per-block choice; (b) the headline service with ``wide=True`` on the card
+   and with one live lane a row; (b) the headline service with ``wide=True`` on the card
    against one on the CPU: ``execute()`` of distinct-slot planes, every
    acknowledged put read back, then 6(b)'s keyed pattern; wide launches
    run and F1 launches once per launch; (c) 6(b)'s keyed pattern and a
@@ -3690,20 +3690,6 @@ def time_wide(dev, card: str, chains: bool, sliced=None,
            "bound_by": b["bound_by"]}
     out.update(launch_timings(lambda: wide(st)))
     if detail:
-        # the same launch at each warps-per-block choice, and the one the
-        # occupancy query makes (`cuda_engine.force_warps` = 0)
-        out["by_warps"] = {}
-        for n in (1, 2, 4, 8):
-            cuda_engine.force_warps = n
-            try:
-                occ = cuda_engine.occupancy(e, m, s, 2, g, a, w)
-                out["by_warps"][n] = {"device_us": gated_us(lambda: wide(st)),
-                                      "blocks_per_sm": occ["blocks_per_sm"]}
-            finally:
-                cuda_engine.force_warps = 0
-        print(f"F1 wide G={g} A={a} by warps per block [{card}]: " + ", ".join(
-            f"{n}: {v['device_us']:.3f} us ({v['blocks_per_sm']} blocks per "
-            f"SM)" for n, v in out["by_warps"].items()))
         # the launch's part that does not grow with the lanes: the same
         # rows staged, verified, refolded and written back, with one live
         # lane each (lane 0 of group 0; every other lane NOOP)
@@ -3782,8 +3768,12 @@ def phase_f1_wide(dev: torch.device, card: str) -> dict:
         t0 = time.perf_counter()
         stats = wide_case(dev, name, e, m, s, k, views, steps, chains,
                           sliced, aimed, 300 + i)
+        # the launch shape the occupancy query gave this case's grid
+        occ = cuda_engine.occupancy(e, m, s, 2, 1,
+                                    e if sliced is None else sliced[1], 2)
         print(f"F1 wide == plain  {name}: E={e} M={m} S={s} K={k}, {steps} "
-              f"steps, {stats} ({time.perf_counter() - t0:.1f} s)")
+              f"steps, {stats}, {occ['warps_per_block']} warps per block "
+              f"({time.perf_counter() - t0:.1f} s)")
         if not stats["commits"]:
             raise AssertionError(f"F1 wide case {name} committed nothing")
         if aimed and not stats["shared"]:

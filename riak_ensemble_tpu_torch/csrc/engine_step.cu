@@ -81,8 +81,7 @@
 // at once with segment-masked reduces and ballots.  A committing lane's
 // seq is the counter plus the group's commits up to and including it (the
 // reference's cumsum): a ballot and a popcount in the warp, the warps
-// before it through shared memory (one block barrier a pass with more
-// than one warp).  The lanes then write their objects and slot state
+// before it through shared memory (one block barrier a pass).  The lanes then write their objects and slot state
 // bytes (distinct slots) and OR DIRTY into their paths' node bytes —
 // every lane under a node stores the same value — while BAD stays set
 // until the group ends: then the group's tree_corrupt row (its lanes'
@@ -93,8 +92,8 @@
 // and the next batch loads while one runs.  The warps per block come from
 // the occupancy query by its own rule (choose_shape).  W = 1 is the scalar
 // mode above, path for path.  On an H100 80GB HBM3 at 700 W a full-width
-// wide launch (G = 1, W = 64) takes ~0.28 ms, 26 % of its bytes bound, and
-// ~0.19 ms of that with one live lane a row: the staging, verdicts, refold
+// wide launch (G = 1, W = 64) takes ~0.27 ms, 27 % of its bytes bound, and
+// ~0.18 ms of that with one live lane a row: the staging, verdicts, refold
 // and write-back of blocks that hold one row each set it now (PERF.md).
 
 // Contract (the Python wrapper checks it and raises; the entry point
@@ -153,8 +152,7 @@ enum Ptr {
   kGetOk, kFound, kValue, kObjVsn, kQuorumOk, kTreeCorrupt, kActiveIdx,
   kPadBallot, kNumPtrs
 };
-// kWarps: warps per block, or 0 for the occupancy query's choice.
-enum Dim { kE, kM, kS, kU, kV, kK, kA, kW, kWarps, kNumDims };
+enum Dim { kE, kM, kS, kU, kV, kK, kA, kW, kNumDims };
 
 struct Params {
   int32_t* epoch;
@@ -925,19 +923,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       const uint32_t cb = __ballot_sync(kFull, commit && rr == 0);
       uint32_t upto = __popc(cb & ((2u << shift) - 1u));
       uint32_t total = __popc(cb);
-      if (nwarps > 1) {  // block-uniform
-        if (lane == 0) ws.commits[par][warp] = total;
-        __syncthreads();
-        uint32_t prior = 0;
-        total = 0;
-        for (int i = 0; i < nwarps; ++i) {
-          const uint32_t n = ws.commits[par][i];
-          prior += i < warp ? n : 0u;
-          total += n;
-        }
-        upto += prior;
-        par ^= 1;
+      if (lane == 0) ws.commits[par][warp] = total;
+      __syncthreads();
+      total = 0;
+      for (int i = 0; i < nwarps; ++i) {
+        const uint32_t n = ws.commits[par][i];
+        upto += i < warp ? n : 0u;
+        total += n;
       }
+      par ^= 1;
       if (commit) {
         w_seq = (int32_t)(c + upto);
         r_vsn1 = w_seq;
@@ -975,20 +969,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         // cleared where DIRTY, four state bytes a word).
         uint32_t bits =
             fold_segments(__ballot_sync(kFull, corrupt_r), M, lpw, low);
-        int healed = __any_sync(kFull, heal);
-        if (nwarps > 1) {
-          const int gp = g & 1;
-          if (lane == 0) {
-            if (bits) atomicOr(&ws.corrupt[gp], bits);
-            if (healed) ws.heal[gp] = 1;
-          }
-          __syncthreads();
-          bits = ws.corrupt[gp];
-          healed = ws.heal[gp];
-          if (threadIdx.x == 0) {  // the next group's tallies
-            ws.corrupt[gp ^ 1] = 0;
-            ws.heal[gp ^ 1] = 0;
-          }
+        const int healed_w = __any_sync(kFull, heal);
+        const int gp = g & 1;
+        if (lane == 0) {
+          if (bits) atomicOr(&ws.corrupt[gp], bits);
+          if (healed_w) ws.heal[gp] = 1;
+        }
+        __syncthreads();
+        bits = ws.corrupt[gp];
+        const int healed = ws.heal[gp];
+        if (threadIdx.x == 0) {  // the next group's tallies
+          ws.corrupt[gp ^ 1] = 0;
+          ws.heal[gp ^ 1] = 0;
         }
         if ((int)threadIdx.x < M)
           p.tree_corrupt[((size_t)g * C + col) * M + threadIdx.x] =
@@ -1000,7 +992,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             words[i] = x & ~((x >> 1) & 0x01010101u);
           }
         }
-        if (nwarps > 1) __syncthreads(); else __syncwarp();
+        __syncthreads();
         corrupt_r = heal = false;
         pg = 0;
         ++g;
@@ -1368,8 +1360,8 @@ int occupancy(DeviceCache& dc, bool wide, int warps, int smem, int* blocks) {
 
 // The shape of a launch of `a` blocks of the mode's kernel on the current
 // device, after raising that kernel's dynamic shared memory limit there if
-// it needs it; `warps` > 0 names the warps per block.
-int choose_shape(bool wide, int a, int smem, int warps, Shape* out) {
+// it needs it.
+int choose_shape(bool wide, int a, int smem, Shape* out) {
   std::lock_guard<std::mutex> hold(shape_lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1390,7 +1382,6 @@ int choose_shape(bool wide, int a, int smem, int warps, Shape* out) {
   int best = -1, best_waves = 0, best_occ = 0;
   long best_resident = 0;
   for (int w = 1; w <= kMaxWarps; w *= 2) {
-    if (warps > 0 && w != warps) continue;
     int occ = 0;
     const int rc = occupancy(dc, wide, w, smem, &occ);
     if (rc != 0) return rc;
@@ -1422,9 +1413,7 @@ int n_levels(int s) {
 int check_dims(const int* dims) {
   if (dims[kM] < 1 || dims[kM] > kMaxPeers || dims[kV] < 1 ||
       dims[kV] > kMaxViews || dims[kS] < 1 || dims[kU] < 1 || dims[kK] < 0 ||
-      dims[kW] < 1 || n_levels(dims[kS]) > kMaxLevels ||
-      (dims[kWarps] != 0 && dims[kWarps] != 1 && dims[kWarps] != 2 &&
-       dims[kWarps] != 4 && dims[kWarps] != kMaxWarps))
+      dims[kW] < 1 || n_levels(dims[kS]) > kMaxLevels)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1486,7 +1475,7 @@ extern "C" int retpu_engine_step(const uint64_t* ptrs, const int* dims,
   const int smem = smem_bytes(p.m, p.s, p.u);
   Shape shape;
   const bool wide = p.w > 1;
-  const int rc = choose_shape(wide, p.a, smem, dims[kWarps], &shape);
+  const int rc = choose_shape(wide, p.a, smem, &shape);
   if (rc != 0) return rc;
   if (wide)
     engine_step_kernel<true>
@@ -1509,8 +1498,8 @@ extern "C" int retpu_engine_step_occupancy(const int* dims, int* out) {
   if (err != cudaSuccess) return (int)err;
   const int smem = smem_bytes(dims[kM], dims[kS], dims[kU]);
   Shape shape;
-  const int rc = choose_shape(wide, dims[kA] > 0 ? dims[kA] : 1, smem,
-                              dims[kWarps], &shape);
+  const int rc =
+      choose_shape(wide, dims[kA] > 0 ? dims[kA] : 1, smem, &shape);
   if (rc != 0) return rc;
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;

@@ -63,12 +63,8 @@ engine_step_launches = 0
 engine_step_sliced_launches = 0
 engine_step_wide_launches = 0
 
-#: warps per block of every launch (1, 2, 4 or 8); 0 leaves the choice to
-#: the occupancy query.  ``chip_smoke.py`` sets it to time each shape.
-force_warps = 0
-
 _N_PTRS = 30
-_N_DIMS = 9
+_N_DIMS = 8
 _fn = None
 _occ_fn = None
 
@@ -401,7 +397,7 @@ def _ring(device: torch.device) -> _IndexRing:
 
 def _dims(n_rows: int, m: int, s: int, u: int, v: int, k: int, a: int,
           w: int = 1):
-    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a, w, force_warps)
+    return (ctypes.c_int * _N_DIMS)(n_rows, m, s, u, v, k, a, w)
 
 
 def occupancy(e: int, m: int, s: int, v: int, k: int,
