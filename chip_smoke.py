@@ -166,16 +166,36 @@ Phases (each raises on failure, so any failure exits non-zero):
    equivalent, ship build / encode / ack ms, the replica's apply ms per
    batch, catch-up ms and bytes, and the ms from promotion to the first
    ack.
+13. riak_ensemble's own consensus plane and the device Merkle tree:
+   (a) ``ops/hash.py``'s tree on the card at the reference synctree's
+   design scale (16^5 = 1,048,576 segments, width 16, 4 lanes): ``build``,
+   ``update`` of 4,096 ids with duplicates, ``verify`` with a node
+   corrupted at three levels, ``diff_levels`` and ``exchange_cost``
+   against a tree with 1,000 differing segments, each bit-equal to the
+   same call on CPU tensors and timed; then ``synctree/remote_sync.py``'s
+   ``sync_diff`` against that tree on the card in another process, which
+   must find the CPU diff's segments inside the O(width x height x diffs)
+   traffic bound; (b) ``testing.ManagedCluster`` at a Riak KV strong
+   consistency deployment's size: 5 nodes, the root ensemble on all 5,
+   64 ensembles (one per partition of the default 64-partition ring) x
+   5 peers (n_val 5) on 5 distinct nodes, 100 keys each through
+   ``kput_once`` / ``kover`` / ``kget`` / ``kupdate`` / ``kmodify`` /
+   ``kdelete``, a leader suspended and re-elected, a leader's synctree
+   corrupted and healed by exchange, and every acknowledged put read
+   back; it prints the wall seconds to elect, the wall µs per op (p50,
+   p99) and the simulated seconds, and asserts that the lease clock is
+   the host library's native one.
 
 Phases 4-10 run the service's default (native) host arm.
 
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
-the build and phase 11(a), ``--repgroup`` the build and phase 12 (no
-result line); ``--ab DIR`` times F1 at the headline shape (full width and four
-sliced shapes), phase 6(c) and F1's wide mode at 11(a)'s four timed
-shapes in the tree DIR and in this one, on one card, in turns (DIR,
-this, this, DIR), each turn a process of its own running this file's
-timing code on its tree's package.
+the build and phase 11(a), ``--repgroup`` the build and phase 12,
+``--scalar`` the build and phase 13 (no result line); ``--ab DIR``
+times F1 at the headline shape (full width and four sliced shapes),
+phase 6(c) and F1's wide mode at 11(a)'s four timed shapes in the tree
+DIR and in this one, on one card, in turns (DIR, this, this, DIR), each
+turn a process of its own running this file's timing code on its tree's
+package.
 
 It prints the card (``nvidia-smi``), one JSON line of kernel numbers
 (with the host passes' times under ``host``), and as its last line
@@ -4445,6 +4465,359 @@ def phase_repgroup(dev: torch.device, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the device Merkle tree and the scalar consensus plane
+
+#: the reference synctree's design scale: 16^5 segments, width 16
+TREE_SEGS, TREE_WIDTH = 16 ** 5, 16
+#: 13(a): ids in the update batch, segments the remote tree differs in
+TREE_K, TREE_DIFFS = 4096, 1000
+#: 13(b): Riak KV's strong consistency runs one ensemble per ring
+#: partition (64 at the default ring_creation_size), n_val 5
+SCALAR_NODES, SCALAR_ENS, SCALAR_PEERS, SCALAR_KEYS = 5, 64, 5, 100
+
+#: the remote tree of 13(a), built on the card in a process of its own
+TREE_CHILD = """
+import sys, time
+import numpy as np
+import torch
+from riak_ensemble_tpu_torch.ops import hash as hashk
+from riak_ensemble_tpu_torch.synctree import remote_sync
+segs, width, diffs, seed = (int(a) for a in sys.argv[1:5])
+dev = torch.device(sys.argv[5])
+idx = torch.arange(segs, dtype=torch.int32, device=dev)
+levels = hashk.build(hashk.leaf_hash(idx, idx * 7 + 1), width=width)
+rng = np.random.default_rng(seed)
+ids = torch.from_numpy(rng.choice(segs, diffs, replace=False))
+new = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (diffs, hashk.LANES),
+                                    dtype=np.int32))
+levels = hashk.update(levels, ids.to(dev), new.to(dev), width=width)
+srv = remote_sync.TreeSyncServer(levels)
+print(f"port={srv.port}", flush=True)
+sys.stdin.read()
+"""
+
+
+def tree_remote(segs: int, diffs: int, seed: int):
+    """The remote tree of :data:`TREE_CHILD` on CPU tensors, for the
+    CPU diff the streamed exchange is held against."""
+    idx = torch.arange(segs, dtype=torch.int32)
+    levels = hashk.build(hashk.leaf_hash(idx, idx * 7 + 1), width=TREE_WIDTH)
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.choice(segs, diffs, replace=False))
+    new = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                        (diffs, hashk.LANES),
+                                        dtype=np.int32))
+    return hashk.update(levels, ids, new, width=TREE_WIDTH)
+
+
+def same_levels(what: str, got, want) -> None:
+    if len(got) != len(want) or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise AssertionError(f"phase 13(a): {what} on the card differs "
+                             f"from the CPU")
+
+
+def phase_tree(dev, card: str, segs: int = TREE_SEGS, k: int = TREE_K,
+               diffs: int = TREE_DIFFS) -> dict:
+    """13(a): ``ops/hash.py``'s tree functions on the card at 16^5
+    segments, each bit-equal to the same call on CPU tensors, then the
+    streamed exchange (``synctree/remote_sync.py``) against a tree on the
+    card in another process."""
+    from riak_ensemble_tpu_torch.synctree import remote_sync
+    t_phase = time.perf_counter()
+    timed = dev.type == "cuda"
+    idx = torch.arange(segs, dtype=torch.int32)
+    leaves_c = hashk.leaf_hash(idx, idx * 7 + 1)
+    leaves = leaves_c.to(dev)
+    levels = hashk.build(leaves, width=TREE_WIDTH)
+    levels_c = hashk.build(leaves_c, width=TREE_WIDTH)
+    same_levels("build", levels, levels_c)
+    tree_bytes = sum(lv.numel() * 4 for lv in levels)
+    rng = np.random.default_rng(1313)
+    ids_np = rng.integers(0, segs, k)
+    ids_np[k // 2:k // 2 + k // 8] = ids_np[:k // 8]   # duplicates
+    new_np = rng.integers(-2 ** 31, 2 ** 31, (k, hashk.LANES), dtype=np.int32)
+    ids_c, new_c = torch.from_numpy(ids_np), torch.from_numpy(new_np)
+    ids, new = ids_c.to(dev), new_c.to(dev)
+    upd = hashk.update(levels, ids, new, width=TREE_WIDTH)
+    upd_c = hashk.update(levels_c, ids_c, new_c, width=TREE_WIDTH)
+    same_levels("update", upd, upd_c)
+    # last write wins: every segment holds its id's last occurrence
+    last = {int(seg): i for i, seg in enumerate(ids_np)}
+    if not torch.equal(upd_c[-1][ids_c], new_c[[last[int(seg)]
+                                                 for seg in ids_np]]):
+        raise AssertionError("phase 13(a): a duplicated segment does not "
+                             "hold its last write")
+    # corrupt one node at three levels; verify flags each parent check
+    bad = list(upd)
+    bad_c = list(upd_c)
+    marks = {1: 7, 3: 1234, len(upd) - 1: segs // 3}
+    for lvl, node in marks.items():
+        for arr in (bad, bad_c):
+            arr[lvl] = arr[lvl].clone()
+            arr[lvl][node, 0] ^= 0x5A5A
+    flags = hashk.verify(tuple(bad), width=TREE_WIDTH)
+    flags_c = hashk.verify(tuple(bad_c), width=TREE_WIDTH)
+    same_levels("verify", flags, flags_c)
+    for lvl, node in marks.items():
+        # the stored node no longer matches its parent's fold...
+        if not bool(flags_c[lvl - 1][node // TREE_WIDTH]):
+            raise AssertionError(f"phase 13(a): verify missed level {lvl}")
+        # ...and an inner node no longer matches its own children
+        if lvl < len(upd) - 1 and not bool(flags_c[lvl][node]):
+            raise AssertionError(f"phase 13(a): verify missed level {lvl}")
+    if any(bool(f.any()) for f in hashk.verify(upd_c, width=TREE_WIDTH)):
+        raise AssertionError("phase 13(a): a clean tree failed verify")
+    # a second tree with `diffs` differing segments
+    remote_c = tree_remote(segs, diffs, 1314)
+    remote = tuple(lv.to(dev) for lv in remote_c)
+    masks = hashk.diff_levels(levels, remote)
+    masks_c = hashk.diff_levels(levels_c, remote_c)
+    same_levels("diff_levels", masks, masks_c)
+    cost = hashk.exchange_cost(levels, remote, width=TREE_WIDTH)
+    cost_c = hashk.exchange_cost(levels_c, remote_c, width=TREE_WIDTH)
+    if not torch.equal(cost.cpu(), cost_c):
+        raise AssertionError("phase 13(a): exchange_cost differs")
+    want = torch.nonzero(masks_c[-1])[:, 0].tolist()
+    if len(want) != diffs:
+        raise AssertionError(f"phase 13(a): {len(want)} differing "
+                             f"segments, not {diffs}")
+    ms = {}
+    if timed:
+        ms = {"build": cuda_ms(lambda: hashk.build(leaves, TREE_WIDTH), 5),
+              "update": cuda_ms(lambda: hashk.update(levels, ids, new,
+                                                     TREE_WIDTH), 5),
+              "verify": cuda_ms(lambda: hashk.verify(upd, TREE_WIDTH), 5),
+              "diff_levels": cuda_ms(lambda: hashk.diff_levels(levels,
+                                                               remote), 5),
+              "exchange_cost": cuda_ms(lambda: hashk.exchange_cost(
+                  levels, remote, TREE_WIDTH), 5)}
+    # the streamed exchange between two processes, both trees on `dev`
+    root = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.Popen(
+        [sys.executable, "-c", TREE_CHILD, str(segs), str(TREE_WIDTH),
+         str(diffs), "1314", str(dev)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = child.stdout.readline()
+        if not line.startswith("port="):
+            raise AssertionError(f"phase 13(a): tree server did not start: "
+                                 f"{child.stderr.read()[-3000:]}")
+        port = int(line.split("=")[1])
+        sync_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            found, stats = remote_sync.sync_diff(levels, "127.0.0.1", port,
+                                                 width=TREE_WIDTH)
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        child.stdin.close()
+        child.wait(timeout=60)
+    if sorted(found.tolist()) != want:
+        raise AssertionError("phase 13(a): the streamed exchange found "
+                             "other segments than the CPU diff")
+    height = len(levels)
+    node_bytes = hashk.LANES * 4
+    limit = (1 + diffs * TREE_WIDTH * height) * node_bytes * 2
+    if stats["messages"] > height + 1 or stats["bytes_rx"] > limit or \
+            stats["visited"] != cost_c.tolist():
+        raise AssertionError(f"phase 13(a): exchange traffic {stats} "
+                             f"outside O(width * height * diffs) "
+                             f"({limit} B)")
+    out = {"segments": segs, "tree_bytes": tree_bytes, "update_k": k,
+           "diffs": diffs, "ms": ms, "sync_diff_ms": sync_ms,
+           "messages": stats["messages"], "bytes_tx": stats["bytes_tx"],
+           "bytes_rx": stats["bytes_rx"], "visited": stats["visited"],
+           "bound_bytes_rx": limit}
+    print(f"13(a) device tree {segs} segments x {hashk.LANES} lanes, width "
+          f"{TREE_WIDTH} ({tree_bytes} B of levels) [{card}]: build, "
+          f"update K={k} (duplicates), verify (3 corrupt levels), "
+          f"diff_levels, exchange_cost bit-equal to the CPU; ms per call "
+          + ", ".join(f"{n} {v:.6f}" for n, v in ms.items()))
+    print(f"13(a) sync_diff across processes [{card}]: {len(found)} "
+          f"divergent segments = the CPU diff; {stats['messages']} "
+          f"messages, {stats['bytes_tx']} B out, {stats['bytes_rx']} B in "
+          f"(bound {limit} B; the levels hold {tree_bytes} B), visited "
+          f"{stats['visited']}; wall ms per exchange "
+          + ", ".join(f"{v:.3f}" for v in sync_ms)
+          + f"; phase {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def retried(fn, tries: int = 20):
+    """``fn()`` again while it answers a timeout (at most ``tries``
+    times): an op racing a leader change may time out without losing an
+    acknowledged write."""
+    for _ in range(tries - 1):
+        r = fn()
+        if r != ("error", "timeout"):
+            return r
+    return fn()
+
+
+def scalar_op(lat: list, fn):
+    t0 = time.perf_counter()
+    r = fn()
+    lat.append(time.perf_counter() - t0)
+    return r
+
+
+def phase_scalar(card: str, n_ens: int = SCALAR_ENS,
+                 n_keys: int = SCALAR_KEYS, seed: int = 13) -> dict:
+    """13(b): riak_ensemble's own plane (``testing.ManagedCluster``: a
+    manager, routers and storage per node, the root ensemble, gossip) at
+    a deployment's size: 5 nodes, ``n_ens`` ensembles of 5 peers on 5
+    distinct nodes, ``n_keys`` keys each through every K/V verb, a
+    leader suspended and re-elected, a peer's synctree corrupted and
+    healed by exchange, then every acknowledged put read back."""
+    from riak_ensemble_tpu_torch import funref as fref
+    from riak_ensemble_tpu_torch.testing import ManagedCluster
+    from riak_ensemble_tpu_torch.types import NOTFOUND, PeerId
+    from riak_ensemble_tpu_torch.utils import clock
+
+    if clock.load() is None or not clock.is_boottime():
+        raise AssertionError("phase 13(b): the native CLOCK_BOOTTIME clock "
+                             "of the host library is not in use")
+    t_phase = time.perf_counter()
+    nodes = [f"node{i}" for i in range(SCALAR_NODES)]
+    mc = ManagedCluster(seed=seed, nodes=tuple(nodes))
+    rt = mc.runtime
+    mc.enable(nodes[0])
+    for n in nodes[1:]:
+        mc.join(n, nodes[0])
+    r = mc.update_members("root", [("add", PeerId("root", n))
+                                   for n in nodes[1:]])
+    if r != "ok":
+        raise AssertionError(f"phase 13(b): root expansion answered {r}")
+    if not rt.run_until(lambda: all(
+            rt.whereis(("peer", "root", PeerId("root", n))) is not None
+            for n in nodes), 60.0, poll=0.1):
+        raise AssertionError("phase 13(b): root peers never started")
+    mc.wait_stable("root")
+    names = [f"p{e}" for e in range(n_ens)]
+    for e, name in enumerate(names):
+        mc.create_ensemble(name, [PeerId(j, nodes[(e + j) % SCALAR_NODES])
+                                  for j in range(SCALAR_PEERS)])
+    for name in names:
+        mc.wait_stable(name)
+    elect_s = time.perf_counter() - t_phase
+    sim_elect = rt.now
+    clients = [mc.client(n) for n in nodes]
+    lat = []
+    acked = {}
+    kmod = fref.ref("peer:kmodify")
+
+    def ok(r, what):
+        if not (isinstance(r, tuple) and r[0] == "ok"):
+            raise AssertionError(f"phase 13(b): {what} answered {r!r}")
+        return r[1]
+
+    for e, name in enumerate(names):
+        for i in range(n_keys):
+            c = clients[(e + i) % SCALAR_NODES]
+            key = f"k{i}"
+            ok(scalar_op(lat, lambda: c.kput_once(name, key, b"a%d" % i)),
+               "kput_once")
+            if scalar_op(lat, lambda: c.kput_once(name, key, b"x")) != \
+                    ("error", "failed"):
+                raise AssertionError("phase 13(b): a second kput_once "
+                                     "succeeded")
+            ok(scalar_op(lat, lambda: c.kover(name, key, b"b%d" % i)),
+               "kover")
+            cur = ok(scalar_op(lat, lambda: c.kget(name, key)), "kget")
+            ok(scalar_op(lat, lambda: c.kupdate(name, key, cur,
+                                                b"c%d" % i)), "kupdate")
+            acked[(name, key)] = b"c%d" % i
+            if i % 10 == 0:
+                ctr = f"n{i}"
+                for step in range(1, 3):
+                    got = ok(scalar_op(lat, lambda: c._sync(
+                        name, ("put", ctr, kmod,
+                               [lambda vsn, v: v + 1, 0]), 10.0)),
+                        "kmodify")
+                    if got.value != step:
+                        raise AssertionError(f"phase 13(b): kmodify gave "
+                                             f"{got.value}, not {step}")
+                acked[(name, ctr)] = 2
+                dk = f"d{i}"
+                ok(scalar_op(lat, lambda: c.kover(name, dk, b"gone")),
+                   "kover")
+                ok(scalar_op(lat, lambda: c.kdelete(name, dk)), "kdelete")
+                acked[(name, dk)] = NOTFOUND
+    n_ops = len(lat)
+    # a leader suspended and re-elected
+    victim_ens = names[0]
+    leader = mc.leader_id(victim_ens)
+    mc.suspend_peer(victim_ens, leader)
+    t0 = time.perf_counter()
+    if not rt.run_until(lambda: mc.leader_id(victim_ens)
+                        not in (None, leader), 60.0):
+        raise AssertionError("phase 13(b): no re-election")
+    mc.wait_stable(victim_ens)
+    reelect_ms = (time.perf_counter() - t0) * 1e3
+    # the first ops after a failover may time out (a router's stale
+    # leader, an ambiguous outcome): a put is acknowledged once it says ok
+    ok(retried(lambda: clients[1].kover(victim_ens, "after", b"failover")),
+       "kover")
+    acked[(victim_ens, "after")] = b"failover"
+    mc.resume_peer(victim_ens, leader)
+    # one peer's synctree corrupted, healed by exchange
+    corrupt_ens = names[1]
+    cl = mc.leader_id(corrupt_ens)
+    mc.tree_of(corrupt_ens, cl).tree.corrupt("k1")
+
+    def healed():
+        r = clients[2].kget(corrupt_ens, "k1", timeout=5.0)
+        if r[0] == "ok" and r[1].value is NOTFOUND:
+            raise AssertionError("phase 13(b): a corrupted tree let a "
+                                 "read return notfound")
+        return r[0] == "ok" and r[1].value == acked[(corrupt_ens, "k1")]
+    if not rt.run_until(healed, 120.0, poll=0.1):
+        raise AssertionError("phase 13(b): the corrupted tree never healed")
+    rt.run_for(2.0)
+    peers = [p for p in rt.actors.values()
+             if type(p).__name__ == "Peer" and p.ensemble == corrupt_ens]
+    tops = {mc.tree_of(corrupt_ens, p.id).tree.top_hash for p in peers}
+    if len(peers) != SCALAR_PEERS or len(tops) != 1 or not all(
+            mc.tree_of(corrupt_ens, p.id).tree.verify() for p in peers):
+        raise AssertionError("phase 13(b): the peers' trees did not "
+                             "converge after the exchange")
+    # every acknowledged put read back
+    acked_read = []
+    for (name, key), want in acked.items():
+        c = clients[len(acked_read) % SCALAR_NODES]
+        got = ok(retried(lambda: c.kget(name, key)),
+                 f"kget {name}/{key}").value
+        acked_read.append(key)
+        if not (got is want if want is NOTFOUND else got == want):
+            raise AssertionError(f"phase 13(b): {name}/{key} read {got!r}, "
+                                 f"acknowledged {want!r}")
+    us = sorted(x * 1e6 for x in lat)
+    out = {"nodes": SCALAR_NODES, "ensembles": n_ens + 1,
+           "peers": SCALAR_PEERS, "keys_per_ensemble": n_keys,
+           "ops": n_ops, "acked_read_back": len(acked),
+           "elect_wall_s": elect_s, "elect_sim_s": sim_elect,
+           "op_us_p50": pctl(us, 50), "op_us_p99": pctl(us, 99),
+           "reelect_wall_ms": reelect_ms, "sim_s": rt.now,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"13(b) scalar plane, {SCALAR_NODES} nodes, root + {n_ens} "
+          f"ensembles x {SCALAR_PEERS} peers, {n_keys} keys each [{card}]: "
+          f"elected in {elect_s:.3f} s wall ({sim_elect:.3f} s simulated); "
+          f"{n_ops} ops, wall us per op p50 {out['op_us_p50']:.1f} p99 "
+          f"{out['op_us_p99']:.1f}; re-election {reelect_ms:.3f} ms wall; "
+          f"tree healed; {len(acked)} acknowledged keys read back; "
+          f"{rt.now:.3f} s simulated, {out['wall_s']:.3f} s wall")
+    return out
+
+
+def phase_scalar_plane(dev, card: str) -> dict:
+    """Phase 13: (a) the device tree and its streamed exchange on the
+    card, (b) the scalar consensus plane at a deployment's size."""
+    return {"tree": phase_tree(dev, card), "scalar": phase_scalar(card)}
+
+
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
     """torch.profiler over one steady execute() flush: device kernel
     time by name and the device's busy share of the flush wall time."""
@@ -4612,6 +4985,10 @@ def main(argv) -> int:
         # the replication group alone: phase 12, no result line
         phase_repgroup(dev, card)
         return 0
+    if "--scalar" in argv:
+        # the device tree and the scalar plane alone: phase 13
+        phase_scalar_plane(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -4640,6 +5017,7 @@ def main(argv) -> int:
     phase_sharded(dev, card)
     group = phase_repgroup(dev, card)
     by_path["phase12 repgroup leader"] = group["counts"]
+    scalar_plane = phase_scalar_plane(dev, card)
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
@@ -4716,7 +5094,8 @@ def main(argv) -> int:
                                         if k != "reconfig"},
                       "front_end": front,
                       "repgroup": {k: v for k, v in group.items()
-                                   if k != "counts"}}))
+                                   if k != "counts"},
+                      "scalar_plane": scalar_plane}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

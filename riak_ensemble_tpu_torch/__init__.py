@@ -12,7 +12,9 @@ Layout mirrors the reference so each counterpart is easy to find:
 - :mod:`.ops.quorum` — the scalar and batched quorum predicates;
 - :mod:`.ops.cuda_quorum` — kernel K1 (the engine's quorum reduce,
   CUDA C++ in ``csrc/quorum.cu``) and its plain PyTorch version;
-- :mod:`.ops.hash` — the Merkle lane hash (format 3);
+- :mod:`.ops.hash` — the Merkle lane hash (format 3) and the device
+  Merkle tree, whose exchange :mod:`.synctree.remote_sync` streams
+  between processes;
 - :mod:`.ops.engine` — the engine state and the fused step;
 - :mod:`.parallel.batched_host` — the keyed service, with its
   observability plane (:mod:`.obs`) on by default;
@@ -20,7 +22,13 @@ Layout mirrors the reference so each counterpart is easy to find:
   ``ServiceClient``, ``serve``) over the restricted wire codec
   (:mod:`.wire`, its C++ half in ``csrc/host/wirecodec.cc``) on the
   real-time runtime (:mod:`.netruntime`);
-- :mod:`.interop` — bit-exact state conversion to and from numpy.
+- :mod:`.interop` — bit-exact state conversion to and from numpy;
+- riak_ensemble's own scalar plane on the simulator runtime
+  (:mod:`.runtime`): :mod:`.storage`, :mod:`.synctree`, :mod:`.msg`,
+  :mod:`.router`, :mod:`.directory`, :mod:`.lease`, :mod:`.backend`,
+  :mod:`.worker`, :mod:`.peer`, :mod:`.root`, :mod:`.manager`,
+  :mod:`.state`, :mod:`.client`, :mod:`.app`, :mod:`.utils.clock`, and
+  the harness :mod:`.testing` (``Cluster``, ``ManagedCluster``).
 
 The package imports torch, numpy and the standard library only: never
 ``jax`` and never a module of :mod:`riak_ensemble_tpu`.  Entry points

@@ -12,13 +12,14 @@ The file name carries a hash of the source, the shared headers
 and an unchanged one is reused.
 
 The host passes of the service (``csrc/host/*.cc``: the enqueue pack and
-gather, the resolve unpack, mirror scatter and WAL encode, and the
-treestore that holds the WAL) build the same way into ONE library, with
+gather, the resolve unpack, mirror scatter and WAL encode, the
+treestore that holds the WAL, and the monotonic clock of the leader
+lease) build the same way into ONE library, with
 the host compiler::
 
     g++ -O2 -fPIC -std=c++17 -shared -o build/libretpu_host-<hash>.so \\
         csrc/host/enqueuekernel.cc csrc/host/resolvekernel.cc \\
-        csrc/host/treestore.cc
+        csrc/host/treestore.cc csrc/host/clock.cc
 
 its hash covering every source, the compiler and the flags.  The
 restricted wire codec (``csrc/host/wirecodec.cc``) is a CPython
@@ -57,7 +58,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 HOST_DIR = os.path.join(CSRC_DIR, "host")
-HOST_SOURCES = ("enqueuekernel.cc", "resolvekernel.cc", "treestore.cc")
+HOST_SOURCES = ("enqueuekernel.cc", "resolvekernel.cc", "treestore.cc",
+                "clock.cc")
 #: the host compiler (a path or a name on PATH) and its flags
 HOST_CXX = "g++"
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")

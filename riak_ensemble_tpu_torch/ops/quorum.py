@@ -11,7 +11,9 @@ might still succeed returns ``UNDECIDED`` and later views are not
 examined.
 
 - :func:`quorum_met` — the host scalar version, copied unchanged from
-  ``riak_ensemble_tpu/ops/quorum.py:54`` (the differential oracle);
+  ``riak_ensemble_tpu/ops/quorum.py:54`` (the scalar plane's
+  :mod:`..msg` votes with it; the differential oracle), with
+  :func:`find_valid` (``:93``);
 - :func:`quorum_met_batch` — the batched version
   (``riak_ensemble_tpu/ops/quorum.py:115-185``) as torch ops over
   ``[..., M]`` peer lanes and ``[..., V, M]`` view masks, all four
@@ -76,6 +78,13 @@ def quorum_met(replies: Iterable[Tuple[object, object]],
     if extra is not None and not extra(replies):
         return UNDECIDED
     return MET
+
+
+def find_valid(replies):
+    """Partition replies into (valid, nacks) (msg.erl:420-426)."""
+    valid = [(p, r) for (p, r) in replies if r != "nack"]
+    nacks = [(p, r) for (p, r) in replies if r == "nack"]
+    return valid, nacks
 
 
 def resolve_views(heard: torch.Tensor, n_nack: torch.Tensor,

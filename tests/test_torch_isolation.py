@@ -20,6 +20,14 @@ seventh subprocess runs a three-host group in one process (deltas, a
 merge entry, bit-equal replicas) and ``python -m
 riak_ensemble_tpu_torch.parallel.repgroup --help`` with both names
 blocked, and the group's entry points default to the card as well.
+The scalar plane's modules (``types``, ``state``, ``storage``, ``msg``,
+``router``, ``directory``, ``lease``, ``backend``, ``worker``, ``peer``,
+``root``, ``manager``, ``client``, ``app``, ``testing``, the host
+synctree, ``synctree.remote_sync``, ``ops.hash``, ``ops.quorum`` and
+``utils.clock``) are named too, and an eighth subprocess runs the
+verify recipe (``testing.Cluster`` → ``create_ensemble`` →
+``wait_stable`` → ``kput_ok`` / ``kget_value``), a failover and a
+managed cluster's client with both names blocked.
 
 A subprocess installs a meta-path blocker for both names and imports
 every module of ``riak_ensemble_tpu_torch`` plus ``chip_smoke``'s
@@ -55,6 +63,12 @@ FRONT_END_MODULES = ("wire", "state", "netruntime", "svcnode", "obs",
 WIDE_MODULES = ("ops.schedule", "ops.engine", "ops.cuda_engine",
                 "parallel.batched_host")
 GROUP_MODULES = ("parallel.repgroup", "obs.watchdog", "proxy")
+SCALAR_MODULES = ("types", "state", "storage", "msg", "router", "directory",
+                  "lease", "backend", "worker", "peer", "root", "manager",
+                  "client", "app", "testing", "synctree",
+                  "synctree.backends", "synctree.tree", "synctree.peer_tree",
+                  "synctree.exchange", "synctree.remote_sync", "ops.hash",
+                  "ops.quorum", "utils.clock")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -102,7 +116,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert n == len(mods) + 1 and n >= 28
     names = {m.name for m in mods}
     for mod in (DURABILITY_MODULES + FRONT_END_MODULES + WIDE_MODULES
-                + GROUP_MODULES):
+                + GROUP_MODULES + SCALAR_MODULES):
         assert "riak_ensemble_tpu_torch." + mod in names, mod
 
 
@@ -393,3 +407,49 @@ def test_group_runs_with_jax_blocked():
                           text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "GROUP OK" in proc.stdout and "--device" in proc.stdout
+
+
+_SCALAR = r"""
+import sys
+sys.path.insert(0, ROOT)
+from riak_ensemble_tpu_torch.testing import Cluster, ManagedCluster, make_peers
+from riak_ensemble_tpu_torch.types import NOTFOUND, PeerId
+
+c = Cluster(seed=42)
+peers = make_peers(3)
+c.create_ensemble("demo", peers)
+leader = c.wait_stable("demo")
+c.kput_ok("demo", "k", b"v")
+assert c.kget_value("demo", "k") == b"v"
+c.suspend_peer("demo", leader)
+assert c.runtime.run_until(
+    lambda: c.leader_id("demo") not in (None, leader), 60)
+c.wait_stable("demo")
+assert c.kget_value("demo", "k") == b"v"
+assert c.kget("demo", "missing")[1].value is NOTFOUND
+
+mc = ManagedCluster(seed=15, nodes=("node0", "node1", "node2"))
+mc.enable("node0")
+mc.join("node1", "node0")
+mc.join("node2", "node0")
+mc.create_ensemble("ens1", [PeerId(i, f"node{i}") for i in range(3)])
+mc.wait_stable("ens1")
+cl = mc.client("node1")
+assert cl.kover("ens1", "key", b"val")[0] == "ok"
+assert cl.kget("ens1", "key")[1].value == b"val"
+from riak_ensemble_tpu_torch.utils import clock
+assert clock.monotonic_time_ns() > 0
+print("SCALAR OK")
+"""
+
+
+def test_scalar_plane_recipe_runs_with_jax_blocked():
+    """The verify recipe on the port's ``testing.Cluster`` (create, wait
+    stable, a put read back), a failover, and a managed three-node
+    cluster's client, with ``jax`` and the JAX package blocked."""
+    code = f"ROOT = {ROOT!r}\n" + _BLOCKED_IMPORT.split(
+        "sys.path.insert")[0] + _SCALAR
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SCALAR OK" in proc.stdout

@@ -33,6 +33,7 @@ plain step on the CPU.
 """
 
 import asyncio
+import errno
 import os
 import select
 import shutil
@@ -65,6 +66,38 @@ def _replica(root, name, cfg=None, **kw):
     return repgroup.ReplicaServer(E, 3, S, data_dir=os.path.join(root, name),
                                   config=cfg or fast_test_config(),
                                   device="cpu", **kw)
+
+
+def _restart(root, name, repl_port, wait=10.0):
+    """Restart replica ``name`` from its data dir on its old repl port.
+    The port can stay taken for a moment after a kill: a closed
+    listener whose accept thread has not woken yet, or an outgoing
+    connection of another process that drew the same number as its
+    ephemeral port.  So the bind is retried on EADDRINUSE (after one
+    connection that wakes a lingering accept thread) for at most
+    ``wait`` seconds, and the test fails if the port stays taken."""
+    end = time.monotonic() + wait
+    while True:
+        probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            probe.bind(("127.0.0.1", repl_port))
+            break
+        except OSError as exc:
+            if exc.errno != errno.EADDRINUSE:
+                raise
+        finally:
+            probe.close()
+        if time.monotonic() >= end:
+            pytest.fail(f"replica {name}'s repl port {repl_port} stayed "
+                        f"in use for {wait} s after its kill")
+        try:
+            socket.create_connection(("127.0.0.1", repl_port),
+                                     timeout=0.5).close()
+        except OSError:
+            pass
+        time.sleep(0.1)
+    return _replica(root, name, repl_port=repl_port)
 
 
 def _leader(root, srvs, cfg=None, **kw):
@@ -397,7 +430,7 @@ def test_restarted_replica_heals_by_tree_patch(tmp_path):
         _kill(svc, srvs[0])
         acked.put("gap-a", n=2)
         acked.put("gap-b", n=2)
-        srvs[0] = _replica(root, "r1", repl_port=port)
+        srvs[0] = _restart(root, "r1", port)
         _drive_until(svc, lambda: svc.stats()["group"]["peers_synced"] >= 2,
                      "re-synced")
         g = svc.stats()["group"]
@@ -428,7 +461,7 @@ def test_blank_disk_falls_back_to_full_install(tmp_path):
         _kill(svc, srvs[0])
         shutil.rmtree(os.path.join(root, "r1"))
         _settle(svc, [svc.kput(0, "extra", b"x")])
-        srvs[0] = _replica(root, "r1", repl_port=port)
+        srvs[0] = _restart(root, "r1", port)
         _drive_until(svc, lambda: svc.stats()["group"]["peers_synced"] >= 2,
                      "re-synced")
         g = svc.stats()["group"]
