@@ -185,12 +185,41 @@ Phases (each raises on failure, so any failure exits non-zero):
    back; it prints the wall seconds to elect, the wall µs per op (p50,
    p99) and the simulated seconds, and asserts that the lease clock is
    the host library's native one.
+14. the scale plane under consensus management: (a) two svcnodes'
+   services at the headline shape, ``dynamic=True``, each with a data dir
+   at ``wal_sync="fsync"`` and a ``service_manager.ServiceReconciler``,
+   over a ``ManagedCluster`` of 3 nodes with the root ensemble on all 3:
+   ``svc@node0`` registers in ``service_directory``, 1,000 tenants (cut
+   from 10,000, one a row, because each root mutation rewrites the
+   gossiped cluster state in Python) are created through the root and
+   adopted, 64 keys a tenant written with ``kput_many``; ``svc@node1``
+   registers and the tenants rebalance by gossip alone (exports gathered
+   on the card, ``destroy_ensemble``, ``install_objs`` on the new owner);
+   every key reads back on its owner with its (epoch, seq), a CAS token
+   minted before the move succeeds on every moved tenant and a stale one
+   fails; ``set_tenant_view`` on 8 tenants reaches ``member_np``
+   (``update_members``, K1) and their keys read back; 8 tenants retire
+   and run nowhere; any ``svc_reconcile_error`` /
+   ``svc_reconcile_tenant_error`` event fails it; it prints each step's
+   wall time, export and ``install_objs`` ms per tenant (median, p99) and
+   the view change's ms; (b) the port's ``ServiceReadWorkload`` under its
+   nemesis (lease expiry, leader step-down and re-election, clock jumps
+   into the margin) on a headline-shape service, 3,000 rounds over one key
+   an ensemble, checked by the port's ``KeyModel``, at depth 1, depth 2
+   and a skewed margin: no violation, fast-read hits above 0; (c) three
+   ``python -m riak_ensemble_tpu_torch.netnode`` processes on loopback:
+   enable, join, an ensemble with its leader hint on node1, 32 writes,
+   kill -9 of node1, 32 overwrites through the survivors, node1 restarted
+   on its port once it binds again (at most 10 s), every acknowledged
+   write read back (a timed-out op is retried, never counted as
+   acknowledged).
 
 Phases 4-10 run the service's default (native) host arm.
 
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
 the build and phase 11(a), ``--repgroup`` the build and phase 12,
-``--scalar`` the build and phase 13 (no result line); ``--ab DIR``
+``--scalar`` the build and phase 13, ``--tenants`` the build and phase
+14 (no result line); ``--ab DIR``
 times F1 at the headline shape (full width and four sliced shapes),
 phase 6(c) and F1's wide mode at 11(a)'s four timed shapes in the tree
 DIR and in this one, on one card, in turns (DIR, this, this, DIR), each
@@ -4664,6 +4693,29 @@ def scalar_op(lat: list, fn):
     return r
 
 
+def managed_cluster(nodes: list, seed: int, phase: str):
+    """``testing.ManagedCluster`` over ``nodes``, every node joined and
+    the root ensemble on all of them, stable."""
+    from riak_ensemble_tpu_torch.testing import ManagedCluster
+    from riak_ensemble_tpu_torch.types import PeerId
+
+    mc = ManagedCluster(seed=seed, nodes=tuple(nodes))
+    rt = mc.runtime
+    mc.enable(nodes[0])
+    for n in nodes[1:]:
+        mc.join(n, nodes[0])
+    r = mc.update_members("root", [("add", PeerId("root", n))
+                                   for n in nodes[1:]])
+    if r != "ok":
+        raise AssertionError(f"phase {phase}: root expansion answered {r}")
+    if not rt.run_until(lambda: all(
+            rt.whereis(("peer", "root", PeerId("root", n))) is not None
+            for n in nodes), 60.0, poll=0.1):
+        raise AssertionError(f"phase {phase}: root peers never started")
+    mc.wait_stable("root")
+    return mc
+
+
 def phase_scalar(card: str, n_ens: int = SCALAR_ENS,
                  n_keys: int = SCALAR_KEYS, seed: int = 13) -> dict:
     """13(b): riak_ensemble's own plane (``testing.ManagedCluster``: a
@@ -4673,7 +4725,6 @@ def phase_scalar(card: str, n_ens: int = SCALAR_ENS,
     leader suspended and re-elected, a peer's synctree corrupted and
     healed by exchange, then every acknowledged put read back."""
     from riak_ensemble_tpu_torch import funref as fref
-    from riak_ensemble_tpu_torch.testing import ManagedCluster
     from riak_ensemble_tpu_torch.types import NOTFOUND, PeerId
     from riak_ensemble_tpu_torch.utils import clock
 
@@ -4682,20 +4733,8 @@ def phase_scalar(card: str, n_ens: int = SCALAR_ENS,
                              "of the host library is not in use")
     t_phase = time.perf_counter()
     nodes = [f"node{i}" for i in range(SCALAR_NODES)]
-    mc = ManagedCluster(seed=seed, nodes=tuple(nodes))
+    mc = managed_cluster(nodes, seed, "13(b)")
     rt = mc.runtime
-    mc.enable(nodes[0])
-    for n in nodes[1:]:
-        mc.join(n, nodes[0])
-    r = mc.update_members("root", [("add", PeerId("root", n))
-                                   for n in nodes[1:]])
-    if r != "ok":
-        raise AssertionError(f"phase 13(b): root expansion answered {r}")
-    if not rt.run_until(lambda: all(
-            rt.whereis(("peer", "root", PeerId("root", n))) is not None
-            for n in nodes), 60.0, poll=0.1):
-        raise AssertionError("phase 13(b): root peers never started")
-    mc.wait_stable("root")
     names = [f"p{e}" for e in range(n_ens)]
     for e, name in enumerate(names):
         mc.create_ensemble(name, [PeerId(j, nodes[(e + j) % SCALAR_NODES])
@@ -4816,6 +4855,572 @@ def phase_scalar_plane(dev, card: str) -> dict:
     """Phase 13: (a) the device tree and its streamed exchange on the
     card, (b) the scalar consensus plane at a deployment's size."""
     return {"tree": phase_tree(dev, card), "scalar": phase_scalar(card)}
+
+
+# -- phase 14: the scale plane under consensus management ----------------------
+
+#: 14(a): svcnodes, tenants (cut from 10,000, one a row: each root
+#: mutation rewrites the gossiped cluster state in Python), keys written to
+#: each, tenants whose view changes and tenants retired
+TENANT_NODES, TENANT_T, TENANT_KEYS = 3, 1_000, 64
+TENANT_VIEW, TENANT_RETIRE = 8, 8
+RECONCILE_ERRORS = ("svc_reconcile_error", "svc_reconcile_tenant_error")
+#: 14(b): the read fast path's arms (the cases of
+#: tests/test_linearizability.py:172-206): label, seed, pipeline depth,
+#: safety margin as a share of the lease; rounds and keys an ensemble (one
+#: key, so that reads find the keys written in 10,000 ensembles)
+READ_ARMS = (("lease expiry and step-down", 1201, 1, None),
+             ("depth 2", 1301, 2, None),
+             ("skewed margin", 1401, 1, 0.9))
+READ_ROUNDS, READ_KEYS = 3_000, 1
+#: 14(c): keys node0 acknowledges before the kill and again after it
+NET_KEYS = 32
+
+
+class TenantMeter:
+    """Keeps every ``svc_*`` event of each service and times the
+    reconcilers' exports, the services' ``install_objs`` and
+    ``update_members`` (ms per call, the card synchronised)."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.dev = dev
+        self.events = {}
+        self.ms = {"export": [], "install": [], "update_members": []}
+
+    def _timed(self, label: str, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(self.dev)
+            self.ms[label].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def watch(self, name: str, svc, rec) -> None:
+        events = self.events[name] = []
+        emit = svc._emit
+
+        def recorded(kind, payload):
+            if kind.startswith("svc_"):
+                events.append((kind, payload))
+            emit(kind, payload)
+        svc._emit = recorded
+        rec._export = self._timed("export", rec._export)
+        svc.install_objs = self._timed("install", svc.install_objs)
+        svc.update_members = self._timed("update_members",
+                                         svc.update_members)
+
+    def errors(self) -> list:
+        return [(n, kind, payload) for n, ev in self.events.items()
+                for kind, payload in ev if kind in RECONCILE_ERRORS]
+
+    def kinds(self) -> dict:
+        out = {}
+        for ev in self.events.values():
+            for kind, _p in ev:
+                if kind.startswith("svc_tenant"):
+                    out[kind] = out.get(kind, 0) + 1
+        return out
+
+
+def spread(xs: list) -> dict:
+    return ({"n": len(xs), "median": pctl(xs, 50), "p99": pctl(xs, 99)}
+            if xs else {"n": 0})
+
+
+def phase_tenants(dev: torch.device, card: str, e: int = E_FULL,
+                  m: int = M_FULL, s: int = S_FULL, k: int = K_FULL,
+                  n_tenants: int = TENANT_T,
+                  n_keys: int = TENANT_KEYS) -> tuple:
+    """14(a): two svcnodes' services of ``e`` x ``m`` x ``s`` rows,
+    ``dynamic=True``, each with a data dir at ``wal_sync="fsync"`` and a
+    ``ServiceReconciler``, over a ``ManagedCluster`` of 3 nodes with the
+    root ensemble on all 3.  ``svc@node0`` registers, ``n_tenants``
+    tenants are created through the root (cut from 10,000: each root
+    mutation rewrites the gossiped cluster state in Python) and adopted,
+    ``n_keys`` keys a tenant are written with ``kput_many``; then
+    ``svc@node1`` registers and the tenants rebalance by gossip alone
+    (each runs only on its rendezvous owner, nothing importing); every
+    key reads back on its owner with its (epoch, seq), a CAS token minted
+    before the move succeeds on every moved tenant; a view change on
+    ``TENANT_VIEW`` tenants reaches the device and their keys read back;
+    ``TENANT_RETIRE`` tenants retire and run nowhere.  Any reconcile error
+    event fails the phase."""
+    import shutil
+
+    from riak_ensemble_tpu_torch import service_directory as sd
+    from riak_ensemble_tpu_torch import service_manager as sm
+    from riak_ensemble_tpu_torch.config import fast_test_config
+
+    t_phase = time.perf_counter()
+    nodes = [f"node{i}" for i in range(TENANT_NODES)]
+    mc = managed_cluster(nodes, 14, "14(a)")
+    rt = mc.runtime
+    mgr = mc.mgr(nodes[0])
+    meter = TenantMeter(dev)
+    svcs, registry, datas, wals, steps = {}, {}, [], [], {}
+    t_step = [time.perf_counter()]
+
+    def step(label):
+        now = time.perf_counter()
+        steps[label] = now - t_step[0]
+        t_step[0] = now
+
+    def wait(pred, what, budget=600.0):
+        if not rt.run_until(pred, budget, poll=0.05):
+            raise AssertionError(f"phase 14(a): {what} never happened "
+                                 f"(events {meter.kinds()}, errors "
+                                 f"{meter.errors()[:2]})")
+
+    def bring_up(i):
+        name = f"svc@{nodes[i]}"
+        datas.append(tempfile.mkdtemp(prefix="retpu_tenants_"))
+        svc = svcs[name] = BatchedEnsembleService(
+            rt, e, m, s, tick=0.005, max_ops_per_tick=k,
+            config=fast_test_config(), device=dev, dynamic=True,
+            data_dir=datas[-1], wal_sync="fsync")
+        rec = registry[name] = sm.ServiceReconciler(
+            rt, mc.mgr(nodes[i]), svc, name, registry.get, poll=0.25)
+        meter.watch(name, svc, rec)
+        wals.append(WalMeter(svc))
+        r = sd.register_service(mc.mgr(nodes[i]), rt, name, "127.0.0.1",
+                                7000 + i, (e, m, s))
+        if r != "ok":
+            raise AssertionError(f"phase 14(a): registering {name} "
+                                 f"answered {r!r}")
+        return svc
+
+    def settle(futs, what):
+        wait(lambda: all(f.done for f in futs), what)
+        return [f.value for f in futs]
+
+    reset_counts()                             # this path's run
+    svc0 = bring_up(0)
+    names = [f"tenant{i:05d}" for i in range(n_tenants)]
+    for t in names:
+        r = sm.create_tenant(mgr, rt, t)
+        if r != "ok":
+            raise AssertionError(f"phase 14(a): create_tenant({t}) "
+                                 f"answered {r!r}")
+    step("register + create")
+    wait(lambda: all(svc0.resolve_ensemble(t) is not None for t in names),
+         "adoption")
+    step("adopt")
+    keys = [f"k{j}" for j in range(n_keys)]
+    acked = {}
+    futs = {t: svc0.kput_many(svc0.resolve_ensemble(t), keys,
+                              [b"%s/%d" % (t.encode(), j)
+                               for j in range(n_keys)]) for t in names}
+    for t, res in zip(futs, settle(list(futs.values()), "the writes")):
+        for key, r in zip(keys, res):
+            if not (isinstance(r, tuple) and r[0] == "ok"):
+                raise AssertionError(f"phase 14(a): put {t}/{key} "
+                                     f"answered {r!r}")
+            acked[(t, key)] = (b"%s/%s" % (t.encode(), key[1:].encode()),
+                               tuple(r[1]))
+    step("write")
+    svc1 = bring_up(1)
+    both = sorted(svcs)
+    owner = {t: sm.place(t, both) for t in names}
+    moved = [t for t in names if owner[t] == "svc@node1"]
+
+    def converged():
+        return all(svcs[owner[t]].resolve_ensemble(t) is not None
+                   and all(x.resolve_ensemble(t) is None
+                           for n, x in svcs.items() if n != owner[t])
+                   for t in names) and not any(
+                       r._importing for r in registry.values())
+    wait(converged, "the rebalance")
+    step("join + rebalance")
+    if not moved or len(moved) == n_tenants:
+        raise AssertionError(f"phase 14(a): {len(moved)} of {n_tenants} "
+                             f"tenants moved")
+
+    def read_back(ts, what):
+        futs = {t: svcs[owner[t]].kget_many(
+            svcs[owner[t]].resolve_ensemble(t), keys, want_vsn=True)
+            for t in ts}
+        for t, res in zip(futs, settle(list(futs.values()), what)):
+            for key, r in zip(keys, res):
+                val, vsn = acked[(t, key)]
+                if r != ("ok", val, vsn):
+                    raise AssertionError(f"phase 14(a): {what}: {t}/{key} "
+                                         f"read {r!r}, acknowledged "
+                                         f"{(val, vsn)!r}")
+    read_back(names, "read back after the move")
+    tokens = {t: acked[(t, "k0")][1] for t in moved}
+    cas = {t: svcs[owner[t]].kupdate(svcs[owner[t]].resolve_ensemble(t),
+                                     "k0", tokens[t], b"cas/" + t.encode())
+           for t in moved}
+    for t, r in zip(cas, settle(list(cas.values()), "the CAS")):
+        if not (isinstance(r, tuple) and r[0] == "ok"
+                and tuple(r[1]) > tokens[t]):
+            raise AssertionError(f"phase 14(a): a pre-move token on {t} "
+                                 f"answered {r!r}")
+        acked[(t, "k0")] = (b"cas/" + t.encode(), tuple(r[1]))
+    stale_r = settle([svcs[owner[moved[0]]].kupdate(
+        svcs[owner[moved[0]]].resolve_ensemble(moved[0]), "k0",
+        tokens[moved[0]], b"stale")], "the stale CAS")[0]
+    if stale_r != "failed":
+        raise AssertionError(f"phase 14(a): a stale token answered "
+                             f"{stale_r!r}")
+    step("read back + CAS")
+    view = [True] * (m - 1) + [False]
+    viewed = moved[:TENANT_VIEW // 2] + [t for t in names
+                                         if t not in moved][:TENANT_VIEW // 2]
+    t0 = time.perf_counter()
+    root_ms = []
+    for t in viewed:
+        t1 = time.perf_counter()
+        r = sm.set_tenant_view(mgr, rt, t, view)
+        root_ms.append((time.perf_counter() - t1) * 1e3)
+        if r != "ok":
+            raise AssertionError(f"phase 14(a): set_tenant_view({t}) "
+                                 f"answered {r!r}")
+    wait(lambda: all(list(svcs[owner[t]].member_np[
+        svcs[owner[t]].resolve_ensemble(t)]) == view for t in viewed),
+        "the view change")
+    view_ms = (time.perf_counter() - t0) * 1e3
+    read_back(viewed, "read back after the view change")
+    step("view change")
+    gone = [t for t in names if t not in viewed][-TENANT_RETIRE:]
+    for t in gone:
+        r = sm.retire_tenant(mgr, rt, t)
+        if r != "ok":
+            raise AssertionError(f"phase 14(a): retire_tenant({t}) "
+                                 f"answered {r!r}")
+    wait(lambda: all(x.resolve_ensemble(t) is None for x in svcs.values()
+                     for t in gone), "the retirement")
+    if set(sm.tenants(mgr)) & set(gone):
+        raise AssertionError("phase 14(a): retired tenants still in the "
+                             "registry")
+    step("retire")
+    counts = read_counts()
+    errors = meter.errors()
+    if errors:
+        raise AssertionError(f"phase 14(a): reconcile errors: {errors[:3]}")
+    fsyncs = sum(w.fsyncs for w in wals)
+    wal_records = sum(w.records for w in wals)
+    for rec in registry.values():
+        rec.stop()
+    for x in svcs.values():
+        x.stop()
+        x._wal.close()
+    del svcs, svc0, svc1, registry
+    for d in datas:
+        shutil.rmtree(d, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"tenants": n_tenants, "keys": n_tenants * n_keys,
+           "moved": len(moved), "cas_after_move": len(cas),
+           "viewed": len(viewed), "retired": len(gone),
+           "step_s": steps, "export_ms": spread(meter.ms["export"]),
+           "install_ms": spread(meter.ms["install"]),
+           "update_members_ms": spread(meter.ms["update_members"]),
+           "view_change_ms": view_ms, "set_tenant_view_ms": spread(root_ms),
+           "events": meter.kinds(), "wal_records": wal_records,
+           "wal_fsyncs": fsyncs, "sim_s": rt.now,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"14(a) tenants at {e} x {m} x {s}, K = {k}, 2 svcnodes over "
+          f"{TENANT_NODES} nodes, fsync [{card}]: {n_tenants} tenants, "
+          f"{n_tenants * n_keys} keys; {len(moved)} moved and read back "
+          f"with their versions, {len(cas)} pre-move CAS tokens served; "
+          + "; ".join(f"{lab} {sec:.3f} s" for lab, sec in steps.items())
+          + "; export ms per tenant median "
+          f"{out['export_ms'].get('median', 0):.3f} p99 "
+          f"{out['export_ms'].get('p99', 0):.3f}, install_objs median "
+          f"{out['install_ms'].get('median', 0):.3f} p99 "
+          f"{out['install_ms'].get('p99', 0):.3f}; view change on "
+          f"{len(viewed)} tenants {view_ms:.3f} ms (update_members median "
+          f"{out['update_members_ms'].get('median', 0):.3f} ms); "
+          f"{len(gone)} retired; events {out['events']}; {wal_records} WAL "
+          f"records, {fsyncs} fsyncs; "
+          f"launches {counts}; {rt.now:.3f} s simulated, "
+          f"{out['wall_s']:.3f} s wall")
+    return counts, out
+
+
+def phase_read_nemesis(dev: torch.device, card: str, e: int = E_FULL,
+                       m: int = M_FULL, s: int = S_FULL, k: int = K_FULL,
+                       rounds: int = READ_ROUNDS) -> tuple:
+    """14(b): the port's ``ServiceReadWorkload`` (lease expiry, leader
+    step-down and re-election, clock jumps into the safety margin) on a
+    service of ``e`` x ``m`` x ``s`` on the card, checked by the port's
+    ``KeyModel``, in the three arms of ``READ_ARMS``: no ``Violation``,
+    and the fast path serves reads."""
+    from riak_ensemble_tpu_torch.config import fast_test_config
+    from riak_ensemble_tpu_torch.linearizability import ServiceReadWorkload
+    from riak_ensemble_tpu_torch.runtime import Runtime
+
+    reset_counts()                             # this path's run
+    out = {}
+    for label, seed, depth, margin in READ_ARMS:
+        cfg = fast_test_config()
+        if margin is not None:
+            cfg.read_lease_margin = cfg.lease() * margin
+        rt = Runtime(seed=seed)
+        svc = BatchedEnsembleService(rt, e, m, s, tick=None,
+                                     max_ops_per_tick=k, config=cfg,
+                                     pipeline_depth=depth, device=dev)
+        t0 = time.perf_counter()
+        ServiceReadWorkload(svc, rt, n_keys=READ_KEYS, seed=seed,
+                            rounds=rounds).run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        if svc.read_fastpath_hits <= 0:
+            raise AssertionError(f"phase 14(b) {label}: the fast path "
+                                 f"served no read")
+        out[label] = {"seed": seed, "depth": depth, "margin": margin,
+                      "hits": svc.read_fastpath_hits,
+                      "misses": svc.read_fastpath_misses,
+                      "miss_reasons": dict(svc.read_fastpath_miss_reasons),
+                      "flushes": svc.flushes, "wall_s": wall}
+        svc.stop()
+        del svc
+    counts = read_counts()
+    print(f"14(b) read fast path under its nemesis at {e} x {m} x {s}, "
+          f"{rounds} rounds, {READ_KEYS} key an ensemble [{card}]: "
+          + "; ".join(f"{lab}: no violation, {v['hits']} hits, "
+                      f"{v['misses']} misses {v['miss_reasons']}, "
+                      f"{v['flushes']} flushes, {v['wall_s']:.3f} s"
+                      for lab, v in out.items())
+          + f"; launches {counts}")
+    return counts, out
+
+
+NET_COMMON = """
+import asyncio, os
+from riak_ensemble_tpu_torch.types import PeerId
+
+async def until_ok(op, tries=600, pause=0.2):
+    # a timed-out or unavailable op is retried, never taken as done
+    r = ("error", "not_started")
+    for _ in range(tries):
+        r = await op()
+        if r[0] == "ok":
+            return r
+        await asyncio.sleep(pause)
+    raise AssertionError(r)
+"""
+
+NET_NODE0 = NET_COMMON + """
+async def all_three_answer(node, limit=180.0):
+    # every replica answers the leader's commit: a replica whose tree
+    # exchange has not finished does not vote, so a kill before this
+    # would leave the ensemble without a quorum
+    end = asyncio.get_running_loop().time() + limit
+    n = 0
+    while asyncio.get_running_loop().time() < end:
+        n = await node.runtime.await_future(
+            node.manager.count_quorum("kv", timeout=2.0), 4.0)
+        if n >= 3:
+            return
+        await asyncio.sleep(0.3)
+    raise AssertionError(n)
+
+async def main(node):
+    n_keys = int(os.environ["NET_KEYS"])
+    assert (await node.enable()) == "ok"
+    for _ in range(600):
+        if len(node.members()) >= 3:
+            break
+        await asyncio.sleep(0.1)
+    assert len(node.members()) >= 3, node.members()
+    peers = [PeerId(1, "node1"), PeerId(0, "node0"), PeerId(2, "node2")]
+    assert (await node.create_ensemble("kv", peers)) == "ok"
+    acked = {}
+    for i in range(n_keys):
+        key, val = f"k{i}", b"v1-%d" % i
+        await until_ok(lambda: node.kover("kv", key, val, timeout=3.0))
+        acked[key] = val
+    await all_three_answer(node)
+    print("WROTE", flush=True)
+    while not os.path.exists(os.environ["KILLED_MARK"]):
+        await asyncio.sleep(0.05)
+    for i in range(n_keys):
+        key, val = f"k{i}", b"v2-%d" % i
+        await until_ok(lambda: node.kover("kv", key, val, timeout=2.0))
+        acked[key] = val
+    print("SURVIVED", flush=True)
+    await all_three_answer(node)
+    for key, val in acked.items():
+        r = await until_ok(lambda: node.kget("kv", key, timeout=5.0))
+        assert r[1].value == val, (key, r)
+    print("READ_BACK", len(acked), flush=True)
+    await asyncio.sleep(300)
+"""
+
+NET_JOINER = """
+import asyncio
+
+async def main(node):
+    r = None
+    for _ in range(600):
+        r = await node.join("node0", timeout=10.0)
+        if r == "ok":
+            break
+        await asyncio.sleep(0.3)
+    assert r == "ok", r
+    print("JOINED", flush=True)
+    await asyncio.sleep(600)
+"""
+
+NET_IDLE = """
+import asyncio
+
+async def main(node):
+    print("UP", flush=True)
+    await asyncio.sleep(600)
+"""
+
+
+def port_free(port: int, wait: float = 10.0) -> None:
+    """Wait (at most ``wait`` s) until ``port`` binds again, as a
+    restarted node's listener (``SO_REUSEADDR``) will."""
+    import socket
+    end = time.monotonic() + wait
+    while True:
+        sock = socket.socket()
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("127.0.0.1", port))
+            return
+        except OSError:
+            if time.monotonic() > end:
+                raise AssertionError(f"phase 14(c): port {port} stayed "
+                                     f"taken for {wait} s")
+            time.sleep(0.05)
+        finally:
+            sock.close()
+
+
+def phase_netnode(card: str, n_keys: int = NET_KEYS) -> dict:
+    """14(c): three ``python -m riak_ensemble_tpu_torch.netnode``
+    processes on loopback: enable, join, an ensemble of 3 with its leader
+    hint on node1, ``n_keys`` writes, all 3 replicas answering; kill -9 of
+    node1, ``n_keys``
+    overwrites through the survivors; node1 restarted from its data root
+    on its port (once the port binds again, at most 10 s); every
+    acknowledged write read back once all 3 replicas answer."""
+    import queue
+    import socket
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="retpu_netnode_")
+    socks = [socket.socket() for _ in range(3)]
+    for sock in socks:
+        sock.bind(("127.0.0.1", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    peer_args = []
+    for i, p in enumerate(ports):
+        peer_args += ["--peer", f"node{i}=127.0.0.1:{p}"]
+    scripts = {}
+    for name, body in (("node0", NET_NODE0), ("join", NET_JOINER),
+                       ("idle", NET_IDLE)):
+        scripts[name] = os.path.join(tmp, f"{name}.py")
+        with open(scripts[name], "w") as f:
+            f.write(body)
+    killed = os.path.join(tmp, "killed")
+    env = dict(os.environ, PYTHONPATH=root, NET_KEYS=str(n_keys),
+               KILLED_MARK=killed)
+    procs, lines = [], {}
+
+    def spawn(node, script):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "riak_ensemble_tpu_torch.netnode",
+             "--node", node, *peer_args, "--fast", "--data-root",
+             os.path.join(tmp, node), "--script", scripts[script]],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        procs.append(p)
+        q = lines[node] = queue.Queue()
+        q.seen = []
+
+        def reader():
+            for ln in p.stdout:
+                q.seen.append(ln.rstrip())
+                q.put(ln.rstrip())
+            q.put(None)
+        threading.Thread(target=reader, daemon=True).start()
+        return p
+
+    def wait_line(node, mark, limit):
+        q = lines[node]
+        end = time.monotonic() + limit
+        while True:
+            try:
+                ln = q.get(timeout=max(0.0, end - time.monotonic()))
+            except queue.Empty:
+                ln = None
+            if ln is None:
+                raise AssertionError(f"phase 14(c): {node} never printed "
+                                     f"{mark}: {q.seen[-20:]!r}")
+            if ln.startswith(mark):
+                return ln
+
+    t0 = time.perf_counter()
+    marks = {}
+    try:
+        spawn("node0", "node0")
+        victim = spawn("node1", "join")
+        spawn("node2", "join")
+        wait_line("node0", "WROTE", 180)
+        marks["up_and_written_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        victim.kill()
+        victim.wait(timeout=10)
+        with open(killed, "w"):
+            pass
+        wait_line("node0", "SURVIVED", 180)
+        marks["failover_and_overwrite_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        port_free(ports[1])
+        spawn("node1", "idle")
+        wait_line("node1", "UP", 60)
+        got = int(wait_line("node0", "READ_BACK", 180).split()[1])
+        marks["restart_and_read_back_s"] = time.perf_counter() - t1
+    finally:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if got != n_keys:
+        raise AssertionError(f"phase 14(c): {got} of {n_keys} acknowledged "
+                             f"writes read back")
+    out = {"nodes": 3, "acked_read_back": got, **marks,
+           "wall_s": time.perf_counter() - t0}
+    print(f"14(c) netnode processes [{card}]: 3 nodes up, {n_keys} writes "
+          f"in {marks['up_and_written_s']:.3f} s; kill -9 of node1, "
+          f"{n_keys} overwrites through the survivors in "
+          f"{marks['failover_and_overwrite_s']:.3f} s; restart on its port "
+          f"and {got} acknowledged writes read back in "
+          f"{marks['restart_and_read_back_s']:.3f} s; {out['wall_s']:.3f} s")
+    return out
+
+
+def phase_tenant_plane(dev: torch.device, card: str) -> tuple:
+    """Phase 14: (a) tenants moved by gossip alone, (b) the read fast path
+    under its nemesis, each path read with its counts set to 0 just
+    before it, and (c) the scalar plane as processes."""
+    t0 = time.perf_counter()
+    counts = {}
+    c, tenants = phase_tenants(dev, card)
+    counts["phase14 tenants"] = c
+    c, reads = phase_read_nemesis(dev, card)
+    counts["phase14b read nemesis"] = c
+    net = phase_netnode(card)
+    wall = time.perf_counter() - t0
+    print(f"phase 14 [{card}]: {wall:.3f} s")
+    if not (c["F1"] and counts["phase14 tenants"]["F1"]
+            and counts["phase14 tenants"]["K1"]):
+        raise AssertionError(f"phase 14: a kernel did not launch on its "
+                             f"path: {counts}")
+    return counts, {"tenants": tenants, "read_nemesis": reads,
+                    "netnode": net, "wall_s": wall}
 
 
 def profile_flush(svc, kind, slots, card: str, path: str) -> None:
@@ -4989,6 +5594,10 @@ def main(argv) -> int:
         # the device tree and the scalar plane alone: phase 13
         phase_scalar_plane(dev, card)
         return 0
+    if "--tenants" in argv:
+        # the scale plane alone: phase 14
+        phase_tenant_plane(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -5018,13 +5627,16 @@ def main(argv) -> int:
     group = phase_repgroup(dev, card)
     by_path["phase12 repgroup leader"] = group["counts"]
     scalar_plane = phase_scalar_plane(dev, card)
+    tenant_counts, tenants = phase_tenant_plane(dev, card)
+    by_path.update(tenant_counts)
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
     if not (all(f1_by_path.values()) and k1_exchange and k2_launches
             and sliced_by_path["phase6b compacted keyed service"]
             and wide_by_path["phase11b wide service"]
-            and by_path["phase9a reconfig"]["K1"]):
+            and by_path["phase9a reconfig"]["K1"]
+            and by_path["phase14 tenants"]["K1"]):
         raise AssertionError(f"a kernel did not launch on its path: F1 "
                              f"{f1_by_path} (sliced {sliced_by_path}, wide "
                              f"{wide_by_path}), K1 {k1_exchange}, K2 "
@@ -5095,7 +5707,8 @@ def main(argv) -> int:
                       "front_end": front,
                       "repgroup": {k: v for k, v in group.items()
                                    if k != "counts"},
-                      "scalar_plane": scalar_plane}))
+                      "scalar_plane": scalar_plane,
+                      "tenants": tenants}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,7 +28,13 @@ Layout mirrors the reference so each counterpart is easy to find:
   :mod:`.router`, :mod:`.directory`, :mod:`.lease`, :mod:`.backend`,
   :mod:`.worker`, :mod:`.peer`, :mod:`.root`, :mod:`.manager`,
   :mod:`.state`, :mod:`.client`, :mod:`.app`, :mod:`.utils.clock`, and
-  the harness :mod:`.testing` (``Cluster``, ``ManagedCluster``).
+  the harness :mod:`.testing` (``Cluster``, ``ManagedCluster``), with
+  :mod:`.netnode`, a node of that plane as an OS process over
+  :mod:`.netruntime`, and :mod:`.linearizability`, the history checker;
+- the scale plane under consensus management: :mod:`.service_directory`
+  (svcnodes registered in the root ensemble's directory) and
+  :mod:`.service_manager` (the tenant registry, rendezvous placement,
+  the reconciler and the versioned handoff between services).
 
 The package imports torch, numpy and the standard library only: never
 ``jax`` and never a module of :mod:`riak_ensemble_tpu`.  Entry points

@@ -1,6 +1,6 @@
 """The three nemesis sweeps of ``tests/test_service_linearizability.py``
 (``:122-210``, ``:213``, ``:304``) on the port, in lockstep with the JAX
-service, with the reference's ``linearizability.KeyModel`` as the
+service, with the port's ``linearizability.KeyModel`` as the
 checker of the port's futures.
 
 Each seed is one schedule: the leader killed right before the flush that
@@ -32,6 +32,7 @@ import torch
 from riak_ensemble_tpu_torch import interop
 from riak_ensemble_tpu_torch import runtime as trt
 from riak_ensemble_tpu_torch.config import fast_test_config as t_config
+from riak_ensemble_tpu_torch.linearizability import KeyModel
 from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import batched_host as tb
 from riak_ensemble_tpu_torch.types import NOTFOUND as T_NOTFOUND
@@ -54,10 +55,7 @@ class Sweep:
         monkeypatch.setenv("RETPU_OBS", "0")
         from riak_ensemble_tpu import runtime as jrt
         from riak_ensemble_tpu.config import fast_test_config as j_config
-        from riak_ensemble_tpu.linearizability import KeyModel
         from riak_ensemble_tpu.parallel import batched_host as jb
-        from riak_ensemble_tpu.types import NOTFOUND as J_NOTFOUND
-        self.J_NOTFOUND = J_NOTFOUND
         self.rng = np.random.default_rng(seed)
         self.seed = seed
         self.rts = (jrt.Runtime(seed=seed), trt.Runtime(seed=seed))
@@ -143,8 +141,7 @@ class Sweep:
                 else:
                     model.fail_write(op_id)
             elif isinstance(r, tuple) and r[0] == "ok":
-                model.ack_read(self.J_NOTFOUND if r[1] is T_NOTFOUND
-                               else r[1])
+                model.ack_read(r[1])
 
     def submit(self):
         """The reference's ``_submit_batch``: puts, CAS on the last acked
@@ -180,7 +177,7 @@ class Sweep:
                 pending.append(("get", m, None,
                                 self.call(lambda s: s.kget(e, key)), None))
             else:
-                op_id = m.invoke_write(self.J_NOTFOUND)
+                op_id = m.invoke_write(T_NOTFOUND)
                 futs = self.call(lambda s: s.kdelete(e, key))
                 if futs[1].done:
                     assert futs[0].done

@@ -17,6 +17,9 @@ arm in lockstep (the mirror of ``tests/test_native_resolve.py``):
 
 The reference's WAL, delta-section and commutative-fold cases wait for the
 WAL and replication slices.  Tolerance: exact equality everywhere.
+
+The oracle arm against the JAX service's is in
+``tests/test_torch_native_resolve_arms.py``.
 """
 
 import numpy as np
@@ -24,7 +27,6 @@ import pytest
 
 from riak_ensemble_tpu_torch.ops import engine as teng
 from riak_ensemble_tpu_torch.parallel import resolve_native as trn
-from test_torch_native_enqueue import Pair
 from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
 OPS = (teng.OP_PUT, teng.OP_CAS, teng.OP_GET, teng.OP_RMW)
@@ -184,18 +186,3 @@ def test_scatter_mirrors_refuses_bad_slabs():
         tnat.scatter_mirrors(*args, np.asarray([e], np.int32),
                              np.asarray([1], np.int32), True, OPS, *slabs,
                              np.zeros((e, s), bool))
-
-
-@pytest.mark.parametrize("fast,compact,depth", [
-    (True, True, 1), (True, True, 2), (False, True, 1), (True, False, 2),
-    (False, False, 1)])
-def test_oracle_arm_matches_jax_oracle(jb, monkeypatch, fast, compact,
-                                       depth):
-    """The port's ``False`` arms against the JAX ``=0`` arms: the per-entry
-    pack and the per-op resolve loops on both sides."""
-    p = Pair(jb, monkeypatch, "oracle", fast, compact, depth)
-    p.run(seed=40 + depth + 2 * fast + 4 * compact)
-    p.check()
-    ts = p.ts
-    assert ts.completion_wakes == ts.native_resolve_flushes == 0
-    assert ts.fallback_resolve_flushes == ts.flushes > 0

@@ -17,7 +17,7 @@ threaded replica hosts in one process:
   under the reference's names, and a fleet scrape of three hosts;
 - the proxy tier discovering the leader and riding out a handoff;
 - linearizability under a link nemesis (directional cuts of requests
-  and acks, a lost quorum, heals), checked by the reference's
+  and acks, a lost quorum, heals), checked by the port's
   ``KeyModel``; a replicated lifecycle surviving the leader's death.
 
 These cases hold the port to its own invariants (acked writes read
@@ -50,6 +50,7 @@ import torch
 from riak_ensemble_tpu_torch import faults, funref, obs, svcnode, wire
 from riak_ensemble_tpu_torch import proxy as proxy_mod
 from riak_ensemble_tpu_torch.config import Config, fast_test_config
+from riak_ensemble_tpu_torch.linearizability import KeyModel
 from riak_ensemble_tpu_torch.ops import cuda_engine
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.parallel import repgroup
@@ -345,11 +346,9 @@ def test_linearizable_under_link_nemesis(tmp_path, seed):
     leader while directional link cuts come and go — requests or acks to
     either replica dropped, both at once (no quorum), healed.  Every
     acknowledged write reads back and no read is stale or resurrected,
-    checked by the reference's ``KeyModel``; a put that failed for want
+    checked by the port's ``KeyModel``; a put that failed for want
     of a host quorum is ambiguous (it applied on the leader's lane) and
     joins the plausible set as a timed-out write."""
-    lin = pytest.importorskip("riak_ensemble_tpu.linearizability")
-    from riak_ensemble_tpu.types import NOTFOUND as REF_NOTFOUND
     rng = np.random.default_rng(seed)
     plan = faults.install(faults.FaultPlan(seed=seed))
     root = str(tmp_path)
@@ -362,7 +361,7 @@ def test_linearizable_under_link_nemesis(tmp_path, seed):
     def observe(m, res):
         if isinstance(res, tuple) and res[0] == "ok":
             v = res[1]
-            m.ack_read(REF_NOTFOUND if v is repgroup.NOTFOUND
+            m.ack_read(v if v is repgroup.NOTFOUND
                        else int.from_bytes(v, "big"))
     try:
         for rnd in range(10):
@@ -378,7 +377,7 @@ def test_linearizable_under_link_nemesis(tmp_path, seed):
             pending = []
             for _ in range(6):
                 e, k = int(rng.integers(E)), int(rng.integers(3))
-                m = models.setdefault((e, k), lin.KeyModel(f"{e}/k{k}"))
+                m = models.setdefault((e, k), KeyModel(f"{e}/k{k}"))
                 if rng.random() < 0.6:
                     v = next(vals)
                     pending.append(("put", m, m.invoke_write(v), svc.kput(

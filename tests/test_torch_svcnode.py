@@ -16,19 +16,21 @@ Mirrors ``tests/test_svcnode.py`` and
 - a reference ``ServiceClient`` works against the port's server and the
   port's client against the reference's;
 - pipelined concurrent clients under a peer-flapping nemesis, one dying
-  mid-stream, give histories the reference's ``KeyModel`` accepts;
+  mid-stream, give histories the port's ``KeyModel`` accepts;
 - ``python -m riak_ensemble_tpu_torch.svcnode --device cpu --data-dir D
   --dynamic`` killed with SIGKILL restarts on ``D`` with every acked
   write and the name directory.
 
 Tolerance: exact equality (response bytes included).
+
+The frames against the JAX server's, the cross-package clients and the
+SIGKILL restart are in ``tests/test_torch_svcnode_wire.py``.
 """
 
 import asyncio
 import itertools
 import json
 import os
-import signal
 import struct
 import subprocess
 import sys
@@ -38,6 +40,7 @@ import pytest
 
 from riak_ensemble_tpu_torch import funref, svcnode, wire
 from riak_ensemble_tpu_torch.config import fast_test_config
+from riak_ensemble_tpu_torch.linearizability import KeyModel
 from riak_ensemble_tpu_torch.types import NOTFOUND
 from test_torch_reference_natives import reference_natives  # noqa: F401 (autouse)
 
@@ -359,60 +362,18 @@ async def _serial_frames(mod, cfg):
     return out
 
 
-def test_serial_response_frames_equal_jax_server():
-    pytest.importorskip("jax")
-    from riak_ensemble_tpu import svcnode as jsvc
-    from riak_ensemble_tpu.config import fast_test_config as jcfg
-    ref = asyncio.run(_serial_frames(jsvc, jcfg()))
-    got = asyncio.run(_serial_frames(svcnode, fast_test_config()))
-    assert len(got) == len(SERIAL)
-    for req, a, b in zip(SERIAL, ref, got):
-        assert b == a, (req, wire.decode(a), wire.decode(b))
-
-
-def test_clients_work_across_packages():
-    pytest.importorskip("jax")
-    from riak_ensemble_tpu import svcnode as jsvc
-    from riak_ensemble_tpu.config import fast_test_config as jcfg
-    from riak_ensemble_tpu.types import NOTFOUND as JNF
-
-    async def drive(server_mod, client_mod, cfg, nf, **kw):
-        server = await server_mod.serve(2, 3, 16, port=0, config=cfg, **kw)
-        c = client_mod.ServiceClient(server.host, server.port)
-        await c.connect()
-        assert (await c.kput(0, "k", b"v"))[0] == "ok"
-        assert (await c.kput_many(1, ["a", "b"], [b"1", b"2"]))[1][0] == "ok"
-        got = await c.kget_many(1, ["a", "b", "c"], want_vsn=True)
-        assert got[:2] == [("ok", b"1", (1, 1)), ("ok", b"2", (1, 2))]
-        assert got[2] == ("ok", nf, (0, 0)) and got[2][1] is nf
-        assert await c.kget(0, "k") == ("ok", b"v")
-        assert (await c.stats())["flushes"] >= 2
-        assert "retpu_flushes_total" in await c.metrics()
-        await c.close()
-        await server.stop()
-
-    asyncio.run(drive(svcnode, jsvc, fast_test_config(), JNF,
-                      device="cpu"))
-    asyncio.run(drive(jsvc, svcnode, jcfg(), NOTFOUND))
-
-
-# -- pipelined histories against the reference's checker ----------------------
+# -- pipelined histories against the linearizability checker ------------------
 
 N_ENS, N_PEERS, N_KEYS, N_WORKERS, OPS = 4, 5, 3, 4, 30
 
 
 async def _lin_scenario(seed):
-    from riak_ensemble_tpu.linearizability import KeyModel
-    from riak_ensemble_tpu.types import NOTFOUND as JNF
     server = await _serve(N_ENS, N_PEERS, 16)
     svc = server.svc
     models = {(e, k): KeyModel(f"{e}/key{k}")
               for e in range(N_ENS) for k in range(N_KEYS)}
     vals = itertools.count(1)
     stopped = []
-
-    def to_ref(v):           # the checker compares the reference sentinel
-        return JNF if v is NOTFOUND else v
 
     async def nemesis():
         rng = np.random.default_rng(seed + 1)
@@ -461,9 +422,9 @@ async def _lin_scenario(seed):
                 elif r < 0.8:
                     res = await c.kget(e, f"key{k}", timeout=15.0)
                     if isinstance(res, tuple) and res[0] == "ok":
-                        m.ack_read(to_ref(res[1]))
+                        m.ack_read(res[1])
                 else:
-                    op = m.invoke_write(JNF)
+                    op = m.invoke_write(NOTFOUND)
                     settle_write(m, op, await c.kdelete(e, f"key{k}",
                                                         timeout=15.0))
             except asyncio.TimeoutError:
@@ -481,7 +442,7 @@ async def _lin_scenario(seed):
     for (e, k), m in models.items():
         res = await c.kget(e, f"key{k}", timeout=20.0)
         if isinstance(res, tuple) and res[0] == "ok":
-            m.ack_read(to_ref(res[1]))
+            m.ack_read(res[1])
             served += 1
     assert served == len(models)
     await c.close()
@@ -492,7 +453,6 @@ async def _lin_scenario(seed):
     7101, pytest.param(7102, marks=pytest.mark.slow),
     pytest.param(7103, marks=pytest.mark.slow)])
 def test_pipelined_clients_linearizable(seed):
-    pytest.importorskip("jax")
     asyncio.run(_lin_scenario(seed))
 
 
@@ -510,48 +470,3 @@ def _boot(data, port=0):
     assert "svcnode serving" in line, (line, p.stderr.read()[-2000:])
     host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
     return p, host, int(port)
-
-
-def test_sigkill_restart_reads_back_acked_writes(tmp_path):
-    data = str(tmp_path / "d")
-    p, host, port = _boot(data)
-    acked = {}
-    try:
-        async def write():
-            c = svcnode.ServiceClient(host, port)
-            await c.connect()
-            rows = {}
-            for name in ("alpha", "beta"):
-                rows[name] = (await c.create_ensemble(name))[1]
-            for i in range(4):
-                keys = [f"k{i}.{j}" for j in range(16)]
-                vals = [b"v%d.%d" % (i, j) for j in range(16)]
-                row = rows["alpha" if i % 2 else "beta"]
-                res = await c.kput_many(row, keys, vals)
-                for k, v, r in zip(keys, vals, res):
-                    if r[0] == "ok":
-                        acked[(row, k)] = v
-            await c.close()
-            return rows
-        rows = asyncio.run(write())
-    finally:
-        p.send_signal(signal.SIGKILL)
-        p.wait(30)
-    assert len(acked) == 64
-    p, host, port = _boot(data)
-    try:
-        async def read():
-            c = svcnode.ServiceClient(host, port)
-            await c.connect()
-            for name, row in rows.items():
-                assert await c.resolve_ensemble(name) == ("ok", row)
-            for row in set(rows.values()):
-                keys = [k for (r, k) in acked if r == row]
-                got = await c.kget_many(row, keys)
-                assert [g[1] for g in got] == [acked[(row, k)]
-                                               for k in keys]
-            await c.close()
-        asyncio.run(read())
-    finally:
-        p.send_signal(signal.SIGKILL)
-        p.wait(30)

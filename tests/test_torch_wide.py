@@ -25,6 +25,9 @@ F1's wide mode itself runs only on a card: the ``cuda`` cases here and in
 ``test_torch_engine_step.py``, and ``chip_smoke.py`` phase 11(a); its
 algorithm is held on the CPU by ``test_torch_f1_wide_design.py``.
 Tolerance: exact equality everywhere.
+
+The wide service's cases are in ``tests/test_torch_wide_service.py``, the
+wide steps against the JAX package's in ``tests/test_torch_wide_steps.py``.
 """
 
 import numpy as np
@@ -171,80 +174,6 @@ def _wide_inputs(rng, e, m, s, k=10):
     return js, up, plan
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_kv_step_scan_wide_matches_jax(seed):
-    rng = np.random.default_rng(10 + seed)
-    e, m, s = 9, 3, 32
-    js, up, plan = _wide_inputs(rng, e, m, s)
-    ops = (plan.kind, plan.slot, plan.val, plan.lease_ok)
-    js2, jres = jeng.kv_step_scan_wide(
-        js, *(jnp.asarray(x) for x in ops), jnp.asarray(up),
-        exp_epoch=jnp.asarray(plan.exp_epoch),
-        exp_seq=jnp.asarray(plan.exp_seq))
-    T = torch.from_numpy
-    for fn in (teng.kv_step_scan_wide, teng.kv_step_scan_wide_plain):
-        ts, tres = fn(_port_state(js), *(T(x) for x in ops), T(up),
-                      T(plan.exp_epoch), T(plan.exp_seq))
-        _assert_state_equal(js2, ts)
-        _assert_results_equal(jres, tres)
-    assert int(np.asarray(jres.tree_corrupt).sum()) > 0
-    assert int(np.asarray(jres.committed).sum()) > 0
-
-
-@pytest.mark.parametrize("seed", range(2))
-def test_full_step_wide_matches_jax(seed):
-    rng = np.random.default_rng(20 + seed)
-    e, m, s = 9, 5, 16
-    js, up, plan = _wide_inputs(rng, e, m, s)
-    elect = rng.random(e) < 0.4
-    cand = rng.integers(-1, m + 1, e).astype(np.int32)
-    ops = (elect, cand, plan.kind, plan.slot, plan.val, plan.lease_ok, up)
-    js2, jwon, jres = jeng.full_step_wide(
-        js, *(jnp.asarray(x) for x in ops),
-        exp_epoch=jnp.asarray(plan.exp_epoch),
-        exp_seq=jnp.asarray(plan.exp_seq))
-    T = torch.from_numpy
-    for fn in (teng.full_step_wide, teng.full_step_wide_plain):
-        ts, twon, tres = fn(_port_state(js), *(T(x) for x in ops),
-                            T(plan.exp_epoch), T(plan.exp_seq))
-        _assert_state_equal(js2, ts)
-        assert np.array_equal(np.asarray(jwon), twon.numpy())
-        _assert_results_equal(jres, tres)
-
-
-@pytest.mark.parametrize("last_row", (False, True))
-def test_full_step_wide_sliced_matches_jax(last_row):
-    """The sliced wide step on A active rows plus pads (index E), the last
-    row active or not (the pads then read a copy of a row the step
-    rewrites)."""
-    rng = np.random.default_rng(30 + last_row)
-    e, m, s = 12, 3, 16
-    js, up, _ = _wide_inputs(rng, e, m, s)
-    rows = np.sort(rng.choice(e - 1, 4, replace=False))
-    if last_row:
-        rows[-1] = e - 1
-    aidx = np.full(8, e, np.int32)
-    aidx[:rows.size] = rows
-    planes = list(_random_planes(rng, 10, aidx.size, s))
-    planes[0][:, rows.size:] = teng.OP_NOOP
-    plan = jsch.schedule_wide(*planes)
-    elect = np.zeros(aidx.size, bool)
-    elect[:rows.size] = rng.random(rows.size) < 0.5
-    cand = rng.integers(0, m, aidx.size).astype(np.int32)
-    ops = (elect, cand, plan.kind, plan.slot, plan.val, plan.lease_ok, up)
-    js2, jwon, jres = jeng.full_step_wide_sliced(
-        js, jnp.asarray(aidx), *(jnp.asarray(x) for x in ops),
-        exp_epoch=jnp.asarray(plan.exp_epoch),
-        exp_seq=jnp.asarray(plan.exp_seq))
-    T = torch.from_numpy
-    for fn in (teng.full_step_wide_sliced, teng.full_step_wide_sliced_plain):
-        ts, twon, tres = fn(_port_state(js), aidx, *(T(x) for x in ops),
-                            T(plan.exp_epoch), T(plan.exp_seq))
-        _assert_state_equal(js2, ts)
-        assert np.array_equal(np.asarray(jwon), twon.numpy())
-        _assert_results_equal(jres, tres)
-
-
 @pytest.mark.parametrize("lanes", (4, 4 * 3))
 def test_set_lanes_exact_with_colliding_masked_lanes(lanes):
     """Masked-off lanes (NOOP, invalid or pad) aimed at a live lane's slot,
@@ -365,23 +294,6 @@ class WidePair(Pair):
         assert self.ts.stats()["wide_launches"] == self.ts.wide_launches
 
 
-@pytest.mark.parametrize("arm,depth,compact,validate", [
-    ("default", 1, True, False), ("default", 2, False, False),
-    ("oracle", 1, False, False), ("oracle", 2, True, False),
-    ("default", 1, True, True)])
-def test_wide_service_matches_jax(monkeypatch, arm, depth, compact,
-                                  validate):
-    """Seeded keyed streams (every verb, host and device RMW): wide and
-    scalar-fallback flushes, sliced when compacted (E = 256), and with
-    each plan validated."""
-    p = WidePair(monkeypatch, arm, compact=compact, depth=depth,
-                 validate=validate)
-    p.run(seed=40 + depth + 2 * compact, rounds=4)
-    p.check()
-    if compact:
-        assert p.ts.sliced_launches > 0
-
-
 def _mk(monkeypatch, **kw):
     """The small services of ``tests/test_wide_service.py`` (6 x 3 x 16,
     K = 8), the JAX one under ``RETPU_WIDE=1``."""
@@ -435,53 +347,6 @@ def _assert_services_equal(js, ts):
         assert np.array_equal(getattr(js, name), getattr(ts, name)), name
 
 
-@pytest.mark.parametrize("seed", (0, 1))
-def test_wide_scalar_match_workload(monkeypatch, seed):
-    js, ts = _mk(monkeypatch)
-    assert _workload(ts, seed) == _workload(js, seed)
-    assert ts.wide_launches == js.wide_launches > 0
-    _assert_services_equal(js, ts)
-
-
-def test_wide_duplicate_chain(monkeypatch):
-    js, ts = _mk(monkeypatch)
-    vals = []
-    for svc in (js, ts):
-        f = svc.kput_many(0, ["a", "a", "b"], [1, 2, 3])
-        _drain(svc, [f])
-        g = svc.kget_many(0, ["a", "b"], want_vsn=True)
-        _drain(svc, [g])
-        vals.append((norm(f.value), norm(g.value)))
-    assert vals[0] == vals[1]
-    (put, got) = vals[1]
-    assert all(r[0] == "ok" for r in put)
-    assert tuple(put[1][1]) > tuple(put[0][1])      # per-key monotone
-    assert got[0][:2] == ("ok", 2) and got[1][:2] == ("ok", 3)
-    assert tuple(got[0][2]) == tuple(put[1][1])
-    assert ts.wide_launches == js.wide_launches > 0
-    _assert_services_equal(js, ts)
-
-
-def test_wide_execute_bulk(monkeypatch):
-    js, ts = _mk(monkeypatch)
-    outs = []
-    for svc in (js, ts):
-        svc.runtime.now += 1.0
-        svc.flush()  # elections
-        rng = np.random.default_rng(3)
-        k, e = 8, svc.n_ens
-        kind = rng.choice([teng.OP_PUT, teng.OP_GET, teng.OP_NOOP], (k, e),
-                          p=[0.5, 0.4, 0.1]).astype(np.int32)
-        slot = np.stack([rng.permutation(svc.n_slots)[:k]
-                         for _ in range(e)], axis=1).astype(np.int32)
-        val = rng.integers(1, 1 << 20, (k, e), dtype=np.int32)
-        outs.append([np.asarray(x) for x in svc.execute(kind, slot, val)])
-    for a, b in zip(*outs):
-        assert np.array_equal(a, b)
-    assert ts.wide_launches == js.wide_launches > 0
-    _assert_services_equal(js, ts)
-
-
 def _port_plan(ts, kind, slot, val, k):
     """The port's plan over the live columns, laid out at full width as
     the reference plans it (idle columns: NOOP lanes at slot -1, routed
@@ -502,53 +367,6 @@ def _port_plan(ts, kind, slot, val, k):
     maps = {f: lay(getattr(p, f), (k, ts.n_ens), 0)
             for f in ("map_g", "map_w")}
     return p._replace(**planes, **maps)
-
-
-def test_wide_gate_falls_back_on_deep_duplicates(monkeypatch):
-    js, ts = _mk(monkeypatch)
-    k, e = 6, ts.n_ens
-    kind = np.full((k, e), teng.OP_PUT, np.int32)
-    val = np.ones((k, e), np.int32)
-    deep = np.zeros((k, e), np.int32)         # a 6-deep duplicate chain
-    flat = np.tile(np.arange(k, dtype=np.int32)[:, None], (1, e))
-    assert js._wide_plan(kind, deep, val, k, None, None) is None
-    assert _port_plan(ts, kind, deep, val, k) is None
-    jp = js._wide_plan(kind, flat, val, k, None, None)
-    tp = _port_plan(ts, kind, flat, val, k)
-    assert tp.kind.shape[0] == 1 and tp.lease_ok is None
-    for f in ("kind", "slot", "val", "exp_epoch", "exp_seq", "map_g",
-              "map_w"):
-        assert np.array_equal(getattr(jp, f), getattr(tp, f)), f
-    # sparse columns and an all-NOOP plane: the port plans the live
-    # columns only, and equals the reference's plan laid out
-    rng = np.random.default_rng(9)
-    for p_col in (0.0, 0.4):
-        sparse = kind.copy()
-        sparse[:, rng.random(e) >= p_col] = teng.OP_NOOP
-        sparse[rng.random((k, e)) < 0.2] = teng.OP_NOOP
-        chain = rng.integers(0, 2, (k, e)).astype(np.int32) + flat
-        jp = js._wide_plan(sparse, chain, val, k, None, None)
-        tp = _port_plan(ts, sparse, chain, val, k)
-        assert (jp is None) == (tp is None)
-        for f in ("kind", "slot", "val", "exp_epoch", "exp_seq", "map_g",
-                  "map_w"):
-            assert jp is None or np.array_equal(getattr(jp, f),
-                                                getattr(tp, f)), f
-    # device-resident planes keep the scalar scan
-    dev = tb.BatchedEnsembleService(FixedClock(), 6, 3, 16, tick=None,
-                                    max_ops_per_tick=8, device="cpu",
-                                    wide=True)
-    dev.execute(*(torch.from_numpy(x) for x in (kind, flat, val)))
-    assert dev.wide_launches == 0
-    dev.execute(kind, flat, val)
-    assert dev.wide_launches == 1
-    # the deep chain then runs the scalar scan, as in the reference
-    for svc in (js, ts):
-        svc.runtime.now += 1.0
-        svc.flush()
-        svc.execute(kind, deep, val)
-    assert ts.wide_launches == js.wide_launches == 0
-    _assert_services_equal(js, ts)
 
 
 def test_wide_warmup_covers_gated_shapes():
@@ -574,21 +392,3 @@ def test_wide_warmup_covers_gated_shapes():
     _drain(ts, [f])
     assert [r[0] for r in f.value] == ["ok", "ok"]
     assert ts.wide_launches == 1
-
-
-def test_wide_dynamic_lifecycle(monkeypatch):
-    js, ts = _mk(monkeypatch, dynamic=True)
-    got = []
-    for svc in (js, ts):
-        row = svc.create_ensemble("orders")
-        svc.runtime.now += 0.5
-        svc.flush()
-        f = svc.kput_many(row, ["a", "b"], [b"1", b"2"])
-        _drain(svc, [f])
-        g = svc.kget_many(row, ["a", "b"], want_vsn=True)
-        _drain(svc, [g])
-        got.append((row, norm(f.value), norm(g.value)))
-        assert svc.destroy_ensemble("orders")
-    assert got[0] == got[1] and got[1][1][0][0] == "ok"
-    assert ts.wide_launches == js.wide_launches > 0
-    _assert_services_equal(js, ts)
