@@ -213,13 +213,38 @@ Phases (each raises on failure, so any failure exits non-zero):
    on its port once it binds again (at most 10 s), every acknowledged
    write read back (a timed-out op is retried, never counted as
    acknowledged).
+15. the mesh (``parallel/mesh.py``, ``parallel/distributed.py``) on every
+   card ``torch.cuda.device_count()`` reports — on one card every shard
+   sits on it; it prints the card count and each shard's device: (a) the
+   reference's ``test_multiprocess.py`` scenario (elections, K/V, a
+   failover, a joint-consensus shrink, reads) through ``ShardedEngine``
+   at (4, 1), the headline shape, and at (2, 2) with M = 6 (the 5 peers
+   and one absent from every view), every result and state plane (tree
+   hashes included) bit-equal to the unsharded engine on card 0; F1 and K1
+   launches per shard and F1's device ms per shard (CUDA events); (b) a
+   ``BatchedEnsembleService`` over ``mesh_engine`` at (4, 1) against one
+   over the single engine at the same full launch grid (no sliced step,
+   so leases renew on the same rows), data dirs at ``wal_sync="fsync"``,
+   one seeded
+   keyed stream (puts, CAS hit and miss, RMW, deletes, gets) on every row
+   and then on 256 rows (the shard-wise compaction): futures, state,
+   mirrors and WAL bytes equal, every acknowledged write read back, the
+   flush median of each arm and the packed bytes shard-wise against full
+   width; (c) ``save`` from the mesh service, ``restore`` onto the single
+   engine, and back onto the mesh, bit-equal; (d) ``python -m
+   riak_ensemble_tpu_torch.svcnode --mesh-devices N`` (one card: N = 4
+   shards of ``--device cuda:0``) serving a ``ServiceClient``, every
+   acknowledged write read back; (e) two processes of this script under
+   ``distributed.initialize`` forming one global (4, 1) mesh, two shards
+   each, running (a)'s scenario, each checking its own shards against an
+   unsharded run.
 
 Phases 4-10 run the service's default (native) host arm.
 
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
 the build and phase 11(a), ``--repgroup`` the build and phase 12,
 ``--scalar`` the build and phase 13, ``--tenants`` the build and phase
-14 (no result line); ``--ab DIR``
+14, ``--mesh`` the build and phase 15 (no result line); ``--ab DIR``
 times F1 at the headline shape (full width and four sliced shapes),
 phase 6(c) and F1's wide mode at 11(a)'s four timed shapes in the tree
 DIR and in this one, on one card, in turns (DIR, this, this, DIR), each
@@ -258,9 +283,12 @@ from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.ops.quorum import REQUIRED_MODES
+from riak_ensemble_tpu_torch.parallel import distributed
 from riak_ensemble_tpu_torch.parallel import enqueue_native, resolve_native
 from riak_ensemble_tpu_torch.parallel.batched_host import (
     BatchedEnsembleService, WallRuntime, _LocalEngine)
+from riak_ensemble_tpu_torch.parallel.mesh import (
+    Sharded, ShardedEngine, make_mesh, mesh_engine)
 from riak_ensemble_tpu_torch.parallel.wal import ServiceWAL
 
 #: H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -5493,6 +5521,468 @@ AB_BOOT = ("import importlib.util, sys\n"
            "sys.exit(cs.ab_run())\n")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the mesh
+
+#: (2, 2)'s peer width: the headline's 5 peers and one absent from every
+#: view (M must divide by the peer axis)
+MESH_M2 = 6
+#: the (4, 1) service's compacted run: rows active of E_FULL
+MESH_ROWS = 256
+
+
+def mesh_devices(n: int) -> list:
+    """``n`` shard devices over every card: a card each where there are
+    ``n`` cards, else round robin (one card: every shard on it)."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+class LocalEngine:
+    """The unsharded engine (F1 / K1 on the card) in the mesh's call
+    shape."""
+    elect_step = staticmethod(eng.elect_step)
+    kv_step_scan = staticmethod(eng.kv_step_scan)
+    reconfig_step = staticmethod(eng.reconfig_step)
+
+
+def mesh_scenario(engine, state, e: int, m: int, dev) -> dict:
+    """The reference's ``tests/test_multiprocess.py`` CHILD scenario at
+    (e, m, S_FULL, K_FULL): every row elects peer 0, K rounds of puts and
+    gets, peer 0 goes down and peer 1 is elected, a joint-consensus
+    shrink to peers 1-4 proposed then collapsed, K rounds of reads.
+    Returns every output (``KvResult`` planes by name) and the final
+    state's planes."""
+    rng = np.random.default_rng(7)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    k = K_FULL
+    kind = rng.choice([eng.OP_PUT, eng.OP_GET], (k, e)).astype(np.int32)
+    slot = rng.integers(0, S_FULL, (k, e)).astype(np.int32)
+    val = rng.integers(1, 1 << 20, (k, e)).astype(np.int32)
+    lease = np.zeros((k, e), bool)
+    up0 = np.ones((e, m), bool)
+    up1 = up0.copy()
+    up1[:, 0] = False
+    shrink = np.zeros((e, m), bool)
+    shrink[:, 1:M_FULL] = True
+    out = {}
+    state, out["won0"] = engine.elect_step(state, t(np.ones(e, bool)),
+                                           t(np.zeros(e, np.int32)), t(up0))
+    state, res = engine.kv_step_scan(state, t(kind), t(slot), t(val),
+                                     t(lease), t(up0))
+    out.update({f"kv1.{f}": getattr(res, f) for f in res._fields})
+    state, out["won1"] = engine.elect_step(state, t(np.ones(e, bool)),
+                                           t(np.ones(e, np.int32)), t(up1))
+    state, out["installed"], _ = engine.reconfig_step(
+        state, t(np.ones(e, bool)), t(shrink), t(up1))
+    state, _, out["collapsed"] = engine.reconfig_step(
+        state, t(np.zeros(e, bool)), t(shrink), t(up1))
+    gk = np.full((k, e), eng.OP_GET, np.int32)
+    state, res = engine.kv_step_scan(state, t(gk), t(slot),
+                                     t(np.zeros((k, e), np.int32)),
+                                     t(lease), t(up1))
+    out.update({f"kv2.{f}": getattr(res, f) for f in res._fields})
+    out.update({f"state.{f}": getattr(state, f)
+                for f in eng.EngineState._fields})
+    out["_state"] = state
+    return out
+
+
+def host_plane(x) -> torch.Tensor:
+    return x.gather() if isinstance(x, Sharded) else x.cpu()
+
+
+def mesh_engine_case(card: str, shape: tuple, m: int) -> dict:
+    """15(a) at one mesh shape: the scenario through ``ShardedEngine`` and
+    through the unsharded engine on card 0, every result and state plane
+    bit-equal; launches per shard; F1's device time per shard."""
+    n_ens, n_peer = shape
+    e = E_FULL
+    views = [list(range(M_FULL))]
+    devs = mesh_devices(n_ens * n_peer)
+    se = ShardedEngine(make_mesh(n_ens, n_peer, devices=devs))
+    print(f"15(a) mesh {shape} at {e} x {m} x {S_FULL}, K = {K_FULL} "
+          f"[{card}]: {torch.cuda.device_count()} card(s); shards "
+          f"{se.mesh.describe()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = mesh_scenario(se, se.init_state(e, m, S_FULL, views=views), e, m,
+                        devs[0])
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = mesh_scenario(LocalEngine, eng.init_state(
+        e, m, S_FULL, views=views, device=devs[0]), e, m, devs[0])
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    bad = [name for name in want if name != "_state"
+           and not torch.equal(host_plane(got[name]), host_plane(want[name]))]
+    if bad:
+        raise AssertionError(f"15(a) {shape}: planes differ from the "
+                             f"unsharded engine: {bad}")
+    if not (want["won1"].all() and want["collapsed"].all()
+            and want["kv2.get_ok"].all()):
+        raise AssertionError(f"15(a) {shape}: the scenario did not fail "
+                             f"over, shrink and read")
+    launches = {str(s): dict(c) for s, c in se.launches.items()}
+    # F1's device time per shard: three K-round scans, each shard's
+    # launch between CUDA events
+    st = got["_state"]
+    k = K_FULL
+    rng = np.random.default_rng(8)
+    gk = torch.from_numpy(np.full((k, e), eng.OP_GET, np.int32)).to(devs[0])
+    slot = torch.from_numpy(rng.integers(0, S_FULL, (k, e)).astype(
+        np.int32)).to(devs[0])
+    lease = torch.zeros((k, e), dtype=torch.bool, device=devs[0])
+    up = torch.ones((e, m), dtype=torch.bool, device=devs[0])
+    shard_ms = "not measured (no F1 on a sharded peer axis)"
+    if n_peer == 1:
+        se.kv_step_scan(st, gk, slot, gk, lease, up)
+        se.time_shards = True
+        for _ in range(3):
+            se.kv_step_scan(st, gk, slot, gk, lease, up)
+        torch.cuda.synchronize()
+        se.time_shards = False
+        shard_ms = {str(s): v / 3 for s, v in se.shard_ms().items()}
+    print(f"15(a) mesh {shape} [{card}]: every result plane and state "
+          f"plane (tree hashes included) equal to the unsharded engine; "
+          f"scenario wall {mesh_s:.3f} s (unsharded {local_s:.3f} s); "
+          f"launches per shard {launches}; F1 device ms per shard of one "
+          f"K = {k} read scan {shard_ms}")
+    return {"launches": launches, "ms_per_scan": shard_ms,
+            "wall_s": mesh_s, "unsharded_wall_s": local_s}
+
+
+class FullGridEngine(_LocalEngine):
+    """The single engine without its sliced steps: a service over it keeps
+    the full launch grid and compacts only the packed result, as a mesh
+    service does — so idle rows renew their leases alike and the two
+    arms' lease mirrors and fast reads can be held equal."""
+    full_step = staticmethod(eng.full_step)
+    full_step_wide = staticmethod(eng.full_step_wide)
+
+
+def mesh_keyed(svc: BatchedEnsembleService, rows: list, phase: int,
+               ms: list) -> list:
+    """One seeded keyed stream on ``rows``: 4 puts a row, a CAS hit and a
+    CAS miss, an RMW, a delete, then every key read; the flush calls'
+    wall ms go to ``ms``.  Returns the futures' values in order."""
+    keys = [f"k{i}" for i in range(4)]
+    add = funref.ref("rmw:add", 3 + phase)
+
+    def run(futs):
+        while not all(f.done for f in futs):
+            t0 = time.perf_counter()
+            svc.flush()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return [f.value for f in futs]
+    out = run([svc.kput_many(x, keys, [b"p%d.%d.%d" % (phase, x, i)
+                                       for i in range(4)]) for x in rows])
+    vsn = run([svc.kget_many(x, keys[:1], want_vsn=True) for x in rows])
+    out += vsn
+    out += run([svc.kupdate_many(x, keys[:2], [v[0][2], (1, 1 << 30)],
+                                 [b"cas%d" % phase, b"never"])
+                for x, v in zip(rows, vsn)]
+               + [svc.kmodify_many(x, ["ctr"], add, 0) for x in rows])
+    out += run([svc.kdelete_many(x, keys[2:3]) for x in rows])
+    svc.runtime.now += 1.0              # leases lapse: reads go round
+    reads = run([svc.kget_many(x, keys + ["ctr"], want_vsn=True)
+                 for x in rows])
+    # every acknowledged write reads back: the CAS hit's value on k0, the
+    # puts on k1 and k3, the RMW on ctr; k2 was deleted
+    for x, put, rd in zip(rows, out[:len(rows)], reads):
+        want = [b"cas%d" % phase, b"p%d.%d.1" % (phase, x), None,
+                b"p%d.%d.3" % (phase, x)]
+        if any(r[0] != "ok" for r in put) or any(
+                w is not None and (r[0], r[1]) != ("ok", w)
+                for w, r in zip(want, rd)) or rd[4][0] != "ok":
+            raise AssertionError(f"15(b): row {x}: acknowledged writes "
+                                 f"did not read back: {rd!r}")
+    return out + reads
+
+
+def wal_files(root: str) -> dict:
+    """Every file under a data dir but the checkpoints: name -> bytes."""
+    out = {}
+    for path, _dirs, files in os.walk(root):
+        rel = os.path.relpath(path, root)
+        if rel.split(os.sep)[0].startswith("ckpt."):
+            continue
+        for f in files:
+            with open(os.path.join(path, f), "rb") as fh:
+                out[os.path.join(rel, f)] = fh.read()
+    return out
+
+
+def same_service(a: BatchedEnsembleService, b: BatchedEnsembleService,
+                 label: str, mirrors: bool = True) -> None:
+    """Every state plane, the host maps and the leader mirror equal, and
+    with ``mirrors`` the read-path mirrors and leases too (a restore
+    starts lease-less, its read mirrors empty)."""
+    sa = a.engine.gather_state(a.state)
+    sb = b.engine.gather_state(b.state)
+    bad = diff_fields(sa, sb, eng.EngineState._fields)
+    ma, mb = mirrors_of(a), mirrors_of(b)
+    bad += [n for n in ma if (mirrors or n == "leader_np")
+            and not np.array_equal(ma[n], mb[n])]
+    bad += [n for n in ("key_slot", "slot_handle", "values")
+            if getattr(a, n) != getattr(b, n)]
+    if bad:
+        raise AssertionError(f"{label}: the mesh service differs in {bad}")
+
+
+def mesh_service(dev: torch.device, card: str) -> tuple:
+    """15(b) and (c): the keyed stream on a service over ``mesh_engine``
+    at (4, 1) and on one over the single engine at the same full launch
+    grid (:class:`FullGridEngine`), every row active and
+    then MESH_ROWS rows, with data dirs at fsync; then save / restore
+    across the two placements."""
+    rng = np.random.default_rng(15)
+    sub = np.sort(rng.choice(E_FULL, MESH_ROWS, replace=False)).tolist()
+    runs = (("every row", list(range(E_FULL))), (f"{MESH_ROWS} rows", sub))
+    arms, dirs = {}, []
+    for arm in ("single", "mesh"):
+        data = tempfile.mkdtemp(prefix=f"mesh15_{arm}_")
+        dirs.append(data)
+        se = mesh_engine(4, devices=mesh_devices(4)) if arm == "mesh" \
+            else FullGridEngine()
+        svc = BatchedEnsembleService(
+            FixedClock(), E_FULL, M_FULL, S_FULL, tick=None,
+            max_ops_per_tick=K_FULL, device=None if arm == "mesh" else dev,
+            engine=se, data_dir=data, wal_sync="fsync")
+        svc.flush()
+        torch.cuda.synchronize()
+        if arm == "mesh":
+            reset_counts()                      # the mesh path's run
+            se.reset_launch_counts()
+        got = {}
+        for phase, (label, rows) in enumerate(runs):
+            ms = []
+            b0, f0 = svc.payload_bytes, svc.payload_bytes_full_width
+            got[label] = (mesh_keyed(svc, rows, phase, ms), ms,
+                          svc.payload_bytes - b0,
+                          svc.payload_bytes_full_width - f0)
+        torch.cuda.synchronize()
+        if arm == "mesh":
+            counts = read_counts()
+            per_shard = {str(s): dict(c) for s, c in se.launches.items()}
+        arms[arm] = (svc, got, data)
+    (one, one_got, d1), (msh, msh_got, d2) = arms["single"], arms["mesh"]
+    out = {}
+    for label, _rows in runs:
+        if one_got[label][0] != msh_got[label][0]:
+            raise AssertionError(f"15(b) {label}: futures differ")
+        out[label] = {arm: {"flush_ms_median": statistics.median(g[label][1]),
+                            "flushes": len(g[label][1]),
+                            "payload_bytes": g[label][2],
+                            "full_width_bytes": g[label][3]}
+                      for arm, g in (("single", one_got), ("mesh", msh_got))}
+        print(f"15(b) {label} [{card}]: flush median single "
+              f"{out[label]['single']['flush_ms_median']:.3f} ms, mesh (4, 1) "
+              f"{out[label]['mesh']['flush_ms_median']:.3f} ms over "
+              f"{out[label]['mesh']['flushes']} flushes; packed bytes mesh "
+              f"{out[label]['mesh']['payload_bytes']} (shard-wise) against "
+              f"{out[label]['mesh']['full_width_bytes']} full width, single "
+              f"{out[label]['single']['payload_bytes']}")
+    same_service(one, msh, "15(b)")
+    wa, wb = wal_files(d1), wal_files(d2)
+    if not wa or wa != wb:
+        raise AssertionError("15(b): the WAL bytes differ")
+    if not counts["F1"] or counts["F1 sliced"]:
+        raise AssertionError(f"15(b): the mesh path launched {counts}")
+    print(f"15(b) [{card}]: results, state, mirrors and WAL bytes "
+          f"({sum(len(v) for v in wb.values())} B in {len(wb)} files, fsync) "
+          f"equal; mesh launches {counts}, per shard {per_shard}")
+    # (c) checkpoints across the placements
+    t0 = time.perf_counter()
+    msh.save()
+    back = BatchedEnsembleService.restore(FixedClock(), d2, tick=None,
+                                          max_ops_per_tick=K_FULL, device=dev)
+    same_service(msh, back, "15(c) mesh -> single", mirrors=False)
+    d3 = tempfile.mkdtemp(prefix="mesh15_back_")
+    dirs.append(d3)
+    back.save(d3)
+    again = BatchedEnsembleService.restore(
+        FixedClock(), d3, tick=None, max_ops_per_tick=K_FULL,
+        engine=mesh_engine(4, devices=mesh_devices(4)))
+    same_service(back, again, "15(c) single -> mesh", mirrors=False)
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    print(f"15(c) [{card}]: save from the mesh, restore on one engine, save, "
+          f"restore on the mesh: every state plane, the leaders and the "
+          f"key maps equal "
+          f"({ckpt_s:.3f} s)")
+    for svc in (one, msh, back, again):
+        svc.stop()
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    return counts, per_shard, {"service": out, "checkpoint_s": ckpt_s}
+
+
+def mesh_svcnode(card: str) -> dict:
+    """15(d): ``python -m riak_ensemble_tpu_torch.svcnode --mesh-devices
+    N`` (on one card: N = 4 shards of ``--device cuda:0``) serves a
+    ``ServiceClient``; every acknowledged write reads back."""
+    import asyncio
+    import signal
+
+    from riak_ensemble_tpu_torch import svcnode
+    cards = torch.cuda.device_count()
+    n = cards if cards > 1 else 4
+    data = tempfile.mkdtemp(prefix="mesh15_node_")
+    cmd = [sys.executable, "-m", "riak_ensemble_tpu_torch.svcnode",
+           "--port", "0", "--n-ens", str(E_FULL), "--n-peers", str(M_FULL),
+           "--n-slots", str(S_FULL), "--data-dir", data,
+           "--mesh-devices", str(n)]
+    if cards == 1:
+        cmd += ["--device", "cuda:0"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    acked, got = {}, {}
+    try:
+        line = p.stdout.readline()
+        if "svcnode serving" not in line:
+            raise AssertionError(f"15(d): svcnode did not start: {line!r} "
+                                 f"{p.stderr.read()[-3000:]}")
+        boot_s = time.perf_counter() - t0
+        host, port = line.rsplit(" ", 1)[1].strip().rsplit(":", 1)
+        rows = list(range(0, E_FULL, E_FULL // 64))[:64]
+
+        async def run():
+            c = svcnode.ServiceClient(host, int(port))
+            await c.connect()
+            res = await asyncio.gather(*[
+                c.kput_many(r, [f"k{j}" for j in range(16)],
+                            [b"%d:%d" % (r, j) for j in range(16)],
+                            timeout=120.0) for r in rows])
+            for r, rr in zip(rows, res):
+                for j, x in enumerate(rr):
+                    if x[0] == "ok":
+                        acked[(r, f"k{j}")] = b"%d:%d" % (r, j)
+            back = await asyncio.gather(*[
+                c.kget_many(r, [f"k{j}" for j in range(16)], timeout=120.0)
+                for r in rows])
+            for r, rr in zip(rows, back):
+                for j, x in enumerate(rr):
+                    got[(r, f"k{j}")] = x
+            stats = await c.stats()
+            await c.close()
+            return stats
+        stats = asyncio.run(run())
+    finally:
+        p.send_signal(signal.SIGKILL)
+        p.wait(60)
+        shutil.rmtree(data, ignore_errors=True)
+    if len(acked) != 64 * 16 or any(got[k] != ("ok", v)
+                                    for k, v in acked.items()):
+        raise AssertionError(f"15(d): {len(acked)} of 1024 writes acked, "
+                             f"or one did not read back")
+    print(f"15(d) svcnode --mesh-devices {n} [{card}]: boot {boot_s:.3f} s; "
+          f"1024 acknowledged writes read back over the wire; "
+          f"{stats.get('flushes')} flushes")
+    return {"mesh_devices": n, "boot_s": boot_s}
+
+
+#: 15(e)'s shards a process
+MESH_CHILD_DEVS = 2
+
+
+def child_devices(rank: int) -> list:
+    """Process ``rank``'s shard devices: cards of its own where there
+    are enough, else round robin (one card: both processes on it)."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", (MESH_CHILD_DEVS * rank + j) % cards)
+            for j in range(MESH_CHILD_DEVS)]
+
+
+def mesh_child(rank: int, coord: str) -> int:
+    """One of 15(e)'s two processes: ``distributed.initialize``, a global
+    (4, 1) mesh of MESH_CHILD_DEVS shards a process, (a)'s scenario, and
+    this process's shards against an unsharded run on its card."""
+    local = child_devices(rank)
+    backend = distributed.initialize(coord, 2, rank)
+    mesh = distributed.global_mesh(1, devices=local)
+    se = ShardedEngine(mesh)
+    e, m = E_FULL, M_FULL
+    got = mesh_scenario(se, se.init_state(e, m, S_FULL), e, m, local[0])
+    want = mesh_scenario(LocalEngine, eng.init_state(e, m, S_FULL,
+                                                     device=local[0]),
+                         e, m, local[0])
+    checked = 0
+    for name, arr in got.items():
+        if name == "_state":
+            continue
+        full = want[name].cpu()
+        for idx, block in arr.shards():
+            if not torch.equal(block.cpu(), full[idx]):
+                raise AssertionError(f"15(e) rank {rank}: {name} differs")
+            checked += 1
+    torch.distributed.destroy_process_group()
+    print(f"MESH-CHILD rank {rank} backend {backend}: shards "
+          f"{mesh.local_shards()} on {mesh.describe()}; {checked} blocks "
+          f"equal to the unsharded run; launches {se.launches}", flush=True)
+    return 0
+
+
+def mesh_processes(card: str) -> dict:
+    """15(e): two processes of this script under ``distributed.initialize``
+    form one global (4, 1) mesh and each checks its own shards."""
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, here, "--mesh-rank", str(r),
+                               "--mesh-coord", coord],
+                              cwd=os.path.dirname(here),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "MESH-CHILD" not in out:
+            raise AssertionError(f"15(e) rank {r} failed ({p.returncode}):"
+                                 f"\n{out[-2000:]}\n{err[-3000:]}")
+        for ln in out.splitlines():
+            if ln.startswith("MESH-CHILD"):
+                print(f"15(e) [{card}]: {ln}")
+    print(f"15(e) [{card}]: two processes, one global (4, 1) mesh: "
+          f"{wall:.3f} s wall")
+    return {"wall_s": wall}
+
+
+def phase_mesh(dev: torch.device, card: str) -> tuple:
+    """Phase 15: the mesh — (a) the engine at (4, 1) and (2, 2), (b) the
+    service over it, (c) checkpoints across placements, (d) svcnode
+    ``--mesh-devices``, (e) two processes."""
+    t0 = time.perf_counter()
+    engine = {"(4, 1)": mesh_engine_case(card, (4, 1), M_FULL),
+              "(2, 2)": mesh_engine_case(card, (2, 2), MESH_M2)}
+    counts, per_shard, svc = mesh_service(dev, card)
+    node = mesh_svcnode(card)
+    procs = mesh_processes(card)
+    wall = time.perf_counter() - t0
+    print(f"phase 15 [{card}]: {wall:.1f} s")
+    return counts, {"engine": engine, "service_launches_by_shard": per_shard,
+                    **svc, "svcnode": node, "processes": procs,
+                    "cards": torch.cuda.device_count(), "wall_s": wall}
+
+
 def ab_run() -> int:
     """One side of ``--ab``: F1 at the headline shape (full width and
     :data:`AB_SLICED`), phase 6(c) and F1's wide mode at 11(a)'s timed
@@ -5562,6 +6052,10 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if "--mesh-rank" in argv:
+        # one of phase 15(e)'s two processes
+        return mesh_child(int(argv[argv.index("--mesh-rank") + 1]),
+                          argv[argv.index("--mesh-coord") + 1])
     profile = (argv[argv.index("--profile") + 1]
                if "--profile" in argv else None)
     dev = torch.device("cuda", 0)
@@ -5598,6 +6092,10 @@ def main(argv) -> int:
         # the scale plane alone: phase 14
         phase_tenant_plane(dev, card)
         return 0
+    if "--mesh" in argv:
+        # the mesh alone: phase 15
+        phase_mesh(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -5629,6 +6127,8 @@ def main(argv) -> int:
     scalar_plane = phase_scalar_plane(dev, card)
     tenant_counts, tenants = phase_tenant_plane(dev, card)
     by_path.update(tenant_counts)
+    mesh_counts, mesh = phase_mesh(dev, card)
+    by_path["phase15 mesh service"] = mesh_counts
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
@@ -5655,7 +6155,14 @@ def main(argv) -> int:
         "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
         "bound_by": f1["bound_by"], "library_ms": None,
         "device_us": f1["device_us"], "host_us": f1["host_us"],
-        "occupancy": f1["occupancy"], "sliced": f1_sliced}, {
+        "occupancy": f1["occupancy"], "sliced": f1_sliced,
+        "mesh_launches_by_shard": {
+            "phase15b mesh (4, 1) service":
+                {sh: c["F1"] for sh, c in
+                 mesh["service_launches_by_shard"].items()},
+            **{f"phase15a mesh {shape} engine":
+               {sh: c["F1"] for sh, c in case["launches"].items()}
+               for shape, case in mesh["engine"].items()}}}, {
         "name": "F1 engine_step, wide mode", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
@@ -5678,6 +6185,10 @@ def main(argv) -> int:
         "reconfig_launches": sum(c["K1"] for p, c in by_path.items()
                                  if p.startswith("phase9")),
         "reconfig": control["reconfig"],
+        "mesh_launches_by_shard": {
+            f"phase15a mesh {shape} engine":
+                {sh: c["K1"] for sh, c in case["launches"].items()}
+            for shape, case in mesh["engine"].items()},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
@@ -5708,7 +6219,7 @@ def main(argv) -> int:
                       "repgroup": {k: v for k, v in group.items()
                                    if k != "counts"},
                       "scalar_plane": scalar_plane,
-                      "tenants": tenants}))
+                      "tenants": tenants, "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,6 +7,11 @@ planes travel as their int32 view (``ndarray.view(np.int32)``) and
 come back through ``.view(np.uint32)``; every other field keeps its
 dtype.  :func:`state_from_numpy` always copies, so the port's in-place
 rounds never write into the caller's arrays.
+
+A JAX mesh state (its global arrays, as numpy) carries to a port mesh
+state through :func:`mesh_state_from_numpy` and back through
+:func:`mesh_state_to_numpy`; both go through the one state the mesh
+shards, so the blocks land where the port's layout puts them.
 """
 
 from __future__ import annotations
@@ -70,3 +75,15 @@ def result_from_numpy(src: _Src, device: DeviceLike = None) -> KvResult:
 def result_to_numpy(res: KvResult) -> KvResult:
     return KvResult(*(_to_numpy(getattr(res, f), f)
                       for f in KvResult._fields))
+
+
+def mesh_state_from_numpy(src: _Src, engine: Any) -> Any:
+    """A :class:`..parallel.mesh.MeshState` on ``engine``'s mesh from the
+    global arrays of a state (e.g. the JAX ``ShardedEngine``'s)."""
+    return engine.shard_state(state_from_numpy(src, device="cpu"))
+
+
+def mesh_state_to_numpy(state: Any) -> EngineState:
+    """A mesh state as one :class:`EngineState` of numpy arrays with the
+    reference's dtypes."""
+    return state_to_numpy(state.gather())

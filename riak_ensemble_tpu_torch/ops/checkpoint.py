@@ -18,7 +18,8 @@ read-back check) under the ``ckpt`` storage-fault class and crash points;
 a read passes the ``ckpt`` bit-flip filter and a CRC mismatch raises,
 so a damaged checkpoint is never served.
 
-On CUDA the state moves to the host with one ``.cpu()`` per plane.
+On CUDA the state moves to the host with one ``.cpu()`` per plane; a
+mesh state is gathered first, block by block.
 """
 
 from __future__ import annotations
@@ -40,7 +41,12 @@ MAGIC = b"RETE"
 
 def save_state(path: str, state: EngineState) -> None:
     """Write ``state`` to ``path`` (a directory; created) as
-    ``path/engine``."""
+    ``path/engine``.  A mesh state (:class:`..parallel.mesh.MeshState`)
+    is written as the one state it shards, so a checkpoint restores
+    across shard counts: :func:`load_state` gives one state, and a mesh
+    engine's ``shard_state`` places it."""
+    if not isinstance(state, EngineState):
+        state = state.gather()
     planes = [getattr(state, f).detach().cpu().contiguous().numpy()
               for f in EngineState._fields]
     header = pickle.dumps(

@@ -19,9 +19,17 @@ synctree.erl) and are not repeated at length here.
 
 What differs from the reference, and why:
 
-- There is no mesh: the reference's ``axis_name`` (peer-axis ``psum``
-  / ``pmax`` collectives) is dropped, so every peer reduction is a
-  plain trailing-axis reduce.
+- The reference's ``axis_name`` (peer-axis ``psum`` / ``pmax`` /
+  ``axis_index`` under ``shard_map``) is the ``axis`` argument: None
+  (the default) reduces over the trailing local peer axis alone; a
+  peer-axis object (:class:`..parallel.mesh.ThreadPeerAxis`,
+  :class:`..parallel.distributed.DistPeerAxis`) with ``sum``, ``max``
+  and ``index`` folds in the other peer shards' partials.  With an
+  axis the steps run their plain torch versions, on the card too, and
+  the quorum predicate is :func:`.quorum.quorum_met_batch` over the
+  collectives — as the reference runs its ``jnp`` path with
+  collectives, never its Pallas kernel, under a sharded peer axis
+  (engine.py:478-482).
 - uint32 tree planes (``tree_leaf``/``tree_node``) are int32 tensors
   holding the same bits (:mod:`.u32`).
 - Every integer reduction names ``dtype=torch.int32`` and every factory
@@ -375,12 +383,44 @@ def init_state(n_ensembles: int, n_peers: int, n_slots: int,
 
 
 # ---------------------------------------------------------------------------
-# Quorum + latest-object reductions over the trailing peer axis
+# Peer-axis reductions (the reference's psum / pmax / axis_index,
+# engine.py:446-462, quorum.py:104-111)
+
+
+def _psum(x: torch.Tensor, axis) -> torch.Tensor:
+    """int32 sum over the trailing local peer axis, then over the peer
+    shards when ``axis`` is given (``reduce_peers``)."""
+    s = x.sum(-1, dtype=I32)
+    return s if axis is None else axis.sum(s)
+
+
+def _pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    m = x.amax(-1)
+    return m if axis is None else axis.max(m)
+
+
+def _pany(x: torch.Tensor, axis) -> torch.Tensor:
+    """Any over the peer axis of a bool ``[..., Ml]``: the reference's
+    ``reduce_peers(x.astype(int32)) > 0``."""
+    return x.any(-1) if axis is None else _psum(x, axis) > 0
+
+
+def _global_peer_idx(m_local: int, device: torch.device,
+                     axis) -> torch.Tensor:
+    """Global peer indices of the local peer slice ([Ml] int32)."""
+    idx = torch.arange(m_local, dtype=I32, device=device)
+    return idx if axis is None else idx + axis.index * m_local
+
+
+# ---------------------------------------------------------------------------
+# Quorum + latest-object reductions over the peer axis
 
 
 def _quorum_met(ack: torch.Tensor, heard: torch.Tensor,
-                view_mask: torch.Tensor) -> torch.Tensor:
-    """Majority in EVERY active view (msg.erl:377-418), through K1.
+                view_mask: torch.Tensor, axis=None) -> torch.Tensor:
+    """Majority in EVERY active view (msg.erl:377-418), through K1 (or,
+    over a sharded peer axis, :func:`.quorum.quorum_met_batch` with the
+    axis's collectives and no self term, engine.py:497-503).
 
     ack [E, Ml] or [E, W, Ml] bool (epoch-matching up members — the
     caller's own vote already included); heard, same shape (up members
@@ -390,6 +430,13 @@ def _quorum_met(ack: torch.Tensor, heard: torch.Tensor,
     mask at r // W) instead of materialising the reference's
     ``[E, W, V, M]`` broadcast (engine.py:489-491)."""
     nack = heard & ~ack
+    if axis is not None:
+        vm = view_mask if ack.dim() == 2 else view_mask[:, None].expand(
+            ack.shape[:2] + view_mask.shape[1:])
+        self_idx = torch.full(ack.shape[:-1], -1, dtype=I32,
+                              device=ack.device)
+        return quorum_lib.quorum_met_batch(ack, nack, vm, self_idx,
+                                           axis=axis) == quorum_lib.MET
     if ack.dim() == 2:
         return quorum_met_e(ack, nack, view_mask) == quorum_lib.MET
     e, w, ml = ack.shape
@@ -399,7 +446,7 @@ def _quorum_met(ack: torch.Tensor, heard: torch.Tensor,
 
 
 def _latest_among(pe: torch.Tensor, ps: torch.Tensor, pv: torch.Tensor,
-                  ok: torch.Tensor
+                  ok: torch.Tensor, axis=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """Batched ``get_latest_obj`` (peer.erl:1623-1662): the newest
@@ -408,10 +455,10 @@ def _latest_among(pe: torch.Tensor, ps: torch.Tensor, pv: torch.Tensor,
     seq, val, found)."""
     exists = ps > 0                                          # seq>=1 once written
     h = ok & exists
-    emax = torch.where(h, pe, -1).amax(-1)
-    smax = torch.where(h & (pe == emax[..., None]), ps, -1).amax(-1)
+    emax = _pmax(torch.where(h, pe, -1), axis)
+    smax = _pmax(torch.where(h & (pe == emax[..., None]), ps, -1), axis)
     on_max = h & (pe == emax[..., None]) & (ps == smax[..., None])
-    vmax = torch.where(on_max, pv, _INT32_MIN).amax(-1)
+    vmax = _pmax(torch.where(on_max, pv, _INT32_MIN), axis)
     found = smax > 0
     return (emax.clamp_min(0), smax.clamp_min(0),
             torch.where(found, vmax, 0), found)
@@ -422,21 +469,23 @@ def _latest_among(pe: torch.Tensor, ps: torch.Tensor, pv: torch.Tensor,
 
 
 def elect_step(state: EngineState, elect: torch.Tensor, cand: torch.Tensor,
-               up: torch.Tensor) -> Tuple[EngineState, torch.Tensor]:
+               up: torch.Tensor, axis=None
+               ) -> Tuple[EngineState, torch.Tensor]:
     """Batched two-phase leader election for the ensembles in ``elect``
     (engine.py:534-578).  elect [E] bool; cand [E] int32 candidate; up
     [E, Ml] bool.  Phase 1: NextEpoch = max(heard epochs)+1, every
     heard member acks; phase 2 on quorum: members adopt NextEpoch, fact
-    seq and the per-epoch obj counter reset.  Returns (state', won)."""
+    seq and the per-epoch obj counter reset.  ``cand`` is a GLOBAL
+    peer index.  Returns (state', won)."""
     e, ml = state.epoch.shape
-    gidx = torch.arange(ml, dtype=I32, device=up.device)
+    gidx = _global_peer_idx(ml, up.device, axis)
     member = state.view_mask.any(1)                          # [E, Ml]
     heard = up & member
-    next_epoch = torch.where(heard, state.epoch, -1).amax(-1) + 1
+    next_epoch = _pmax(torch.where(heard, state.epoch, -1), axis) + 1
     ack = heard
     # The candidate must itself be an up member (it leads the round).
-    cand_heard = ((gidx[None, :] == cand[:, None]) & heard).any(-1)
-    won = (_quorum_met(ack, heard, state.view_mask)
+    cand_heard = _pany((gidx[None, :] == cand[:, None]) & heard, axis)
+    won = (_quorum_met(ack, heard, state.view_mask, axis)
            & elect & (cand >= 0) & cand_heard)
 
     adopt = won[:, None] & heard                             # [E, Ml]
@@ -463,21 +512,21 @@ class _KvCtx(NamedTuple):
     n_member: torch.Tensor     # [E] member count (for all_or_quorum)
 
 
-def _kv_context(state: EngineState, up: torch.Tensor) -> _KvCtx:
+def _kv_context(state: EngineState, up: torch.Tensor, axis=None) -> _KvCtx:
     e, ml = state.epoch.shape
-    gidx = torch.arange(ml, dtype=I32, device=up.device)     # [Ml]
+    gidx = _global_peer_idx(ml, up.device, axis)             # [Ml]
     is_leader = gidx[None, :] == state.leader[:, None]       # [E, Ml]
     has_leader = state.leader >= 0                           # [E]
     member = state.view_mask.any(1)
     heard = up & member
-    lead_epoch = torch.where(is_leader, state.epoch, 0).sum(-1, dtype=I32)
+    lead_epoch = _psum(torch.where(is_leader, state.epoch, 0), axis)
     # Every op is served BY the leader; a down leader serves nothing.
-    leader_up = (is_leader & heard).any(-1)
+    leader_up = _pany(is_leader & heard, axis)
     # Epoch-check acks: shared by put replication and non-leased reads.
     ack = heard & (state.epoch == lead_epoch[:, None])
-    epoch_ok = (_quorum_met(ack, heard, state.view_mask)
+    epoch_ok = (_quorum_met(ack, heard, state.view_mask, axis)
                 & has_leader & leader_up)
-    n_member = member.sum(-1, dtype=I32)
+    n_member = _psum(member, axis)
     return _KvCtx(heard=heard, leader_up=leader_up & has_leader,
                   lead_epoch=lead_epoch, epoch_ok=epoch_ok,
                   n_member=n_member)
@@ -486,7 +535,7 @@ def _kv_context(state: EngineState, up: torch.Tensor) -> _KvCtx:
 def _kv_round(state: EngineState, ctx: _KvCtx, kind: torch.Tensor,
               slot: torch.Tensor, val: torch.Tensor, lease_ok: torch.Tensor,
               exp_epoch: Optional[torch.Tensor] = None,
-              exp_seq: Optional[torch.Tensor] = None
+              exp_seq: Optional[torch.Tensor] = None, axis=None
               ) -> Tuple[EngineState, KvResult]:
     """One WIDE K/V protocol round (engine.py:629-864) for ``[E, W]`` op
     lanes whose valid slots are distinct within each row (the scheduler's
@@ -538,9 +587,10 @@ def _kv_round(state: EngineState, ctx: _KvCtx, kind: torch.Tensor,
     # ``obj_found`` is "some object exists" (possibly a tombstone,
     # val == 0); ``found`` is the client-visible hit.
     rd_epoch, rd_seq, rd_val, obj_found = _latest_among(
-        pe.transpose(1, 2), ps.transpose(1, 2), pv.transpose(1, 2), ok_t)
+        pe.transpose(1, 2), ps.transpose(1, 2), pv.transpose(1, 2), ok_t,
+        axis)
     found = obj_found & (rd_val != 0)
-    n_ok = ok_t.sum(-1, dtype=I32)                           # [E, W]
+    n_ok = _psum(ok_t, axis)                                 # [E, W]
     all_ok = n_ok == ctx.n_member[:, None]
 
     get_gate = is_get & leader_up & (lease_ok | epoch_ok)
@@ -553,7 +603,7 @@ def _kv_round(state: EngineState, ctx: _KvCtx, kind: torch.Tensor,
     # notfound answers (non-valid heard replicas count as nacks).
     nf = get_gate & ~obj_found
     nf_quorum = _quorum_met(ok_t, heard[:, None, :].expand_as(ok_t),
-                            state.view_mask)                 # [E, W]
+                            state.view_mask, axis)           # [E, W]
     nf_write = nf & slot_valid & ~all_ok & epoch_ok & nf_quorum
     get_ok = ((get_gate & obj_found & (~stale | rewrite))
               | (nf & (all_ok | ~slot_valid | nf_write)))
@@ -684,16 +734,17 @@ def _empty_results(e: int, ml: int, w: Optional[int],
 def kv_step_scan(state: EngineState, kind: torch.Tensor, slot: torch.Tensor,
                  val: torch.Tensor, lease_ok: torch.Tensor, up: torch.Tensor,
                  exp_epoch: Optional[torch.Tensor] = None,
-                 exp_seq: Optional[torch.Tensor] = None
+                 exp_seq: Optional[torch.Tensor] = None, axis=None
                  ) -> Tuple[EngineState, KvResult]:
     """K sequential K/V rounds per ensemble (engine.py:945-979):
     kind/slot/val/lease_ok (and exp_epoch/exp_seq) ``[K, E]``, up
     ``[E, Ml]`` held fixed.  One F1 launch without the election for a
-    CUDA state, :func:`kv_step_scan_plain` for a CPU state.  Updates
-    ``state`` in place; results are stacked ``[K, E]``."""
-    if state.epoch.device.type == "cpu":
+    CUDA state, :func:`kv_step_scan_plain` for a CPU state or a sharded
+    peer ``axis``.  Updates ``state`` in place; results are stacked
+    ``[K, E]``."""
+    if axis is not None or state.epoch.device.type == "cpu":
         return kv_step_scan_plain(state, kind, slot, val, lease_ok, up,
-                                  exp_epoch, exp_seq)
+                                  exp_epoch, exp_seq, axis)
     _, res = cuda_engine.engine_step(state, None, None, kind, slot, val,
                                      lease_ok, up, exp_epoch, exp_seq)
     return state, KvResult(*res)
@@ -703,7 +754,7 @@ def kv_step_scan_plain(state: EngineState, kind: torch.Tensor,
                        slot: torch.Tensor, val: torch.Tensor,
                        lease_ok: torch.Tensor, up: torch.Tensor,
                        exp_epoch: Optional[torch.Tensor] = None,
-                       exp_seq: Optional[torch.Tensor] = None
+                       exp_seq: Optional[torch.Tensor] = None, axis=None
                        ) -> Tuple[EngineState, KvResult]:
     """:func:`kv_step_scan` as torch ops — F1's plain version: the wide
     scan of one lane per round (:func:`kv_step_scan_wide_plain` on
@@ -715,7 +766,7 @@ def kv_step_scan_plain(state: EngineState, kind: torch.Tensor,
         return None if t is None else t[..., None]
     state, res = kv_step_scan_wide_plain(
         state, lane(kind), lane(slot), lane(val), lane(lease_ok), up,
-        lane(exp_epoch), lane(exp_seq))
+        lane(exp_epoch), lane(exp_seq), axis)
     return state, res._replace(
         committed=res.committed[..., 0], get_ok=res.get_ok[..., 0],
         found=res.found[..., 0], value=res.value[..., 0],
@@ -726,7 +777,7 @@ def kv_step_scan_wide(state: EngineState, kind: torch.Tensor,
                       slot: torch.Tensor, val: torch.Tensor,
                       lease_ok: torch.Tensor, up: torch.Tensor,
                       exp_epoch: Optional[torch.Tensor] = None,
-                      exp_seq: Optional[torch.Tensor] = None
+                      exp_seq: Optional[torch.Tensor] = None, axis=None
                       ) -> Tuple[EngineState, KvResult]:
     """G sequential WIDE rounds of W conflict-free lanes per ensemble
     (engine.py:983-1027): kind/slot/val/lease_ok (and exp_epoch /
@@ -735,10 +786,11 @@ def kv_step_scan_wide(state: EngineState, kind: torch.Tensor,
     slots of valid ops must be DISTINCT (the scheduler's precondition,
     :func:`validate_wide_plane` checks concrete planes).  One F1 launch
     in its wide mode for a CUDA state, :func:`kv_step_scan_wide_plain`
-    for a CPU state.  Updates ``state`` in place."""
-    if state.epoch.device.type == "cpu":
+    for a CPU state or a sharded peer ``axis``.  Updates ``state`` in
+    place."""
+    if axis is not None or state.epoch.device.type == "cpu":
         return kv_step_scan_wide_plain(state, kind, slot, val, lease_ok, up,
-                                       exp_epoch, exp_seq)
+                                       exp_epoch, exp_seq, axis)
     _, res = cuda_engine.engine_step(state, None, None, kind, slot, val,
                                      lease_ok, up, exp_epoch, exp_seq)
     return state, KvResult(*res)
@@ -748,13 +800,13 @@ def kv_step_scan_wide_plain(state: EngineState, kind: torch.Tensor,
                             slot: torch.Tensor, val: torch.Tensor,
                             lease_ok: torch.Tensor, up: torch.Tensor,
                             exp_epoch: Optional[torch.Tensor] = None,
-                            exp_seq: Optional[torch.Tensor] = None
+                            exp_seq: Optional[torch.Tensor] = None, axis=None
                             ) -> Tuple[EngineState, KvResult]:
     """:func:`kv_step_scan_wide` as torch ops — F1's plain version in
     wide mode: :func:`_kv_context`, a Python loop of wide rounds (the
     reference's ``lax.scan``) updating the obj_* and tree_* planes IN
     PLACE, then :func:`_adopt_epochs`."""
-    ctx = _kv_context(state, up)
+    ctx = _kv_context(state, up, axis)
     g, e, w = kind.shape
     if g == 0:
         return _adopt_epochs(state, ctx), _empty_results(
@@ -766,7 +818,7 @@ def kv_step_scan_wide_plain(state: EngineState, kind: torch.Tensor,
     outs = []
     for j in range(g):
         state, r = _kv_round(state, ctx, kind[j], slot[j], val[j],
-                             lease_ok[j], exp_epoch[j], exp_seq[j])
+                             lease_ok[j], exp_epoch[j], exp_seq[j], axis)
         outs.append(r)
     res = KvResult(*(torch.stack(planes) for planes in zip(*outs)))
     return _adopt_epochs(state, ctx), res
@@ -803,15 +855,15 @@ def full_step(state: EngineState, elect: torch.Tensor, cand: torch.Tensor,
               kind: torch.Tensor, slot: torch.Tensor, val: torch.Tensor,
               lease_ok: torch.Tensor, up: torch.Tensor,
               exp_epoch: Optional[torch.Tensor] = None,
-              exp_seq: Optional[torch.Tensor] = None
+              exp_seq: Optional[torch.Tensor] = None, axis=None
               ) -> Tuple[EngineState, torch.Tensor, KvResult]:
     """Election round (where needed) followed by K K/V rounds, fused
     (engine.py:1386-1404) — the step the service launches per flush:
     one F1 launch for a CUDA state, :func:`full_step_plain` for a CPU
-    state.  Updates ``state`` in place."""
-    if state.epoch.device.type == "cpu":
+    state or a sharded peer ``axis``.  Updates ``state`` in place."""
+    if axis is not None or state.epoch.device.type == "cpu":
         return full_step_plain(state, elect, cand, kind, slot, val,
-                               lease_ok, up, exp_epoch, exp_seq)
+                               lease_ok, up, exp_epoch, exp_seq, axis)
     won, res = cuda_engine.engine_step(state, elect, cand, kind, slot, val,
                                        lease_ok, up, exp_epoch, exp_seq)
     return state, won, KvResult(*res)
@@ -822,15 +874,16 @@ def full_step_plain(state: EngineState, elect: torch.Tensor,
                     slot: torch.Tensor, val: torch.Tensor,
                     lease_ok: torch.Tensor, up: torch.Tensor,
                     exp_epoch: Optional[torch.Tensor] = None,
-                    exp_seq: Optional[torch.Tensor] = None
+                    exp_seq: Optional[torch.Tensor] = None, axis=None
                     ) -> Tuple[EngineState, torch.Tensor, KvResult]:
     """:func:`full_step` as torch ops — F1's plain version and oracle:
     :func:`elect_step`, then :func:`kv_step_scan_plain`.  Its ballot
     planes are new tensors, its object and tree planes are updated in
     place."""
-    state, won = elect_step(state, elect, cand, up)
+    state, won = elect_step(state, elect, cand, up, axis)
     state, res = kv_step_scan_plain(state, kind, slot, val, lease_ok, up,
-                                    exp_epoch=exp_epoch, exp_seq=exp_seq)
+                                    exp_epoch=exp_epoch, exp_seq=exp_seq,
+                                    axis=axis)
     return state, won, res
 
 
@@ -839,16 +892,16 @@ def full_step_wide(state: EngineState, elect: torch.Tensor,
                    slot: torch.Tensor, val: torch.Tensor,
                    lease_ok: torch.Tensor, up: torch.Tensor,
                    exp_epoch: Optional[torch.Tensor] = None,
-                   exp_seq: Optional[torch.Tensor] = None
+                   exp_seq: Optional[torch.Tensor] = None, axis=None
                    ) -> Tuple[EngineState, torch.Tensor, KvResult]:
     """:func:`full_step` with ``[G, E, W]`` conflict-free op planes
     (engine.py:1421-1437; the precondition of
     :func:`kv_step_scan_wide`): one F1 launch in wide mode for a CUDA
-    state, :func:`full_step_wide_plain` for a CPU state.  Updates
-    ``state`` in place."""
-    if state.epoch.device.type == "cpu":
+    state, :func:`full_step_wide_plain` for a CPU state or a sharded
+    peer ``axis``.  Updates ``state`` in place."""
+    if axis is not None or state.epoch.device.type == "cpu":
         return full_step_wide_plain(state, elect, cand, kind, slot, val,
-                                    lease_ok, up, exp_epoch, exp_seq)
+                                    lease_ok, up, exp_epoch, exp_seq, axis)
     won, res = cuda_engine.engine_step(state, elect, cand, kind, slot, val,
                                        lease_ok, up, exp_epoch, exp_seq)
     return state, won, KvResult(*res)
@@ -859,14 +912,14 @@ def full_step_wide_plain(state: EngineState, elect: torch.Tensor,
                          slot: torch.Tensor, val: torch.Tensor,
                          lease_ok: torch.Tensor, up: torch.Tensor,
                          exp_epoch: Optional[torch.Tensor] = None,
-                         exp_seq: Optional[torch.Tensor] = None
+                         exp_seq: Optional[torch.Tensor] = None, axis=None
                          ) -> Tuple[EngineState, torch.Tensor, KvResult]:
     """:func:`full_step_wide` as torch ops — wide F1's plain version:
     :func:`elect_step`, then :func:`kv_step_scan_wide_plain`."""
-    state, won = elect_step(state, elect, cand, up)
+    state, won = elect_step(state, elect, cand, up, axis)
     state, res = kv_step_scan_wide_plain(state, kind, slot, val, lease_ok,
                                          up, exp_epoch=exp_epoch,
-                                         exp_seq=exp_seq)
+                                         exp_seq=exp_seq, axis=axis)
     return state, won, res
 
 
@@ -1000,10 +1053,13 @@ def gather_result_columns(res: KvResult,
 # Integrity maintenance (the anti-entropy exchange and its sweep)
 
 
-def verify_trees(state: EngineState) -> Tuple[torch.Tensor, torch.Tensor]:
+def verify_trees(state: EngineState, axis=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full integrity sweep per replica (engine.py:1099-1115): recompute
     every upper level from the stored leaves and every leaf from the
-    stored object.  Returns ``(node_bad [E, Ml], leaf_bad [E, Ml])``."""
+    stored object.  Per replica, so a sharded peer ``axis`` needs no
+    collective.  Returns ``(node_bad [E, Ml], leaf_bad [E, Ml])``."""
+    del axis
     node_bad = (build_uppers(state.tree_leaf)
                 != state.tree_node).any(-1).any(-1)
     expect_leaf = hashk.obj_leaf_hash(state.obj_epoch, state.obj_seq,
@@ -1023,7 +1079,14 @@ def rebuild_trees(state: EngineState, mask: torch.Tensor) -> EngineState:
     return state._replace(tree_leaf=tree_leaf, tree_node=tree_node)
 
 
-def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor
+def _pmax2(x: torch.Tensor, axis) -> torch.Tensor:
+    """Max over the peer axis (axis 1) of ``[E, Ml, S]`` → ``[E, S]``."""
+    m = x.amax(1)
+    return m if axis is None else axis.max(m)
+
+
+def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor,
+                  axis=None
                   ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
     """Whole-store anti-entropy (engine.py:1139-1219, the tree exchange
     of riak_ensemble_exchange.erl:67-98): for every slot of the
@@ -1037,7 +1100,7 @@ def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor
     was, so a caller can fall back to it if the step raises."""
     member = state.view_mask.any(1)
     heard = up & member
-    adopt = run & _quorum_met(heard, heard, state.view_mask)   # [E]
+    adopt = run & _quorum_met(heard, heard, state.view_mask, axis)  # [E]
 
     # Source validity is the object's leaf; a replica whose upper tree
     # is corrupt still vouches for its objects and gets its tree rebuilt.
@@ -1047,11 +1110,11 @@ def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor
     node_ok = (build_uppers(state.tree_leaf)
                == state.tree_node).all(-1).all(-1)           # [E, Ml]
     h = heard[:, :, None] & leaf_ok & (state.obj_seq > 0)
-    emax = torch.where(h, state.obj_epoch, -1).amax(1)       # [E, S]
+    emax = _pmax2(torch.where(h, state.obj_epoch, -1), axis)  # [E, S]
     on_e = h & (state.obj_epoch == emax[:, None, :])
-    smax = torch.where(on_e, state.obj_seq, -1).amax(1)
+    smax = _pmax2(torch.where(on_e, state.obj_seq, -1), axis)
     on_max = on_e & (state.obj_seq == smax[:, None, :])
-    vmax = torch.where(on_max, state.obj_val, _INT32_MIN).amax(1)
+    vmax = _pmax2(torch.where(on_max, state.obj_val, _INT32_MIN), axis)
     found = smax > 0                                         # [E, S]
     w_epoch = torch.where(found, emax, 0)[:, None, :]
     w_seq = torch.where(found, smax, 0)[:, None, :]
@@ -1128,33 +1191,34 @@ def _quorum_met_plain(ack: torch.Tensor, heard: torch.Tensor,
                              view_mask) == quorum_lib.MET
 
 
-def _reconfig_gate(state: EngineState, up: torch.Tensor, quorum
+def _reconfig_gate(state: EngineState, up: torch.Tensor, quorum, axis=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(heard [E, Ml], commit quorum in every CURRENT view [E]) — the
     try_commit gate on epoch-matching acks (engine.py:1262-1278).  The
     reduce is ``quorum``: :func:`_quorum_met` (K1 on CUDA) or its plain
-    twin."""
+    twin; over a sharded peer ``axis`` both are the collective path."""
     ml = state.epoch.shape[1]
     heard = up & state.view_mask.any(1)
-    gidx = torch.arange(ml, dtype=I32, device=up.device)
+    gidx = _global_peer_idx(ml, up.device, axis)
     is_leader = gidx[None, :] == state.leader[:, None]
-    lead_epoch = torch.where(is_leader, state.epoch, 0).sum(-1, dtype=I32)
+    lead_epoch = _psum(torch.where(is_leader, state.epoch, 0), axis)
     ack = heard & (state.epoch == lead_epoch[:, None])
-    commit_ok = quorum(ack, heard, state.view_mask) & (state.leader >= 0)
-    return heard, commit_ok
+    met = (quorum(ack, heard, state.view_mask) if axis is None
+           else _quorum_met(ack, heard, state.view_mask, axis))
+    return heard, met & (state.leader >= 0)
 
 
 def _propose_body(state: EngineState, propose: torch.Tensor,
                   new_view: torch.Tensor, vsn: torch.Tensor,
-                  up: torch.Tensor, quorum
+                  up: torch.Tensor, quorum, axis=None
                   ) -> Tuple[EngineState, torch.Tensor]:
     """The install as new tensors (engine.py:1281-1328): cons
     ``new_view`` onto the views list where the commit gate holds in
     every current view, ``vsn > pend_vsn``, the view is non-empty and
     the list's last slot is free."""
-    heard, commit_ok = _reconfig_gate(state, up, quorum)
-    tail_used = state.view_mask[:, -1, :].any(-1)
-    install = (propose & commit_ok & new_view.any(-1) & ~tail_used
+    heard, commit_ok = _reconfig_gate(state, up, quorum, axis)
+    tail_used = _pany(state.view_mask[:, -1, :], axis)
+    install = (propose & commit_ok & _pany(new_view, axis) & ~tail_used
                & (vsn > state.pend_vsn))
     shifted = torch.cat([new_view[:, None, :], state.view_mask[:, :-1, :]],
                         dim=1)
@@ -1169,13 +1233,13 @@ def _propose_body(state: EngineState, propose: torch.Tensor,
 
 
 def _transition_body(state: EngineState, run: torch.Tensor,
-                     up: torch.Tensor, quorum
+                     up: torch.Tensor, quorum, axis=None
                      ) -> Tuple[EngineState, torch.Tensor]:
     """The collapse as new tensors (engine.py:1331-1357): a joint
     ensemble in ``run`` whose commit gate holds in every view keeps only
     its head view and records ``commit_vsn = pend_vsn``."""
-    heard, commit_ok = _reconfig_gate(state, up, quorum)
-    collapse = run & state.view_mask[:, 1:, :].any(-1).any(-1) & commit_ok
+    heard, commit_ok = _reconfig_gate(state, up, quorum, axis)
+    collapse = run & _pany(state.view_mask[:, 1:, :].any(1), axis) & commit_ok
     head_only = torch.cat([state.view_mask[:, :1, :],
                            torch.zeros_like(state.view_mask[:, 1:, :])],
                           dim=1)
@@ -1206,7 +1270,8 @@ def _stepped(state: EngineState, new: EngineState) -> EngineState:
 
 def reconfig_propose(state: EngineState, propose: torch.Tensor,
                      new_view: torch.Tensor, vsn: torch.Tensor,
-                     up: torch.Tensor) -> Tuple[EngineState, torch.Tensor]:
+                     up: torch.Tensor, axis=None
+                     ) -> Tuple[EngineState, torch.Tensor]:
     """Batched ``update_members`` + ``maybe_change_views``
     (engine.py:1281-1328, peer.erl:655-672, 1115-1135): propose [E]
     bool, new_view [E, Ml] bool, vsn [E] int32 (the pending change's
@@ -1216,24 +1281,24 @@ def reconfig_propose(state: EngineState, propose: torch.Tensor,
     ``view_vsn`` bumps, ``pend_vsn`` adopts ``vsn``, ``fact_seq`` bumps
     on the replicas that heard it.  Returns (state', installed [E])."""
     new, install = _propose_body(state, propose, new_view, vsn, up,
-                                 _quorum_met)
+                                 _quorum_met, axis)
     return _stepped(state, new), install
 
 
 def reconfig_transition(state: EngineState, run: torch.Tensor,
-                        up: torch.Tensor
+                        up: torch.Tensor, axis=None
                         ) -> Tuple[EngineState, torch.Tensor]:
     """Batched ``maybe_transition`` / ``transition`` (engine.py:
     1331-1357, peer.erl:751-774): a joint ensemble in ``run`` with a
     commit quorum in EVERY view (K1 on CUDA) collapses to its head view
     and records ``commit_vsn = pend_vsn``.  Returns (state',
     collapsed [E])."""
-    new, collapse = _transition_body(state, run, up, _quorum_met)
+    new, collapse = _transition_body(state, run, up, _quorum_met, axis)
     return _stepped(state, new), collapse
 
 
 def reconfig_step(state: EngineState, propose: torch.Tensor,
-                  new_view: torch.Tensor, up: torch.Tensor
+                  new_view: torch.Tensor, up: torch.Tensor, axis=None
                   ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
     """One reconfig phase per ensemble (engine.py:1360-1384):
     ensembles in ``propose`` cons ``new_view`` at version
@@ -1242,8 +1307,8 @@ def reconfig_step(state: EngineState, propose: torch.Tensor,
     state is stepped in place.  Returns (state', installed [E],
     collapsed [E])."""
     state, installed = reconfig_propose(state, propose, new_view,
-                                        state.pend_vsn + 1, up)
-    state, collapsed = reconfig_transition(state, ~propose, up)
+                                        state.pend_vsn + 1, up, axis)
+    state, collapsed = reconfig_transition(state, ~propose, up, axis)
     return state, installed, collapsed
 
 

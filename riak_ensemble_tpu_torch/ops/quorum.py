@@ -17,8 +17,9 @@ examined.
 - :func:`quorum_met_batch` — the batched version
   (``riak_ensemble_tpu/ops/quorum.py:115-185``) as torch ops over
   ``[..., M]`` peer lanes and ``[..., V, M]`` view masks, all four
-  ``REQUIRED_MODES``.  There is no mesh in this package, so the
-  reference's ``axis_name`` (the sharded ``psum``) is dropped.
+  ``REQUIRED_MODES``; the reference's ``axis_name`` (the sharded
+  ``psum``) is ``axis``, a peer-axis object whose ``sum`` folds in the
+  other peer shards' counts (:mod:`..parallel.mesh`).
 
 The engine's hot-path form of the same predicate (``required=
 "quorum"``, no self term, per-ensemble masks) is kernel K1 in
@@ -113,7 +114,7 @@ def quorum_met_batch(valid: torch.Tensor,
                      nack: torch.Tensor,
                      view_mask: torch.Tensor,
                      self_idx: torch.Tensor,
-                     required: str = "quorum") -> torch.Tensor:
+                     required: str = "quorum", axis=None) -> torch.Tensor:
     """Batched quorum predicate.
 
     Args:
@@ -124,28 +125,40 @@ def quorum_met_batch(valid: torch.Tensor,
       self_idx:   int  ``[...]`` — caller's index on the peer axis, or
                   -1 when the caller is not on this peer axis.
       required:   one of REQUIRED_MODES.
+      axis:       the peer-axis object when M is one shard of a sharded
+                  peer axis: every count is summed over the shards with
+                  ``axis.sum``.  Sharded callers pass ``self_idx=-1``
+                  and fold their own vote into ``valid`` (a global index
+                  cannot be matched against a local peer slice), and the
+                  self term is zero.
 
     Returns int8 ``[...]`` of MET / UNDECIDED / NACK.  Counts are int32
     (every reduction names its dtype: torch widens a bare int sum to
     int64).
     """
     assert required in REQUIRED_MODES, required
+
+    def reduce_peers(x: torch.Tensor) -> torch.Tensor:
+        s = x.sum(-1, dtype=torch.int32)
+        return s if axis is None else axis.sum(s)
     vm = view_mask.to(torch.int32)                         # [..., V, M]
-    members = vm.sum(-1, dtype=torch.int32)                # [..., V]
-    n_valid = (vm * valid[..., None, :].to(torch.int32)).sum(
-        -1, dtype=torch.int32)
-    n_nack = (vm * nack[..., None, :].to(torch.int32)).sum(
-        -1, dtype=torch.int32)
+    members = reduce_peers(vm)                             # [..., V]
+    n_valid = reduce_peers(vm * valid[..., None, :].to(torch.int32))
+    n_nack = reduce_peers(vm * nack[..., None, :].to(torch.int32))
     if required == "all":
         thresh = members
     else:
         thresh = members // 2 + 1
-    m = view_mask.shape[-1]
-    # jax.nn.one_hot(-1) is all zeros; F.one_hot raises on -1, so the
-    # self mask is an explicit comparison against arange(M).
-    self_oh = (torch.arange(m, device=view_mask.device)
-               == self_idx.to(torch.int64)[..., None]).to(torch.int32)
-    self_in_view = (vm * self_oh[..., None, :]).sum(-1, dtype=torch.int32)
+    if axis is not None:
+        self_in_view = torch.zeros_like(members)
+    else:
+        m = view_mask.shape[-1]
+        # jax.nn.one_hot(-1) is all zeros; F.one_hot raises on -1, so
+        # the self mask is an explicit comparison against arange(M).
+        self_oh = (torch.arange(m, device=view_mask.device)
+                   == self_idx.to(torch.int64)[..., None]).to(torch.int32)
+        self_in_view = (vm * self_oh[..., None, :]).sum(-1,
+                                                        dtype=torch.int32)
     heard = n_valid + self_in_view if required != "other" else n_valid
     return resolve_views(heard, n_nack, members, thresh)
 

@@ -2,8 +2,8 @@
 conflict-free planes for :func:`engine.kv_step_scan_wide`.
 
 A copy of ``riak_ensemble_tpu/ops/schedule.py`` (numpy only; the port
-imports nothing of the JAX package, so it keeps its own copy; its
-``shard_active_columns`` serves the mesh alone and is left out).  The
+imports nothing of the JAX package, so it keeps its own copy, the
+mesh's :func:`shard_active_columns` included).  The
 reference serializes same-key ops through its key-hashed worker
 (``riak_ensemble_peer:async/3``, peer.erl:1220-1225) while distinct
 keys proceed concurrently.  Ops on distinct slots within an ensemble are
@@ -169,3 +169,30 @@ def flat_order(plan: WidePlan) -> Tuple[np.ndarray, np.ndarray]:
     return out_k, np.broadcast_to(
         np.arange(n_ens, dtype=np.int32)[None, :], (k_depth, n_ens))
 
+
+def shard_active_columns(active: np.ndarray, n_ens: int,
+                         n_shards: int, a_min: int
+                         ) -> Tuple[list, int]:
+    """Split a GLOBAL active-column index set into per-ens-shard LOCAL
+    index lists with one common pow2 bucket width (schedule.py:174-199).
+
+    The mesh keeps E in ``n_shards`` contiguous blocks of
+    ``E/n_shards`` rows, so a global column index ``c`` lives on shard
+    ``c // e_loc`` at local index ``c % e_loc``.  Every shard packs the
+    same ``a_width`` columns (pow2 >= the busiest shard's count, floored
+    at ``a_min``, capped at ``e_loc``), so each shard's packed payload
+    has one shape and stays on its device.
+
+    Returns ``(per_shard, a_width)``: ``per_shard[s]`` is an int32
+    array of <= ``a_width`` LOCAL indices (the caller pads to
+    ``a_width``); ``a_width == e_loc`` means no compaction wins on
+    this flush (every shard at full width).
+    """
+    e_loc = n_ens // n_shards
+    active = np.asarray(active, np.int32)
+    shard_of = active // e_loc
+    per_shard = [active[shard_of == s] - s * e_loc
+                 for s in range(n_shards)]
+    busiest = max((p.size for p in per_shard), default=0)
+    a_width = _pow2_at_least(max(busiest, a_min))
+    return per_shard, min(a_width, e_loc)

@@ -116,11 +116,27 @@ The service reads the obs knobs (``RETPU_OBS``, ``RETPU_SLO_RING``,
 ``RETPU_COMM_REPL`` the ``comm_repl`` argument, its ``RETPU_COMPACT`` the
 ``compact`` argument, and ``RETPU_WIDE``, ``RETPU_VALIDATE_WIDE`` and
 ``RETPU_RESOLVE_SHARDS`` the ``wide``, ``validate_wide`` and
-``resolve_shards`` arguments.  ``install_objs`` is a later slice.
+``resolve_shards`` arguments.
+
+Over a mesh (``engine=`` a :class:`..parallel.mesh.ShardedEngine`,
+batched_host.py:160-302, 431-486): the service keeps its tensors on the
+mesh's first device and the steps keep the full grid (a mesh defines no
+sliced step).  With an unsharded peer axis and more than one ens shard
+the pack runs PER ENS SHARD on that shard's device and each shard's
+packed bytes copy straight into their slice of one host buffer, in shard
+order, with no cross-device gather (:func:`mesh_ens_shards`); compaction
+there buckets each shard's LOCAL active columns at the busiest shard's
+pow2 width (:func:`..ops.schedule.shard_active_columns`), and the settle
+unpacks block by block in Python (:func:`unpack_results_sharded`; the
+native unpack walks one block).  With a sharded peer axis the results
+gather to the first device and pack once.  Whatever reads the state's
+planes on the host goes through ``engine.gather_state``, and whatever
+writes a whole state goes through ``engine.shard_state``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import errno
 import functools
 import operator
@@ -271,11 +287,138 @@ def _wide_to_packed_layout(res: eng.KvResult, g: int, w: int,
         quorum_ok=t(res.quorum_ok))
 
 
+def mesh_ens_shards(engine) -> int:
+    """Number of 'ens' shards the SHARD-WISE pack applies to
+    (batched_host.py:221-233): >1 only for a mesh engine whose 'peer'
+    axis is unsharded (each device then holds whole rows, so its pack
+    needs nothing from another device).  0 = not shard-wise (single
+    engines included)."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None or int(mesh.shape["peer"]) != 1:
+        return 0
+    n = int(mesh.shape["ens"])
+    return n if n > 1 else 0
+
+
+def _pack_local(won: torch.Tensor, res: eng.KvResult, want_vsn: bool,
+                active_idx: Optional[torch.Tensor] = None,
+                wide: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The single engine's pack: :func:`_pack_results_body` of the step's
+    results (a wide ``(G, W)`` step's in the packed layout first)."""
+    if wide is not None:
+        res = _wide_to_packed_layout(res, wide[0], wide[1],
+                                     res.committed.shape[1])
+    return _pack_results_body(won, res, want_vsn, active_idx=active_idx)
+
+
+def _shard_result(res: eng.KvResult, shard) -> eng.KvResult:
+    return eng.KvResult(*(f.blocks[shard] for f in res))
+
+
+def _pack_shardwise(won, res: eng.KvResult, want_vsn: bool,
+                    active_idx: Optional[np.ndarray] = None,
+                    wide: Optional[Tuple[int, int]] = None
+                    ) -> List[torch.Tensor]:
+    """The SHARD-WISE pack (batched_host.py:236-287): one
+    :func:`_pack_local` per ens shard, on that shard's device, over its
+    own ``[K, e_loc]`` results.  ``active_idx`` is ``[n_shards, A_loc]``
+    host int32, each row a shard's LOCAL active columns (pad 0, ignored
+    by the unpack).  Returns the per-shard packed vectors in shard order;
+    :func:`unpack_results_sharded` inverts their concatenation."""
+    out = []
+    for n, shard in enumerate(sorted(won.blocks)):
+        w = won.blocks[shard]
+        aidx = None
+        if active_idx is not None:
+            aidx = torch.from_numpy(active_idx[n]).to(w.device)
+        with (torch.cuda.device(w.device) if w.is_cuda
+              else contextlib.nullcontext()):
+            out.append(_pack_local(w, _shard_result(res, shard), want_vsn,
+                                   aidx, wide))
+    return out
+
+
+def _make_gathered_packer(device: torch.device):
+    """The pack of a mesh with a sharded peer axis (batched_host.py:
+    164-189): the results gather to ``device`` and pack once there."""
+    def pack(won, res, want_vsn, active_idx=None, wide=None):
+        won_g = won.gather(device)
+        res_g = eng.KvResult(*(f.gather(device) for f in res))
+        if active_idx is not None:
+            active_idx = torch.as_tensor(active_idx).to(device)
+        return _pack_local(won_g, res_g, want_vsn, active_idx, wide)
+    return pack
+
+
+def _select_packer(engine):
+    """The pack matching the engine's placement (batched_host.py:
+    290-302): the plain pack for a single engine, the shard-wise one for
+    an 'ens'-sharded mesh with an unsharded peer axis, the gathered one
+    for the rest."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return _pack_local
+    if mesh_ens_shards(engine):
+        return _pack_shardwise
+    return _make_gathered_packer(engine.device)
+
+
+class _Events:
+    """The events after a shard-wise launch's per-device copies, waited
+    on as one."""
+
+    def __init__(self, events: List[Any]) -> None:
+        self.events = events
+
+    def synchronize(self) -> None:
+        for ev in self.events:
+            ev.synchronize()
+
+
+def unpack_results_sharded(flat: np.ndarray, e: int, m: int, k: int,
+                           want_vsn: bool, n_shards: int,
+                           shard_active: Optional[List[np.ndarray]] = None,
+                           a_width: int = 0):
+    """Invert the shard-wise pack (batched_host.py:431-464): ``n_shards``
+    :func:`_pack_results_body` blocks in shard order, each over a
+    contiguous ``e_loc = E / n_shards`` column slice and compacted
+    through its LOCAL active list (``shard_active[s]``, <= ``a_width``
+    entries; None = every shard at full width).  Each block unpacks
+    through :func:`unpack_results` and the full-width planes join along
+    E, so everything downstream (mirror scatter, WAL, wide routing)
+    reads the layout of a single engine."""
+    e_loc = e // n_shards
+    nb = packed_nbytes(e_loc, m, k, want_vsn,
+                       a_width if shard_active is not None else None)
+    parts = []
+    for s in range(n_shards):
+        act = None if shard_active is None else shard_active[s]
+        parts.append(unpack_results(
+            flat[s * nb:(s + 1) * nb], e_loc, m, k, want_vsn, active=act,
+            a_width=0 if shard_active is None else a_width))
+
+    def cat(i, axis):
+        if parts[0][i] is None:
+            return None
+        return np.concatenate([p[i] for p in parts], axis=axis)
+    return (cat(0, 0), cat(1, 0), cat(2, 0), cat(3, 1), cat(4, 1),
+            cat(5, 1), cat(6, 1), cat(7, 1))
+
+
+def _clone_state(state):
+    """A rollback copy of the engine state (a mesh state clones its
+    shards)."""
+    if isinstance(state, eng.EngineState):
+        return eng.EngineState(*(t.clone() for t in state))
+    return state.clone()
+
+
 class _LocalEngine:
     """The default engine adapter (batched_host.py:494-515): the engine
     module's functions.  A subclass that overrides one of them (a test's
     failure injector) slots in through the service's ``engine``
-    argument."""
+    argument.  ``gather_state`` / ``shard_state`` are the identity here;
+    a mesh engine maps its sharded state to and from one state."""
 
     init_state = staticmethod(eng.init_state)
     full_step = staticmethod(eng.full_step)
@@ -287,6 +430,14 @@ class _LocalEngine:
     rebuild_trees = staticmethod(eng.rebuild_trees)
     reset_rows = staticmethod(eng.reset_rows)
     reconfig_step = staticmethod(eng.reconfig_step)
+
+    @staticmethod
+    def gather_state(state: eng.EngineState) -> eng.EngineState:
+        return state
+
+    @staticmethod
+    def shard_state(state: eng.EngineState) -> eng.EngineState:
+        return state
 
 
 def _device_planes(device: torch.device, kind, slot, val, exp_epoch,
@@ -354,6 +505,12 @@ class _InFlightLaunch:
     exec_fut: Optional[Future] = None
     exec_ops: int = 0
     exec_wal: Any = None
+    #: shard-wise mesh pack (:func:`mesh_ens_shards` > 0): the payload
+    #: is ``n_shards`` per-shard blocks; ``shard_active`` holds each
+    #: shard's LOCAL active columns when the launch compacted (None =
+    #: every shard at full width)
+    n_shards: int = 0
+    shard_active: Any = None
     #: the rollback snapshot (CPU launches only; None = donated): the
     #: pre-launch state, leader mirror and leases
     snapshot: Any = None
@@ -616,8 +773,24 @@ class BatchedEnsembleService:
         self.n_ens, self.n_peers, self.n_slots = n_ens, n_peers, n_slots
         self.tick = tick
         self.max_k = max_ops_per_tick
-        self.device = resolve_device(device)
         self.engine = engine if engine is not None else _LocalEngine()
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is not None:
+            # a mesh places the state; the service's own tensors live
+            # on its first device
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != mesh.device.type or (
+                    want.index is not None
+                    and want.index != mesh.device.index)):
+                raise ValueError(f"device={device!r}, but the mesh's "
+                                 f"first device is {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
+        #: the packed-result program matching the engine's placement,
+        #: and the shard count of the shard-wise mesh pack (0 = none)
+        self._pack = _select_packer(self.engine)
+        self._mesh_shards = mesh_ens_shards(self.engine)
         #: the launch contract, picked by the device as the reference's
         #: default picks it (batched_host.py:1037-1043): CPU launches
         #: snapshot for rollback, CUDA launches step in place
@@ -1539,7 +1712,10 @@ class BatchedEnsembleService:
         meta).  A slot installed twice keeps its last item, as the
         reference's in-order scatter does."""
         ens = int(ens)
-        dev = self.device
+        # the planes in place on the state's device; a mesh state is
+        # gathered, written, and placed back
+        st = self.engine.gather_state(self.state)
+        dev = st.epoch.device
         last: Dict[int, int] = {}
         for i, a in enumerate(applied):
             last[int(a[1])] = i
@@ -1548,7 +1724,6 @@ class BatchedEnsembleService:
         eps = np.asarray([a[3] for a in applied], np.int32)
         sqs = np.asarray([a[4] for a in applied], np.int32)
         hds = np.asarray([a[2] for a in applied], np.int32)
-        st = self.state
         s_t = torch.from_numpy(slots).to(dev)
         for plane, vals in ((st.obj_epoch, eps), (st.obj_seq, sqs),
                             (st.obj_val, hds)):
@@ -1564,9 +1739,10 @@ class BatchedEnsembleService:
         if lead >= 0:
             st.leader[ens] = lead
         mask = torch.zeros((self.n_ens, self.n_peers), dtype=torch.bool,
-                           device=dev)
+                           device=self.device)
         mask[ens] = True
-        self.state = self.engine.rebuild_trees(st, mask)
+        self.state = self.engine.rebuild_trees(self.engine.shard_state(st),
+                                               mask)
         for key, slot, handle, ve, vs, payload in applied:
             self._inline_slots[ens].discard(slot)
             self._inline_np[ens, slot] = False
@@ -2889,10 +3065,24 @@ class BatchedEnsembleService:
                 if k and host_planes else None)
         plan = self._wide_plan(kind, slot, val, k, exp_e, exp_s, live)
         wide = plan is not None
-        active = pad = None
+        active = pad = shard_active = None
         a_width = 0
         sliced = False
-        if self._compact and live is not None:
+        if self._compact and live is not None and live.size \
+                and self._mesh_shards:
+            # compaction per ens shard (batched_host.py:3460-3481): each
+            # shard packs the busiest shard's pow2 bucket of its own LOCAL
+            # columns; the step keeps the full grid
+            per_shard, a_loc = schedule.shard_active_columns(
+                live, e, self._mesh_shards, A_BUCKET_MIN)
+            if a_loc < e // self._mesh_shards:
+                active = live.astype(np.int32)
+                a_width = a_loc
+                shard_active = per_shard
+                pad = np.zeros((self._mesh_shards, a_loc), np.int32)
+                for si, p in enumerate(per_shard):
+                    pad[si, :p.size] = p
+        elif self._compact and live is not None:
             cols = live
             if cols.size:
                 a_b = A_BUCKET_MIN
@@ -2973,7 +3163,9 @@ class BatchedEnsembleService:
         elect_j = vector("elect", elect, torch.bool)
         cand_j = vector("cand", cand, torch.int32)
         aidx_j = None
-        if active is not None and not sliced:
+        if shard_active is not None:
+            aidx_j = pad
+        elif active is not None and not sliced:
             abuf = ups.buffer("aidx", (a_width,), torch.int32)
             abuf.numpy()[...] = pad
             aidx_j = ups.upload(abuf)
@@ -2983,8 +3175,8 @@ class BatchedEnsembleService:
         # step updates the object and tree planes in place, so they are
         # cloned; CUDA launches keep the donated contract and no copy
         snapshot = None if self._donate else (
-            eng.EngineState(*(t.clone() for t in self.state)),
-            self.leader_np.copy(), self.lease_until.copy())
+            _clone_state(self.state), self.leader_np.copy(),
+            self.lease_until.copy())
         try:
             args = (elect_j, cand_j, kind_j, slot_j, val_j, lease_j, up_j)
             if sliced:
@@ -2997,16 +3189,17 @@ class BatchedEnsembleService:
                                      exp_seq=exp_s_j)
             k_eff = k
             if wide:
-                res = _wide_to_packed_layout(res, g_b, w_b, width)
                 k_eff = g_b * w_b
                 self.wide_launches += 1
             self.state = state
             # a sliced launch's planes are already A-wide; pack-gather
             # hands the pack the index
-            flat = _pack_results_body(won, res, want_vsn,
-                                      active_idx=aidx_j)
+            flat = self._pack(won, res, want_vsn, active_idx=aidx_j,
+                              wide=(g_b, w_b) if wide else None)
             host = done = None
-            if self._copy_stream is not None:
+            if isinstance(flat, list):
+                flat, host, done = self._copy_parts(flat)
+            elif self._copy_stream is not None:
                 packed = torch.cuda.Event()
                 packed.record(torch.cuda.current_stream(self.device))
                 self._copy_stream.wait_event(packed)
@@ -3029,10 +3222,35 @@ class BatchedEnsembleService:
             op_slot_np=slot if host_planes else None,
             active=active, a_width=a_width, sliced=sliced, plan=plan,
             live=live if wide else None, w_b=w_b,
+            n_shards=self._mesh_shards, shard_active=shard_active,
             snapshot=snapshot, leader_snapshot=self.leader_np,
             rec={"h2d": t1 - t0, "dispatch": t2 - t1},
             flush_id=obs.next_flush_id() if self._obs else 0,
             t_join=t0)
+
+    def _copy_parts(self, parts: List[torch.Tensor]):
+        """A shard-wise launch's per-shard packed vectors to the host,
+        each into its slice of ONE buffer in shard order — no
+        cross-device gather.  On the card every copy runs on its device's
+        current stream after its pack and the launch waits on all of
+        their events; on the CPU the parts join at once.  Returns
+        ``(flat, host, done)`` for the in-flight record."""
+        if not parts[0].is_cuda:
+            return torch.cat(parts), None, None
+        ups = self._uploads
+        host = ups.buffer("out", (sum(p.numel() for p in parts),),
+                          torch.uint8)
+        events, off = [], 0
+        for p in parts:
+            with torch.cuda.device(p.device):
+                host[off:off + p.numel()].copy_(p, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            events.append(ev)
+            off += p.numel()
+        done = _Events(events)
+        ups.end(done)
+        return parts, host, done
 
     def _step_fns(self) -> Tuple[Any, Any, Any, Any]:
         """The engine's (full_step, full_step_wide, full_step_sliced,
@@ -3149,7 +3367,16 @@ class BatchedEnsembleService:
             # Election-only launches (k == 0) take the oracle's unpack, as in
             # the reference.
             k_eff = fl.k_eff
-            if self._native_resolve is not None and k_eff:
+            if fl.n_shards:
+                # a shard-wise mesh payload: per-shard blocks, unpacked
+                # block by block in Python (batched_host.py:3718-3726;
+                # the C++ unpack walks one block)
+                planes8 = unpack_results_sharded(
+                    flat, e, m, k_eff, fl.want_vsn, fl.n_shards,
+                    shard_active=fl.shard_active, a_width=fl.a_width)
+                self.fallback_resolve_flushes += 1
+                arm_key = "resolve_fallback"
+            elif self._native_resolve is not None and k_eff:
                 if fl.active is not None:
                     planes8 = self._native_resolve.unpack(
                         flat, e, m, k_eff, fl.want_vsn, fl.active,
@@ -3193,8 +3420,9 @@ class BatchedEnsembleService:
             self.payload_bytes += int(flat.nbytes)
             self.payload_bytes_full_width += packed_nbytes(e, m, k_eff,
                                                            fl.want_vsn)
-            self._occ_sum += (fl.a_width / e if fl.active is not None
-                              else 1.0)
+            # a shard-wise launch packs a_width columns PER SHARD
+            self._occ_sum += (fl.a_width * max(fl.n_shards, 1) / e
+                              if fl.active is not None else 1.0)
             self._occ_launches += 1
             if self._obs:
                 fl.payload_nbytes = int(flat.nbytes)
@@ -4316,12 +4544,19 @@ class BatchedEnsembleService:
         return float(torch.cuda.memory_allocated(self.device))
 
     def _backend_mem_bytes_per_device(self) -> Dict[str, float]:
-        """:meth:`_backend_mem_bytes` for every visible card, keyed by
-        index ({"0": NaN} for a CPU service)."""
+        """:meth:`_backend_mem_bytes` for every visible card and every
+        card a mesh engine's shards sit on, keyed by index ({"0": NaN}
+        for a CPU service) — an 'ens'-shard imbalance shows here and not
+        in the default-device gauge (batched_host.py:206-218)."""
         if self.device.type != "cuda":
             return {"0": float("nan")}
+        idx = set(range(torch.cuda.device_count()))
+        mesh = getattr(self.engine, "mesh", None)
+        if mesh is not None:
+            idx |= {mesh.devices[i][j].index
+                    for i, j in mesh.local_shards()}
         return {str(i): float(torch.cuda.memory_allocated(i))
-                for i in range(torch.cuda.device_count())}
+                for i in sorted(idx)}
 
     def _on_compile_event(self, ev: Dict[str, Any]) -> None:
         """One library finished building (:func:`..ops.build.
@@ -4338,11 +4573,14 @@ class BatchedEnsembleService:
     def _a_ladder(self) -> List[Optional[int]]:
         """Active-column bucket widths a launch can pack at: full width
         (None) plus, with compaction on, the pow2 ladder from
-        ``A_BUCKET_MIN`` strictly below E (batched_host.py:4783-4798)."""
+        ``A_BUCKET_MIN`` strictly below E (batched_host.py:4783-4798) —
+        below the LOCAL width E / n_shards for a shard-wise mesh, which
+        buckets per shard."""
         ladder: List[Optional[int]] = [None]
         if self._compact:
+            top = self.n_ens // max(self._mesh_shards, 1)
             b = A_BUCKET_MIN
-            while b < self.n_ens:
+            while b < top:
                 ladder.append(b)
                 b <<= 1
         return ladder
@@ -4366,6 +4604,8 @@ class BatchedEnsembleService:
 
         ``buckets``: optional ``(k, a_width)`` pairs (a_width None = full
         width) restricting the A grid; the K ladder always runs in full.
+        A shard-wise mesh warms each bucket as ``[n_shards, A_loc]``
+        per-shard index rows (batched_host.py:4930-4934).
         ``capture_costs``: F1's op and byte counts per bucket
         (``retpu_step_cost_flops`` / ``_bytes``): None = the deepest
         full-width bucket only, True = every bucket, False = none.
@@ -4413,6 +4653,13 @@ class BatchedEnsembleService:
                            torch.uint8)
         st = self.engine.init_state(e, m, s, device=dev)
         v = int(st.view_mask.shape[1])
+        if self._mesh_shards and dev.type == "cuda":
+            # the shard-wise pack copies into one host buffer per launch
+            for _ in range(len(self._uploads._slots)):
+                self._uploads.begin()
+                self._uploads.buffer("out", (self._mesh_shards * (
+                    packed_nbytes(e // self._mesh_shards, m, rounds,
+                                  True)),), torch.uint8)
         elect = torch.zeros((e,), dtype=torch.bool, device=dev)
         cand = torch.zeros((e,), dtype=torch.int32, device=dev)
         up = torch.ones((e, m), dtype=torch.bool, device=dev)
@@ -4433,7 +4680,11 @@ class BatchedEnsembleService:
             for aw in widths:
                 if aw is None:
                     continue
-                if have is not None and e >= SLICE_MIN_E and aw * 4 <= e:
+                if self._mesh_shards:
+                    self._pack(won, res, True, active_idx=np.zeros(
+                        (self._mesh_shards, aw), np.int32), wide=gw)
+                elif have is not None and e >= SLICE_MIN_E \
+                        and aw * 4 <= e:
                     # all pads: every row index is E, so nothing is
                     # stepped and the state stays as it was
                     aidx = np.full((aw,), e, np.int32)
@@ -4453,7 +4704,7 @@ class BatchedEnsembleService:
                 else:
                     aidx_t = torch.zeros((aw,), dtype=torch.int32,
                                          device=dev)
-                    _pack_results_body(won, res, True, active_idx=aidx_t)
+                    self._pack(won, res, True, active_idx=aidx_t, wide=gw)
 
         k = 0
         while True:
@@ -4464,8 +4715,8 @@ class BatchedEnsembleService:
             if (self._obs and capture_costs is not False
                     and (capture_costs or k >= self.max_k)):
                 cost(f"k{k}", k, e, e)
-            _pack_results_body(won, res, True)
-            _pack_results_body(won, res, False)
+            self._pack(won, res, True)
+            self._pack(won, res, False)
             warm_widths(k, won, res)
             if k >= self.max_k:
                 break
@@ -4479,9 +4730,8 @@ class BatchedEnsembleService:
                     st, won, res = step_wide(
                         st, elect, cand, kind, kind, kind, kind.bool(), up,
                         exp_epoch=kind, exp_seq=kind)
-                    res = _wide_to_packed_layout(res, g, w, e)
-                    _pack_results_body(won, res, True)
-                    _pack_results_body(won, res, False)
+                    self._pack(won, res, True, wide=(g, w))
+                    self._pack(won, res, False, wide=(g, w))
                     warm_widths(g * w, won, res, gw=(g, w))
                     w *= 2
         if dev.type == "cuda":
@@ -4499,7 +4749,7 @@ class BatchedEnsembleService:
         self._drain_launches()
         self._scrubbed_at_flush = self.flushes
         node_bad, leaf_bad = self.engine.verify_trees(self.state)
-        bad = (node_bad | leaf_bad).cpu().numpy()             # [E, M]
+        bad = node_bad.cpu().numpy() | leaf_bad.cpu().numpy()  # [E, M]
         found = int(bad.sum())
         if not found:
             return {"replicas_damaged": 0, "replicas_healed": 0,
@@ -4512,7 +4762,7 @@ class BatchedEnsembleService:
                 self.state, torch.from_numpy(run).to(self.device),
                 self._up_device())
             node_bad2, leaf_bad2 = self.engine.verify_trees(self.state)
-            still = (node_bad2 | leaf_bad2).cpu().numpy() & bad
+            still = (node_bad2.cpu().numpy() | leaf_bad2.cpu().numpy()) & bad
         except BaseException:
             self.state = snapshot
             raise
@@ -5461,7 +5711,8 @@ class BatchedEnsembleService:
         kw = cls._merge_dynamic(kw, bool(host["dynamic"]))
         n_ens, n_peers, n_slots = host["shape"]
         svc = cls(runtime, n_ens, n_peers, n_slots, **kw)
-        svc.state = checkpoint.load_state(d, svc.device)
+        svc.state = svc.engine.shard_state(
+            checkpoint.load_state(d, svc.device))
         svc.key_slot = host["key_slot"]
         svc.free_slots = host["free_slots"]
         svc.slot_gen = host["slot_gen"]
@@ -5545,11 +5796,12 @@ class BatchedEnsembleService:
         if not recs:
             return
         e_, m_, s_ = self.n_ens, self.n_peers, self.n_slots
-        obj_epoch = self.state.obj_epoch.cpu().numpy().copy()
-        obj_seq = self.state.obj_seq.cpu().numpy().copy()
-        obj_val = self.state.obj_val.cpu().numpy().copy()
-        epoch = self.state.epoch.cpu().numpy().copy()
-        view_mask = self.state.view_mask.cpu().numpy().copy()
+        st = self.engine.gather_state(self.state)
+        obj_epoch = st.obj_epoch.cpu().numpy().copy()
+        obj_seq = st.obj_seq.cpu().numpy().copy()
+        obj_val = st.obj_val.cpu().numpy().copy()
+        epoch = st.epoch.cpu().numpy().copy()
+        view_mask = st.view_mask.cpu().numpy().copy()
         #: ens -> slot -> replayed owner key (None: tombstoned or bulk);
         #: checkpoint-era mappings that disagree are dropped below
         owners: Dict[int, Dict[int, Any]] = {}
@@ -5631,15 +5883,16 @@ class BatchedEnsembleService:
             used = set(self.key_slot[ens].values())
             self.free_slots[ens] = [s for s in range(s_) if s not in used]
         epoch = np.maximum(epoch, obj_epoch.max(-1))
-        dev = self.device
-        state = self.state._replace(
+        dev = st.epoch.device
+        state = self.engine.shard_state(st._replace(
             epoch=torch.from_numpy(epoch).to(dev),
             view_mask=torch.from_numpy(view_mask).to(dev),
             obj_epoch=torch.from_numpy(obj_epoch).to(dev),
             obj_seq=torch.from_numpy(obj_seq).to(dev),
-            obj_val=torch.from_numpy(obj_val).to(dev))
+            obj_val=torch.from_numpy(obj_val).to(dev)))
         self.state = self.engine.rebuild_trees(
-            state, torch.ones((e_, m_), dtype=torch.bool, device=dev))
+            state, torch.ones((e_, m_), dtype=torch.bool,
+                              device=self.device))
         self._up_dev = None
         self.leader_np = np.full((e_,), -1, dtype=np.int32)
         self.lease_until[:] = 0.0

@@ -382,7 +382,8 @@ class ServiceReconciler:
             lanes = svc.member_np[ens].copy()
         if not lanes.any():
             lanes[0] = True
-        eps_l, sqs_l, vls_l = gather_obj_planes(svc.state, ens, slots)
+        eps_l, sqs_l, vls_l = gather_obj_planes(
+            svc.engine.gather_state(svc.state), ens, slots)
         mask = lanes[:, None]
         # lexicographic max: epoch first, then seq among max-epoch
         # lanes; a slot with no copy on any masked lane exports (0, 0)

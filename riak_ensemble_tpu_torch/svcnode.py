@@ -5,11 +5,13 @@ Copied from ``riak_ensemble_tpu/svcnode.py`` (:class:`ServiceServer`,
 :mod:`.wire`, :mod:`.netruntime` and
 :class:`.parallel.batched_host.BatchedEnsembleService`, so it imports
 nothing of the JAX package.  The frames are the reference's byte for
-byte, so a client of either package talks to a server of either.  Two
-differences: the service's device is an argument of :func:`serve` and
+byte, so a client of either package talks to a server of either.  One
+difference: the service's device is an argument of :func:`serve` and
 the ``--device`` flag of ``python -m riak_ensemble_tpu_torch.svcnode``
-(the card unless ``cpu`` is asked for), and the reference's
-``--mesh-devices`` is not accepted (the port has no mesh engine yet).
+(the card unless ``cpu`` is asked for).  ``--mesh-devices N`` serves
+from a mesh engine (:func:`.parallel.mesh.mesh_engine`) sharded over N
+devices along the 'ens' axis: the first N cards, or N shards of the
+``--device`` given (``--device cpu`` is a CPU mesh of N shards).
 
 An asyncio TCP server exposes a :class:`BatchedEnsembleService` — the
 engine-backed thousands-of-ensembles K/V plane — to remote clients; the
@@ -918,6 +920,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="the service's device: the card (cuda) unless "
                          "'cpu' is given")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="serve from a mesh engine sharded over this "
+                         "many devices along the 'ens' axis (0 = "
+                         "single-shard): the first N cards, or N shards "
+                         "of --device when it is given")
     ap.add_argument("--autotune", action="store_true", default=None,
                     help="arm the obs-actuated runtime controller "
                          "(same as RETPU_AUTOTUNE=1): auto-tunes the "
@@ -928,6 +935,13 @@ def main(argv=None) -> int:
                          "('controller',) verb)")
     args = ap.parse_args(argv)
 
+    engine = None
+    if args.mesh_devices:
+        from riak_ensemble_tpu_torch.parallel.mesh import mesh_engine
+        engine = mesh_engine(args.mesh_devices, devices=(
+            None if args.device is None
+            else [args.device] * args.mesh_devices))
+
     async def run() -> None:
         server = await serve(
             args.n_ens, args.n_peers, args.n_slots, args.host,
@@ -936,7 +950,7 @@ def main(argv=None) -> int:
             dynamic=args.dynamic, data_dir=args.data_dir,
             warm=args.warm,
             fast_reads=False if args.no_fast_reads else None,
-            autotune=args.autotune, device=args.device)
+            autotune=args.autotune, device=args.device, engine=engine)
         print(f"svcnode serving {args.n_ens} ensembles on "
               f"{server.host}:{server.port}", flush=True)
         fp = faults.active_plan()

@@ -15,9 +15,10 @@ slice's (``parallel.repgroup``, ``obs.watchdog``, ``proxy``), the scalar
 plane's (``types``, ``state``, ``storage``, ``msg``, ``router``,
 ``directory``, ``lease``, ``backend``, ``worker``, ``peer``, ``root``,
 ``manager``, ``client``, ``app``, ``testing``, the host synctree,
-``synctree.remote_sync``, ``ops.hash``, ``ops.quorum``, ``utils.clock``)
-and the scale plane's (``service_directory``, ``service_manager``,
-``linearizability``, ``netnode``).  A second subprocess builds a service
+``synctree.remote_sync``, ``ops.hash``, ``ops.quorum``, ``utils.clock``),
+the scale plane's (``service_directory``, ``service_manager``,
+``linearizability``, ``netnode``) and the mesh's (``parallel.mesh``,
+``parallel.distributed``).  A second subprocess builds a service
 with the native host passes and reads the shared objects it mapped: the
 host library lies under ``riak_ensemble_tpu_torch/build/`` and nothing
 under ``native/`` is loaded.  A third runs ``python -m
@@ -61,6 +62,7 @@ SCALAR_MODULES = ("types", "state", "storage", "msg", "router", "directory",
                   "ops.quorum", "utils.clock")
 SCALE_MODULES = ("service_directory", "service_manager", "linearizability",
                  "netnode")
+MESH_MODULES = ("parallel.mesh", "parallel.distributed")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -108,7 +110,8 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert n == len(mods) + 1 and n >= 28
     names = {m.name for m in mods}
     for mod in (DURABILITY_MODULES + FRONT_END_MODULES + WIDE_MODULES
-                + GROUP_MODULES + SCALAR_MODULES + SCALE_MODULES):
+                + GROUP_MODULES + SCALAR_MODULES + SCALE_MODULES
+                + MESH_MODULES):
         assert "riak_ensemble_tpu_torch." + mod in names, mod
 
 
@@ -197,5 +200,5 @@ def test_svcnode_help_runs_with_jax_blocked():
                           text=True, timeout=120, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--device" in proc.stdout and "--data-dir" in proc.stdout
-    assert "--mesh-devices N" not in proc.stdout
-    assert "--mesh-devices MESH_DEVICES" not in proc.stdout
+    # the reference's flag, which the mesh slice brought to the port
+    assert "--mesh-devices MESH_DEVICES" in proc.stdout
