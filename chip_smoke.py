@@ -204,7 +204,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    wall time, export and ``install_objs`` ms per tenant (median, p99) and
    the view change's ms; (b) the port's ``ServiceReadWorkload`` under its
    nemesis (lease expiry, leader step-down and re-election, clock jumps
-   into the margin) on a headline-shape service, 3,000 rounds over one key
+   into the margin) on a headline-shape service, 400 rounds over one key
    an ensemble, checked by the port's ``KeyModel``, at depth 1, depth 2
    and a skewed margin: no violation, fast-read hits above 0; (c) three
    ``python -m riak_ensemble_tpu_torch.netnode`` processes on loopback:
@@ -238,13 +238,37 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``distributed.initialize`` forming one global (4, 1) mesh, two shards
    each, running (a)'s scenario, each checking its own shards against an
    unsharded run.
+16. the nemesis on the card: phase 12's group (the leader here, two
+   replica processes on the same card, a data dir each at ``wal_sync=
+   "fsync"``) after ``warmup()``, ``takeover()`` and a warm keyed round,
+   every op of the phase filed with its key's ``KeyModel``: (a) a replica
+   SIGSTOPped while 6(b)'s keyed pattern (256 rows x 48 keys) runs, every
+   write committing at 2 of 3 inside the ack deadline; after SIGCONT its
+   re-sync (a tree patch, an install, or its own socket backlog) and its
+   lane equal to the leader's; then kill -9 of the other replica and every
+   key read back by quorum rounds at 2 of 3; (b) the return direction of
+   every link blackholed in this process (``faults.FaultPlan().drop(link.
+   label, faults.LOCAL)``): the leader acks nothing and ``health()
+   ["injected"]`` names the plan, a replica promotes itself with the other
+   as its peer and commits through a ``ServiceClient``, every key reads
+   back through it, and after ``plan.heal()`` the old leader sees that it
+   is deposed; (c) ``tools.trace_export`` over (a)'s flush ids, the leader's
+   span store and the fleet timelines with the replicas' spans, every
+   exported span equal to its record.  Before each stage
+   ``utils.trace.dump_ensemble`` / ``peer_info`` of a ``testing.Cluster``
+   bring-up are held against the cluster and the first run's.  It prints
+   the ms from the SIGSTOP to the first 2-of-3 commit, the re-sync's ms and
+   bytes, the ms from the blackhole to the new leader's first ack, the
+   deposed leader's acks (0), F1 launches per host, and the export's events
+   and ms.
 
 Phases 4-10 run the service's default (native) host arm.
 
 ``--f1`` runs the build and F1's phases 3b and 6(a) alone, ``--wide``
 the build and phase 11(a), ``--repgroup`` the build and phase 12,
 ``--scalar`` the build and phase 13, ``--tenants`` the build and phase
-14, ``--mesh`` the build and phase 15 (no result line); ``--ab DIR``
+14, ``--mesh`` the build and phase 15, ``--nemesis`` the build and phase
+16 (no result line); ``--ab DIR``
 times F1 at the headline shape (full width and four sliced shapes),
 phase 6(c) and F1's wide mode at 11(a)'s four timed shapes in the tree
 DIR and in this one, on one card, in turns (DIR, this, this, DIR), each
@@ -4087,6 +4111,13 @@ def replica_processes(specs: dict) -> dict:
     port)``, all started together (the kernels are already built); returns
     ``name: (process, repl port, client port)`` once each serves.  Their
     stdout is drained by a thread, their stderr goes to the log."""
+    return {name: serving(p, log)
+            for name, (p, log) in launch_replicas(specs).items()}
+
+
+def launch_replicas(specs: dict) -> dict:
+    """:func:`replica_processes`' start alone: ``name: (process, log)``,
+    not yet serving."""
     root = os.path.dirname(os.path.abspath(__file__))
     started = {}
     for name, (data, log, repl_port, client_port) in specs.items():
@@ -4099,7 +4130,7 @@ def replica_processes(specs: dict) -> dict:
             started[name] = (subprocess.Popen(
                 cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
                 stdout=subprocess.PIPE, stderr=err, text=True), log)
-    return {name: serving(p, log) for name, (p, log) in started.items()}
+    return started
 
 
 def serving(p, log: str):
@@ -4900,7 +4931,7 @@ RECONCILE_ERRORS = ("svc_reconcile_error", "svc_reconcile_tenant_error")
 READ_ARMS = (("lease expiry and step-down", 1201, 1, None),
              ("depth 2", 1301, 2, None),
              ("skewed margin", 1401, 1, 0.9))
-READ_ROUNDS, READ_KEYS = 3_000, 1
+READ_ROUNDS, READ_KEYS = 400, 1
 #: 14(c): keys node0 acknowledges before the kill and again after it
 NET_KEYS = 32
 
@@ -5983,6 +6014,410 @@ def phase_mesh(dev: torch.device, card: str) -> tuple:
                     "cards": torch.cuda.device_count(), "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the nemesis on the card
+
+
+def cluster_dump() -> list:
+    """One ``testing.Cluster`` bring-up on the port's simulator (the host
+    alone, as ``tests/test_app_trace.py``'s dump case): three peers of
+    ``demo``, a stable leader, one write.  Returns ``dump_ensemble``'s
+    rows after checking them against the cluster and ``peer_info``."""
+    from riak_ensemble_tpu_torch.testing import Cluster, make_peers
+    from riak_ensemble_tpu_torch.utils.trace import dump_ensemble, peer_info
+    c = Cluster(seed=42)
+    peers = make_peers(3)
+    c.create_ensemble("demo", peers)
+    leader = c.wait_stable("demo")
+    c.kput_ok("demo", "k", b"v")
+    infos = dump_ensemble(c.runtime, "demo")
+    if (sorted(i["id"] for i in infos) != sorted(peers)
+            or infos[0]["id"] != leader or infos[0]["state"] != "leading"
+            or infos[0] != peer_info(c.peer("demo", leader))
+            or any(i["leader"] != leader for i in infos)):
+        raise AssertionError(f"phase 16: dump_ensemble disagrees with the "
+                             f"cluster: {infos}")
+    return infos
+
+
+def dump_check(want: list, stage: str) -> None:
+    """Before a fault stage: the bring-up again, its dump equal to the
+    first one (the same seed, the same cluster)."""
+    got = cluster_dump()
+    if repr(got) != repr(want):
+        raise AssertionError(f"phase 16 {stage}: dump_ensemble {got} "
+                             f"differs from the first run's {want}")
+
+
+def model_round(svc, rnd: int, models: dict, ms: list) -> None:
+    """6(b)'s keyed pattern (``kput_many`` of the 48 keys on each of the
+    256 rows, then ``kget_many``) on a group leader, every op filed with
+    its key's ``KeyModel``; each flush's wall ms into ``ms``.  Every put
+    must be acknowledged."""
+    puts = [svc.kput_many(x, REPG_KEYS, [b"n%d:%d:%d" % (rnd, x, i)
+                                         for i in range(len(REPG_KEYS))])
+            for x in REPG_ROWS]
+    ops = {(x, k): models[(x, k)].invoke_write(b"n%d:%d:%d" % (rnd, x, i))
+           for x in REPG_ROWS for i, k in enumerate(REPG_KEYS)}
+    settle_flushes(svc, puts, ms, sync=True)
+    for x, f in zip(REPG_ROWS, puts):
+        for k, r in zip(REPG_KEYS, f.value):
+            if r[0] != "ok":
+                raise AssertionError(f"phase 16: put {(x, k)} of round {rnd} "
+                                     f"answered {r}")
+            models[(x, k)].ack_write(ops[(x, k)])
+    gets = [svc.kget_many(x, REPG_KEYS) for x in REPG_ROWS]
+    settle_flushes(svc, gets, ms, sync=True)
+    for x, f in zip(REPG_ROWS, gets):
+        for k, r in zip(REPG_KEYS, f.value):
+            if r[0] != "ok":
+                raise AssertionError(f"phase 16: get {(x, k)} answered {r}")
+            models[(x, k)].ack_read(r[1])
+
+
+def settle_or_deposed(svc, futs, flushes: int = 12) -> None:
+    """Flush until ``futs`` resolve; a deposed leader's flush raises,
+    which resolves nothing and ends the loop."""
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    for _ in range(flushes):
+        if all(f.done for f in futs):
+            return
+        try:
+            svc.flush()
+        except repgroup.DeposedError:
+            return
+
+
+def export_check(fids: list, tls: list, path: str) -> dict:
+    """16(c): ``tools.trace_export`` over stage (a)'s flush ids — the
+    leader's span store, and the fleet timelines pulled with the
+    replicas' spans — every exported span equal to its record."""
+    from riak_ensemble_tpu_torch import obs
+    from riak_ensemble_tpu_torch.tools import trace_export
+    t0 = time.perf_counter()
+    doc = trace_export.export(path, fids)
+    fleet = trace_export.fleet_trace_events(tls)
+    ms = (time.perf_counter() - t0) * 1e3
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    for e in spans:
+        rec = obs.timeline(e["args"]["flush_id"])[e["tid"]]["spans"]
+        if not [d for n, d in rec
+                if n == e["name"] and abs(d * 1e6 - e["dur"]) < 0.5]:
+            raise AssertionError(f"16(c): exported span {e} is not in the "
+                                 f"store's record {rec}")
+    by_fid = {int(t["flush_id"]): t for t in tls}
+    base0 = min(float(t["base_s"]) for t in tls)
+    for e in fleet:
+        tl = by_fid[e["args"]["flush_id"]]
+        want = [(n, (float(tl["base_s"]) - base0 + max(s, 0.0)) * 1e6,
+                 d * 1e6)
+                for n, s, d in tl["roles"][e["tid"]]["spans"]]
+        if not [w for w in want if w[0] == e["name"]
+                and abs(w[1] - e["ts"]) < 0.5 and abs(w[2] - e["dur"]) < 0.5]:
+            raise AssertionError(f"16(c): exported fleet span {e} is not in "
+                                 f"its timeline {want}")
+    replica = sum(1 for e in fleet if str(e["tid"]).startswith("replica"))
+    if not spans or not replica:
+        raise AssertionError(f"16(c): {len(spans)} leader spans, {replica} "
+                             f"replica spans exported")
+    return {"events": len(doc["traceEvents"]) + len(fleet),
+            "leader_spans": len(spans), "replica_spans": replica, "ms": ms}
+
+
+def phase_nemesis(dev: torch.device, card: str) -> dict:
+    """Phase 16: the group of phase 12 (the leader here on the card, two
+    replica processes on the same card, a data dir each at
+    ``wal_sync="fsync"``) under the nemesis, after ``warmup()``,
+    ``takeover()`` and a warm keyed round: (a) a replica SIGSTOPped while
+    the keyed pattern runs, SIGCONT and its re-sync, then kill -9 of the
+    other replica and a quorum read-back at 2 of 3; (b) the return
+    direction of every link blackholed in this process: the leader acks
+    nothing, a replica promotes itself and commits, every key read back
+    through it under its ``KeyModel``, the old leader fenced after the
+    heal; (c) ``tools.trace_export`` over (a)'s flush ids.  Before each
+    stage, ``dump_ensemble`` / ``peer_info`` of a ``testing.Cluster``
+    bring-up held against the first run's."""
+    import asyncio
+    import signal
+
+    from riak_ensemble_tpu_torch import faults, obs, svcnode, wire
+    from riak_ensemble_tpu_torch.linearizability import KeyModel
+    from riak_ensemble_tpu_torch.parallel import repgroup
+    t_phase = time.perf_counter()
+    want_dump = cluster_dump()
+    root = tempfile.mkdtemp(prefix="retpu_p16_")
+    procs: dict = {}
+    svc = None
+    try:
+        dirs = {n: os.path.join(root, n) for n in ("leader", "r1", "r2")}
+        logs = {n: os.path.join(root, f"{n}.log") for n in ("r1", "r2")}
+        t0 = time.perf_counter()
+        procs.update(replica_processes(
+            {n: (dirs[n], logs[n], 0, 0) for n in ("r1", "r2")}))
+        boot_s = time.perf_counter() - t0
+        repl = {n: procs[n][1] for n in procs}
+        cli = {n: procs[n][2] for n in procs}
+        ack_timeout = 5.0
+        svc = repgroup.ReplicatedService(
+            WallRuntime(), E_FULL, 1, S_FULL, group_size=3,
+            peers=[("127.0.0.1", repl[n]) for n in ("r1", "r2")],
+            ack_timeout=ack_timeout, data_dir=dirs["leader"], device=dev)
+        svc.warmup()
+        if not svc.takeover(timeout=60.0):
+            raise AssertionError("phase 16: takeover found no majority")
+        models = {(x, k): KeyModel(f"{x}/{k}")
+                  for x in REPG_ROWS for k in REPG_KEYS}
+        before_f1 = {n: client_stats(cli[n])["group"]["kernel_launches"]["F1"]
+                     for n in procs}
+        reset_counts()                          # this path's run
+        svc.flush()                             # elect every row
+        model_round(svc, 0, models, [])         # warm: builds, first GC
+        # -- (a) SIGSTOP r1 while the keyed pattern runs ------------------
+        dump_check(want_dump, "(a)")
+        before_fids = set(obs.SPANS.flush_ids())
+        g0 = dict(svc.stats()["group"])
+        procs["r1"][0].send_signal(signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        try:
+            m = models.setdefault((REPG_ROWS[0], "stop"), KeyModel("stop"))
+            op = m.invoke_write(b"s")
+            first = svc.kput_many(REPG_ROWS[0], ["stop"], [b"s"])
+            settle_flushes(svc, [first], [], sync=True)
+            first_ms = (time.perf_counter() - t_stop) * 1e3
+            if first.value[0][0] != "ok":
+                raise AssertionError(f"16(a): the first put after SIGSTOP "
+                                     f"answered {first.value}")
+            m.ack_write(op)
+            ms_stopped: list = []
+            for rnd in (1, 2):
+                model_round(svc, rnd, models, ms_stopped)
+            if max(ms_stopped) >= ack_timeout * 1e3:
+                raise AssertionError(f"16(a): a flush took {max(ms_stopped)}"
+                                     f" ms, past the {ack_timeout} s ack "
+                                     f"deadline")
+        finally:
+            procs["r1"][0].send_signal(signal.SIGCONT)
+        # re-synced: counted synced by the leader, and at its applied
+        # position (by a patch, an install, or its own socket backlog)
+        t_cont = time.perf_counter()
+        while True:
+            if time.perf_counter() - t_cont > 120:
+                raise AssertionError("16(a): the SIGCONTed replica never "
+                                     "re-synced")
+            if svc.stats()["group"]["peers_synced"] < 2:
+                svc.heartbeat()
+                time.sleep(0.01)
+                continue
+            svc._drain_pending(block_all=True)
+            st = repl_call(repl["r1"], ("status",))
+            if (int(st[3]), int(st[4])) == (svc.core.applied_ge,
+                                            svc.core.applied_seq):
+                break
+            time.sleep(0.01)
+        resync_ms = (time.perf_counter() - t_cont) * 1e3
+        g1 = dict(svc.stats()["group"])
+        tree = g1["tree_resyncs"] - g0["tree_resyncs"]
+        installs = g1["resyncs"] - g0["resyncs"]
+        drops = g1["link_drops"] - g0["link_drops"]
+        snap = len(wire.encode(("install", 0, 0, repgroup.dump_state(svc),
+                                svc.core.cfg)))
+        tree_b = g1["tree_resync_bytes"] - g0["tree_resync_bytes"]
+        replicas_match(svc, [repl["r1"], repl["r2"]], "16(a) SIGCONT")
+        fids_a = sorted(f for f in obs.SPANS.flush_ids()
+                        if f not in before_fids)
+        tls = [svc.fleet_timeline(f) for f in fids_a]
+        tls = [t for t in tls if t.get("roles") and not t.get("miss")]
+        f1_r2 = client_stats(cli["r2"])["group"]["kernel_launches"]["F1"] \
+            - before_f1["r2"]
+        procs["r2"][0].send_signal(signal.SIGKILL)
+        procs["r2"][0].wait()
+        # its restart boots while r1 alone carries the quorum; the
+        # read-back must end before the restarted r2 is synced
+        t_boot = time.perf_counter()
+        r2_new = launch_replicas(
+            {"r2": (dirs["r2"], logs["r2"], repl["r2"], cli["r2"])})["r2"]
+        procs["r2"] = (r2_new[0], repl["r2"], cli["r2"])
+        svc.set_fast_reads(False)              # reads ride a quorum round
+        model_round(svc, 3, models, [])        # r1 alone carries the quorum
+        reads = [svc.kget_many(x, REPG_KEYS) for x in REPG_ROWS]
+        settle_flushes(svc, reads, [], sync=True)
+        for x, f in zip(REPG_ROWS, reads):
+            for k, r in zip(REPG_KEYS, f.value):
+                if r[0] != "ok":
+                    raise AssertionError(f"16(a): read-back of {(x, k)} at "
+                                         f"2 of 3 answered {r}")
+                models[(x, k)].ack_read(r[1])
+        if svc.stats()["group"]["peers_synced"] != 1:
+            raise AssertionError("16(a): the read-back did not run at 2 of 3")
+        svc.set_fast_reads(True)
+        print(f"16(a) SIGSTOP partition [{card}]: first 2-of-3 commit "
+              f"{first_ms:.3f} ms after the SIGSTOP; {len(ms_stopped)} "
+              f"flushes while stopped, median "
+              f"{statistics.median(ms_stopped):.3f} ms, max "
+              f"{max(ms_stopped):.3f} ms (ack deadline {ack_timeout} s); "
+              f"re-sync after SIGCONT {resync_ms:.3f} ms: "
+              f"{tree} tree patch(es), {tree_b} B, {installs} install(s) "
+              f"({snap} B a snapshot), {drops} link drop(s) while stopped; "
+              f"lanes equal; kill -9 of r2, {len(REPG_ROWS) * len(REPG_KEYS)}"
+              f" keys read back at 2 of 3")
+        # -- (b) the return direction blackholed -------------------------
+        dump_check(want_dump, "(b)")
+        procs["r2"] = serving(*r2_new)
+        g2 = dict(svc.stats()["group"])
+        t0 = time.perf_counter()
+        while svc.stats()["group"]["peers_synced"] < 2:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("16(b): restarted r2 never caught up")
+            svc.heartbeat()
+            time.sleep(0.01)
+        restart_ms = (time.perf_counter() - t0) * 1e3
+        boot2_s = t0 - t_boot
+        g3 = dict(svc.stats()["group"])
+        r2_tree_b = g3["tree_resync_bytes"] - g2["tree_resync_bytes"]
+        r2_how = (f"tree patch, {r2_tree_b} B"
+                  if g3["tree_resyncs"] > g2["tree_resyncs"] else
+                  f"install, {snap} B snapshot"
+                  if g3["resyncs"] > g2["resyncs"] else "no patch")
+        plan = faults.install(faults.FaultPlan())
+        try:
+            for link in svc._links:
+                plan.drop(link.label, faults.LOCAL)
+            t_dark = time.perf_counter()
+            dark_rows = REPG_ROWS[:16]
+            dark = []
+            for x in dark_rows:
+                keys = [f"dark:{i}" for i in range(4)]
+                ops = [models.setdefault((x, k), KeyModel(f"{x}/{k}"))
+                       .invoke_write(b"d%d" % x) for k in keys]
+                dark.append((x, keys, ops, svc.kput_many(x, keys,
+                                                         [b"d%d" % x] * 4)))
+            settle_or_deposed(svc, [f for *_r, f in dark])
+            dark_acks = 0
+            for x, keys, ops, f in dark:
+                if not f.done:
+                    raise AssertionError("16(b): a blackholed put never "
+                                         "resolved")
+                res = f.value if isinstance(f.value, list) \
+                    else [f.value] * len(keys)
+                for k, op, r in zip(keys, ops, res):
+                    dark_acks += isinstance(r, tuple) and r[0] == "ok"
+                    models[(x, k)].timeout_write(op)   # ambiguous
+            inj = svc.health().get("injected") or {}
+            if not inj.get("active") or not all(
+                    f"{lk.label}>{faults.LOCAL}" in inj.get("drop", ())
+                    for lk in svc._links):
+                raise AssertionError(f"16(b): health does not name the "
+                                     f"plan: {inj}")
+            r = repl_call(repl["r1"], ("promote", [("127.0.0.1",
+                                                    repl["r2"])]))
+            if r[0] != "ok" or r[1] <= svc._ge:
+                raise AssertionError(f"16(b): promotion answered {r}")
+
+            async def new_leader():
+                c = svcnode.ServiceClient("127.0.0.1", cli["r1"])
+                await c.connect()
+                m = models.setdefault((REPG_ROWS[0], "newldr"),
+                                      KeyModel("newldr"))
+                op = m.invoke_write(b"n0")
+                got = await c.kput(REPG_ROWS[0], "newldr", b"n0",
+                                   timeout=60.0)
+                t_first = time.perf_counter()
+                if got[0] != "ok":
+                    raise AssertionError(f"16(b): the new leader's first "
+                                         f"put answered {got}")
+                m.ack_write(op)
+                rows: dict = {}
+                for (x, k) in models:
+                    rows.setdefault(x, []).append(k)
+                got_rows = await asyncio.gather(*[
+                    c.kget_many(x, keys, timeout=60.0)
+                    for x, keys in rows.items()])
+                for (x, keys), got in zip(rows.items(), got_rows):
+                    for k, r in zip(keys, got):
+                        if r[0] != "ok":
+                            raise AssertionError(f"16(b): {(x, k)} through "
+                                                 f"the new leader: {r}")
+                        models[(x, k)].ack_read(r[1])
+                await c.close()
+                return t_first
+            t_first = asyncio.run(new_leader())
+            takeover_ms = (t_first - t_dark) * 1e3
+            m = models.setdefault((REPG_ROWS[0], "stale"), KeyModel("stale"))
+            op = m.invoke_write(b"x")
+            stale = svc.kput(REPG_ROWS[0], "stale", b"x")
+            settle_or_deposed(svc, [stale])
+            if stale.done and isinstance(stale.value, tuple) \
+                    and stale.value[0] == "ok":
+                dark_acks += 1
+            m.timeout_write(op)
+            if dark_acks:
+                raise AssertionError(f"16(b): the deposed leader acked "
+                                     f"{dark_acks} writes after the "
+                                     f"blackhole")
+            plan.heal()
+            for _ in range(60):
+                try:
+                    svc.heartbeat()
+                except repgroup.DeposedError:
+                    pass
+                if svc._deposed:
+                    break
+                time.sleep(0.05)
+            if not svc._deposed:
+                raise AssertionError("16(b): the healed leader never saw "
+                                     "that it was deposed")
+        finally:
+            faults.clear()
+        f1_leader = read_counts()
+        f1_r1 = client_stats(cli["r1"])["group"]["kernel_launches"]["F1"] \
+            - before_f1["r1"]
+        print(f"16(b) return-direction blackhole [{card}]: r2 restarted "
+              f"from its data dir ({boot2_s:.3f} s to serving) and synced in "
+              f"{restart_ms:.3f} ms by {r2_how}; the deposed leader acked "
+              f"{dark_acks} of {4 * len(dark_rows) + 1} writes; the promoted "
+              f"replica's first ack {takeover_ms:.3f} ms after the "
+              f"blackhole; {len(models)} keys read back through it under "
+              f"their KeyModels; the old leader fenced after the heal")
+        # -- (c) the trace export over (a)'s flushes ---------------------
+        dump_check(want_dump, "(c)")
+        exp = export_check(fids_a, tls, os.path.join(root, "trace.json"))
+        print(f"16(c) trace export [{card}]: {len(fids_a)} flushes, "
+              f"{exp['events']} events ({exp['leader_spans']} leader spans, "
+              f"{exp['replica_spans']} replica spans on the aligned axis) in "
+              f"{exp['ms']:.3f} ms, every span equal to its record")
+        launches = {"leader": f1_leader["F1"], "r1": f1_r1, "r2": f1_r2}
+        wall = time.perf_counter() - t_phase
+        print(f"phase 16 [{card}]: F1 launches leader {f1_leader['F1']} "
+              f"(sliced {f1_leader['F1 sliced']}), r1 {f1_r1} (as replica and"
+              f" as new leader), r2 {f1_r2} (its first process); replica "
+              f"boot {boot_s:.3f} s; {wall:.1f} s")
+        return {"counts": f1_leader, "f1_launches_by_host": launches,
+                "first_commit_after_sigstop_ms": first_ms,
+                "stopped_flush_ms": statistics.median(ms_stopped),
+                "resync_ms": resync_ms, "resync_tree_bytes": tree_b,
+                "resync_tree_patches": tree, "resync_installs": installs,
+                "resync_install_bytes": snap * installs,
+                "link_drops_while_stopped": drops,
+                "restart_resync_ms": restart_ms,
+                "restart_resync_tree_bytes": r2_tree_b,
+                "blackhole_to_new_leader_ack_ms": takeover_ms,
+                "deposed_leader_acks": dark_acks, "export": exp,
+                "wall_s": wall}
+    finally:
+        faults.clear()
+        if svc is not None:
+            try:
+                svc.stop()
+            except repgroup.DeposedError:
+                pass
+        for p, _r, _c in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)
+                p.kill()
+            p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def ab_run() -> int:
     """One side of ``--ab``: F1 at the headline shape (full width and
     :data:`AB_SLICED`), phase 6(c) and F1's wide mode at 11(a)'s timed
@@ -6096,6 +6531,10 @@ def main(argv) -> int:
         # the mesh alone: phase 15
         phase_mesh(dev, card)
         return 0
+    if "--nemesis" in argv:
+        # the group under the nemesis alone: phase 16
+        phase_nemesis(dev, card)
+        return 0
     k1 = phase_k1(dev)
     reset_counts()
     k2 = phase_k2(dev, profile)
@@ -6129,6 +6568,8 @@ def main(argv) -> int:
     by_path.update(tenant_counts)
     mesh_counts, mesh = phase_mesh(dev, card)
     by_path["phase15 mesh service"] = mesh_counts
+    nemesis = phase_nemesis(dev, card)
+    by_path["phase16 nemesis leader"] = nemesis.pop("counts")
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
@@ -6149,6 +6590,7 @@ def main(argv) -> int:
         "launches": sum(f1_by_path.values()),
         "launches_by_path": f1_by_path,
         "replica_process_launches": group["replica_f1"],
+        "nemesis_launches_by_host": nemesis["f1_launches_by_host"],
         "sliced_launches": sum(sliced_by_path.values()),
         "sliced_launches_by_path": sliced_by_path,
         "max_abs_err": f1["max_abs_err"], "ms": f1["ms"],
@@ -6219,7 +6661,8 @@ def main(argv) -> int:
                       "repgroup": {k: v for k, v in group.items()
                                    if k != "counts"},
                       "scalar_plane": scalar_plane,
-                      "tenants": tenants, "mesh": mesh}))
+                      "tenants": tenants, "mesh": mesh,
+                      "nemesis": nemesis}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

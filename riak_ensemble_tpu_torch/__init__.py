@@ -34,11 +34,28 @@ Layout mirrors the reference so each counterpart is easy to find:
 - the scale plane under consensus management: :mod:`.service_directory`
   (svcnodes registered in the root ensemble's directory) and
   :mod:`.service_manager` (the tenant registry, rendezvous placement,
-  the reconciler and the versioned handoff between services).
+  the reconciler and the versioned handoff between services);
+- :mod:`.tools.trace_export` — Chrome / Perfetto trace JSON of flush
+  timelines, flight-recorder dumps and fleet timelines
+  (``python -m riak_ensemble_tpu_torch.tools.trace_export``).
+
+As the reference's, the package re-exports the record types (``Obj``,
+``Fact``, ``PeerId``, ``EnsembleInfo``, ``NOTFOUND``), :mod:`.ops` the
+quorum predicates and :mod:`.parallel` ``ShardedEngine`` and
+``make_mesh``; importing them creates no CUDA context.
 
 The package imports torch, numpy and the standard library only: never
 ``jax`` and never a module of :mod:`riak_ensemble_tpu`.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+__version__ = "0.1.0"
+
 from riak_ensemble_tpu_torch.device import resolve_device  # noqa: F401
+from riak_ensemble_tpu_torch.types import (  # noqa: F401
+    Obj,
+    Fact,
+    PeerId,
+    EnsembleInfo,
+    NOTFOUND,
+)

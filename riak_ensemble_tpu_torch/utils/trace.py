@@ -1,15 +1,17 @@
 """Tracing: the structured event recorder the runtime's trace hook feeds.
 
-Copied from ``riak_ensemble_tpu/utils/trace.py`` (:class:`Span`,
-:class:`Tracer`), so the port imports nothing of the JAX package.  The
-reference module's ``peer_info`` / ``dump_ensemble`` read the scalar
-peer plane, which the port does not have, and are not copied.
+Copied from ``riak_ensemble_tpu/utils/trace.py``, so the port imports
+nothing of the JAX package:
 
 - :class:`Tracer` — structured event recorder hooked into the
   runtime's trace callback: per-op spans (kind, ensemble, key,
   start/end, outcome), message-delivery events, and counters; ring-
   buffered so long runs stay bounded.  With a ``registry`` it folds
   into the service's metrics registry.
+- :func:`dump_ensemble` — per-ensemble state dump across the port's
+  scalar peers (:mod:`..peer`): fsm state, epoch/seq, leader, views,
+  tree trust/readiness — the get_info surface (peer.erl:183-206)
+  aggregated cluster-wide; :func:`peer_info` is one peer's row.
 """
 
 from __future__ import annotations
@@ -134,3 +136,29 @@ class Tracer:
                 "finished_spans": by_kind,
                 "open_spans": len(self.spans)}
 
+
+def peer_info(peer) -> Dict[str, Any]:
+    """get_info analog (peer.erl:183-189,1905-1910)."""
+    return {
+        "id": peer.id,
+        "state": peer.fsm_state,
+        "epoch": peer.epoch,
+        "seq": peer.seq,
+        "leader": peer.leader,
+        "views": peer.views,
+        "members": peer.members,
+        "tree_trust": peer.tree_trust,
+        "tree_ready": peer.tree_ready,
+        "suspended": peer.suspended,
+    }
+
+
+def dump_ensemble(runtime, ensemble) -> List[Dict[str, Any]]:
+    """Cluster-wide state dump for one ensemble — every live peer's
+    info, leader-first."""
+    from riak_ensemble_tpu_torch.peer import Peer
+
+    infos = [peer_info(a) for a in list(runtime.actors.values())
+             if isinstance(a, Peer) and a.ensemble == ensemble]
+    infos.sort(key=lambda i: (i["state"] != "leading", repr(i["id"])))
+    return infos

@@ -18,7 +18,11 @@ plane's (``types``, ``state``, ``storage``, ``msg``, ``router``,
 ``synctree.remote_sync``, ``ops.hash``, ``ops.quorum``, ``utils.clock``),
 the scale plane's (``service_directory``, ``service_manager``,
 ``linearizability``, ``netnode``) and the mesh's (``parallel.mesh``,
-``parallel.distributed``).  A second subprocess builds a service
+``parallel.distributed``) and the tools' (``tools.trace_export``).  The
+names the package ``__init__``s re-export (the reference's: ``Obj`` ...
+``NOTFOUND`` at the top, the quorum names in ``ops``, ``ShardedEngine``
+and ``make_mesh`` in ``parallel``) import under the same blocker and
+create no CUDA context.  A second subprocess builds a service
 with the native host passes and reads the shared objects it mapped: the
 host library lies under ``riak_ensemble_tpu_torch/build/`` and nothing
 under ``native/`` is loaded.  A third runs ``python -m
@@ -63,6 +67,13 @@ SCALAR_MODULES = ("types", "state", "storage", "msg", "router", "directory",
 SCALE_MODULES = ("service_directory", "service_manager", "linearizability",
                  "netnode")
 MESH_MODULES = ("parallel.mesh", "parallel.distributed")
+TOOL_MODULES = ("tools", "tools.trace_export")
+#: what each ``__init__`` re-exports, as the reference's do
+EXPORTS = {"": ("__version__", "Obj", "Fact", "PeerId", "EnsembleInfo",
+                "NOTFOUND", "resolve_device"),
+           ".ops": ("MET", "UNDECIDED", "NACK", "quorum_met",
+                    "quorum_met_batch"),
+           ".parallel": ("ShardedEngine", "make_mesh")}
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -111,8 +122,69 @@ def test_port_imports_with_jax_and_reference_blocked():
     names = {m.name for m in mods}
     for mod in (DURABILITY_MODULES + FRONT_END_MODULES + WIDE_MODULES
                 + GROUP_MODULES + SCALAR_MODULES + SCALE_MODULES
-                + MESH_MODULES):
+                + MESH_MODULES + TOOL_MODULES):
         assert "riak_ensemble_tpu_torch." + mod in names, mod
+
+
+_EXPORTS_BLOCKED = r"""
+import importlib, torch
+for sub, names in EXPORTS.items():
+    mod = importlib.import_module("riak_ensemble_tpu_torch" + sub)
+    for name in names:
+        getattr(mod, name)
+exec("from riak_ensemble_tpu_torch import " + ", ".join(EXPORTS[""]))
+from riak_ensemble_tpu_torch.ops import MET, quorum_met_batch
+from riak_ensemble_tpu_torch.parallel import ShardedEngine, make_mesh
+assert not torch.cuda.is_initialized(), "an import made a CUDA context"
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "riak_ensemble_tpu"))
+assert not leaked, leaked
+print("EXPORTED")
+"""
+
+
+def test_package_exports_with_jax_and_reference_blocked():
+    code = (f"ROOT = {ROOT!r}\nEXPORTS = {EXPORTS!r}\n"
+            + _BLOCKED_IMPORT.split("import riak_ensemble_tpu_torch as")[0]
+            + _EXPORTS_BLOCKED)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "EXPORTED" in proc.stdout
+
+
+def _reference_exports(rel):
+    """The names a reference ``__init__`` binds at its top level, read
+    from its source (importing it could import JAX)."""
+    import ast
+
+    with open(os.path.join(ROOT, "riak_ensemble_tpu", rel,
+                           "__init__.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets)
+    return names
+
+
+def test_exports_cover_the_references():
+    """Every name a reference ``__init__`` exports (the top level, ``ops``,
+    ``parallel``), the port's counterpart exports too, and the version
+    string is the same."""
+    import importlib
+
+    for sub in sorted(EXPORTS):
+        want = _reference_exports(sub.replace(".", "/").lstrip("/"))
+        assert want and want <= set(EXPORTS[sub]), (sub, want)
+        mod = importlib.import_module("riak_ensemble_tpu_torch" + sub)
+        assert want <= set(dir(mod)), (sub, want - set(dir(mod)))
+    with open(os.path.join(ROOT, "riak_ensemble_tpu", "__init__.py"),
+              encoding="utf-8") as f:
+        assert re.search(r'__version__ = "([^"]+)"', f.read()).group(1) \
+            == riak_ensemble_tpu_torch.__version__
 
 
 def test_port_sources_name_no_jax_or_reference_module():
