@@ -12,9 +12,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    CPython extension; ``csrc/host/*.cc``) with g++;
 2. hold kernel K1 (``ops/cuda_quorum.py``) against its plain torch
    version on the card — exact equality — at the main-path shape and
-   the edge cases, and time both;
+   the edge cases, and time both, with the launch floor (an empty kernel
+   of ``csrc/quorum.cu`` on K1's grid, through K1's ctypes route);
 2b. the same for kernel K2 (the shared-mask quorum predicate, every
-   required mode), which no service path calls;
+   required mode), which no service path calls, timed in each mode
+   beside the recorded numbers of K2 before its redesign;
 3. run the fused engine step on CUDA (kernel F1) and on the CPU (plain
    version) over one seeded op stream and require every state plane
    and result field to be bit-equal;
@@ -34,9 +36,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    design's);
 3c. the anti-entropy exchange at full size: damage replicas in a
    service, check that the corruption-triggered exchange and
-   ``scrub()`` heal them, that K1 launches on this path, and that
-   ``repairs``, ``corruptions``, ``_corrupt_rows``, the scrub reports
-   and the state equal a CPU service driven through the same sequence;
+   ``scrub()`` heal them, that X1 (``ops/cuda_exchange.py``) launches
+   once per exchange on this path and K1 never, and that ``repairs``,
+   ``corruptions``, ``_corrupt_rows``, the scrub reports and the state
+   equal a CPU service driven through the same sequence; then X1 against
+   ``exchange_step_plain`` on the card, bit for bit on every plane,
+   ``diverged`` and ``synced``, with 3 flagged rows, every third row and
+   every row, timed (one launch on the damaged store between gated CUDA
+   events) beside the plain version and the bytes bound;
 4. drive the keyed service at full size — 10,000 ensembles x 5 peers x
    128 slots, K = 64 — through ``execute()`` and ``kput_many`` /
    ``kget_many`` with a peer down, read every acknowledged put back,
@@ -92,11 +99,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    staged for the device;
 9. the control plane at the headline shape: (a) after an election of
    every row, a one-member shrink proposed on a seeded 1,000 rows, then
-   the collapse step, each ``reconfig_step`` (K1 for both gates, twice
-   per step) bit-equal to ``reconfig_step_plain`` on every state plane
-   and on ``installed`` / ``collapsed``, K1's device time per launch on
-   this path, and the service's ``update_members`` (a shrink, a change
-   left joint whose flush runs F1 with two views and fails its writes,
+   the collapse step, each ``reconfig_step`` (one launch of R1,
+   ``ops/cuda_reconfig.py``, and no K1) bit-equal to
+   ``reconfig_step_plain`` on every state plane and on ``installed`` /
+   ``collapsed``, R1's device time per launch and the step's time beside
+   its plain version's, and the service's ``update_members`` (a shrink,
+   a change left joint whose flush runs F1 with two views and fails its writes,
    the retry that collapses it) with its wall ms per call; (b) the timer
    (``tick=0.005``, K = 64) on the port's simulator ``Runtime``: bursts
    of ``kput_many`` / ``kupdate_many`` / ``kdelete_many`` on 256 rows
@@ -198,7 +206,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    every key reads back on its owner with its (epoch, seq), a CAS token
    minted before the move succeeds on every moved tenant and a stale one
    fails; ``set_tenant_view`` on 8 tenants reaches ``member_np``
-   (``update_members``, K1) and their keys read back; 8 tenants retire
+   (``update_members``, R1) and their keys read back; 8 tenants retire
    and run nowhere; any ``svc_reconcile_error`` /
    ``svc_reconcile_tenant_error`` event fails it; it prints each step's
    wall time, export and ``install_objs`` ms per tenant (median, p99) and
@@ -220,8 +228,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    failover, a joint-consensus shrink, reads) through ``ShardedEngine``
    at (4, 1), the headline shape, and at (2, 2) with M = 6 (the 5 peers
    and one absent from every view), every result and state plane (tree
-   hashes included) bit-equal to the unsharded engine on card 0; F1 and K1
-   launches per shard and F1's device ms per shard (CUDA events); (b) a
+   hashes included) bit-equal to the unsharded engine on card 0; F1, K1
+   (the elections), X1 and R1 launches per shard and F1's device ms per
+   shard (CUDA events); (b) a
    ``BatchedEnsembleService`` over ``mesh_engine`` at (4, 1) against one
    over the single engine at the same full launch grid (no sliced step,
    so leases renew on the same rows), data dirs at ``wal_sync="fsync"``,
@@ -304,6 +313,10 @@ import torch
 from riak_ensemble_tpu_torch import funref, interop
 from riak_ensemble_tpu_torch.ops import build
 from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
+try:
+    from riak_ensemble_tpu_torch.ops import cuda_exchange, cuda_reconfig
+except ImportError:     # an older tree's package, under --ab: no X1, R1
+    cuda_exchange = cuda_reconfig = None
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.ops.quorum import REQUIRED_MODES
@@ -412,12 +425,25 @@ def phase_k1(dev: torch.device):
     dev_us = device_us_per_launch(
         lambda: cuda_quorum.quorum_met_e(valid, nack, mask),
         "quorum_met_kernel")
+    floor = launch_floor(dev, valid.shape[0])
     print(f"K1 at [10000, 5], V=2: kernel {k1_ms:.6f} ms, plain "
           f"{plain_ms:.6f} ms, {dev_us:.3f} us device time per launch, "
-          f"bound {bound_ms * 1e3:.4f} us ({nbytes} B)")
+          f"bound {bound_ms * 1e3:.4f} us ({nbytes} B); the launch floor "
+          f"(an empty kernel on K1's grid) {floor['ms']:.6f} ms per call, "
+          f"{floor['device_us']:.3f} us device time per launch")
     return {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": 0, "device_us": dev_us}
+            "max_abs_err": 0, "device_us": dev_us, "launch_floor": floor}
+
+
+def launch_floor(dev: torch.device, rows: int) -> dict:
+    """The launch floor: the empty kernel of ``csrc/quorum.cu`` on K1's
+    grid for ``rows`` rows, through K1's ctypes route, timed as K1 is
+    (ms per call back to back; device µs per launch from the profiler)."""
+    def fn():
+        cuda_quorum.launch_floor(rows, dev)
+    return {"ms": cuda_ms(fn, iters=200),
+            "device_us": device_us_per_launch(fn, "launch_floor_kernel")}
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +490,13 @@ def device_us_per_launch(fn, name: str, n: int = 50,
                          f"launches of {name}")
 
 
-def phase_k2(dev: torch.device, profile: Optional[str] = None):
+#: K2 before its redesign on an NVIDIA H100 80GB HBM3 at 700 W, mode
+#: "quorum" at [10000, 5], V = 2 (PERF.md: runs L-Q and U per call, runs
+#: L and M device time): the yardstick phase 2b prints the new one beside
+K2_OLD = {"ms": (0.027533, 0.037890), "device_us": (2.460, 2.471)}
+
+
+def phase_k2(dev: torch.device):
     g = torch.Generator().manual_seed(2)
     cases = [
         ("headline [10000, 5], V=2", 10_000, 2, 5, {}),
@@ -494,10 +526,6 @@ def phase_k2(dev: torch.device, profile: Optional[str] = None):
               f"per mode {dict(zip(REQUIRED_MODES, counts))}")
     valid, nack, mask, self_idx = (t.to(dev) for t in
                                    k2_inputs(g, E_FULL, 2, 5))
-    k2_ms = cuda_ms(lambda: cuda_quorum.quorum_met_s(
-        valid, nack, mask, self_idx), iters=200)
-    plain_ms = cuda_ms(lambda: cuda_quorum.quorum_met_splain(
-        valid, nack, mask, self_idx), iters=50)
     e, m = valid.shape
     v = mask.shape[0]
     # each input read once (valid, nack, mask bytes; int32 self_idx),
@@ -507,16 +535,31 @@ def phase_k2(dev: torch.device, profile: Optional[str] = None):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"K2 at [10000, 5], V=2, quorum: kernel {k2_ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms, bound {bound_ms * 1e3:.4f} us "
-          f"({nbytes} B)")
-    if profile:
-        us = device_us_per_launch(lambda: cuda_quorum.quorum_met_s(
-            valid, nack, mask, self_idx), "quorum_met_shared_kernel")
-        print(f"profile: K2 {us:.3f} us device time per launch")
-    return {"ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    modes = {}
+    for required in REQUIRED_MODES:
+        def call(required=required):
+            cuda_quorum.quorum_met_s(valid, nack, mask, self_idx, required)
+        modes[required] = {
+            "ms": cuda_ms(call, iters=200),
+            "device_us": device_us_per_launch(call,
+                                              "quorum_met_shared_kernel")}
+    plain_ms = cuda_ms(lambda: cuda_quorum.quorum_met_splain(
+        valid, nack, mask, self_idx), iters=50)
+    floor = launch_floor(dev, e)
+    print(f"K2 at [10000, 5], V=2 [{card_line()}]: per mode "
+          + "; ".join(f"{r} {x['ms']:.6f} ms per call, {x['device_us']:.3f} "
+                      f"us device time" for r, x in modes.items())
+          + f"; the kernel before its redesign (runs L-Q, U; quorum) "
+          f"{K2_OLD['ms'][0]}-{K2_OLD['ms'][1]} ms per call, "
+          f"{K2_OLD['device_us'][0]}-{K2_OLD['device_us'][1]} us device "
+          f"time (L, M); plain {plain_ms:.6f} ms, bound "
+          f"{bound_ms * 1e3:.4f} us ({nbytes} B), launch floor "
+          f"{floor['device_us']:.3f} us")
+    return {"ms": modes["quorum"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": 0}
+            "max_abs_err": 0, "device_us": modes["quorum"]["device_us"],
+            "modes": modes, "launch_floor": floor}
 
 
 # ---------------------------------------------------------------------------
@@ -972,7 +1015,7 @@ def phase_exchange(dev: torch.device, card: str, e: int = E_FULL,
                    m: int = M_FULL, s: int = S_FULL) -> int:
     """Damage replicas, read the hot slot (corruption-triggered exchange),
     scrub twice; the CUDA service must match a CPU service driven through
-    the same sequence.  Returns K1's launches on the CUDA path."""
+    the same sequence.  Returns the launch counts of the CUDA path."""
     k = 4
     rng = np.random.default_rng(13)
     svcs = [BatchedEnsembleService(FixedClock(), e, m, s, tick=None,
@@ -997,8 +1040,7 @@ def phase_exchange(dev: torch.device, card: str, e: int = E_FULL,
     for i, svc in enumerate(svcs):
         if i == 0:
             torch.cuda.synchronize()
-            cuda_quorum.quorum_launches = 0     # the exchange path's run
-            cuda_engine.engine_step_launches = 0
+            reset_counts()                      # the exchange path's run
         svc.lease_until[:] = 0.0
         got = svc.execute(np.full((1, e), eng.OP_GET, np.int32),
                           np.zeros((1, e), np.int32),
@@ -1008,8 +1050,7 @@ def phase_exchange(dev: torch.device, card: str, e: int = E_FULL,
         reports = [svc.scrub(), svc.scrub()]
         if i == 0:
             torch.cuda.synchronize()
-            k1 = cuda_quorum.quorum_launches
-            f1 = cuda_engine.engine_step_launches
+            counts = read_counts()
         out.append((got, after_read, reports, svc.corruptions,
                     svc.repairs, svc._corrupt_rows.copy()))
     (got, after_read, reports, corr, rep, rows), cpu = out
@@ -1042,15 +1083,189 @@ def phase_exchange(dev: torch.device, card: str, e: int = E_FULL,
     if bad:
         raise AssertionError(f"exchange phase: state planes {bad} differ "
                              f"CUDA vs CPU")
-    if k1 != 2 or f1 != 1:
-        raise AssertionError(f"exchange phase: K1 launched {k1} times (want "
-                             f"2: the launch's exchange and the scrub's), "
-                             f"F1 {f1} (want 1)")
+    if (counts["X1"], counts["F1"], counts["K1"]) != (2, 1, 0):
+        raise AssertionError(f"exchange phase: X1 launched {counts['X1']} "
+                             f"times (want 2: the launch's exchange and the "
+                             f"scrub's), F1 {counts['F1']} (want 1), K1 "
+                             f"{counts['K1']} (want 0)")
     print(f"exchange {e}x{m}x{s} [{card}]: read flush flagged "
           f"{after_read[0]} replicas, exchange repairs {after_read[1]}; "
           f"scrub {first}; then {second}; corruptions {corr}, repairs "
-          f"{rep} — equal to the CPU run; K1 launches {k1}, F1 {f1}")
-    return k1
+          f"{rep} — equal to the CPU run; launches {counts}")
+    return counts
+
+
+def exchange_store(dev: torch.device, e: int, m: int, s: int):
+    """A full-size store on the card with 3c's damage: the puts of four
+    rounds agreed by every replica, then replica 1's slot 0 object changed
+    on every third row, replica 2's first upper node on every fifth, and
+    replica 3's slot 2 object on every eleventh."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    st = eng.init_state(e, m, s, device=dev)
+    vals = torch.randint(1, 2 ** 31 - 1, (e, 1, 4), generator=g,
+                         device=dev, dtype=torch.int32)
+    st.obj_epoch[:, :, :4] = 1
+    st.obj_seq[:, :, :4] = torch.arange(1, 5, dtype=torch.int32,
+                                        device=dev)
+    st.obj_val[:, :, :4] = vals
+    st.tree_leaf.copy_(hashk.obj_leaf_hash(st.obj_epoch, st.obj_seq,
+                                           st.obj_val))
+    st.tree_node.copy_(eng.build_uppers(st.tree_leaf))
+    st.obj_val[0::3, 1, 0] += 7
+    st.tree_node[0::5, 2, 0, 1] ^= 0x55
+    st.obj_val[0::11, 3, 2] += 1
+    return st
+
+
+def time_exchange(dev: torch.device, card: str, e: int = E_FULL,
+                  m: int = M_FULL, s: int = S_FULL) -> dict:
+    """X1 against ``exchange_step_plain`` on the card at the headline
+    shape, on :func:`exchange_store`, in three run patterns: 3 flagged
+    rows, every third row (3c's damage pattern) and every row.  Each is
+    bit-equal on every plane, ``diverged`` and ``synced``; X1's device
+    time is one launch on the damaged store between gated CUDA events
+    (the store written back from a copy outside the window), the plain
+    version's ms per call (CUDA events), and the bound the bytes this
+    run's data needs (``cuda_exchange.design_bytes``)."""
+    damaged = exchange_store(dev, e, m, s)
+    up = torch.ones((e, m), dtype=torch.bool, device=dev)
+    up[0::7, 4] = False                        # a replica down on some rows
+    up_np = up.cpu().numpy()
+    heard = up_np & damaged.view_mask.any(1).cpu().numpy()
+    # per row: the slots with a hash-valid holder (the epochs here are 1,
+    # so the torch body's -1 floor never bites) and the replicas whose
+    # node verdicts fail
+    leaf_ok = (hashk.obj_leaf_hash(damaged.obj_epoch, damaged.obj_seq,
+                                   damaged.obj_val)
+               == damaged.tree_leaf).all(-1)
+    holders = torch.from_numpy(heard).to(dev)[:, :, None] & leaf_ok \
+        & (damaged.obj_seq > 0)
+    found_rows = holders.any(1).sum(1).cpu().numpy()           # [E]
+    node_bad = eng.verify_trees(damaged)[0].cpu().numpy()      # [E, M]
+    del leaf_ok, holders
+    out = {}
+    for name, rows in (("3 rows", [0, e // 2, e - 3]),
+                       ("every third row", np.arange(0, e, 3)),
+                       ("every row", np.arange(e))):
+        run_np = np.zeros(e, bool)
+        run_np[rows] = True
+        run = torch.from_numpy(run_np).to(dev)
+        want = eng.exchange_step_plain(damaged, run, up)
+        st = copy_state(damaged)
+        before = cuda_exchange.exchange_launches
+        got = eng.exchange_step(st, run, up)
+        torch.cuda.synchronize()
+        if cuda_exchange.exchange_launches != before + 1:
+            raise AssertionError(f"3c X1 {name}: not one launch")
+        bad = diff_fields(want[0], st, eng.EngineState._fields)
+        if bad or not torch.equal(want[1], got[1]) \
+                or not torch.equal(want[2], got[2]):
+            raise AssertionError(f"3c X1 {name}: differs from "
+                                 f"exchange_step_plain on {bad} / diverged "
+                                 f"/ synced")
+        changed = {f: int((getattr(damaged, f) != getattr(st, f)).reshape(
+            -1, hashk.LANES).any(1).sum() if f.startswith("tree") else
+            (getattr(damaged, f) != getattr(st, f)).sum())
+            for f in ("obj_epoch", "obj_seq", "obj_val", "tree_leaf",
+                      "tree_node")}
+        synced = got[2].cpu().numpy()
+        moved = cuda_exchange.design_bytes(
+            run_np, heard, synced, changed, s, damaged.view_mask.shape[1])
+        leaf_written = (damaged.tree_leaf != st.tree_leaf).any(-1).any(
+            -1).cpu().numpy()
+        gate = heard & synced[:, None]
+        ops = cuda_exchange.design_ops(
+            int(gate.sum()), int(found_rows[synced].sum()),
+            int((gate & (node_bad | leaf_written)).sum()), s)
+        bytes_ms, ops_ms, bound_ms = bound(moved["bytes"], ops)
+        per = []
+        for _ in range(7):
+            st_names = eng.EngineState._fields
+            for f in st_names:
+                getattr(st, f).copy_(getattr(damaged, f))
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(0.002 * 1.98e9))
+            a.record()
+            eng.exchange_step(st, run, up)
+            b.record()
+            b.synchronize()
+            per.append(a.elapsed_time(b))
+        x1_ms = statistics.median(per)
+        plain_ms = cuda_ms(lambda: eng.exchange_step_plain(damaged, run, up),
+                           iters=1, reps=3)
+        out[name] = {"rows": int(run_np.sum()),
+                     "synced": int(got[2].sum()),
+                     "diverged": int(got[1].sum()), "ms": x1_ms,
+                     "ms_spread": [min(per), max(per)],
+                     "plain_ms": plain_ms, "bytes": moved["bytes"],
+                     "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "changed": changed}
+        print(f"3c X1 == exchange_step_plain, {name} ({out[name]['rows']} "
+              f"rows flagged, {out[name]['synced']} synced, "
+              f"{out[name]['diverged']} replicas diverged) at {e}x{m}x{s} "
+              f"[{card}]: X1 {x1_ms:.6f} ms device time per launch "
+              f"(median of 7, {min(per):.6f}-{max(per):.6f}); plain "
+              f"{plain_ms:.6f} ms per call; bound {bound_ms:.6f} ms = "
+              f"max(bytes {moved['bytes']} B -> {bytes_ms:.6f} ms "
+              f"({moved['read']} read, {moved['written']} written), int32 "
+              f"ops {ops} -> {ops_ms:.6f} ms)")
+        del st, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def exchange_wide_masks(dev: torch.device, card: str) -> None:
+    """X1 against ``exchange_step_plain`` on rows whose replicas agree but
+    for a few damaged ones, at M = 40 and 66 (four-word peer masks, so
+    replicas on both sides of a mask word count) and S = 200 (a thread's
+    second slot): the plain version finds most replicas not diverged, so
+    each replica's ``diverged`` bit is checked, bit-equal."""
+    g = torch.Generator().manual_seed(33)
+    for e, m, s in ((400, 40, 128), (200, 66, 200)):
+        def draw(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=g,
+                                 dtype=torch.int32)
+        seq = draw(0, 4, (e, 1, s))
+        obj = [torch.where(seq > 0, draw(lo, 4, (e, 1, s)), 0).expand(
+            e, m, s).contiguous() for lo in (0, -3)]
+        st = eng.init_state(e, m, s, device="cpu")._replace(
+            obj_epoch=obj[0], obj_seq=seq.expand(e, m, s).contiguous(),
+            obj_val=obj[1])
+        st = st._replace(tree_leaf=hashk.obj_leaf_hash(
+            st.obj_epoch, st.obj_seq, st.obj_val).contiguous())
+        st = st._replace(tree_node=eng.build_uppers(st.tree_leaf))
+        n = e * m // 50                 # about 2 % of replicas damaged
+        row, rep, slot = (draw(0, hi, (n,)).long() for hi in (e, m, s))
+        third = n // 3
+        st.tree_leaf[row[:third], rep[:third], slot[:third], 0] ^= 1 << 7
+        st.obj_val[row[third:2 * third], rep[third:2 * third],
+                   slot[third:2 * third]] ^= 1
+        st.tree_node[row[2 * third:], rep[2 * third:], 0, 1] ^= 3
+        up = torch.rand((e, m), generator=g) < 0.9
+        run = torch.arange(e) % 3 != 1
+        want = eng.exchange_step_plain(st, run, up)
+        div = want[1][want[2]][:, 32:]
+        if not (want[2].any() and div.float().mean() < 0.25):
+            raise AssertionError("3c X1 wide masks: the probe's rows do "
+                                 "not mostly agree")
+        cst = eng.EngineState(*(t.to(dev) for t in st))
+        got = eng.exchange_step(cst, run.to(dev), up.to(dev))
+        torch.cuda.synchronize()
+        bad = diff_fields(want[0], got[0], eng.EngineState._fields)
+        if bad or not torch.equal(want[1], got[1].cpu()) \
+                or not torch.equal(want[2], got[2].cpu()):
+            raise AssertionError(f"3c X1 wide masks {e}x{m}x{s}: differs "
+                                 f"from exchange_step_plain on {bad} / "
+                                 f"diverged / synced")
+        print(f"3c X1 == exchange_step_plain, agreeing rows at {e}x{m}x{s} "
+              f"[{card}]: {int(want[2].sum())} synced, "
+              f"{int(want[1].sum())} of "
+              f"{int(want[1].numel() * want[2].float().mean())} replicas "
+              f"diverged")
 
 
 # ---------------------------------------------------------------------------
@@ -1087,6 +1302,9 @@ def reset_counts() -> None:
     cuda_engine.engine_step_wide_launches = 0
     cuda_quorum.quorum_launches = 0
     cuda_quorum.quorum_s_launches = 0
+    if cuda_exchange is not None:
+        cuda_exchange.exchange_launches = 0
+        cuda_reconfig.reconfig_launches = 0
 
 
 def read_counts() -> dict:
@@ -1095,7 +1313,9 @@ def read_counts() -> dict:
             # (an older tree's package, under --ab, has no wide count)
             "F1 wide": getattr(cuda_engine, "engine_step_wide_launches", 0),
             "K1": cuda_quorum.quorum_launches,
-            "K2": cuda_quorum.quorum_s_launches}
+            "K2": cuda_quorum.quorum_s_launches,
+            "X1": cuda_exchange.exchange_launches if cuda_exchange else 0,
+            "R1": cuda_reconfig.reconfig_launches if cuda_reconfig else 0}
 
 
 def phase_service(dev: torch.device, card: str,
@@ -1636,9 +1856,10 @@ def phase_compaction_service(dev: torch.device, card: str) -> dict:
                              f"{on['launches']}, counts {on['counts']}; "
                              f"full arm {off['counts']}")
     if not (on["healed"] == off["healed"] and on["healed"][0] > 0
-            and on["counts"]["K1"] > 0):
+            and on["counts"]["X1"] > 0 and on["counts"]["K1"] == 0):
         raise AssertionError(f"6(b): corruption path {on['healed']} vs "
-                             f"{off['healed']}, K1 {on['counts']['K1']}")
+                             f"{off['healed']}, X1 {on['counts']['X1']}, "
+                             f"K1 {on['counts']['K1']}")
     # idle rows only ever saw NOOP rounds with every member at the
     # leader's epoch, so the two arms' states agree on every row
     bad = diff_fields(on["state"], off["state"], eng.EngineState._fields)
@@ -2434,9 +2655,11 @@ def phase_durable(dev: torch.device, card: str) -> dict:
         ms = []
         keyed_rounds(svc, dev, sub, keys, ms, enc=str.encode)
         counts[f"phase8a durable keyed depth {depth}"] = c = read_counts()
-        if c["F1"] != chk.launches:
+        if c["F1"] != chk.launches or not c["X1"] or c["K1"]:
             raise AssertionError(f"8(a): F1 launched {c['F1']} times in "
-                                 f"{chk.launches} launches")
+                                 f"{chk.launches} launches; the exchange "
+                                 f"X1 {c['X1']} (want > 0), K1 {c['K1']} "
+                                 f"(want 0)")
         recs, nbytes, fsyncs, put_flushes = meter.take()
         sp = split.take()
         n = len(ms)
@@ -2600,15 +2823,17 @@ def sync(dev: torch.device) -> None:
 
 
 def reconfig_case(dev, label: str, st, prop, nv, up):
-    """One ``reconfig_step`` (K1 for both gates, the state stepped in
+    """One ``reconfig_step`` (one launch of R1, the state stepped in
     place on the card) against ``reconfig_step_plain`` on a copy: every
     state plane and ``installed`` / ``collapsed`` bit-equal.  Returns
-    the stepped state, the two vectors and K1's launches in the step."""
+    the stepped state, the two vectors and the step's (R1, K1)
+    launches."""
     want = eng.reconfig_step_plain(copy_state(st), prop, nv, up)
-    before = cuda_quorum.quorum_launches
+    before = read_counts()
     st, inst, coll = eng.reconfig_step(st, prop, nv, up)
     sync(dev)
-    k1 = cuda_quorum.quorum_launches - before
+    after = read_counts()
+    k1 = (after["R1"] - before["R1"], after["K1"] - before["K1"])
     bad = diff_fields(want[0], st, eng.EngineState._fields)
     if bad or not torch.equal(want[1].cpu(), inst.cpu()) \
             or not torch.equal(want[2].cpu(), coll.cpu()):
@@ -2624,8 +2849,8 @@ def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
     """9(a): after an election of every row, a one-member shrink proposed
     on a seeded ``n_prop`` rows (a seeded 5 % of rows with a majority of
     peers down, whose gate must refuse), then the collapse step, each
-    ``reconfig_step`` bit-equal to ``reconfig_step_plain``; K1 launches
-    per step, its device time per launch on this path, and the step's
+    ``reconfig_step`` bit-equal to ``reconfig_step_plain``; R1 and K1
+    launches per step, R1's device time per launch, and the step's
     time.  Then the service: ``update_members`` on ``n_prop`` rows, a
     change left joint (its new view lacks a quorum) whose flush runs F1
     with two views and fails its writes, and the retry that collapses
@@ -2657,24 +2882,35 @@ def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
             or inst2.any():
         raise AssertionError(f"9(a): installed {n_inst} (want "
                              f"{want_inst}), collapsed {n_coll}")
-    if dev.type == "cuda" and (k1_a, k1_b) != (2, 2):
-        raise AssertionError(f"9(a): K1 launched {k1_a} / {k1_b} times "
-                             f"per reconfig_step, want 2")
-    step_ms = plain_ms = k1_us = None
+    if dev.type == "cuda" and (k1_a, k1_b) != ((1, 0), (1, 0)):
+        raise AssertionError(f"9(a): (R1, K1) launched {k1_a} / {k1_b} "
+                             f"times per reconfig_step, want (1, 0)")
+    step_ms = plain_ms = r1_us = None
     if dev.type == "cuda":
         step_ms = cuda_ms(lambda: eng.reconfig_step(st, zeros, nv, up),
                           iters=50)
         plain_ms = cuda_ms(
             lambda: eng.reconfig_step_plain(st, zeros, nv, up), iters=20)
-        k1_us = device_us_per_launch(
+        r1_us = device_us_per_launch(
             lambda: eng.reconfig_step(st, zeros, nv, up),
-            "quorum_met_kernel", n=25, per_call=2)
+            "reconfig_step_kernel", n=25)
+    # what the timed step needs: every row's views, epochs, up mask,
+    # leader and proposal bit read once (no row proposes, so no new view
+    # or version is read), the two result planes written; the collapse
+    # step as timed changes no plane (every joint row collapsed above)
+    v = st.view_mask.shape[1]
+    nbytes = e * (v * m + 4 * m + m + 4 + 1) + 2 * e
+    # a row's gate: its masks built from (V + 2) x M bytes, three
+    # popcounts a view, the predicate's tail
+    ops = e * ((v + 2) * m + 3 * v + 10)
+    bytes_ms, ops_ms, bound_ms = bound(nbytes, ops)
     print(f"9(a) reconfig_step at [{e}, {m}] x {s}, V=2 [{card}]: "
           f"{n_inst} of {n_prop} proposals installed ({len(lost)} rows "
           f"without a majority up), {n_coll} collapsed; bit-equal to "
-          f"reconfig_step_plain on every plane; K1 {k1_a} + {k1_b} "
-          f"launches (one per gate); step {step_ms} ms, plain "
-          f"{plain_ms} ms; K1 {k1_us} us device time per launch")
+          f"reconfig_step_plain on every plane; (R1, K1) {k1_a} + {k1_b} "
+          f"launches; step {step_ms} ms per call, plain {plain_ms} ms; R1 "
+          f"{r1_us} us device time per launch; bound {bound_ms:.7f} ms "
+          f"({nbytes} B)")
     del st, want_inst
     # the service: update_members on the card
     svc = BatchedEnsembleService(WallRuntime(), e, m, s, tick=None,
@@ -2687,19 +2923,20 @@ def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
     view[np.arange(e), rng.integers(0, m, e)] = False
     calls = []
 
-    def members(label, sel_, view_, want_changed, want_k1):
-        k1 = cuda_quorum.quorum_launches
+    def members(label, sel_, view_, want_changed, want_r1):
+        before = read_counts()
         t0 = time.perf_counter()
         changed = svc.update_members(sel_, view_)
         sync(dev)
         calls.append((label, (time.perf_counter() - t0) * 1e3))
-        k1 = cuda_quorum.quorum_launches - k1
+        after = read_counts()
+        r1 = (after["R1"] - before["R1"], after["K1"] - before["K1"])
         if int(changed.sum()) != want_changed or (
-                dev.type == "cuda" and k1 != want_k1):
+                dev.type == "cuda" and r1 != (want_r1, 0)):
             raise AssertionError(f"9(a) {label}: {int(changed.sum())} "
-                                 f"rows changed (want {want_changed}), K1 "
-                                 f"{k1} (want {want_k1})")
-    members("shrink", sel, view, n_prop, 4)
+                                 f"rows changed (want {want_changed}), "
+                                 f"(R1, K1) {r1} (want ({want_r1}, 0))")
+    members("shrink", sel, view, n_prop, 2)
     # a change left joint: on rows outside the shrink, peers 1 and 2 go
     # down and the new view {0, 1, 2} lacks a quorum, so the install
     # lands and the collapse cannot
@@ -2711,7 +2948,7 @@ def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
     jsel[joint] = True
     jview = np.zeros((e, m), bool)
     jview[:, :3] = True
-    members("joint install", jsel, jview, 0, 4)
+    members("joint install", jsel, jview, 0, 2)
     if not svc._pending_mask[joint].all():
         raise AssertionError("9(a): the joint installs did not land")
     futs = [svc.kput_many(int(r), ["j"], [b"joint"]) for r in joint]
@@ -2725,7 +2962,7 @@ def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
     for r in joint:
         for p in (1, 2):
             svc.set_peer_up(int(r), p, True)
-    members("retry (collapse)", np.zeros((e,), bool), jview, 100, 2)
+    members("retry (collapse)", np.zeros((e,), bool), jview, 100, 1)
     futs = [svc.kput_many(int(r), ["j"], [b"joint"]) for r in joint]
     drive(svc, futs, 8)
     if any(f.value[0][0] != "ok" for f in futs) or \
@@ -2737,7 +2974,10 @@ def phase_reconfig(dev: torch.device, card: str, e: int = E_FULL,
           f"under joint views failed, then committed after the collapse; "
           f"launches {counts}")
     return counts, {"step_ms": step_ms, "plain_ms": plain_ms,
-                    "device_us": k1_us, "per_step": k1_a,
+                    "device_us": r1_us, "per_step": k1_a[0],
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations",
                     "update_members_ms": {lab: ms for lab, ms in calls}}
 
 
@@ -3022,6 +3262,10 @@ def phase_control_plane(dev: torch.device, card: str) -> tuple:
     counts["phase9a reconfig"] = c
     c, tim = phase_timer(dev, card)
     counts["phase9b timer"] = c
+    if not c["R1"] or c["K1"]:
+        raise AssertionError(f"9(b): the churn's reconfig steps launched "
+                             f"R1 {c['R1']} times (want > 0) and K1 "
+                             f"{c['K1']} (want 0)")
     c, dyn = phase_dynamic(dev, card)
     counts["phase9c dynamic rows"] = c
     return counts, {"reconfig": rec, "timer": tim, "dynamic": dyn}
@@ -5475,7 +5719,8 @@ def phase_tenant_plane(dev: torch.device, card: str) -> tuple:
     wall = time.perf_counter() - t0
     print(f"phase 14 [{card}]: {wall:.3f} s")
     if not (c["F1"] and counts["phase14 tenants"]["F1"]
-            and counts["phase14 tenants"]["K1"]):
+            and counts["phase14 tenants"]["R1"]
+            and not counts["phase14 tenants"]["K1"]):
         raise AssertionError(f"phase 14: a kernel did not launch on its "
                              f"path: {counts}")
     return counts, {"tenants": tenants, "read_nemesis": reads,
@@ -5658,6 +5903,13 @@ def mesh_engine_case(card: str, shape: tuple, m: int) -> dict:
         raise AssertionError(f"15(a) {shape}: the scenario did not fail "
                              f"over, shrink and read")
     launches = {str(s): dict(c) for s, c in se.launches.items()}
+    # (4, 1): each shard's two elections run K1, its two reconfig steps R1
+    # and its two scans F1; (2, 2) runs the collective torch path
+    want = ({"F1": 2, "K1": 2, "X1": 0, "R1": 2} if n_peer == 1 else
+            {"F1": 0, "K1": 0, "X1": 0, "R1": 0})
+    if any(c != want for c in launches.values()):
+        raise AssertionError(f"15(a) {shape}: launches per shard "
+                             f"{launches}, want {want} each")
     # F1's device time per shard: three K-round scans, each shard's
     # launch between CUDA events
     st = got["_state"]
@@ -6535,14 +6787,18 @@ def main(argv) -> int:
         # the group under the nemesis alone: phase 16
         phase_nemesis(dev, card)
         return 0
-    k1 = phase_k1(dev)
     reset_counts()
-    k2 = phase_k2(dev, profile)
+    k1 = phase_k1(dev)
+    k1_launches = read_counts()["K1"]
+    reset_counts()
+    k2 = phase_k2(dev)
     k2_launches = read_counts()["K2"]
     phase_engine(dev)
     f1 = phase_f1(dev, card)
     reset_counts()
-    k1_exchange = phase_exchange(dev, card)
+    exchange_counts = phase_exchange(dev, card)
+    x1 = time_exchange(dev, card)
+    exchange_wide_masks(dev, card)
     f1_sliced = phase_f1_sliced(dev, card)
     by_path = {"phase4 keyed service": phase_service(dev, card, profile),
                "phase5 rmw + fast reads": phase_rmw(dev, card),
@@ -6570,18 +6826,31 @@ def main(argv) -> int:
     by_path["phase15 mesh service"] = mesh_counts
     nemesis = phase_nemesis(dev, card)
     by_path["phase16 nemesis leader"] = nemesis.pop("counts")
+    by_path = {"phase3c exchange": exchange_counts, **by_path}
     f1_by_path = {p: c["F1"] for p, c in by_path.items()}
     sliced_by_path = {p: c["F1 sliced"] for p, c in by_path.items()}
     wide_by_path = {p: c["F1 wide"] for p, c in by_path.items()}
-    if not (all(f1_by_path.values()) and k1_exchange and k2_launches
+    x1_by_path = {p: c["X1"] for p, c in by_path.items()}
+    r1_by_path = {p: c["R1"] for p, c in by_path.items()}
+    k1_by_path = {p: c["K1"] for p, c in by_path.items()}
+    if not (all(f1_by_path.values()) and k1_launches and k2_launches
             and sliced_by_path["phase6b compacted keyed service"]
             and wide_by_path["phase11b wide service"]
-            and by_path["phase9a reconfig"]["K1"]
-            and by_path["phase14 tenants"]["K1"]):
+            and x1_by_path["phase3c exchange"]
+            and x1_by_path["phase6b compacted keyed service"]
+            and r1_by_path["phase9a reconfig"]
+            and r1_by_path["phase9b timer"]
+            and r1_by_path["phase14 tenants"]
+            and not any(k1_by_path.values())):
         raise AssertionError(f"a kernel did not launch on its path: F1 "
                              f"{f1_by_path} (sliced {sliced_by_path}, wide "
-                             f"{wide_by_path}), K1 {k1_exchange}, K2 "
-                             f"{k2_launches}")
+                             f"{wide_by_path}), X1 {x1_by_path}, R1 "
+                             f"{r1_by_path}, K1 {k1_launches} (on the paths "
+                             f"{k1_by_path}, want 0), K2 {k2_launches}")
+    floor_us = k1["launch_floor"]["device_us"]
+    rec = control["reconfig"]
+    mesh_by_shard = {f"phase15a mesh {shape} engine": case["launches"]
+                     for shape, case in mesh["engine"].items()}
     kernels = [{
         "name": "F1 engine_step", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
@@ -6602,9 +6871,8 @@ def main(argv) -> int:
             "phase15b mesh (4, 1) service":
                 {sh: c["F1"] for sh, c in
                  mesh["service_launches_by_shard"].items()},
-            **{f"phase15a mesh {shape} engine":
-               {sh: c["F1"] for sh, c in case["launches"].items()}
-               for shape, case in mesh["engine"].items()}}}, {
+            **{p: {sh: c["F1"] for sh, c in by.items()}
+               for p, by in mesh_by_shard.items()}}}, {
         "name": "F1 engine_step, wide mode", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/engine_step.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
@@ -6616,25 +6884,44 @@ def main(argv) -> int:
         "bound_ms": f1_wide["G=1"]["bound_ms"],
         "bound_by": f1_wide["G=1"]["bound_by"], "library_ms": None,
         "device_us": f1_wide["G=1"]["device_us"], "shapes": f1_wide}, {
+        "name": "X1 exchange_step", "route": "cuda",
+        "source": "riak_ensemble_tpu_torch/csrc/exchange_step.cu",
+        "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
+        "fuses": "riak_ensemble_tpu/ops/engine.py:1139",
+        "launches": sum(x1_by_path.values()),
+        "launches_by_path": x1_by_path,
+        "max_abs_err": 0, "ms": x1["every third row"]["ms"],
+        "plain_ms": x1["every third row"]["plain_ms"],
+        "bound_ms": x1["every third row"]["bound_ms"],
+        "bound_by": x1["every third row"]["bound_by"], "library_ms": None,
+        "patterns": x1}, {
+        "name": "R1 reconfig_step", "route": "cuda",
+        "source": "riak_ensemble_tpu_torch/csrc/reconfig_step.cu",
+        "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
+        "fuses": "riak_ensemble_tpu/ops/engine.py:1262",
+        "launches": sum(r1_by_path.values()),
+        "launches_by_path": r1_by_path,
+        "mesh_launches_by_shard": {
+            p: {sh: c["R1"] for sh, c in by.items()}
+            for p, by in mesh_by_shard.items()},
+        "max_abs_err": 0, "ms": rec["step_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None, "device_us": rec["device_us"],
+        "launch_floor_us": floor_us,
+        "update_members_ms": rec["update_members_ms"]}, {
         "name": "K1 quorum_met_e", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:172",
-        "launches": k1_exchange + sum(c["K1"] for c in by_path.values()),
-        "launches_by_path": {"phase3c exchange": k1_exchange,
-                             **{p: c["K1"] for p, c in by_path.items()}},
-        "compacted_exchange_launches":
-            by_path["phase6b compacted keyed service"]["K1"],
-        "reconfig_launches": sum(c["K1"] for p, c in by_path.items()
-                                 if p.startswith("phase9")),
-        "reconfig": control["reconfig"],
+        "launches": k1_launches,
+        "main_path_launches": sum(k1_by_path.values()),
         "mesh_launches_by_shard": {
-            f"phase15a mesh {shape} engine":
-                {sh: c["K1"] for sh, c in case["launches"].items()}
-            for shape, case in mesh["engine"].items()},
+            p: {sh: c["K1"] for sh, c in by.items()}
+            for p, by in mesh_by_shard.items()},
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": None,
-        "device_us": k1["device_us"]}, {
+        "device_us": k1["device_us"], "launch_floor_us": floor_us,
+        "launch_floor_ms": k1["launch_floor"]["ms"]}, {
         "name": "K2 quorum_met_s", "route": "cuda",
         "source": "riak_ensemble_tpu_torch/csrc/quorum.cu",
         "replaces": "riak_ensemble_tpu/ops/pallas_quorum.py:83",
@@ -6642,7 +6929,9 @@ def main(argv) -> int:
         "main_path_launches": sum(c["K2"] for c in by_path.values()),
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"], "library_ms": None}]
+        "bound_by": k2["bound_by"], "library_ms": None,
+        "device_us": k2["device_us"], "modes": k2["modes"],
+        "launch_floor_us": k2["launch_floor"]["device_us"]}]
     host_line = [{"name": name, "route": "host c++", "source": src,
                   "replaces": ref, "calls": host_calls[name],
                   "max_abs_err": 0, **host[name]}

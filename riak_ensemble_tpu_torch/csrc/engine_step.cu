@@ -121,15 +121,14 @@
 #include <mutex>
 
 #include "quorum_common.cuh"
+#include "tree_hash.cuh"
 
 namespace {
 
 constexpr int kMaxPeers = 32;
 constexpr int kMaxViews = 8;
-constexpr int kMaxLevels = 4;  // S <= 65,536; shared memory caps S lower
+constexpr int kMaxLevels = kTrieLevels;  // shared memory caps S lower
 constexpr int kMaxWarps = 8;
-constexpr int kWidth = 16;  // Merkle trie fan-out
-constexpr unsigned kFull = 0xffffffffu;
 
 // per (replica, upper node) and (replica, slot) state bits
 constexpr uint8_t kBad = 1, kDirty = 2;
@@ -138,10 +137,6 @@ constexpr uint8_t kBad = 1, kDirty = 2;
 constexpr int kOpGet = 1, kOpPut = 2, kOpCas = 3, kOpRmw = 4;
 constexpr int kRmwAdd = 0, kRmwSub = 1, kRmwMax = 2, kRmwMin = 3,
               kRmwBand = 5, kRmwBor = 6, kRmwBxor = 7, kRmwPia = 8;
-
-constexpr uint32_t kC1 = 0xCC9E2D51u;
-constexpr uint32_t kF1 = 0x85EBCA6Bu;
-constexpr uint32_t kF2 = 0xC2B2AE35u;
 
 // Pointer slots of the entry point's `ptrs` array (ops/cuda_engine.py
 // builds it in this order).
@@ -188,35 +183,6 @@ struct Params {
   int e, m, s, u, v, k, a;
   int w;  // lanes per round: 1, or W of a wide launch (k = G groups)
 };
-
-// ---------------------------------------------------------------------------
-// The lane hash (ops/hash.py), on native uint32.
-
-__device__ __forceinline__ uint32_t fmix(uint32_t h) {
-  h ^= h >> 16;
-  h *= kF1;
-  h ^= h >> 13;
-  h *= kF2;
-  return h ^ (h >> 16);
-}
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Lane `l` of obj_leaf_hash(epoch, seq, val).
-__device__ __forceinline__ uint32_t leaf_lane(int32_t ep, int32_t sq,
-                                              int32_t vl, int l) {
-  const uint32_t e = (uint32_t)ep, s = (uint32_t)sq, v = (uint32_t)vl;
-  uint32_t base;
-  switch (l) {
-    case 0: base = e ^ rotl(v, 5); break;
-    case 1: base = s ^ rotl(v, 9); break;
-    case 2: base = e ^ rotl(s, 7); break;
-    default: base = s ^ rotl(e, 11); break;
-  }
-  return fmix(base * kC1 + (uint32_t)l);
-}
 
 // ---------------------------------------------------------------------------
 // TMA 1-D bulk copies: staging on an mbarrier, write-back in a bulk group.
@@ -332,33 +298,6 @@ __device__ __forceinline__ OpRow wide_op(const Params& p, int t, int T, int P,
     }
   }
   return r;
-}
-
-// hash.fold of one parent's 16 children, by a quad of lanes: lane li =
-// lane & 3 of the quad sums hash lane li of the children (each avalanched
-// with its position's salt and multiplier, mod 2^32), then the stirs go
-// round the quad.  The whole warp calls it, each quad for its own parent
-// (`arr` null: an idle quad, zeros).  Quad q takes the children in the
-// order q, q + 1, ... (mod 16) — the same sum — so that eight quads over
-// one level array read eight banks.  `consts`: 16 salts, 16 multipliers.
-__device__ __forceinline__ uint32_t fold_quad(const uint32_t* arr, int n,
-                                              int pidx, int lane,
-                                              const uint32_t* consts) {
-  const int li = lane & 3;
-  const int rot = lane >> 2;
-  uint32_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < kWidth; ++i) {
-    const int c = (i + rot) & (kWidth - 1);
-    const int ci = pidx * kWidth + c;
-    const uint32_t x = (arr != nullptr && ci < n) ? arr[ci * 4 + li] : 0u;
-    acc += fmix((x ^ consts[c]) * consts[kWidth + c] + (uint32_t)li);
-  }
-  // the cross-lane stirs: torch.roll(acc, 1) gives lane j lane j - 1
-  const int quad = lane & ~3;
-  acc = fmix(acc ^ __shfl_sync(kFull, acc, quad | ((li + 3) & 3)));
-  acc ^= __shfl_sync(kFull, acc, quad | ((li + 2) & 3));
-  return fmix(acc ^ (uint32_t)kWidth);
 }
 
 // quorum_met_bits (quorum_common.cuh) over views held in registers.
@@ -488,62 +427,6 @@ __device__ __forceinline__ uint32_t load_views(const Params& p, int row,
   }
   *heard = __ballot_sync(kFull, up) & any;
   return any;
-}
-
-// The trie's upper levels, leafward -> root (engine.tree_sizes): their
-// sizes and offsets in a replica's node array.  Indexed only by unrolled
-// loop counters, so they stay in registers.
-struct Levels {
-  int n[kMaxLevels];
-  int off[kMaxLevels];
-  int count;
-};
-
-__device__ __forceinline__ Levels levels_of(int s) {
-  Levels lv;
-  int n = s, off = 0;
-  lv.count = 0;
-#pragma unroll
-  for (int l = 0; l < kMaxLevels; ++l) {
-    lv.n[l] = 0;
-    lv.off[l] = 0;
-    if (n > 1) {
-      n = (n + kWidth - 1) / kWidth;
-      lv.n[l] = n;
-      lv.off[l] = off;
-      off += n;
-      lv.count = l + 1;
-    }
-  }
-  if (lv.count == 0) {
-    lv.n[0] = 1;
-    lv.count = 1;
-  }
-  return lv;
-}
-
-// Upper node `n` of a replica: its level's index in `*pidx`, and the
-// array of its children (the replica's leaves, or the level below) with
-// their count.
-__device__ __forceinline__ const uint32_t* children_of(
-    const Levels& lv, int n, const uint32_t* leaf_r, const uint32_t* node_r,
-    int s, int* pidx, int* child_n) {
-  int l = 0;
-#pragma unroll
-  for (int t = 1; t < kMaxLevels; ++t)
-    if (t < lv.count && n >= lv.off[t]) l = t;
-  int noff = 0, coff = 0, cn = s;
-#pragma unroll
-  for (int t = 0; t < kMaxLevels; ++t) {
-    if (t == l) noff = lv.off[t];
-    if (t + 1 == l) {
-      coff = lv.off[t];
-      cn = lv.n[t];
-    }
-  }
-  *pidx = n - noff;
-  *child_n = cn;
-  return l == 0 ? leaf_r : node_r + coff * 4;
 }
 
 // What every warp of a wide block shares: the row's round context, which

@@ -32,18 +32,23 @@
 // self_idx (none in mode "other"; an index outside [0, M) casts none, as
 // jax.nn.one_hot) and every required mode.  The TPU kernel counted votes
 // as an f32 matmul votes @ membership^T on the MXU.  Here:
-// - each block stages the shared mask once in shared memory as 32-bit
-//   peer bitmasks per view, with each view's members and threshold;
-// - one thread per row packs its valid/nack bytes into bitmasks, so a
-//   view's counts are popcounts of two ANDs (int32, exact);
+// - each thread issues its row's valid / nack / self_idx loads FIRST,
+//   before the block barrier, so that their round trip to device memory
+//   overlaps the mask staging: one dependent round trip, as in K1;
+// - the shared mask is staged once per block in shared memory as 32-bit
+//   peer bitmasks per view, with each view's members and threshold: one
+//   warp a view, one __ballot_sync per 32 peers over coalesced bytes;
+// - a view's counts are popcounts of two ANDs (int32, exact);
 // - the mode is an int (its index in ops/quorum.py REQUIRED_MODES).
 //
 // Bound on this card: bytes.  At the main-path shape (E = 10,000, M = 5,
 // V = 2) K1 reads ~200 KB and writes 10 KB and K2 reads ~140 KB and
 // writes 10 KB — about 0.05 us at 3.35 TB/s, far under one launch, so
-// both are launch-bound.  That is why the engine's flush no longer
-// launches K1: F1 evaluates the predicate inside its one launch per
-// flush; K1 serves the anti-entropy exchange.
+// both are launch-bound; launch_floor_kernel, an empty kernel launched
+// with K1's grid, measures that floor.  That is why no path launches K1
+// alone any more: F1 evaluates the predicate inside its one launch per
+// flush, X1 (exchange_step.cu) inside its one per exchange and R1
+// (reconfig_step.cu) inside its one per reconfig step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,43 +100,48 @@ __global__ void quorum_met_shared_kernel(const uint8_t* __restrict__ valid,
   __shared__ uint32_t s_bits[kMaxViews][kWords];
   __shared__ int s_members[kMaxViews];
   __shared__ int s_thresh[kMaxViews];
-  // Stage the shared mask once per block: view j's peers as bitmasks.
-  for (int j = threadIdx.x; j < v; j += blockDim.x) {
+  // This row's votes and self index load first: they do not wait on the
+  // mask, so their round trip overlaps the staging below.
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool row = r < rows;
+  uint32_t vb[kWords] = {0, 0, 0, 0}, nb[kWords] = {0, 0, 0, 0};
+  int self = -1;
+  if (row) {
+    const uint8_t* va = valid + (size_t)r * m;
+    const uint8_t* na = nack + (size_t)r * m;
+    if (mode != kModeOther) self = self_idx[r];
+#pragma unroll
+    for (int wd = 0; wd < kWords; ++wd) {
+      const int lo = wd * 32;
+      const int hi = min(m, lo + 32);
+      for (int p = lo; p < hi; ++p) {
+        vb[wd] |= (uint32_t)(va[p] != 0) << (p - lo);
+        nb[wd] |= (uint32_t)(na[p] != 0) << (p - lo);
+      }
+    }
+  }
+  // Stage the shared mask once per block: warp w takes views w, w + 8,
+  // ...; a view's peer word is one ballot over 32 coalesced bytes.
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int j = threadIdx.x >> 5; j < v; j += nwarps) {
     const uint8_t* mj = mask + (size_t)j * m;
     int members = 0;
 #pragma unroll
     for (int wd = 0; wd < kWords; ++wd) {
-      uint32_t b = 0;
-      const int lo = wd * 32;
-      const int hi = min(m, lo + 32);
-      for (int p = lo; p < hi; ++p) b |= (uint32_t)(mj[p] != 0) << (p - lo);
-      s_bits[j][wd] = b;
+      const int p = wd * 32 + lane;
+      const uint32_t b = __ballot_sync(0xffffffffu, p < m && mj[p] != 0);
+      if (lane == 0) s_bits[j][wd] = b;
       members += __popc(b);
     }
-    s_members[j] = members;
-    s_thresh[j] = mode == kModeAll ? members : members / 2 + 1;
+    if (lane == 0) {
+      s_members[j] = members;
+      s_thresh[j] = mode == kModeAll ? members : members / 2 + 1;
+    }
   }
   __syncthreads();
-
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const uint8_t* va = valid + (size_t)r * m;
-  const uint8_t* na = nack + (size_t)r * m;
-  uint32_t vb[kWords], nb[kWords];
-#pragma unroll
-  for (int wd = 0; wd < kWords; ++wd) {
-    uint32_t a = 0, b = 0;
-    const int lo = wd * 32;
-    const int hi = min(m, lo + 32);
-    for (int p = lo; p < hi; ++p) {
-      a |= (uint32_t)(va[p] != 0) << (p - lo);
-      b |= (uint32_t)(na[p] != 0) << (p - lo);
-    }
-    vb[wd] = a;
-    nb[wd] = b;
-  }
+  if (!row) return;
   // The one-hot self vote: none in mode "other" or outside [0, M).
-  const int self = mode == kModeOther ? -1 : self_idx[r];
   const bool has_self = self >= 0 && self < m;
   int8_t res = 1;
   for (int j = 0; j < v; ++j) {
@@ -147,6 +157,10 @@ __global__ void quorum_met_shared_kernel(const uint8_t* __restrict__ valid,
   out[r] = res;
 }
 
+// The launch floor: an empty kernel, launched with K1's grid through the
+// same ctypes route, to time what any launch of that grid costs.
+__global__ void launch_floor_kernel() {}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream`
@@ -160,6 +174,13 @@ extern "C" int retpu_quorum_met(const void* valid, const void* nack,
   quorum_met_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)valid, (const uint8_t*)nack, (const uint8_t*)mask,
       (int8_t*)out, rows, m, v, w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int retpu_launch_floor(int rows, void* stream) {
+  if (rows <= 0) return 0;
+  const int blocks = (rows + kThreads - 1) / kThreads;
+  launch_floor_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,7 @@
 // The quorum predicate's shared tail, for every kernel that judges votes:
-// K1 and K2 (quorum.cu) and the fused engine step F1 (engine_step.cu).
+// K1 and K2 (quorum.cu), the fused engine step F1 (engine_step.cu), the
+// exchange X1 (exchange_step.cu) and the reconfig step R1
+// (reconfig_step.cu).
 //
 // For one view v of a vote row: members = |mask_v|, heard = votes for,
 // n_nack = votes against, thresh = members/2 + 1 (members in mode "all").

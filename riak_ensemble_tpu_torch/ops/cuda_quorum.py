@@ -22,7 +22,11 @@ calls it; it is held against its plain version on its own.
 
 The bound at the main-path shape is bytes: about 200 KB (K1) or 150 KB
 (K2) per call, ~0.05 us at 3.35 TB/s — both kernels are launch-bound
-(see ``csrc/quorum.cu``).
+(see ``csrc/quorum.cu``; :func:`launch_floor` times an empty kernel on
+K1's grid).  No path of the service launches K1 alone: its predicate
+runs inside F1 (the flush), X1 (:mod:`.cuda_exchange`, the exchange)
+and R1 (:mod:`.cuda_reconfig`, a reconfig step); the engine's election
+step still calls it.
 """
 
 from __future__ import annotations
@@ -136,6 +140,25 @@ def quorum_met_e(valid: torch.Tensor, nack: torch.Tensor,
         raise RuntimeError(f"K1 launch failed: cudaGetLastError() = {rc}")
     quorum_launches += 1
     return out
+
+
+def launch_floor(rows: int, device: torch.device) -> None:
+    """Launch the empty kernel with K1's grid for ``rows`` rows through
+    K1's ctypes route: what any launch of that grid costs on the card
+    (its time is the floor under K1, K2 and R1).  Not counted: no path
+    runs it."""
+    if device.type != "cuda":
+        raise ValueError(f"the launch floor runs on cuda, not {device}")
+    fn = _fns.get("retpu_launch_floor")
+    if fn is None:
+        fn = getattr(build.load("quorum"), "retpu_launch_floor")
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["retpu_launch_floor"] = fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = call_on(device, fn, rows, stream)
+    if rc != 0:
+        raise RuntimeError(f"launch floor failed: cudaGetLastError() = {rc}")
 
 
 def _check_s(valid: torch.Tensor, nack: torch.Tensor,

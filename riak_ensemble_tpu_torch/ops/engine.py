@@ -46,11 +46,14 @@ What differs from the reference, and why:
   ``lax.scan`` is a Python loop whose
   rounds update the object and tree planes IN PLACE.  Either way a
   caller that needs its input state afterwards passes a copy.
-- The quorum predicate (:func:`_quorum_met`, used by the plain step,
-  :func:`elect_step`, :func:`exchange_step` and the reconfig gate) is
-  kernel K1 on CUDA tensors and K1's plain version on CPU tensors.  The
-  reconfig ops are launches of their own, as in the reference, not part
-  of F1; on CUDA they step the state's membership planes in place.
+- The quorum predicate (:func:`_quorum_met`, used by the plain step
+  and :func:`elect_step`) is kernel K1 on CUDA tensors and K1's plain
+  version on CPU tensors.  On a CUDA state the anti-entropy exchange is
+  ONE launch of kernel X1 (:mod:`.cuda_exchange`) and each reconfig op
+  ONE launch of kernel R1 (:mod:`.cuda_reconfig`), K1's predicate inside
+  each; both step the state's planes in place.  Their plain versions
+  (:func:`exchange_step_plain`, :func:`reconfig_step_plain`, ...) are
+  the CPU path.
 - ``.at[].set(mode="drop")`` scatters become gather → ``where`` →
   ``scatter_`` in which a lane that must not write lands where it
   changes nothing (:func:`_set_lanes`), exact for the wide rounds'
@@ -70,7 +73,8 @@ import torch
 
 from riak_ensemble_tpu_torch import funref
 from riak_ensemble_tpu_torch.device import DeviceLike, resolve_device
-from riak_ensemble_tpu_torch.ops import cuda_engine
+from riak_ensemble_tpu_torch.ops import (
+    cuda_engine, cuda_exchange, cuda_reconfig)
 from riak_ensemble_tpu_torch.ops import hash as hashk
 from riak_ensemble_tpu_torch.ops import quorum as quorum_lib
 from riak_ensemble_tpu_torch.ops.cuda_quorum import (
@@ -1085,22 +1089,18 @@ def _pmax2(x: torch.Tensor, axis) -> torch.Tensor:
     return m if axis is None else axis.max(m)
 
 
-def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor,
-                  axis=None
-                  ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
-    """Whole-store anti-entropy (engine.py:1139-1219, the tree exchange
-    of riak_ensemble_exchange.erl:67-98): for every slot of the
-    ensembles in ``run [E]`` that reach a majority of up members
-    (through K1 on CUDA), the newest hash-valid object among the up
-    replicas wins and every up replica adopts it; adopters rebuild
-    their trees.  A slot with no hash-valid holder is left as it is.
-
-    Returns ``(state', diverged [E, Ml], synced [E])``.  The object and
-    tree planes of ``state'`` are new tensors: ``state`` is left as it
-    was, so a caller can fall back to it if the step raises."""
+def exchange_step_plain(state: EngineState, run: torch.Tensor,
+                        up: torch.Tensor, axis=None
+                        ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
+    """:func:`exchange_step` as torch ops (engine.py:1139-1219), new
+    tensors on any device, the gate through K1's plain version (over a
+    sharded peer ``axis``, the collective path): the CPU path, the
+    sharded axis's path, and the oracle X1 is held against."""
     member = state.view_mask.any(1)
     heard = up & member
-    adopt = run & _quorum_met(heard, heard, state.view_mask, axis)  # [E]
+    met = (_quorum_met_plain(heard, heard, state.view_mask) if axis is None
+           else _quorum_met(heard, heard, state.view_mask, axis))
+    adopt = run & met                                        # [E]
 
     # Source validity is the object's leaf; a replica whose upper tree
     # is corrupt still vouches for its objects and gets its tree rebuilt.
@@ -1140,6 +1140,48 @@ def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor,
     return (state._replace(obj_epoch=obj_epoch, obj_seq=obj_seq,
                            obj_val=obj_val, tree_leaf=tree_leaf,
                            tree_node=tree_node), diverged, adopt)
+
+
+def exchange_step(state: EngineState, run: torch.Tensor, up: torch.Tensor,
+                  axis=None
+                  ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
+    """Whole-store anti-entropy (engine.py:1139-1219, the tree exchange
+    of riak_ensemble_exchange.erl:67-98): for every slot of the
+    ensembles in ``run [E]`` that reach a majority of up members, the
+    newest hash-valid object among the up replicas wins and every up
+    replica adopts it; adopters rebuild their trees.  A slot with no
+    hash-valid holder is left as it is.  Returns ``(state', diverged
+    [E, Ml], synced [E])``.
+
+    On a CUDA state it is ONE launch of kernel X1
+    (:mod:`.cuda_exchange`), which steps the object and tree planes of
+    the run rows IN PLACE (``state'`` is ``state``; rows outside ``run``
+    keep every plane bit for bit); a caller that must roll back keeps
+    those rows first (:func:`keep_rows`).  On a CPU state it is
+    :func:`exchange_step_plain`, whose planes are new tensors, so
+    ``state`` stays as it was.  Over a sharded peer ``axis`` it is the
+    torch body with the axis's collectives, new tensors, on the card
+    too."""
+    if axis is None and state.obj_epoch.device.type == "cuda":
+        diverged, synced = cuda_exchange.exchange_step(state, run, up)
+        return state, diverged, synced
+    return exchange_step_plain(state, run, up, axis)
+
+
+def keep_rows(state: EngineState, rows: np.ndarray):
+    """Before a step that may write the object and tree planes of ``rows``
+    (host int indices) IN PLACE — :func:`exchange_step` on the card: a
+    gather of those rows' planes, and a function that writes them back
+    into ``state``."""
+    dev = state.obj_epoch.device
+    idx = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=dev)
+    names = ("obj_epoch", "obj_seq", "obj_val", "tree_leaf", "tree_node")
+    kept = [getattr(state, n).index_select(0, idx) for n in names]
+
+    def restore() -> None:
+        for n, t in zip(names, kept):
+            getattr(state, n).index_copy_(0, idx, t)
+    return restore
 
 
 def reset_rows(state: EngineState, mask: torch.Tensor,
@@ -1191,32 +1233,33 @@ def _quorum_met_plain(ack: torch.Tensor, heard: torch.Tensor,
                              view_mask) == quorum_lib.MET
 
 
-def _reconfig_gate(state: EngineState, up: torch.Tensor, quorum, axis=None
+def _reconfig_gate(state: EngineState, up: torch.Tensor, axis=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(heard [E, Ml], commit quorum in every CURRENT view [E]) — the
-    try_commit gate on epoch-matching acks (engine.py:1262-1278).  The
-    reduce is ``quorum``: :func:`_quorum_met` (K1 on CUDA) or its plain
-    twin; over a sharded peer ``axis`` both are the collective path."""
+    try_commit gate on epoch-matching acks (engine.py:1262-1278), through
+    K1's plain version, or over a sharded peer ``axis`` the collective
+    path."""
     ml = state.epoch.shape[1]
     heard = up & state.view_mask.any(1)
     gidx = _global_peer_idx(ml, up.device, axis)
     is_leader = gidx[None, :] == state.leader[:, None]
     lead_epoch = _psum(torch.where(is_leader, state.epoch, 0), axis)
     ack = heard & (state.epoch == lead_epoch[:, None])
-    met = (quorum(ack, heard, state.view_mask) if axis is None
+    met = (_quorum_met_plain(ack, heard, state.view_mask) if axis is None
            else _quorum_met(ack, heard, state.view_mask, axis))
     return heard, met & (state.leader >= 0)
 
 
-def _propose_body(state: EngineState, propose: torch.Tensor,
-                  new_view: torch.Tensor, vsn: torch.Tensor,
-                  up: torch.Tensor, quorum, axis=None
-                  ) -> Tuple[EngineState, torch.Tensor]:
-    """The install as new tensors (engine.py:1281-1328): cons
-    ``new_view`` onto the views list where the commit gate holds in
-    every current view, ``vsn > pend_vsn``, the view is non-empty and
-    the list's last slot is free."""
-    heard, commit_ok = _reconfig_gate(state, up, quorum, axis)
+def reconfig_propose_plain(state: EngineState, propose: torch.Tensor,
+                           new_view: torch.Tensor, vsn: torch.Tensor,
+                           up: torch.Tensor, axis=None
+                           ) -> Tuple[EngineState, torch.Tensor]:
+    """:func:`reconfig_propose` as torch ops, new tensors on any device
+    (engine.py:1281-1328): cons ``new_view`` onto the views list where
+    the commit gate holds in every current view, ``vsn > pend_vsn``, the
+    view is non-empty and the list's last slot is free.  The CPU path,
+    the sharded axis's path and R1's oracle for the install alone."""
+    heard, commit_ok = _reconfig_gate(state, up, axis)
     tail_used = _pany(state.view_mask[:, -1, :], axis)
     install = (propose & commit_ok & _pany(new_view, axis) & ~tail_used
                & (vsn > state.pend_vsn))
@@ -1232,13 +1275,15 @@ def _propose_body(state: EngineState, propose: torch.Tensor,
     ), install
 
 
-def _transition_body(state: EngineState, run: torch.Tensor,
-                     up: torch.Tensor, quorum, axis=None
-                     ) -> Tuple[EngineState, torch.Tensor]:
-    """The collapse as new tensors (engine.py:1331-1357): a joint
-    ensemble in ``run`` whose commit gate holds in every view keeps only
-    its head view and records ``commit_vsn = pend_vsn``."""
-    heard, commit_ok = _reconfig_gate(state, up, quorum, axis)
+def reconfig_transition_plain(state: EngineState, run: torch.Tensor,
+                              up: torch.Tensor, axis=None
+                              ) -> Tuple[EngineState, torch.Tensor]:
+    """:func:`reconfig_transition` as torch ops, new tensors on any
+    device (engine.py:1331-1357): a joint ensemble in ``run`` whose
+    commit gate holds in every view keeps only its head view and records
+    ``commit_vsn = pend_vsn``.  The CPU path, the sharded axis's path and
+    R1's oracle for the collapse alone."""
+    heard, commit_ok = _reconfig_gate(state, up, axis)
     collapse = run & _pany(state.view_mask[:, 1:, :].any(1), axis) & commit_ok
     head_only = torch.cat([state.view_mask[:, :1, :],
                            torch.zeros_like(state.view_mask[:, 1:, :])],
@@ -1260,12 +1305,19 @@ _RECONFIG_PLANES = ("view_mask", "view_vsn", "pend_vsn", "commit_vsn",
 def _stepped(state: EngineState, new: EngineState) -> EngineState:
     """A CUDA state takes the reconfig's planes IN PLACE, as F1 steps
     its planes (the donated contract); a CPU state gets the new
-    tensors, so the caller's snapshot of the old ones stays valid."""
+    tensors, so the caller's snapshot of the old ones stays valid.
+    (The sharded peer axis's torch path, on the card.)"""
     if state.epoch.device.type == "cpu":
         return new
     for name in _RECONFIG_PLANES:
         getattr(state, name).copy_(getattr(new, name))
     return state
+
+
+def _r1(state: EngineState, axis) -> bool:
+    """Whether a reconfig op runs as kernel R1: a CUDA state with the
+    peer axis unsharded."""
+    return axis is None and state.epoch.device.type == "cuda"
 
 
 def reconfig_propose(state: EngineState, propose: torch.Tensor,
@@ -1276,12 +1328,18 @@ def reconfig_propose(state: EngineState, propose: torch.Tensor,
     (engine.py:1281-1328, peer.erl:655-672, 1115-1135): propose [E]
     bool, new_view [E, Ml] bool, vsn [E] int32 (the pending change's
     version), up [E, Ml] bool.  Installs where a commit quorum holds in
-    every current view (K1 on CUDA), ``vsn > pend_vsn``, the view is
-    non-empty and the list has a free slot: views = [new | views],
-    ``view_vsn`` bumps, ``pend_vsn`` adopts ``vsn``, ``fact_seq`` bumps
-    on the replicas that heard it.  Returns (state', installed [E])."""
-    new, install = _propose_body(state, propose, new_view, vsn, up,
-                                 _quorum_met, axis)
+    every current view, ``vsn > pend_vsn``, the view is non-empty and
+    the list has a free slot: views = [new | views], ``view_vsn``
+    bumps, ``pend_vsn`` adopts ``vsn``, ``fact_seq`` bumps on the
+    replicas that heard it.  On CUDA one launch of kernel R1
+    (:mod:`.cuda_reconfig`, ``run`` all false), the state stepped in
+    place.  Returns (state', installed [E])."""
+    if _r1(state, axis):
+        installed, _ = cuda_reconfig.reconfig_step(
+            state, propose, new_view, vsn, torch.zeros_like(propose), up)
+        return state, installed
+    new, install = reconfig_propose_plain(state, propose, new_view, vsn,
+                                          up, axis)
     return _stepped(state, new), install
 
 
@@ -1290,10 +1348,15 @@ def reconfig_transition(state: EngineState, run: torch.Tensor,
                         ) -> Tuple[EngineState, torch.Tensor]:
     """Batched ``maybe_transition`` / ``transition`` (engine.py:
     1331-1357, peer.erl:751-774): a joint ensemble in ``run`` with a
-    commit quorum in EVERY view (K1 on CUDA) collapses to its head view
-    and records ``commit_vsn = pend_vsn``.  Returns (state',
+    commit quorum in EVERY view collapses to its head view and records
+    ``commit_vsn = pend_vsn``.  On CUDA one launch of kernel R1 (no
+    proposal), the state stepped in place.  Returns (state',
     collapsed [E])."""
-    new, collapse = _transition_body(state, run, up, _quorum_met, axis)
+    if _r1(state, axis):
+        _, collapsed = cuda_reconfig.reconfig_step(state, None, None, None,
+                                                   run, up)
+        return state, collapsed
+    new, collapse = reconfig_transition_plain(state, run, up, axis)
     return _stepped(state, new), collapse
 
 
@@ -1302,10 +1365,16 @@ def reconfig_step(state: EngineState, propose: torch.Tensor,
                   ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
     """One reconfig phase per ensemble (engine.py:1360-1384):
     ensembles in ``propose`` cons ``new_view`` at version
-    ``pend_vsn + 1``, the rest transition if joint and able.  Two
-    launches of the gate's reduce, so K1 runs twice on CUDA; a CUDA
-    state is stepped in place.  Returns (state', installed [E],
+    ``pend_vsn + 1``, the rest transition if joint and able.  On CUDA
+    ONE launch of kernel R1 (``vsn`` and ``run`` derived in the kernel),
+    the state stepped in place: the propose and transition rows are
+    disjoint and an install touches only its own row, so one pass per
+    row gives the two steps' result.  Returns (state', installed [E],
     collapsed [E])."""
+    if _r1(state, axis):
+        installed, collapsed = cuda_reconfig.reconfig_step(
+            state, propose, new_view, None, None, up)
+        return state, installed, collapsed
     state, installed = reconfig_propose(state, propose, new_view,
                                         state.pend_vsn + 1, up, axis)
     state, collapsed = reconfig_transition(state, ~propose, up, axis)
@@ -1316,10 +1385,8 @@ def reconfig_step_plain(state: EngineState, propose: torch.Tensor,
                         new_view: torch.Tensor, up: torch.Tensor
                         ) -> Tuple[EngineState, torch.Tensor, torch.Tensor]:
     """:func:`reconfig_step` through K1's plain version, as new tensors
-    on any device: the oracle :func:`reconfig_step` is held against."""
-    state, installed = _propose_body(state, propose, new_view,
-                                     state.pend_vsn + 1, up,
-                                     _quorum_met_plain)
-    state, collapsed = _transition_body(state, ~propose, up,
-                                        _quorum_met_plain)
+    on any device: the oracle R1 is held against."""
+    state, installed = reconfig_propose_plain(state, propose, new_view,
+                                              state.pend_vsn + 1, up)
+    state, collapsed = reconfig_transition_plain(state, ~propose, up)
     return state, installed, collapsed

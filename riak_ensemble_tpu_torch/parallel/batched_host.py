@@ -24,9 +24,11 @@ its read.  Lease-protected fast reads serve ``kget`` / ``kget_vsn`` /
 ``kget_many`` from the leader's committed host mirrors, with no device
 round, while the row's lease holds and the slot has no pending write.
 A launch that flags synctree corruption runs the anti-entropy exchange
-(:func:`engine.exchange_step`) when it settles, and
+(:func:`engine.exchange_step`, one launch of kernel X1 on CUDA, which
+steps the flagged rows in place) when it settles, and
 :meth:`BatchedEnsembleService.scrub` sweeps every replica's tree, on
-demand or every ``scrub_every_flushes`` flushes.
+demand or every ``scrub_every_flushes`` flushes, keeping the swept rows'
+planes until its exchange has gone through.
 
 Active-column compaction (on by default, ``compact=False`` turns it off,
 the reference's ``RETPU_COMPACT``): a launch packs only the columns that
@@ -81,7 +83,7 @@ launch or a membership change makes.
 
 Membership: :meth:`BatchedEnsembleService.update_members` changes views
 by joint consensus in two reconfig launches of their own
-(:func:`engine.reconfig_step`, whose gate is K1 on CUDA), and with
+(:func:`engine.reconfig_step`, one launch of kernel R1 on CUDA), and with
 ``dynamic=True`` rows are created, destroyed and recycled under names
 (:meth:`BatchedEnsembleService.create_ensemble`).  Both reach the WAL as
 ``("mem", row)`` records.
@@ -430,6 +432,16 @@ class _LocalEngine:
     rebuild_trees = staticmethod(eng.rebuild_trees)
     reset_rows = staticmethod(eng.reset_rows)
     reconfig_step = staticmethod(eng.reconfig_step)
+
+    @staticmethod
+    def keep_rows(state: eng.EngineState, rows: np.ndarray):
+        """Before :meth:`exchange_step`: a function that undoes it.  On the
+        card the exchange steps the rows' planes in place, so those are
+        kept (:func:`engine.keep_rows`); on the CPU it returns new
+        tensors and there is nothing to keep."""
+        if state.obj_epoch.device.type != "cuda":
+            return lambda: None
+        return eng.keep_rows(state, rows)
 
     @staticmethod
     def gather_state(state: eng.EngineState) -> eng.EngineState:
@@ -2315,8 +2327,9 @@ class BatchedEnsembleService:
         joint view where a live leader's commit quorum holds (and
         collapses views left joint by earlier calls), and, only when
         something was proposed, a second launch collapses the fresh
-        installs.  Each launch runs the gate's quorum twice (K1 on CUDA)
-        and its results come back to the host at once.
+        installs.  Each launch is one kernel R1 on CUDA (the gates, the
+        install and the collapse) and its results come back to the host
+        at once.
 
         Returns ``changed [E]``: ensembles whose membership reached its
         in-flight view during this call.  A change that cannot commit
@@ -4757,6 +4770,8 @@ class BatchedEnsembleService:
         run = bad.any(1)
         self.corruptions += found
         snapshot = self.state
+        # on the card the exchange steps the run rows in place: keep them
+        restore = self.engine.keep_rows(snapshot, np.flatnonzero(run))
         try:
             self.state, diverged, synced = self.engine.exchange_step(
                 self.state, torch.from_numpy(run).to(self.device),
@@ -4764,6 +4779,7 @@ class BatchedEnsembleService:
             node_bad2, leaf_bad2 = self.engine.verify_trees(self.state)
             still = (node_bad2.cpu().numpy() | leaf_bad2.cpu().numpy()) & bad
         except BaseException:
+            restore()
             self.state = snapshot
             raise
         healed = found - int(still.sum())

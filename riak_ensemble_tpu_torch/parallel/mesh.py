@@ -24,9 +24,9 @@ in every shard.  Across processes the same interface runs over
 
 On the card: with an unsharded peer axis each ens shard steps as the
 single-device engine does — ``full_step`` is one launch of kernel F1 on
-the shard's device, the exchange and reconfig gates launch K1 there —
-and every shard is launched before any is waited on (nothing in a
-launch waits for the card).  With a sharded peer axis the shards run
+the shard's device, an exchange one of X1, a reconfig step one of R1, an
+election's gate K1 — and every shard is launched before any is waited
+on (nothing in a launch waits for the card).  With a sharded peer axis the shards run
 the engine's plain torch steps with the collectives, as the reference
 runs its ``jnp`` engine, never its Pallas kernel, there
 (``engine.py:478-482``); F1 over a sharded peer axis is later work.
@@ -62,7 +62,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
+from riak_ensemble_tpu_torch.ops import (
+    cuda_engine, cuda_exchange, cuda_quorum, cuda_reconfig)
 from riak_ensemble_tpu_torch.ops import engine as eng
 from riak_ensemble_tpu_torch.ops.quorum import views_to_mask
 
@@ -89,6 +90,15 @@ KE = (1, None)       # [K, E] / [G, E, W] op planes
 #: seconds a peer shard waits for its row at a collective before the
 #: step is declared hung
 BARRIER_TIMEOUT_S = 600.0
+
+
+def _counts() -> Dict[str, int]:
+    """The kernels' launch counts in this process, read from the
+    wrappers' own counters."""
+    return {"F1": cuda_engine.engine_step_launches,
+            "K1": cuda_quorum.quorum_launches,
+            "X1": cuda_exchange.exchange_launches,
+            "R1": cuda_reconfig.reconfig_launches}
 
 
 def _on(dev: torch.device):
@@ -295,6 +305,22 @@ class MeshState:
         return eng.EngineState(*(self.field(f).gather(device)
                                  for f in self._fields))
 
+    def keep_rows(self, rows: np.ndarray):
+        """:func:`..ops.engine.keep_rows` shard by shard (ens shard i holds
+        rows ``[i * El, (i + 1) * El)``): the function that writes every
+        shard's kept planes back."""
+        rows = np.asarray(rows, dtype=np.int64)
+        restores = []
+        for (i, _j), st in self.shards.items():
+            el = st.obj_epoch.shape[0]
+            mine = rows[(rows >= i * el) & (rows < (i + 1) * el)] - i * el
+            restores.append(eng.keep_rows(st, mine))
+
+        def restore() -> None:
+            for fn in restores:
+                fn()
+        return restore
+
     def clone(self) -> "MeshState":
         return MeshState(self.mesh, {
             s: eng.EngineState(*(t.clone() for t in st))
@@ -313,9 +339,9 @@ class ShardedEngine:
     views with absent peers: all-zero view columns are inert).  There
     are no sliced steps: a service over a mesh keeps the full grid.
 
-    ``launches`` counts kernels F1 and K1 per shard on the unsharded-
-    peer path (read from the wrappers' own counts around each shard's
-    call; :meth:`reset_launch_counts` sets them to 0).  With
+    ``launches`` counts kernels F1, K1, X1 and R1 per shard on the
+    unsharded-peer path (read from the wrappers' own counts around each
+    shard's call; :meth:`reset_launch_counts` sets them to 0).  With
     ``time_shards`` set, each shard's calls on the card are timed with
     CUDA events into ``shard_events`` (read with :meth:`shard_ms`)."""
 
@@ -360,7 +386,7 @@ class ShardedEngine:
         return int(self.mesh.shape["peer"])
 
     def reset_launch_counts(self) -> None:
-        self.launches = {s: {"F1": 0, "K1": 0}
+        self.launches = {s: {"F1": 0, "K1": 0, "X1": 0, "R1": 0}
                          for s in self.mesh.local_shards()}
 
     def shard_ms(self) -> Dict[Shard, float]:
@@ -440,12 +466,11 @@ class ShardedEngine:
     # -- the step runner ---------------------------------------------------
 
     def _call(self, body, shard: Shard, st, args, axis):
-        """``body`` on one shard, with its device current; counts F1 and
-        K1 launches (and times the call when ``time_shards``)."""
+        """``body`` on one shard, with its device current; counts F1, K1,
+        X1 and R1 launches (and times the call when ``time_shards``)."""
         dev = self.mesh.devices[shard[0]][shard[1]]
         with _on(dev):
-            f1 = cuda_engine.engine_step_launches
-            k1 = cuda_quorum.quorum_launches
+            before = _counts()
             ev = None
             if self.time_shards and dev.type == "cuda":
                 ev = (torch.cuda.Event(enable_timing=True),
@@ -457,8 +482,8 @@ class ShardedEngine:
                 self.shard_events.setdefault(shard, []).append(ev)
             if axis is None:
                 n = self.launches[shard]
-                n["F1"] += cuda_engine.engine_step_launches - f1
-                n["K1"] += cuda_quorum.quorum_launches - k1
+                for name, c in _counts().items():
+                    n[name] += c - before[name]
         return out
 
     def _row(self, body, i: int, state, args) -> Dict[Shard, Any]:
@@ -575,6 +600,16 @@ class ShardedEngine:
         (:func:`..ops.engine.exchange_step`)."""
         return self._run(eng.exchange_step, state, [(run, E), (up, EM)],
                          [EM, E])
+
+    def keep_rows(self, state, rows):
+        """Before :meth:`exchange_step`: a function that undoes it.  On
+        card shards with the peer axis whole each shard's exchange steps
+        its rows in place, so those are kept
+        (:meth:`MeshState.keep_rows`); over a sharded peer axis or on CPU
+        shards it returns new tensors and there is nothing to keep."""
+        if self.mesh.shape["peer"] > 1 or self.device.type != "cuda":
+            return lambda: None
+        return state.keep_rows(rows)
 
     def verify_trees(self, state):
         """Integrity sweep over the mesh

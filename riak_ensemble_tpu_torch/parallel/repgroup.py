@@ -4358,13 +4358,16 @@ class ReplicatedService(BatchedEnsembleService):
 
 def _kernel_launches() -> Dict[str, int]:
     """This process's kernel launch counts (F1 and its sliced and wide
-    modes, K1, K2), read from the wrappers' own counters."""
-    from riak_ensemble_tpu_torch.ops import cuda_engine, cuda_quorum
+    modes, K1, K2, X1, R1), read from the wrappers' own counters."""
+    from riak_ensemble_tpu_torch.ops import (
+        cuda_engine, cuda_exchange, cuda_quorum, cuda_reconfig)
     return {"F1": int(cuda_engine.engine_step_launches),
             "F1 sliced": int(cuda_engine.engine_step_sliced_launches),
             "F1 wide": int(cuda_engine.engine_step_wide_launches),
             "K1": int(cuda_quorum.quorum_launches),
-            "K2": int(cuda_quorum.quorum_s_launches)}
+            "K2": int(cuda_quorum.quorum_s_launches),
+            "X1": int(cuda_exchange.exchange_launches),
+            "R1": int(cuda_reconfig.reconfig_launches)}
 
 
 # -- the replica host process ------------------------------------------------

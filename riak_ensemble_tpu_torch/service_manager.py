@@ -5,9 +5,10 @@ pointed at this package, so the port imports nothing of the JAX package.
 The tenant rows live on the port's
 :class:`.parallel.batched_host.BatchedEnsembleService`, on the card by
 default: adopting a tenant is a ``create_ensemble`` on the device state,
-a view change an ``update_members`` (``engine.reconfig_step``, K1 for
-each gate), and a handoff's export one device gather of the row's object
-planes (:func:`gather_obj_planes`) copied off the card at once.
+a view change an ``update_members`` (``engine.reconfig_step``, one
+launch of kernel R1 a step), and a handoff's export one device gather of
+the row's object planes (:func:`gather_obj_planes`) copied off the card
+at once.
 
 The reference's cluster story is one loop: every mutation flows
 through the root ensemble's kmodify (``riak_ensemble_root.erl:38-45``),

@@ -460,12 +460,12 @@ def test_watcher_unwatches_itself_mid_callback(monkeypatch):
 
 @pytest.mark.cuda
 def test_reconfig_step_on_card_matches_plain():
-    """On the card, ``reconfig_step`` (K1 for both gates, the planes
-    stepped in place) equals ``reconfig_step_plain`` on seeded proposals
-    and up masks, and launches K1 twice per step."""
+    """On the card, ``reconfig_step`` (one launch of kernel R1, the
+    planes stepped in place) equals ``reconfig_step_plain`` on seeded
+    proposals and up masks, and launches R1 once per step and K1 never."""
     if not torch.cuda.is_available():
-        pytest.skip("K1 is a CUDA kernel: no CUDA device is visible")
-    from riak_ensemble_tpu_torch.ops import cuda_quorum
+        pytest.skip("R1 is a CUDA kernel: no CUDA device is visible")
+    from riak_ensemble_tpu_torch.ops import cuda_quorum, cuda_reconfig
     rng = np.random.default_rng(3)
     e, m = 4096, 5
     dev = torch.device("cuda")
@@ -479,9 +479,11 @@ def test_reconfig_step_on_card_matches_plain():
             rng.random((e, m)) < 0.85))
         want = teng.reconfig_step_plain(
             teng.EngineState(*(t.clone() for t in st)), prop, nv, up)
-        before = cuda_quorum.quorum_launches
+        before = (cuda_reconfig.reconfig_launches,
+                  cuda_quorum.quorum_launches)
         st, inst, coll = teng.reconfig_step(st, prop, nv, up)
-        assert cuda_quorum.quorum_launches - before == 2
+        assert (cuda_reconfig.reconfig_launches - before[0],
+                cuda_quorum.quorum_launches - before[1]) == (1, 0)
         assert torch.equal(want[1], inst) and torch.equal(want[2], coll)
         for x, y in zip(want[0], st):
             assert torch.equal(x, y)
